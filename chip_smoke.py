@@ -11,10 +11,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. every kernel under ``gnot_tpu_torch/csrc`` built for sm_90a, one
    ``nvcc`` per source started together, with the ``-Xptxas -v``
    register / shared-memory report;
-3. each kernel against its plain PyTorch version on the card, at the
+3. the FFN kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at a ragged row count, for both
    GELUs, with the kernel's time (CUDA events) beside its bound and the
    plain version's time;
+3b. the kernel-validation entry point (``gnot_tpu_torch.validate_kernels``)
+   in-process, every launch count set to 0 just before it and read just
+   after: each attention kernel and the FFN kernel against its plain
+   version, forward and gradients, at the JAX tool's shapes and at full
+   width; then each attention kernel's device time (``torch.profiler``)
+   at full width beside its bound and its plain version's, and the
+   composed ops (``fused_nla``, ``fused_nla_packed``) beside the torch
+   einsum paths the model runs;
 4. the serving path at full width through ``gnot_tpu_torch.main``'s
    serve function with ``--ffn_impl pallas``: 16 NS2d-1k requests,
    ``max_batch=4``, every result ``ok``, the FFN kernel launched
@@ -26,8 +34,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a ``torch.profiler`` trace of device time by kernel.
 
 The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``. The script imports
-nothing of JAX and nothing of the JAX package.
+the last line is ``{"ok": true, "device": {...}}``. Each kernel's
+``launches`` is its count over the path that drives it, read right after
+that path: phase 4 for the FFN kernel, phase 3b for the attention
+kernels (the model never launches them). Launches made to time a kernel
+or to hold it against its plain version come after the counts are read.
+The script imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -82,6 +94,30 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one ``fn()``: the summed duration of every
+    kernel it runs on the card (``torch.profiler``, CUPTI), over
+    ``iters`` calls. Unlike ``cuda_ms`` it leaves out the host's time
+    between launches, which bounds short kernels called from Python."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
 def ffn_inputs(torch, np, b: int, l: int, width: int, n_expert: int, n_linears: int, seed: int):
     """x, scores, kernels, biases on the card, from a numpy seed; the
     weights follow the model's init (U(+-1/sqrt(fan_in)))."""
@@ -121,6 +157,140 @@ def ffn_bound_ms(x, scores, kernels, biases) -> tuple[float, str]:
     )
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_bounds(name: str, c: dict, n_head: int) -> tuple[float, str]:
+    """Least time for one attention stage on the case's inputs: the larger
+    of its bytes (each input read once, each output written once) over the
+    memory rate and the f32 operations this data needs over the f32 peak.
+    Operations count only rows that reach an output: for a reduce, key
+    rows with mask != 0 in a chunk with a slot (2 E^2 for the Gram, ~6 E
+    for softmax, mask and k_sum); for an apply, ~6 E per query row for the
+    softmax and, per input function, 2 E D + 3 E per row of a chunk with a
+    slot (the head-diagonal product, the denominator and the division).
+    An apply reads only the head-diagonal blocks of the Grams it uses."""
+    q, k, mask = c["q"], c["k"], c["mask"]
+    f, bk, lk, e = k.shape
+    b, l, _ = q.shape
+    d = e // n_head
+    seg_bytes = 0
+    if "q_seg" in c:
+        n_seg = c["n_seg"]
+        kv_seg, q_seg = c["kv_seg"], c["q_seg"]
+        key_live = ((kv_seg >= 0) & (kv_seg < n_seg)).repeat_interleave(lk // kv_seg.shape[1], 1)
+        q_live = ((q_seg >= 0) & (q_seg < n_seg)).repeat_interleave(l // q_seg.shape[1], 1)
+        slots_used = int(q_seg[(q_seg >= 0) & (q_seg < n_seg)].unique().numel())
+        seg_bytes = 4 * (kv_seg.numel() if name.startswith("nla_reduce") else q_seg.numel())
+    else:
+        n_seg = bk
+        key_live = q.new_ones(bk, lk, dtype=bool)
+        q_live = q.new_ones(b, l, dtype=bool)
+        slots_used = b
+    if name.startswith("nla_reduce"):
+        rows = int(((mask != 0) & key_live[None]).sum())
+        flops = rows * (2 * e * e + 6 * e)
+        nbytes = 4 * (2 * k.numel() + mask.numel() + f * n_seg * (e * e + e)) + seg_bytes
+    else:
+        flops = b * l * 6 * e + f * int(q_live.sum()) * (2 * e * d + 3 * e)
+        nbytes = 4 * (2 * q.numel() + f * b * l * e + f * slots_used * (e * d + e)) + seg_bytes
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_phase(torch, device, card: str) -> dict[str, dict]:
+    """Phase 3b: the validation entry point with the counts read around
+    it, then the attention kernels timed at full width. Returns each
+    attention kernel's entry of the kernels line."""
+    from gnot_tpu_torch import validate_kernels as vk
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+
+    wrappers = {
+        "nla_reduce": fa.nla_reduce_kernel,
+        "nla_apply": fa.nla_apply_kernel,
+        "nla_reduce_seg": fa.nla_reduce_seg_kernel,
+        "nla_apply_seg": fa.nla_apply_seg_kernel,
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    fused_gated_ffn_kernel.launches = 0
+    checks = vk.run(device)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"[attn] python -m gnot_tpu_torch.validate_kernels: {len(checks)} checks; launches "
+        f"{json.dumps(launches)}, fused_gated_ffn {fused_gated_ffn_kernel.launches}")
+    failed = [f"{c.group} {c.name}" for c in checks if not c.ok]
+    if failed:
+        raise RuntimeError(f"kernel checks failed: {failed}")
+    idle = [n for n, count in launches.items() if count == 0]
+    if idle or fused_gated_ffn_kernel.launches == 0:
+        raise RuntimeError(f"kernels never launched by validate_kernels: {idle}")
+
+    n_head = vk.N_HEAD
+    cases = vk.full_width_cases(device)
+
+    def stage_calls(name: str, c: dict):
+        """(kernel call, plain call) of one stage on case ``c``; an apply
+        stage takes the plain version's Grams."""
+        kv_args = (c["k"], c["v"], c["mask"])
+        if name == "nla_reduce":
+            return (lambda: fa.nla_reduce_kernel(*kv_args, n_head),
+                    lambda: fa.reduce_reference(*kv_args, n_head))
+        if name == "nla_reduce_seg":
+            seg = (c["kv_seg"], c["n_seg"], n_head)
+            return (lambda: fa.nla_reduce_seg_kernel(*kv_args, *seg),
+                    lambda: fa.reduce_seg_reference(*kv_args, *seg))
+        if name == "nla_apply":
+            grams = fa.reduce_reference(*kv_args, n_head)
+            return (lambda: fa.nla_apply_kernel(c["q"], *grams, n_head),
+                    lambda: fa.apply_reference(c["q"], *grams, n_head))
+        grams = fa.reduce_seg_reference(*kv_args, c["kv_seg"], c["n_seg"], n_head)
+        return (lambda: fa.nla_apply_seg_kernel(c["q"], *grams, c["q_seg"], n_head),
+                lambda: fa.apply_seg_reference(c["q"], *grams, c["q_seg"], n_head))
+
+    timed = {}
+    for name, case_names in (("nla_reduce", ("self", "cross")),
+                             ("nla_apply", ("self", "cross")),
+                             ("nla_reduce_seg", ("self_packed", "cross_packed")),
+                             ("nla_apply_seg", ("self_packed", "cross_packed"))):
+        for case_name in case_names:
+            c = cases[case_name]
+            kernel, plain = stage_calls(name, c)
+            err = max((got - want).abs().max().item() for got, want in zip(kernel(), plain()))
+            kernel_ms = device_ms(torch, kernel)
+            plain_ms = device_ms(torch, plain)
+            bound_ms, bound_by = attention_bounds(name, c, n_head)
+            log(f"[attn] {name} {case_name} q {list(c['q'].shape)} k {list(c['k'].shape)}: device time "
+                f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / kernel_ms:.1%} of bound; back-to-back calls "
+                f"(host included) kernel {cuda_ms(torch, kernel):.4f} ms, plain "
+                f"{cuda_ms(torch, plain):.4f} ms; max_abs_err {err:.3e}")
+            if case_name in ("self", "self_packed"):
+                timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+
+    # The composed kernels beside the torch einsum paths the model runs
+    # (several PyTorch calls each, not one library call).
+    for case_name in ("self", "cross", "self_packed", "cross_packed"):
+        c = cases[case_name]
+        dense = (c["q"], c["k"], c["v"], c["mask"])
+        if "q_seg" in c:
+            seg = (c["q_seg"], c["kv_seg"], c["n_seg"], n_head)
+            fused = lambda: fa.fused_nla_packed(*dense, *seg)  # noqa: E731
+            torch_path = lambda: vk.packed_einsum_path(*dense, *seg)  # noqa: E731
+            what = "fused_nla_packed vs packed_normalized_linear_attention"
+        else:
+            fused = lambda: fa.fused_nla(*dense, n_head)  # noqa: E731
+            torch_path = lambda: vk.einsum_path(*dense, n_head)  # noqa: E731
+            what = "fused_nla vs split-head normalized_linear_attention"
+        with torch.no_grad():
+            fused_dev, torch_dev = device_ms(torch, fused), device_ms(torch, torch_path)
+            fused_ms, torch_ms = cuda_ms(torch, fused), cuda_ms(torch, torch_path)
+        log(f"[attn] {case_name}: {what}: device time kernels {fused_dev:.4f} ms, torch "
+            f"einsum path {torch_dev:.4f} ms ({torch_dev / fused_dev:.2f}x); back-to-back "
+            f"calls (host included) {fused_ms:.4f} ms vs {torch_ms:.4f} ms "
+            f"({torch_ms / fused_ms:.2f}x) on {card}")
+    return {n: dict(launches=launches[n], max_abs_err=max(
+        c.max_abs_err for c in checks if c.kernel == n), **timed[n]) for n in wrappers}
 
 
 def where_the_time_goes(torch, kernel_model, plain_model, group, engine_cls) -> None:
@@ -188,7 +358,7 @@ def main() -> int:
     from gnot_tpu_torch import main as port_main
     from gnot_tpu_torch.device import resolve_device
     from gnot_tpu_torch.models import layers
-    from gnot_tpu_torch.ops import build
+    from gnot_tpu_torch.ops import build, fused_attention
     from gnot_tpu_torch.ops.fused_ffn import (
         fused_gated_ffn,
         fused_gated_ffn_kernel,
@@ -238,14 +408,22 @@ def main() -> int:
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{bound_ms / kernel_ms:.1%} of bound on {card}")
 
+    # -- phase 3b: the kernel-validation entry point, attention timings --
+    attn = attention_phase(torch, torch.device("cuda"), card)
+
     # -- phase 4: the serving path at full width ------------------------
     argv = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d",
             "--n_test", "16", "--serve_max_batch", "4", "--device", "cuda"]
     serve_args = port_main.build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
-    fused_gated_ffn_kernel.launches = 0
+    attn_wrappers = [fused_attention.nla_reduce_kernel, fused_attention.nla_apply_kernel,
+                     fused_attention.nla_reduce_seg_kernel, fused_attention.nla_apply_seg_kernel]
+    for w in [fused_gated_ffn_kernel, *attn_wrappers]:
+        w.launches = 0
     run = port_main.run_serve(serve_args)
     launches = fused_gated_ffn_kernel.launches
+    log(f"[serve] attention kernel launches {[w.launches for w in attn_wrappers]}: the model "
+        "runs attention as torch einsums (attention_impl='pallas' is refused)")
     summary = run.summary
     log(f"[serve] python -m gnot_tpu_torch.main {' '.join(argv)}")
     log(f"[serve] summary {json.dumps(summary)}")
@@ -306,6 +484,21 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }]
+    replaces = {
+        "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",
+        "nla_apply": "gnot_tpu/ops/pallas_attention.py:304",
+        "nla_reduce_seg": "gnot_tpu/ops/pallas_attention.py:581",
+        "nla_apply_seg": "gnot_tpu/ops/pallas_attention.py:710",
+    }
+    for name, entry in attn.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "gnot_tpu_torch/csrc/" + ("nla_reduce.cu" if "reduce" in name else "nla_apply.cu"),
+            "replaces": replaces[name],
+            **entry,
+            "library_ms": None,
+        })
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

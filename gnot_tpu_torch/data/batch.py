@@ -13,6 +13,11 @@ Bucketing rounds pad lengths up to the next bucket boundary so the
 number of distinct dispatch shapes is O(log L). Packing runs in numpy
 (``pack_rows_numpy``, the same bytes as ``gnot_tpu``'s native packer);
 the finished batch is a ``MeshBatch`` of tensors on one device.
+
+``PackedBatch``, ``pack_collate``, ``PackPlan`` and ``pack_prefix`` port
+the packed ("pack, don't pad") layout, float32 only: several samples
+share a row as chunk-aligned segments, and ``node_seg``/``func_seg`` are
+the chunk -> segment tables the segment attention kernels take.
 """
 
 from __future__ import annotations
@@ -61,6 +66,32 @@ class MeshBatch:
                 self.funcs, self.func_mask,
             )
         )
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    """A packed batch, numpy arrays on the host: samples share each row as
+    chunk-aligned contiguous segments.
+
+    Shapes: R rows, L row length (a multiple of the chunk C), N = L / C
+    chunks per row, S sample slots, F input functions, Lf function pad
+    length. Input functions are not packed: they stay slot-indexed
+    ``[F, S, Lf, df]``, each slot one one-chunk segment.
+    """
+
+    coords: np.ndarray  # [R, L, dx]
+    theta: np.ndarray  # [S, T] per-sample params (slot-indexed)
+    y: np.ndarray  # [R, L, dy]
+    node_mask: np.ndarray  # [R, L]
+    node_seg: np.ndarray  # [R, N] int32 chunk -> slot ids; pad chunks = S
+    funcs: np.ndarray | None = None  # [F, S, Lf, df]
+    func_mask: np.ndarray | None = None  # [F, S, Lf]
+    func_seg: np.ndarray | None = None  # [S, 1] slot ids (S for empty slots)
+    n_seg: int = 0
+
+    @property
+    def n_real_points(self) -> int:
+        return int(np.sum(self.node_mask))
 
 
 def bucket_length(n: int, *, min_size: int = 64) -> int:
@@ -210,3 +241,143 @@ def collate(
             for k, v in arrays.items()
         }
     )
+
+
+def pack_collate(
+    samples: Sequence[MeshSample],
+    placements: Sequence[tuple[int, int]],
+    *,
+    n_rows: int,
+    row_len: int,
+    chunk: int,
+    n_slots: int,
+    pad_funcs: int,
+) -> PackedBatch:
+    """Assemble one ``PackedBatch`` from samples and their chunk-aligned
+    ``(row, offset)`` placements. Slot ids are assignment order; unused
+    rows and slots stay zero / pad."""
+    dx = samples[0].coords.shape[-1]
+    dy = samples[0].y.shape[-1]
+    n_funcs = len(samples[0].funcs)
+    coords = np.zeros((n_rows, row_len, dx), np.float32)
+    y = np.zeros((n_rows, row_len, dy), np.float32)
+    node_mask = np.zeros((n_rows, row_len), np.float32)
+    node_seg = np.full((n_rows, row_len // chunk), n_slots, np.int32)
+    theta = np.zeros((n_slots, np.atleast_1d(samples[0].theta).shape[-1]), np.float32)
+    funcs = func_mask = func_seg = None
+    if n_funcs:
+        df = samples[0].funcs[0].shape[-1]
+        funcs = np.zeros((n_funcs, n_slots, pad_funcs, df), np.float32)
+        func_mask = np.zeros((n_funcs, n_slots, pad_funcs), np.float32)
+        func_seg = np.full((n_slots, 1), n_slots, np.int32)
+    for slot, (s, (r, off)) in enumerate(zip(samples, placements)):
+        n = s.coords.shape[0]
+        coords[r, off : off + n] = s.coords
+        y[r, off : off + n] = s.y
+        node_mask[r, off : off + n] = 1.0
+        node_seg[r, off // chunk : (off + n + chunk - 1) // chunk] = slot
+        theta[slot] = np.atleast_1d(np.asarray(s.theta, np.float32))
+        for j, f in enumerate(s.funcs):
+            funcs[j, slot, : f.shape[0]] = f
+            func_mask[j, slot, : f.shape[0]] = 1.0
+        if n_funcs:
+            func_seg[slot, 0] = slot
+    return PackedBatch(
+        coords=coords, theta=theta, y=y, node_mask=node_mask,
+        node_seg=node_seg, funcs=funcs, func_mask=func_mask,
+        func_seg=func_seg, n_seg=n_slots,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPlan:
+    """The static shape of one packed dispatch: ``n_rows`` rows of
+    ``row_len`` tokens (chunk-aligned segments), ``n_slots`` sample
+    slots, input functions padded to ``pad_funcs``."""
+
+    row_len: int
+    chunk: int
+    n_rows: int
+    n_slots: int
+    pad_funcs: int
+
+    def __post_init__(self) -> None:
+        if self.chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        if self.row_len % self.chunk:
+            raise ValueError(
+                f"row_len {self.row_len} must be a multiple of chunk "
+                f"{self.chunk}"
+            )
+        if self.n_rows < 1 or self.n_slots < 1:
+            raise ValueError("n_rows and n_slots must be >= 1")
+
+    @classmethod
+    def from_samples(
+        cls,
+        samples: Sequence[MeshSample],
+        *,
+        chunk: int = 128,
+        n_rows: int = 0,
+        batch_size: int = 4,
+        row_len: int = 0,
+    ) -> "PackPlan":
+        """A plan from representative traffic: ``row_len`` fits about two
+        samples of the largest size (bucketed), ``n_rows`` carries about
+        ``batch_size`` samples per dispatch, and the slots are sized so
+        that no packing of the row grid can overflow them."""
+        if not samples:
+            raise ValueError("PackPlan.from_samples needs at least one sample")
+        aligned = [-(-s.coords.shape[0] // chunk) * chunk for s in samples]
+        if not row_len:
+            row_len = -(-bucket_length(2 * max(aligned)) // chunk) * chunk
+        mean_a = float(np.mean(aligned))
+        if not n_rows:
+            n_rows = max(1, -(-int(batch_size * mean_a) // row_len))
+        # Traffic may include samples down to one chunk.
+        n_slots = n_rows * (row_len // chunk)
+        pad_funcs = max((f.shape[0] for s in samples for f in s.funcs), default=0)
+        if pad_funcs:
+            pad_funcs = bucket_length(pad_funcs)
+        return cls(
+            row_len=row_len, chunk=chunk, n_rows=n_rows,
+            n_slots=n_slots, pad_funcs=pad_funcs,
+        )
+
+    def aligned(self, n: int) -> int:
+        """Chunk-aligned token footprint of an n-point mesh."""
+        return -(-n // self.chunk) * self.chunk
+
+    def packable(self, sample: MeshSample) -> bool:
+        """Whether this sample fits a packed dispatch: its aligned span
+        fits one row and every input function fits the slot pad."""
+        if self.aligned(sample.coords.shape[0]) > self.row_len:
+            return False
+        return all(f.shape[0] <= self.pad_funcs for f in sample.funcs)
+
+    @property
+    def capacity_tokens(self) -> int:
+        """Token capacity of one dispatch (the pad-waste denominator)."""
+        return self.n_rows * self.row_len
+
+
+def pack_prefix(sizes: Sequence[int], plan: PackPlan) -> list[tuple[int, int]]:
+    """First-fit packing of an arrival-order prefix into one ``plan``-shaped
+    dispatch: each sample goes into the first row with space, and packing
+    stops at the first sample that fits nowhere (or when the slots run
+    out), so a request never overtakes an older one. Returns the
+    ``(row, offset)`` placements of the packed prefix."""
+    used = [0] * plan.n_rows
+    placements: list[tuple[int, int]] = []
+    for n in sizes:
+        if len(placements) >= plan.n_slots:
+            break
+        a = plan.aligned(n)
+        for r in range(plan.n_rows):
+            if used[r] + a <= plan.row_len:
+                placements.append((r, used[r]))
+                used[r] += a
+                break
+        else:
+            break
+    return placements

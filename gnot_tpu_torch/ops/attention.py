@@ -9,6 +9,11 @@ package leaves this work to XLA einsums, so it stays plain torch here:
 * the output is ``alpha * q @ (k^T v)``;
 * with ``kv_mask`` (masked mode) padded key rows are zeroed after the
   feature softmax, so they drop out of both reductions.
+
+``packed_normalized_linear_attention`` is the same op over packed rows
+(several samples per row as chunk-aligned segments): the einsum path the
+JAX packed model takes, and the yardstick ``fused_nla_packed`` is held
+against.
 """
 
 from __future__ import annotations
@@ -59,6 +64,79 @@ def normalized_linear_attention(
     kv = torch.matmul(k.transpose(-1, -2), v)  # [..., B, H, D, D]
     out = torch.matmul(q, kv)  # [..., B, H, Lq, D]
     return alpha.unsqueeze(-1) * out
+
+
+def segment_one_hot(seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """``[.., N]`` chunk->segment ids -> ``[.., N, S]`` float32 one-hot map;
+    the pad id ``n_seg`` (and any id outside ``[0, S)``) maps to a zero
+    row."""
+    return (seg[..., None] == torch.arange(n_seg, device=seg.device)).float()
+
+
+def packed_normalized_linear_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_seg_oh: torch.Tensor,
+    kv_seg_oh: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Normalized linear attention over packed sequences (float32).
+
+    Several samples (segments) share one sequence row, each a contiguous
+    chunk-aligned span. ``k_sum`` and ``k^T v`` are sums over the
+    sequence, so per-chunk partial Grams scatter-add into per-segment
+    Grams through the one-hot maps, and each query chunk gathers its
+    segment's Gram back: no token attends across a segment boundary.
+
+    Args:
+      q: ``[Bq, H, Lq, D]`` feature-softmaxed queries, ``Lq = Nq * C``.
+      k: ``[Bk, H, Lk, D]`` feature-softmaxed keys, ``Lk = Nk * C'``; the
+        key rows may be packed differently from the query rows (segment
+        ids are shared).
+      v: ``[Bk, H, Lk, D]`` values.
+      q_seg_oh: ``[Bq, Nq, S]`` one-hot chunk->segment map
+        (``segment_one_hot``); pad chunks have all-zero rows.
+      kv_seg_oh: ``[Bk, Nk, S]`` likewise for the key/value chunks.
+      kv_mask: optional ``[Bk, Lk]`` 0/1 token mask (segment tails that do
+        not fill their last chunk).
+
+    Returns:
+      ``[Bq, H, Lq, D]``, rows aligned with ``q``.
+    """
+    bq, h, lq, d = q.shape
+    bk, _, lk, _ = k.shape
+    nq, nk = q_seg_oh.shape[-2], kv_seg_oh.shape[-2]
+    if lq % nq or lk % nk:
+        raise ValueError(
+            f"sequence lengths {lq}/{lk} not divisible by chunk counts {nq}/{nk}"
+        )
+    cq, ck = lq // nq, lk // nk
+    if kv_mask is not None:
+        k = k * kv_mask[:, None, :, None].to(k.dtype)
+    oh_k = kv_seg_oh.to(k.dtype)
+    oh_q = q_seg_oh.to(q.dtype)
+
+    kc = k.reshape(bk, h, nk, ck, d)
+    vc = v.reshape(bk, h, nk, ck, d)
+    # Per-chunk partial Grams and key sums, then scatter-add per segment.
+    kv_chunk = torch.einsum("bhncd,bhnce->bhnde", kc, vc)  # [Bk,H,Nk,D,D]
+    ks_chunk = kc.sum(dim=3)  # [Bk,H,Nk,D]
+    kv_seg_gram = torch.einsum("bns,bhnde->shde", oh_k, kv_chunk)  # [S,H,D,D]
+    ks_seg_sum = torch.einsum("bns,bhnd->shd", oh_k, ks_chunk)  # [S,H,D]
+    # Gather each query chunk's segment Gram / key sum.
+    kv_q = torch.einsum("bns,shde->bhnde", oh_q, kv_seg_gram)  # [Bq,H,Nq,D,D]
+    ks_q = torch.einsum("bns,shd->bhnd", oh_q, ks_seg_sum)  # [Bq,H,Nq,D]
+
+    qc = q.reshape(bq, h, nq, cq, d)
+    denom = torch.einsum("bhncd,bhnd->bhnc", qc, ks_q)
+    # Pad chunks/tokens and empty segments have denom == 0 exactly (the
+    # softmaxed k rows are strictly positive); select 1 for a clean 0.
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    out = torch.einsum("bhncd,bhnde->bhnce", qc, kv_q)
+    out = out / denom[..., None]
+    return out.reshape(bq, h, lq, d)
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

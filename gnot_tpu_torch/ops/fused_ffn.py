@@ -17,11 +17,13 @@ geometry gate combines them.
   ``_reference_impl``: the CPU tests and the on-card check use it.
 * ``fused_gated_ffn`` dispatches on where the tensors lie: the plain
   version for CPU tensors, the kernel for CUDA tensors. On a CUDA tensor
-  it launches the kernel or raises; it never falls back.
+  it launches the kernel or raises; it never falls back. It is a
+  ``torch.autograd.Function`` whose backward is autograd through the
+  plain version, as the JAX ``custom_vjp`` recomputes ``_reference_impl``
+  (``pallas_ffn._fused_bwd``): the JAX package has no backward kernel.
 
 The public layout is the JAX one: x ``[B, L, Din]``, scores ``[B, L, E]``,
-per-Linear kernels ``[E, in, out]`` and biases ``[E, out]``. No gradient:
-serving runs under ``torch.inference_mode()``.
+per-Linear kernels ``[E, in, out]`` and biases ``[E, out]``.
 """
 
 from __future__ import annotations
@@ -173,6 +175,26 @@ def fused_gated_ffn_kernel(
 fused_gated_ffn_kernel.launches = 0
 
 
+class _FusedGatedFfn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gelu_kind, n_linears, x, scores, *params):
+        ctx.save_for_backward(x, scores, *params)
+        ctx.gelu_kind, ctx.n_linears = gelu_kind, n_linears
+        kernels, biases = params[:n_linears], params[n_linears:]
+        if x.is_cuda:
+            return fused_gated_ffn_kernel(x, scores, kernels, biases, gelu_kind)
+        return fused_gated_ffn_reference(x, scores, kernels, biases, gelu_kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n_linears
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = fused_gated_ffn_reference(xs[0], xs[1], xs[2 : 2 + n], xs[2 + n :], ctx.gelu_kind)
+            grads = torch.autograd.grad(out, xs, g)
+        return (None, None, *grads)
+
+
 def fused_gated_ffn(
     x: torch.Tensor,
     scores: torch.Tensor,
@@ -182,9 +204,6 @@ def fused_gated_ffn(
 ) -> torch.Tensor:
     """Fused gated expert FFN: ``[B, L, Din]`` tokens and ``[B, L, E]``
     gate weights to ``[B, L, Dout]``. The kernel on CUDA tensors, the
-    plain version on CPU tensors."""
-    if x.is_cuda:
-        return fused_gated_ffn_kernel(x, scores, kernels, biases, gelu_kind)
-    return fused_gated_ffn_reference(x, scores, kernels, biases, gelu_kind)
-
-
+    plain version on CPU tensors; gradients recompute through the plain
+    version."""
+    return _FusedGatedFfn.apply(gelu_kind, len(kernels), x, scores, *kernels, *biases)

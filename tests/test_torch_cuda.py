@@ -16,6 +16,7 @@ from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.data.batch import collate
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
+from gnot_tpu_torch.ops import fused_attention as fa
 from gnot_tpu_torch.ops import fused_ffn
 
 
@@ -79,3 +80,129 @@ def test_model_on_card_matches_cpu(name):
         want = apply_batch(cpu_model, collate(samples)).numpy()
         got = apply_batch(cpu_model.to(device), collate(samples, device=device)).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- the four attention kernels ------------------------------------------
+
+# Kernel outputs vs the plain version: f32 both ways, only the summation
+# order over Lk and E differs; the softmaxed queries and the gradients
+# (the backward is the same plain code) are held tighter.
+OUT_TOL = dict(rtol=1e-4, atol=1e-5)
+TIGHT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _attn_inputs(seed, f, b, l, lk, e, device, outlier=0.0, n_head=4):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, l, e)).astype(np.float32)
+    k = rng.standard_normal((f, b, lk, e)).astype(np.float32)
+    v = rng.standard_normal((f, b, lk, e)).astype(np.float32)
+    q[..., : e // n_head] += outlier
+    k[..., : e // n_head] += outlier
+    mask = (rng.uniform(size=(f, b, lk)) > 0.3).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(q), t(k), t(v), t(mask)
+
+
+def _packed_inputs(seed, device, e=64, chunk=24):
+    """Two rows of six chunks: segments 0 and 1 in row 0, 2 and 3 in row 1,
+    pad chunks (id 5), slot 4 empty; ragged segment tails."""
+    q, k, v, mask = _attn_inputs(seed, 2, 2, 6 * chunk, 6 * chunk, e, device)
+    seg = torch.tensor([[0, 0, 1, 1, 1, 5], [2, 3, 3, 5, 5, 5]], dtype=torch.int32, device=device)
+    mask[:, 0, 5 * chunk - 7 :] = 0.0
+    mask[:, 1, 3 * chunk - 5 :] = 0.0
+    return q, k, v, mask, seg, 5
+
+
+def _assert_stage(got, want, tols):
+    for g, w, tol in zip(got, want, tols):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "f,b,l,lk,e,n_head,outlier",
+    [(2, 2, 300, 200, 64, 4, 0.0),     # the JAX tool's shapes; ragged L and Lk
+     (1, 3, 1000, 333, 256, 8, 0.0),   # full width, Lk not a multiple of 32
+     (1, 2, 64, 64, 256, 8, 200.0),    # one head's logits 200 above the others'
+     (2, 1, 40, 17, 48, 3, 0.0)],      # D = 16, E not a multiple of 64
+)
+def test_dense_kernels_match_plain_versions_on_card(f, b, l, lk, e, n_head, outlier):
+    device = _card()
+    q, k, v, mask = _attn_inputs(1, f, b, l, lk, e, device, outlier, n_head)
+    mask[-1, 0] = 0.0  # an all-masked slab
+    before = fa.nla_reduce_kernel.launches, fa.nla_apply_kernel.launches
+    kv, ksum = fa.nla_reduce(k, v, mask, n_head)
+    kv_p, ksum_p = fa.reduce_reference(k, v, mask, n_head)
+    out, qs = fa.nla_apply(q, kv_p, ksum_p, n_head)
+    out_p, qs_p = fa.apply_reference(q, kv_p, ksum_p, n_head)
+    torch.cuda.synchronize()
+    assert (fa.nla_reduce_kernel.launches, fa.nla_apply_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_stage((kv, ksum), (kv_p, ksum_p), (OUT_TOL, OUT_TOL))
+    _assert_stage((out, qs), (out_p, qs_p), (OUT_TOL, TIGHT_TOL))
+    assert (out[-1, 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_segment_kernels_match_plain_versions_on_card():
+    device = _card()
+    q, k, v, mask, seg, n_seg = _packed_inputs(2, device)
+    kv, ksum = fa.nla_reduce_seg(k, v, mask, seg, n_seg, 4)
+    kv_p, ksum_p = fa.reduce_seg_reference(k, v, mask, seg, n_seg, 4)
+    out, qs = fa.nla_apply_seg(q, kv_p, ksum_p, seg, 4)
+    out_p, qs_p = fa.apply_seg_reference(q, kv_p, ksum_p, seg, 4)
+    torch.cuda.synchronize()
+    _assert_stage((kv, ksum), (kv_p, ksum_p), (OUT_TOL, OUT_TOL))
+    _assert_stage((out, qs), (out_p, qs_p), (OUT_TOL, TIGHT_TOL))
+    assert (kv[:, 4] == 0).all() and (ksum[:, 4] == 0).all()  # the empty slot
+    assert (out[:, 0, 5 * 24 :] == 0).all() and (out[:, 1, 3 * 24 :] == 0).all()  # pad chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_attention_gradients_on_card(packed):
+    """Gradients wrt q, k and v through the four autograd Functions
+    against autograd through the plain versions."""
+    device = _card()
+    if packed:
+        q, k, v, mask, seg, n_seg = _packed_inputs(3, device)
+        fused = lambda *a: fa.fused_nla_packed(*a, mask, seg, seg, n_seg, 4)  # noqa: E731
+        plain = lambda *a: fa.reference_seg_impl(*a, mask, seg, seg, n_seg, 4)  # noqa: E731
+    else:
+        q, k, v, mask = _attn_inputs(3, 2, 2, 100, 70, 64, device)
+        fused = lambda *a: fa.fused_nla(*a, mask, 4)  # noqa: E731
+        plain = lambda *a: fa.reference_impl(*a, mask, 4)  # noqa: E731
+
+    def grads(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out, qs = fn(*xs)
+        return torch.autograd.grad((out**2).sum() + (qs * 0.5).sum(), xs)
+
+    for got, want in zip(grads(fused), grads(plain)):
+        torch.testing.assert_close(got, want, **TIGHT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["bf16", "head width"])
+def test_attention_kernels_refuse_on_card(what):
+    device = _card()
+    q, k, v, mask, seg, n_seg = _packed_inputs(4, device)
+    n_head, match = 4, "float32 only"
+    if what == "bf16":
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    else:
+        n_head, match = 8, "head widths"  # D = 8
+    kv = torch.zeros(2, 2, 64, 64, device=device, dtype=q.dtype)
+    ksum = torch.zeros(2, 2, 1, 64, device=device, dtype=q.dtype)
+    calls = [
+        lambda: fa.nla_reduce_kernel(k, v, mask, n_head),
+        lambda: fa.nla_apply_kernel(q, kv, ksum, n_head),
+        lambda: fa.nla_reduce_seg_kernel(k, v, mask, seg, n_seg, n_head),
+        lambda: fa.nla_apply_seg_kernel(q, kv[:, :1].expand(2, n_seg, 64, 64).contiguous(),
+                                        ksum[:, :1].expand(2, n_seg, 1, 64).contiguous(), seg,
+                                        n_head),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()

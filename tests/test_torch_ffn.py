@@ -1,4 +1,5 @@
-"""The port's fused gated-FFN module against the JAX Pallas kernel.
+"""The port's fused gated-FFN module against the JAX Pallas kernel:
+forward and, through its autograd wrapper, gradients.
 
 On the CPU the JAX kernel runs in Pallas interpret mode (as
 tests/test_pallas_ffn.py runs it) and the port's wrapper takes its plain
@@ -93,3 +94,34 @@ def test_erf_polynomial_matches_jax():
     np.testing.assert_allclose(got, np.asarray(_erf_f32(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(got, np.asarray(jax.scipy.special.erf(x)), atol=1e-6)
 
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "erf"])
+def test_gradients_match_jax(gelu):
+    """The autograd wrapper's gradients (backward recomputes the plain
+    version) against jax.grad of the JAX kernel's custom_vjp, at
+    tests/test_pallas_ffn.py's shapes, for every input. The loss is linear
+    in the output with a fixed cotangent from the seed, so both sides
+    run their backward on the same cotangent and the comparison is of
+    the backward alone (a loss of the output's square would feed each
+    side its own forward's rounding)."""
+    x, scores, kernels, biases = _inputs(5, l=12, hid=24)
+    cot = np.random.default_rng(6).standard_normal((2, 12, 16)).astype(np.float32)
+    args = _torch(x, scores, kernels, biases)
+    leaves = [args[0], args[1], *args[2], *args[3]]
+    for t in leaves:
+        t.requires_grad_(True)
+    (fused_ffn.fused_gated_ffn(*args, gelu_kind=gelu) * torch.from_numpy(cot)).sum().backward()
+
+    def loss(x_, s_, k_, b_):
+        return jnp.sum(jax_fused_gated_ffn(x_, s_, k_, b_, None, gelu) * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(x), jnp.asarray(scores),
+        [jnp.asarray(k) for k in kernels], [jnp.asarray(b) for b in biases],
+    )
+    # torch and XLA sum the backward's contractions in other orders: a few
+    # ulp of O(10) gradients. The bar is the JAX package's own for its FFN
+    # kernel's gradients (tests/test_pallas_ffn.py:52-55).
+    for got, w in zip(leaves, jax.tree.leaves(want)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), rtol=1e-4, atol=5e-6)

@@ -76,6 +76,18 @@ def test_cuda_is_the_default_and_refused_without_a_card(monkeypatch):
         resolve_device("meta")
 
 
+def test_validate_kernels_refuses_without_a_card(monkeypatch):
+    """The kernel-validation entry point runs on cuda only: without a card
+    it raises before any check, and it takes no device option."""
+    from gnot_tpu_torch import validate_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validate_kernels.main([])
+    with pytest.raises(SystemExit):
+        validate_kernels.main(["--device", "cpu"])
+
+
 def test_importing_the_port_builds_nothing():
     """Every module imports in a fresh interpreter without building or
     loading a kernel (kernels build on first launch only)."""
@@ -86,9 +98,12 @@ def test_importing_the_port_builds_nothing():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "from gnot_tpu_torch.ops import build, fused_ffn\n"
+        "from gnot_tpu_torch.ops import build, fused_attention, fused_ffn\n"
         "assert build._libs == {}, build._libs\n"
         "assert fused_ffn.fused_gated_ffn_kernel.launches == 0\n"
+        "for n in ('nla_reduce', 'nla_apply', 'nla_reduce_seg', 'nla_apply_seg'):\n"
+        "    assert getattr(fused_attention, n + '_kernel').launches == 0, n\n"
+        "assert fused_attention._launchers == {}\n"
         "print('imported', len(sys.modules) > 0)\n"
     )
     out = subprocess.run(
@@ -101,6 +116,6 @@ def test_importing_the_port_builds_nothing():
 def test_build_paths():
     from gnot_tpu_torch.ops import build
 
-    assert build.sources() == ["fused_gated_ffn"]
+    assert build.sources() == ["fused_gated_ffn", "nla_apply", "nla_reduce"]
     assert build.library_path("fused_gated_ffn").parent == ROOT / "build" / "gnot_tpu_torch"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
