@@ -10,11 +10,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. every kernel under ``gnot_tpu_torch/csrc`` built for sm_90a, one
    ``nvcc`` per source started together, with the ``-Xptxas -v``
-   register / shared-memory report;
+   register / shared-memory report, and the count of tensor-core
+   ``HGMMA`` instructions in the FFN library's SASS (``cuobjdump``),
+   which must be above 0;
 3. the FFN kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at a ragged row count, for both
-   GELUs, with the kernel's time (CUDA events) beside its bound and the
-   plain version's time;
+   GELUs, with the kernel's device time (``torch.profiler``; CUDA events
+   over back-to-back calls beside it, which include the host's enqueue)
+   beside its 3xTF32 tensor-core bound (and the earlier f32 CUDA-core
+   bound), the plain version's and, as the yardstick, that of the
+   model's ``ffn_impl="xla"`` torch path (batched cuBLAS f32 GEMMs) at
+   the same shape;
 3b. the kernel-validation entry point (``gnot_tpu_torch.validate_kernels``)
    in-process, every launch count set to 0 just before it and read just
    after: each attention kernel and the FFN kernel against its plain
@@ -54,13 +60,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, TF32 on the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Kernel vs plain version: both compute in f32, but the kernel sums each
-# 256-long dot product in another order than PyTorch's matmul, through
-# five chained Linears; a few ulp of the O(1) outputs.
+# Kernel vs plain version: the kernel multiplies in 3xTF32 on the tensor
+# cores (about f32's accuracy; their f32 accumulation truncates) and sums
+# each 256-long dot product in another order than PyTorch's f32 matmul,
+# through five chained Linears: ~1e-7 of the O(1) outputs.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # Served outputs vs a forward through the plain version: the JAX
 # package's own model-level bar for its fused FFN against its XLA path.
@@ -139,24 +147,59 @@ def ffn_inputs(torch, np, b: int, l: int, width: int, n_expert: int, n_linears: 
     return to(x), to(scores), [to(k) for k in kernels], [to(bb) for bb in biases]
 
 
-def ffn_bound_ms(x, scores, kernels, biases) -> tuple[float, str]:
+def ffn_bound_ms(x, scores, kernels, biases, tensor_cores: bool = True) -> tuple[float, str]:
     """Least time for the FFN's work on the card: the larger of its
     compulsory bytes (inputs read once, output written once) over the
-    memory rate and its f32 operations (matmul, bias, gate) over the f32
-    peak."""
+    memory rate and its operations over their peak. With
+    ``tensor_cores`` (the kernel's 3xTF32 form) the products count three
+    times at the TF32 tensor-core rate and bias and gate at the f32 rate,
+    the two units running side by side; without, everything counts once
+    at the f32 CUDA-core rate (the bound of the earlier f32 kernel)."""
     rows = x.shape[0] * x.shape[1]
     n_expert = scores.shape[-1]
     d_out = kernels[-1].shape[-1]
-    flops = 0
-    for k in kernels:
-        flops += rows * n_expert * (2 * k.shape[1] * k.shape[2] + k.shape[2])
-    flops += rows * n_expert * 2 * d_out
+    matmul = sum(rows * n_expert * 2 * k.shape[1] * k.shape[2] for k in kernels)
+    elementwise = sum(rows * n_expert * k.shape[2] for k in kernels) + rows * n_expert * 2 * d_out
     nbytes = 4 * (
         x.numel() + scores.numel() + rows * d_out
         + sum(k.numel() for k in kernels) + sum(b.numel() for b in biases)
     )
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    if tensor_cores:
+        t_ops = max(3 * matmul / PEAK_TF32_FLOPS, elementwise / PEAK_F32_FLOPS)
+    else:
+        t_ops = (matmul + elementwise) / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hgmma_count(build, name: str) -> int:
+    """Tensor-core ``HGMMA`` instructions in a built library's SASS, read
+    with the toolkit's ``cuobjdump`` (or the copy Triton ships)."""
+    import importlib.util
+
+    candidates = [Path(build.nvcc()).parent / "cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    tool = next((c for c in candidates if c.is_file()), None)
+    if tool is None:
+        raise RuntimeError(f"no cuobjdump among {[str(c) for c in candidates]}")
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=300, check=True)
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
+def xla_ffn_path(torch, layers, kernels, biases, gelu: str):
+    """The model's ``ffn_impl="xla"`` FFN module holding these weights:
+    an expert MLP of batched cuBLAS f32 GEMMs, then the gate einsum."""
+    n_expert, d_in, hidden = kernels[0].shape
+    ffn = layers.GatedExpertFfn(n_expert, len(kernels) - 1, hidden, kernels[-1].shape[-1],
+                                in_dim=d_in, ffn_impl="xla", gelu=gelu).to(kernels[0].device)
+    with torch.no_grad():
+        for layer, k, b in zip(ffn.experts.layers(), kernels, biases):
+            layer.kernel.copy_(k)
+            layer.bias.copy_(b)
+    return ffn.eval()
 
 
 def attention_bounds(name: str, c: dict, n_head: int) -> tuple[float, str]:
@@ -381,6 +424,10 @@ def main() -> int:
             if "ptxas" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(procs)} kernel(s) built in {time.monotonic() - t0:.1f} s")
+    n_hgmma = hgmma_count(build, "fused_gated_ffn")
+    log(f"[build] fused_gated_ffn SASS: {n_hgmma} HGMMA (tensor-core) instructions")
+    if n_hgmma == 0:
+        raise RuntimeError("the FFN library has no HGMMA instruction: not on the tensor cores")
 
     # -- phase 3: each kernel against its plain version on the card -----
     width, n_expert, n_linears = 256, 3, 5
@@ -395,18 +442,33 @@ def main() -> int:
         rel = (err / want.abs().clamp_min(1e-3)).max().item()
         log(f"[ffn] x [{b},{l},{width}] E={n_expert} {n_linears} Linears gelu={gelu}: "
             f"max_abs_err {err.max().item():.3e} max_rel_err {rel:.3e} "
-            f"(tolerance rtol {KERNEL_RTOL} atol {KERNEL_ATOL}: f32 both ways, "
+            f"(tolerance rtol {KERNEL_RTOL} atol {KERNEL_ATOL}: 3xTF32 against f32, "
             "another summation order over K=256 through 5 chained Linears)")
         torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
         max_abs = max(max_abs, err.max().item())
 
     args = ffn_inputs(torch, np, 4, 1024, width, n_expert, n_linears, seed=7)
-    kernel_ms = cuda_ms(torch, lambda: fused_gated_ffn_kernel(*args, gelu_kind="tanh"))
-    plain_ms = cuda_ms(torch, lambda: fused_gated_ffn_reference(*args, gelu_kind="tanh"))
+    kernel_call = lambda: fused_gated_ffn_kernel(*args, gelu_kind="tanh")  # noqa: E731
+    plain_call = lambda: fused_gated_ffn_reference(*args, gelu_kind="tanh")  # noqa: E731
+    xla_ffn = xla_ffn_path(torch, layers, args[2], args[3], "tanh")
+    with torch.inference_mode():
+        torch_call = lambda: xla_ffn(args[0], args[1])  # noqa: E731
+        torch_err = (torch_call() - plain_call()).abs().max().item()
+        kernel_ms = device_ms(torch, kernel_call)
+        plain_ms = device_ms(torch, plain_call)
+        torch_ms = device_ms(torch, torch_call)
+        kernel_events, plain_events = cuda_ms(torch, kernel_call), cuda_ms(torch, plain_call)
     bound_ms, bound_by = ffn_bound_ms(*args)
-    log(f"[ffn] time at [4,1024,256] tanh, weights warm in L2: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{bound_ms / kernel_ms:.1%} of bound on {card}")
+    f32_bound_ms, _ = ffn_bound_ms(*args, tensor_cores=False)
+    log(f"[ffn] time at [4,1024,256] E=3 5 Linears tanh, weights warm in L2: device time "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}, 3xTF32 on the tensor cores), {bound_ms / kernel_ms:.1%} of bound; "
+        f"the f32 CUDA-core bound of the earlier kernel {f32_bound_ms:.4f} ms; back-to-back "
+        f"calls (CUDA events, host included) kernel {kernel_events:.4f} ms, plain "
+        f"{plain_events:.4f} ms on {card}")
+    log(f"[ffn] the model's ffn_impl=xla torch path (batched cuBLAS f32 GEMMs) at the same "
+        f"shape: device time {torch_ms:.4f} ms ({torch_ms / kernel_ms:.2f}x the kernel's), "
+        f"max_abs_err vs the plain version {torch_err:.3e}")
 
     # -- phase 3b: the kernel-validation entry point, attention timings --
     attn = attention_phase(torch, torch.device("cuda"), card)

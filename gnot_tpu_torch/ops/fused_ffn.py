@@ -6,15 +6,22 @@ dense soft mixture: E expert MLPs all run on every token and the
 geometry gate combines them.
 
 * ``fused_gated_ffn_kernel`` launches ``csrc/fused_gated_ffn.cu`` on
-  CUDA tensors. It is bound by arithmetic on the H100: one launch at the
-  serving shapes is 8.05 GFLOP against ~12.4 MB of compulsory traffic.
-  The TPU kernel kept all 3.9 MB of weights resident in VMEM; a Hopper
-  block has 227 KB of shared memory, so this one keeps each 32-row
-  tile's activations in shared memory through the whole expert stack
-  and streams the weights through it in double-buffered chunks out of
-  L2 (the source's header has the layout).
+  CUDA tensors. It multiplies on the tensor cores in 3xTF32 (each
+  operand split into a TF32 high and low part, three products summed in
+  f32), which holds the f32 bar that one TF32 product misses; its bound
+  on the H100 is the tensor cores' TF32 rate, 3 x 8.05 GFLOP at the
+  serving shapes. A
+  cluster of two blocks owns each 64-row tile and keeps its activations
+  in shared memory through the whole expert stack (the source's header
+  has the design).
+* ``pack_weights`` turns one ``[E, in, out]`` kernel into the image the
+  CUDA kernel streams (K-major, hi and lo, zero-padded, in wgmma's
+  shared-memory order); ``unpack_weights`` inverts it. ``packed_weights``
+  caches the image per weight tensor and version, so a serving dispatch
+  pays no pack.
 * ``fused_gated_ffn_reference`` is the plain PyTorch version, a port of
-  ``_reference_impl``: the CPU tests and the on-card check use it.
+  ``_reference_impl``, in full f32: the CPU tests and the on-card check
+  use it.
 * ``fused_gated_ffn`` dispatches on where the tensors lie: the plain
   version for CPU tensors, the kernel for CUDA tensors. On a CUDA tensor
   it launches the kernel or raises; it never falls back. It is a
@@ -29,6 +36,8 @@ per-Linear kernels ``[E, in, out]`` and biases ``[E, out]``.
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
 from typing import Sequence
 
 import torch
@@ -38,6 +47,14 @@ from gnot_tpu_torch.ops import build
 GELU_CODES = {"tanh": 0, "erf": 1}
 MAX_LINEARS = 8
 MAX_WIDTH = 256
+# The kernel's weight chunk: 16 K-rows by 128 output columns, one of the
+# two column halves of a 256-wide (zero-padded) Linear.
+CHUNK_K = 16
+HALF_COLS = 128
+# Logical K of a chunk, in wgmma order (step kk, k8 index j), to its
+# column: thread t4 of the kernel reads columns 4*t4..4*t4+3 as one
+# float4 and feeds them as j = t4, t4 + 4 of steps 0 and 1.
+K_ORDER = [4 * (j % 4) + 2 * kk + j // 4 for kk in range(2) for j in range(8)]
 
 
 def erf_f32(x: torch.Tensor) -> torch.Tensor:
@@ -85,6 +102,91 @@ def fused_gated_ffn_reference(
     return torch.einsum("eblo,ble->blo", h, scores.float()).to(x.dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), nearest with ties away
+    from zero, as the kernel's ``cvt.rna.tf32.f32``: the low 13 bits of
+    the result are 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as ``hi + lo``: ``hi`` its TF32 rounding, ``lo`` the TF32
+    rounding of the rest, so ``|x - hi - lo| <= 2**-21 |x|``."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """The kernel's image of one ``[E, K, N]`` Linear (K a multiple of 16,
+    N <= 256): ``[E, 2 halves, K/16 chunks, (hi, lo), 2 steps, 2, 16, 8,
+    4]``, flat. Columns are zero-padded to 256 and cut into two halves of
+    128, one per block of a cluster; a chunk is 16 K-rows of a half, hi
+    then lo; within a k8 step, wgmma's K-major core matrices (8 columns x
+    4 K, 128 B) with the two K halves 512 floats apart and neighbouring
+    column groups 32 floats apart; K is reordered by ``K_ORDER``."""
+    e, k, n = kernel.shape
+    nck = k // CHUNK_K
+    w = kernel.new_zeros(e, k, 2 * HALF_COLS)
+    w[:, :, :n] = kernel
+    order = torch.tensor(K_ORDER, device=kernel.device)
+    w = w.view(e, nck, CHUNK_K, 2 * HALF_COLS).index_select(2, order)
+    # [E, chunk, kk, j//4, j%4, half, n//8, n%8] -> wgmma order
+    w = w.view(e, nck, 2, 2, 4, 2, HALF_COLS // 8, 8).permute(0, 5, 1, 2, 3, 6, 7, 4)
+    hi, lo = tf32_split(w.contiguous())
+    return torch.stack([hi, lo], dim=3).reshape(-1)
+
+
+def unpack_weights(image: torch.Tensor, shape: Sequence[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pack_weights``' inverse: the hi and lo parts of an image of an
+    ``[E, K, N]`` kernel, each in the JAX layout."""
+    e, k, n = shape
+    nck = k // CHUNK_K
+    v = image.view(e, 2, nck, 2, 2, 2, HALF_COLS // 8, 8, 4)
+    order = torch.tensor(K_ORDER, device=image.device)
+    parts = []
+    for p in range(2):
+        w = v[:, :, :, p].permute(0, 2, 3, 4, 7, 1, 5, 6).reshape(e, nck, CHUNK_K, 2 * HALF_COLS)
+        out = torch.empty_like(w)
+        out[:, :, order] = w
+        parts.append(out.reshape(e, k, 2 * HALF_COLS)[..., :n].contiguous())
+    return parts[0], parts[1]
+
+
+_pack_lock = threading.Lock()
+# id(kernel) -> (weakref to it, (its version, its data pointer), its image).
+_pack_cache: dict[int, tuple] = {}
+
+
+def _drop_pack(key: int, ref: weakref.ref) -> None:
+    with _pack_lock:
+        if key in _pack_cache and _pack_cache[key][0] is ref:
+            del _pack_cache[key]
+
+
+def packed_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """``pack_weights(kernel)``, cached per tensor: the image is made again
+    after an in-place update (the tensor's version moves) or for a new
+    tensor, even one at a freed tensor's address. In-place writes
+    through ``.data`` bypass the version counter and are not seen; an
+    inference tensor has no version counter and is packed on every
+    call."""
+    if kernel.is_inference():
+        return pack_weights(kernel)
+    key = id(kernel)
+    version = (kernel._version, kernel.data_ptr())
+    with _pack_lock:
+        hit = _pack_cache.get(key)
+        if hit is not None and hit[0]() is kernel and hit[1] == version:
+            return hit[2]
+    with torch.no_grad():
+        image = pack_weights(kernel.detach())
+    ref = weakref.ref(kernel, lambda r, key=key: _drop_pack(key, r))
+    with _pack_lock:
+        _pack_cache[key] = (ref, version, image)
+    return image
+
+
 def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
     if gelu_kind not in GELU_CODES:
         raise ValueError(f"unknown gelu {gelu_kind!r}; one of {sorted(GELU_CODES)}")
@@ -129,10 +231,31 @@ def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
     return dims
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.gnot_fused_gated_ffn
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+class _Launcher:
+    """The built library, its bound entry point and the argument arrays,
+    set up once per process: the host already sets a dispatch's time."""
+
+    def __init__(self, lib: ctypes.CDLL) -> None:
+        self.fn = lib.gnot_fused_gated_ffn
+        self.fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.w = (ctypes.c_uint64 * MAX_LINEARS)()
+        self.b = (ctypes.c_uint64 * MAX_LINEARS)()
+        self.dims = (ctypes.c_int * (MAX_LINEARS + 1))()
+        self.addrs = [ctypes.addressof(a) for a in (self.w, self.b, self.dims)]
+        self.lock = threading.Lock()
+
+
+_launcher: _Launcher | None = None
+_launcher_lock = threading.Lock()
+
+
+def _get_launcher() -> _Launcher:
+    global _launcher
+    with _launcher_lock:
+        if _launcher is None:
+            _launcher = _Launcher(build.load("fused_gated_ffn"))
+        return _launcher
 
 
 def fused_gated_ffn_kernel(
@@ -143,31 +266,41 @@ def fused_gated_ffn_kernel(
     gelu_kind: str = "erf",
 ) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream. Raises on
-    arguments it does not take and when the launch is refused."""
+    arguments it does not take and when the launch is refused. The
+    weights go in as their cached packed images (``packed_weights``)."""
+    out = launch(x, scores, kernels, biases, gelu_kind)
+    fused_gated_ffn_kernel.launches += 1
+    return out
+
+
+def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = None) -> torch.Tensor:
+    """One launch through ``launcher``'s library (by default the
+    wrapper's; ``gnot_tpu_torch.ffn_probe`` passes variants); counts
+    nothing. The arguments are checked before anything is built."""
     dims = _check_kernel_args(x, scores, kernels, biases, gelu_kind)
-    lib = build.load("fused_gated_ffn")
-    _bind(lib)
+    launcher = launcher or _get_launcher()
+    images = [packed_weights(k) for k in kernels]
     out = torch.empty(*x.shape[:2], dims[-1], device=x.device, dtype=torch.float32)
     n = len(kernels)
-    w_ptrs = (ctypes.c_uint64 * n)(*[k.data_ptr() for k in kernels])
-    b_ptrs = (ctypes.c_uint64 * n)(*[b.data_ptr() for b in biases])
-    dim_arr = (ctypes.c_int * (n + 1))(*dims)
-    err = lib.gnot_fused_gated_ffn(
-        x.data_ptr(),
-        scores.data_ptr(),
-        out.data_ptr(),
-        ctypes.addressof(w_ptrs),
-        ctypes.addressof(b_ptrs),
-        ctypes.addressof(dim_arr),
-        n,
-        scores.shape[-1],
-        x.shape[0] * x.shape[1],
-        GELU_CODES[gelu_kind],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with launcher.lock:
+        for i in range(n):
+            launcher.w[i] = images[i].data_ptr()
+            launcher.b[i] = biases[i].data_ptr()
+        for i, d in enumerate(dims):
+            launcher.dims[i] = d
+        err = launcher.fn(
+            x.data_ptr(),
+            scores.data_ptr(),
+            out.data_ptr(),
+            *launcher.addrs,
+            n,
+            scores.shape[-1],
+            x.shape[0] * x.shape[1],
+            GELU_CODES[gelu_kind],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn launch failed: cudaError {err}")
-    fused_gated_ffn_kernel.launches += 1
     return out
 
 

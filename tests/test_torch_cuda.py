@@ -41,6 +41,21 @@ def _ffn_inputs(seed, b, l, din=16, hid=32, dout=16, e=3, n_layers=2, device="cu
     return t(x), t(scores), [t(k) for k in kernels], [t(bb) for bb in biases]
 
 
+def _ffn_inputs_dims(seed, b, l, dims, e, device="cuda"):
+    """Inputs at the model's init for an arbitrary width stack."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, dims[0])).astype(np.float32)
+    logits = rng.standard_normal((b, l, e)).astype(np.float32)
+    scores = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
+    bounds = [1.0 / np.sqrt(d) for d in dims[:-1]]
+    kernels = [rng.uniform(-bd, bd, (e, dims[i], dims[i + 1])).astype(np.float32)
+               for i, bd in enumerate(bounds)]
+    biases = [rng.uniform(-bd, bd, (e, dims[i + 1])).astype(np.float32)
+              for i, bd in enumerate(bounds)]
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(x), t(scores), [t(k) for k in kernels], [t(bb) for bb in biases]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gelu", ["tanh", "erf"])
 @pytest.mark.parametrize("b,l", [(2, 12), (3, 1000)])  # 3,000 rows: a ragged last tile
@@ -53,6 +68,47 @@ def test_kernel_matches_plain_version_on_card(gelu, b, l):
     torch.cuda.synchronize()
     assert fused_ffn.fused_gated_ffn_kernel.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dims,e,b,l",
+    [([16, 16, 16], 3, 2, 50),            # width 16: 240 zero-padded columns
+     ([48, 48, 48, 48], 2, 1, 1000),      # width 48: padding inside a half
+     ([32, 64, 64, 32], 3, 2, 300),       # the JAX tool's three-Linear stack
+     ([256] * 6, 1, 1, 1),                # E = 1, one row
+     ([256] * 6, 4, 1, 1000),             # E = 4, 1,000 rows
+     ([256] * 6, 3, 3, 1000),             # 3,000 rows, a ragged last tile
+     ([64, 256, 128, 16], 2, 2, 100)],    # mixed widths, 16 out
+)
+def test_kernel_shapes_on_card(dims, e, b, l):
+    """Padding (widths 16 and 48), the tool's shape, E = 1 and 4, and 1,
+    1,000 and 3,000 rows, for both GELUs, against the plain version."""
+    _card()
+    args = _ffn_inputs_dims(7, b, l, dims, e)
+    for gelu in ("tanh", "erf"):
+        got = fused_ffn.fused_gated_ffn_kernel(*args, gelu_kind=gelu)
+        want = fused_ffn.fused_gated_ffn_reference(*args, gelu_kind=gelu)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_sees_an_in_place_weight_update_on_card():
+    """The packed image is cached per weight tensor and version: an
+    in-place update between two calls changes the output."""
+    _card()
+    x, s, ks, bs = _ffn_inputs_dims(8, 2, 64, [32, 64, 32], 2)
+    ks = [torch.nn.Parameter(k) for k in ks]
+    first = fused_ffn.fused_gated_ffn_kernel(x, s, ks, bs).clone()
+    with torch.no_grad():
+        ks[1].mul_(-0.5)
+    second = fused_ffn.fused_gated_ffn_kernel(x, s, ks, bs)
+    want = fused_ffn.fused_gated_ffn_reference(x, s, ks, bs)
+    torch.cuda.synchronize()
+    assert not torch.allclose(first, second)
+    torch.testing.assert_close(second, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
