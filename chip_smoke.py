@@ -37,21 +37,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    version;
 5. where one full-width dispatch spends its time: host-clock dispatch
    time with the kernel and with the plain torch FFN path, in turns, and
-   a ``torch.profiler`` trace of device time by kernel.
+   a ``torch.profiler`` trace of device time by kernel;
+6. training at full width through ``gnot_tpu_torch.main``'s train
+   function: ``--synthetic ns2d --n_train 16 --n_test 8 --epochs 2
+   --batch_size 4 --ffn_impl pallas`` (8 AdamW steps, 4 eval batches),
+   the reference's console lines with finite losses, the FFN kernel
+   launched ``2 x n_attn_layers`` times per train and eval forward, the
+   same run with every FFN through the plain version (no kernel launch)
+   agreeing step by step, a stale-image control run (fused AdamW) read
+   against it, the kernel agreeing with the plain version on the live
+   weights after the optimizer's last step and after one more, host-clock
+   step times with the kernel and with ``ffn_impl=xla`` in turns, and
+   where one train step spends its time, phase by phase for both paths.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``launches`` is its count over the path that drives it, read right after
 that path: phase 4 for the FFN kernel, phase 3b for the attention
-kernels (the model never launches them). Launches made to time a kernel
-or to hold it against its plain version come after the counts are read.
+kernels (the model never launches them); the FFN kernel's
+``train_launches`` is its count over phase 6's training run. Launches
+made to time a kernel or to hold it against its plain version come after
+the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import io
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +91,15 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # Served outputs vs a forward through the plain version: the JAX
 # package's own model-level bar for its fused FFN against its XLA path.
 MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
+# Training through the kernel vs through the plain version from the same
+# weights and batches: step 1's loss at the model-level bar; later steps
+# and the metrics carry the ~3e-7 forward difference through AdamW
+# updates (sound runs read 1.6e-7 to 2.8e-7 relative). The bar sits well
+# below what a run whose kernel reads stale weight images reads (phase
+# 6 measures that control and prints it).
+TRAIN_LATER_RTOL = 1e-5
+TRAIN_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epochs", "2",
+              "--batch_size", "4", "--ffn_impl", "pallas", "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -370,19 +397,281 @@ def where_the_time_goes(torch, kernel_model, plain_model, group, engine_cls) -> 
         t0 = time.perf_counter()
         dispatch("pallas")
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if str(getattr(evt, "device_type", "")).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us / 1e3, evt.count, evt.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     log(f"[time] one pallas dispatch: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({busy_ms / wall_ms:.1%} busy, {1 - busy_ms / wall_ms:.1%} idle)")
     for ms, count, name in rows[:10]:
         log(f"[time]   {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+
+
+def kernel_rows(prof) -> list[tuple[float, int, str]]:
+    """``(device ms, count, name)`` of every kernel in a profile, longest
+    first. Ranges the profiler draws on the device's timeline around
+    annotated host code (``Optimizer.step#AdamW.step``) are left out:
+    they span kernels already counted."""
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if getattr(evt, "is_user_annotation", False):
+            continue
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us / 1e3, evt.count, evt.key))
+    return sorted(rows, reverse=True)
+
+
+def train_quietly(port_main, args):
+    """``run_train`` with its console lines captured: (trainer, lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer = port_main.run_train(args)
+    return trainer, out.getvalue().splitlines()
+
+
+def check_reference_lines(lines: list[str], epochs: int) -> None:
+    """The reference's console lines, each number finite."""
+    for e in range(epochs):
+        for head in (f"Epoch {e}, Loss: ", f"Epoch {e}, Test Metric: "):
+            found = [line for line in lines if line.startswith(head)]
+            if len(found) != 1 or not math.isfinite(float(found[0][len(head):])):
+                raise RuntimeError(f"expected one finite {head!r} line, got {found}")
+    best = [line for line in lines if line.startswith("Best Test Metric: ")]
+    if len(best) != 1 or not math.isfinite(float(best[0].split(": ")[1])):
+        raise RuntimeError(f"expected one finite best-metric line, got {best}")
+
+
+def fresh_trainer(trainer_cls, trainer, ffn_impl: str):
+    """A new trainer with the run's config, data and seed and the given
+    ``ffn_impl``, its optimizer made."""
+    mc = dataclasses.replace(trainer.model_cfg, ffn_impl=ffn_impl)
+    fresh = trainer_cls(trainer.config, mc, trainer.train_loader.samples, [],
+                        device=trainer.device)
+    fresh.initialize()
+    return fresh
+
+
+def step_times(torch, trainer_cls, trainer, ffn_impl: str) -> list[float]:
+    """Host-clock ms of each AdamW step of a fresh trainer with the given
+    ``ffn_impl``, each step waited for: two epochs of the train loader."""
+    fresh = fresh_trainer(trainer_cls, trainer, ffn_impl)
+    times = []
+    for epoch in range(2):
+        fresh.train_loader.set_epoch(epoch)
+        for batch in fresh.train_loader:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh.train_step(batch, fresh.lr_fn(fresh.host_step, epoch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def step_phases(torch, batch_loss, trainer, batch, reps: int = 5) -> dict[str, tuple[float, float]]:
+    """``{phase: (host ms, CUDA-event ms)}`` of one AdamW step cut into
+    forward, backward and optimizer, medians of ``reps``. The card is
+    waited for after each phase, so a phase's host time is its enqueue
+    plus whatever the card still had to run of it."""
+    host: dict[str, list[float]] = {"forward": [], "backward": [], "optimizer": []}
+    dev: dict[str, list[float]] = {name: [] for name in host}
+    for _ in range(reps):
+        dev_batch = batch.to(trainer.device)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        loss = None
+        for name in host:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            if name == "forward":
+                loss = batch_loss(trainer.model, dev_batch, trainer.config.train.loss)
+            elif name == "backward":
+                loss.backward()
+            else:
+                trainer.optimizer.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            dev[name].append(ev[0].elapsed_time(ev[1]))
+    return {n: (statistics.median(host[n]), statistics.median(dev[n])) for n in host}
+
+
+def training_phase(torch, np, card: str) -> int:
+    """Phase 6: training at full width through the port's train entry
+    point, with the FFN kernel in every forward. Returns the kernel's
+    launches over the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+        pack_weights,
+    )
+    from gnot_tpu_torch.train import trainer as trainer_mod
+    from gnot_tpu_torch.train.trainer import Trainer, batch_loss
+
+    args = port_main.build_parser().parse_args(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_gated_ffn_kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer, lines = train_quietly(port_main, args)
+    wall_s = time.perf_counter() - t0
+    launches = fused_gated_ffn_kernel.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[train] python -m gnot_tpu_torch.main {' '.join(TRAIN_ARGV)}: {wall_s:.2f} s")
+    for line in lines:
+        if line:
+            log(f"[train]   {line}")
+    check_reference_lines(lines, args.epochs)
+    cfg = trainer.model_cfg
+    steps = trainer.host_step
+    eval_batches = args.epochs * len(trainer.test_loader)
+    expected = 2 * cfg.n_attn_layers * (steps + eval_batches)
+    log(f"[train] fused_gated_ffn launches {launches} = 2 x {cfg.n_attn_layers} blocks x "
+        f"({steps} train steps + {eval_batches} eval batches); peak device memory "
+        f"{peak_mib:.1f} MiB")
+    if launches != expected or launches == 0:
+        raise RuntimeError(f"expected {expected} FFN kernel launches in training, counted {launches}")
+
+    # The same run, every FFN through the kernel's plain version.
+    fused_gated_ffn_kernel.launches = 0
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain, _ = train_quietly(port_main, args)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    if fused_gated_ffn_kernel.launches != 0:
+        raise RuntimeError(f"the plain-FFN run launched the kernel "
+                           f"{fused_gated_ffn_kernel.launches} times")
+    losses = lambda t: np.concatenate([r.step_losses for r in t.history]).astype(np.float64)  # noqa: E731
+    got, want = losses(trainer), losses(plain)
+    got_m = np.array([r.test_metric for r in trainer.history])
+    want_m = np.array([r.test_metric for r in plain.history])
+    rel = lambda a, b: np.abs(a - b) / np.abs(b)  # noqa: E731
+    log(f"[train] step losses, kernel {got.tolist()}")
+    log(f"[train] step losses, plain  {want.tolist()} (0 kernel launches)")
+    log(f"[train] vs the plain-FFN run: step 1 loss abs diff {abs(got[0] - want[0]):.3e} rel "
+        f"{rel(got[0], want[0]):.3e} (bar rtol 1e-4 atol 1e-5); steps 2..{len(got)} worst rel "
+        f"{rel(got[1:], want[1:]).max():.3e}, test metrics worst rel {rel(got_m, want_m).max():.3e}, "
+        f"best metric rel {rel(trainer.best_metric, plain.best_metric):.3e} (bar rtol "
+        f"{TRAIN_LATER_RTOL})")
+
+    # Control: the kernel run again with torch's fused AdamW, which writes
+    # the weights without moving their version, so the kernel reads the
+    # first step's weight images all run long. What it reads against the
+    # plain run shows how far the bar above is from a stale-image fault.
+    make_optimizer = trainer_mod.make_optimizer
+    trainer_mod.make_optimizer = lambda cfg, params: torch.optim.AdamW(
+        params, lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+        weight_decay=cfg.weight_decay, fused=True)
+    try:
+        stale, _ = train_quietly(port_main, args)
+    finally:
+        trainer_mod.make_optimizer = make_optimizer
+    stale_rel = rel(losses(stale)[1:], want[1:]).max()
+    log(f"[train] stale-image control (fused AdamW): steps 2..{len(got)} worst rel "
+        f"{stale_rel:.3e} vs the plain-FFN run, {stale_rel / TRAIN_LATER_RTOL:.1f}x the bar")
+    np.testing.assert_allclose(got[0], want[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=TRAIN_LATER_RTOL)
+    np.testing.assert_allclose(got_m, want_m, rtol=TRAIN_LATER_RTOL)
+    np.testing.assert_allclose(trainer.best_metric, plain.best_metric, rtol=TRAIN_LATER_RTOL)
+
+    # The kernel on the live weights after the optimizer's last step, and
+    # after one more step: every FFN module against the plain version.
+    rng = np.random.default_rng(6)
+    width = cfg.n_attn_hidden_dim
+    x = torch.from_numpy(rng.standard_normal((4, 1024, width), dtype=np.float32)).cuda()
+    logits = torch.from_numpy(rng.standard_normal((4, 1024, cfg.n_expert), dtype=np.float32))
+    scores = torch.softmax(logits, -1).cuda()
+    ffns = [m for m in trainer.model.modules() if isinstance(m, layers.GatedExpertFfn)]
+    weights = [([l.kernel for l in f.experts.layers()], [l.bias for l in f.experts.layers()])
+               for f in ffns]
+    worst = 0.0
+    before = []
+    for k, b in weights:
+        out = fused_gated_ffn_kernel(x, scores, k, b, gelu_kind=cfg.gelu)
+        want_out = fused_gated_ffn_reference(x, scores, k, b, gelu_kind=cfg.gelu)
+        torch.testing.assert_close(out, want_out, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        worst = max(worst, (out - want_out).abs().max().item())
+        before.append(out.clone())
+    trainer.train_loader.set_epoch(args.epochs)
+    trainer.train_step(next(iter(trainer.train_loader)), trainer.lr_fn(trainer.host_step, args.epochs))
+    for (k, b), old in zip(weights, before):
+        out = fused_gated_ffn_kernel(x, scores, k, b, gelu_kind=cfg.gelu)
+        want_out = fused_gated_ffn_reference(x, scores, k, b, gelu_kind=cfg.gelu)
+        if torch.equal(out, old):
+            raise RuntimeError("the FFN kernel's output did not move after an AdamW step")
+        torch.testing.assert_close(out, want_out, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        worst = max(worst, (out - want_out).abs().max().item())
+    log(f"[train] kernel vs plain on the live weights of all {len(ffns)} FFN modules, after the "
+        f"run's last step and after one more AdamW step ({type(trainer.optimizer).__name__}, "
+        f"foreach={trainer.optimizer.defaults['foreach']} -> torch's default on the card): "
+        f"max_abs_err {worst:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL}); images repacked")
+
+    # Host-clock step time, the kernel and the torch FFN path in turns.
+    times: dict[str, list[float]] = {"pallas": [], "xla": []}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        times[impl].append(statistics.median(step_times(torch, Trainer, trainer, impl)[1:]))
+    log(f"[train] step time, host clock around each waited-for step, median of steps 2..8, "
+        f"turns pallas/xla/xla/pallas: ffn_impl=pallas {times['pallas']} ms, "
+        f"ffn_impl=xla {times['xla']} ms on {card}")
+
+    # Where one train step spends its time.
+    batch = next(iter(trainer.train_loader))
+    lr = trainer.lr_fn(trainer.host_step, args.epochs)
+    trainer.train_step(batch, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    ffn_ms = sum(r[0] for r in rows if "fused_gated_ffn" in r[2])
+    ffn_count = sum(r[1] for r in rows if "fused_gated_ffn" in r[2])
+    log(f"[train] one train step: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+        f"({busy_ms / wall_ms:.1%} busy); fused_gated_ffn {ffn_ms:.3f} ms in {ffn_count} launches")
+    for ms, count, name in rows[:12]:
+        log(f"[train]   {ms:8.3f} ms  x{count:<5d} {name[:90]}")
+
+    # The same step cut into phases, for the kernel path and the torch FFN
+    # path, in turns: what the kernel path adds in the forward (the
+    # repack) and in the backward (the plain-version recompute of each
+    # FFN), on the host clock; and the per-step repack of every expert
+    # weight alone.
+    kernels = [l.kernel for f in ffns for l in f.experts.layers()]
+    repack = lambda: [pack_weights(k.detach()) for k in kernels]  # noqa: E731
+    with torch.no_grad():
+        pack_ms = device_ms(torch, repack, iters=10)
+        pack_host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            repack()
+            torch.cuda.synchronize()
+            pack_host.append((time.perf_counter() - t0) * 1e3)
+    xla_trainer = fresh_trainer(Trainer, trainer, "xla")
+    split: dict[str, list[dict]] = {"pallas": [], "xla": []}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        split[impl].append(step_phases(torch, batch_loss, xla_trainer if impl == "xla" else trainer,
+                                       batch))
+    for impl, runs in split.items():
+        log(f"[train] step phases, ffn_impl={impl}, median of 5, host ms / CUDA-event ms, two "
+            f"turns: " + "; ".join(
+                f"{name} " + " | ".join(f"{r[name][0]:.3f} / {r[name][1]:.3f}" for r in runs)
+                for name in runs[0]))
+    log(f"[train] repacking the {len(kernels)} expert weights alone: device time {pack_ms:.3f} ms, "
+        f"host clock (waited for) {statistics.median(pack_host):.3f} ms; the optimizer is "
+        f"{type(trainer.optimizer).__name__}(foreach={trainer.optimizer.defaults['foreach']}, "
+        f"fused={trainer.optimizer.defaults['fused']}) over "
+        f"{sum(len(g['params']) for g in trainer.optimizer.param_groups)} tensors")
+    return launches
 
 
 def main() -> int:
@@ -533,12 +822,16 @@ def main() -> int:
             m.ffn_impl = "xla"
     where_the_time_goes(torch, run.model, plain_model, run.samples[:4], InferenceEngine)
 
+    # -- phase 6: training at full width ----------------------------------
+    train_launches = training_phase(torch, np, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
         "source": "gnot_tpu_torch/csrc/fused_gated_ffn.cu",
         "replaces": "gnot_tpu/ops/pallas_ffn.py:206",
         "launches": launches,
+        "train_launches": train_launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1,14 +1,21 @@
 """Configuration dataclasses of the port.
 
 ``ModelConfig`` mirrors ``gnot_tpu/config.py::ModelConfig`` field for
-field, with the same defaults and the same refusals. ``DataConfig`` and
-``ServeConfig`` keep only the fields ``datasets.load`` and the serving
-path read.
+field, with the same defaults and the same refusals. ``OptimConfig``
+mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
+keep only the fields ``datasets.load``, the ``Loader``, the single-device
+trainer and the serving path read. Values that select a part of the JAX
+package not ported yet raise ``NotPortedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+class NotPortedError(ValueError):
+    """A configuration value that selects a part of ``gnot_tpu`` the port
+    does not have yet."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +91,48 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """AdamW + OneCycle regime (reference main.py:50-52)."""
+
+    lr: float = 1e-3
+    # torch.optim.AdamW defaults, set explicitly as the JAX package does.
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    # OneCycleLR defaults (torch): cos anneal, 3-phase off.
+    pct_start: float = 0.3
+    div_factor: float = 25.0
+    final_div_factor: float = 1e4
+    # The reference sizes OneCycleLR in steps but steps it once per
+    # EPOCH (main.py:52,106), so the LR never leaves the warm-up ramp.
+    # True reproduces that; False steps the schedule per update.
+    parity_schedule_bug: bool = True
+    grad_clip_norm: float = 0.0  # 0 = off (reference has no clipping)
+    # Kept so configs read the same in both packages; only the defaults
+    # are ported.
+    grad_accum: int = 1
+    flat_params: bool = False
+
+    def __post_init__(self) -> None:
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
+        if self.grad_accum > 1:
+            raise NotPortedError(
+                f"grad_accum={self.grad_accum}: gradient accumulation "
+                "(optax.MultiSteps) is not ported yet"
+            )
+        if self.flat_params:
+            raise NotPortedError(
+                "flat_params: the flat [P]-vector parameter layout is not "
+                "ported yet"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data fields ``datasets.load`` and the serving path read
-    (``gnot_tpu`` DataConfig)."""
+    """The data fields ``datasets.load``, the ``Loader`` and the serving
+    path read (``gnot_tpu`` DataConfig)."""
 
     train_path: str = ""
     test_path: str = ""
@@ -97,7 +143,52 @@ class DataConfig:
     n_train: int = 64
     n_test: int = 16
     batch_size: int = 4
+    shuffle_train: bool = True
     seed: int = 0
+    # Pad ragged lengths up to the next bucket boundary; False pads to
+    # the per-batch max, as the reference does.
+    bucket: bool = True
+    drop_remainder: bool = False
+    # Fixed pad lengths (0 = per-batch).
+    pad_nodes: int = 0
+    pad_funcs: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The single-device training loop's fields (``gnot_tpu`` TrainConfig)."""
+
+    epochs: int = 100  # reference main.py:23
+    loss: str = "rel_l2"  # the reference trains AND evals on rel-L2
+    checkpoint_dir: str = ""
+    resume: bool = False
+    checkpoint_every: int = 0  # epochs; 0 = best-only (reference behavior)
+    # Kept so configs read the same in both packages; only 1 is ported.
+    steps_per_dispatch: int = 1
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.loss not in ("rel_l2", "mse"):
+            raise ValueError(f"unknown loss {self.loss!r}")
+        if self.steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
+            )
+        if self.steps_per_dispatch > 1:
+            raise NotPortedError(
+                f"steps_per_dispatch={self.steps_per_dispatch}: several "
+                "steps per dispatch are not ported yet"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """What one training run reads (``gnot_tpu`` Config without the mesh
+    and serving sections)."""
+
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,12 +18,17 @@ the finished batch is a ``MeshBatch`` of tensors on one device.
 the packed ("pack, don't pad") layout, float32 only: several samples
 share a row as chunk-aligned segments, and ``node_seg``/``func_seg`` are
 the chunk -> segment tables the segment attention kernels take.
+
+``Loader`` is the training epoch iterator: shuffle, batch, collate on the
+host in a prefetch thread; the trainer moves each batch to the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import queue
+import threading
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +71,24 @@ class MeshBatch:
                 self.funcs, self.func_mask,
             )
         )
+
+    def _map(self, fn) -> "MeshBatch":
+        return MeshBatch(
+            **{
+                f.name: None if (t := getattr(self, f.name)) is None else fn(t)
+                for f in dataclasses.fields(self)
+            }
+        )
+
+    def to(self, device: torch.device | str, non_blocking: bool = False) -> "MeshBatch":
+        """The same batch with every field on ``device``."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "MeshBatch":
+        """The same batch in page-locked host memory, which a copy to the
+        card with ``non_blocking=True`` reads without stalling the host
+        or the stream."""
+        return self._map(torch.Tensor.pin_memory)
 
 
 @dataclasses.dataclass
@@ -381,3 +404,123 @@ def pack_prefix(sizes: Sequence[int], plan: PackPlan) -> list[tuple[int, int]]:
         else:
             break
     return placements
+
+
+# Collated batches the prefetch thread may hold ahead of the consumer.
+PREFETCH_DEPTH = 2
+
+
+def _prefetched(items, collate_fn):
+    """Collate ``items`` on a background thread with a bounded queue, so
+    the host collates batch N+1 while the device runs batch N.
+    An error in the thread is raised to the consumer; a consumer that
+    stops early stops the thread."""
+    q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for it in items:
+                if not put(collate_fn(it)):
+                    return  # the consumer abandoned the epoch
+            put(end)
+        except BaseException as e:  # handed to the consumer, raised there
+            put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+class Loader:
+    """Epoch iterator: shuffle, batch, collate on the host, prefetch.
+
+    Port of ``gnot_tpu/data/batch.py::Loader`` (the reference's
+    ``DataLoader(batch_size=4, shuffle=True, collate_fn=unzip)``,
+    main.py:37-42). Each epoch's order is a pure function of
+    ``(seed, epoch)``, ``np.random.default_rng((seed, epoch)).shuffle``,
+    the JAX package's own draw, so a resumed run sees the batches the
+    continuous run would have. Batches are ``MeshBatch``es of CPU tensors,
+    page-locked with ``pin_memory`` (on the prefetch thread); the caller
+    moves them to its device.
+    """
+
+    def __init__(
+        self,
+        samples: Sequence[MeshSample],
+        batch_size: int,
+        *,
+        shuffle: bool = False,
+        seed: int = 0,
+        bucket: bool = True,
+        drop_remainder: bool = False,
+        pad_nodes: int = 0,
+        pad_funcs: int = 0,
+        pin_memory: bool = False,
+    ):
+        self.samples = list(samples)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.bucket = bucket
+        self.drop_remainder = drop_remainder
+        self.pad_nodes = pad_nodes
+        self.pad_funcs = pad_funcs
+        self.pin_memory = pin_memory
+        # Advanced by __iter__; set_epoch() pins it (trainer resume).
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.samples)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def epoch_indices(self) -> list[np.ndarray]:
+        """This epoch's batches as sample indices; advances the epoch."""
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
+        chunks = []
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if self.drop_remainder and len(idx) < self.batch_size:
+                break
+            chunks.append(idx)
+        return chunks
+
+    def collate_at(self, idx: np.ndarray) -> MeshBatch:
+        batch = collate(
+            [self.samples[i] for i in idx],
+            bucket=self.bucket,
+            pad_nodes=self.pad_nodes,
+            pad_funcs=self.pad_funcs,
+        )
+        return batch.pin_memory() if self.pin_memory else batch
+
+    def __iter__(self) -> Iterator[MeshBatch]:
+        yield from _prefetched(self.epoch_indices(), self.collate_at)

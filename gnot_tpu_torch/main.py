@@ -1,11 +1,18 @@
-"""CLI entry point of the port: ``python -m gnot_tpu_torch.main --serve [flags]``.
+"""CLI entry point of the port: ``python -m gnot_tpu_torch.main [--serve] [flags]``.
 
-A subset of ``gnot_tpu/main.py``'s parser with the same flag names, so
-the same command line works in both packages. Serving is the one mode
-ported so far: weights are initialised from ``--seed``, one dispatch per
-bucket warms the engine, the test set is submitted as requests through
-the ``InferenceServer``, the server drains, and the summary is printed
-as one JSON line. Runs on ``cuda`` unless ``--device cpu`` is given.
+A subset of ``gnot_tpu/main.py``'s parser with the same flag names and
+defaults, so the same command line works in both packages. Two modes:
+
+* training (no ``--serve``, the default, as in ``gnot_tpu``): the
+  single-device ``Trainer`` on the synthetic or pickled train split,
+  weights from ``--seed``, eval on the test split every epoch, the
+  reference's console lines; ``main`` returns the best test metric.
+* ``--serve``: weights are initialised from ``--seed``, one dispatch per
+  bucket warms the engine, the test set is submitted as requests through
+  the ``InferenceServer``, the server drains, and the summary is printed
+  as one JSON line.
+
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,20 +24,29 @@ import time
 
 import torch
 
-from gnot_tpu_torch.config import DataConfig, ModelConfig, ServeConfig
+from gnot_tpu_torch.config import (
+    Config,
+    DataConfig,
+    ModelConfig,
+    OptimConfig,
+    ServeConfig,
+    TrainConfig,
+)
 from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.data.batch import MeshSample
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.server import InferenceServer, ServeResult
+from gnot_tpu_torch.train.checkpoint import Checkpointer
+from gnot_tpu_torch.train.trainer import Trainer
 
 # How long the storm waits for each request, and drain() for stragglers.
 DRAIN_TIMEOUT_S = 30.0
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="GNOT in PyTorch/CUDA (serving)")
+    p = argparse.ArgumentParser(description="GNOT in PyTorch/CUDA (training, serving)")
     # Reference flags (main.py:15-23), same names and defaults.
     p.add_argument("--n_attn_layers", type=int, default=4)
     p.add_argument("--n_attn_hidden_dim", type=int, default=256)
@@ -39,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_input_hidden_dim", type=int, default=256)
     p.add_argument("--n_expert", type=int, default=3)
     p.add_argument("--n_head", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--train_data", type=str, default="", help="train pickle path")
+    p.add_argument("--test_data", type=str, default="", help="test pickle path")
     p.add_argument(
         "--synthetic", type=str, default="ns2d", choices=sorted(datasets.SYNTHETIC),
         help="synthetic benchmark config when no pickle paths are given",
@@ -48,8 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="synthetic generator size (0 = its default): grid side for "
              "darcy2d (points = size^2), mesh points for the others",
     )
+    p.add_argument("--n_train", type=int, default=64)
     p.add_argument("--n_test", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--ffn_impl", type=str, default="xla", choices=["xla", "pallas"],
@@ -60,6 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", type=str, default="cuda", choices=["cuda", "cpu"],
         help="cuda (default; raises without a card) or cpu",
     )
+    p.add_argument("--loss", type=str, default="rel_l2", choices=["rel_l2", "mse"])
+    p.add_argument("--schedule", type=str, default="parity", choices=["parity", "per_step"],
+                   help="parity: per-epoch OneCycle stepping (the reference bug); per_step: correct")
+    p.add_argument("--checkpoint_dir", type=str, default="")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--checkpoint_every", type=int, default=0)
+    p.add_argument("--no_bucket", action="store_true", help="pad to per-batch max (parity)")
     p.add_argument(
         "--serve", action="store_true",
         help="serving mode: fresh weights from --seed, drive the test set "
@@ -74,14 +102,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
-    data = DataConfig(
+def data_config(args) -> DataConfig:
+    return DataConfig(
+        train_path=args.train_data,
+        test_path=args.test_data,
         synthetic=args.synthetic,
         synth_size=args.synth_size,
+        n_train=args.n_train,
         n_test=args.n_test,
         batch_size=args.batch_size,
         seed=args.seed,
+        bucket=not args.no_bucket,
     )
+
+
+def train_config(args) -> Config:
+    """The training run's config (``gnot_tpu/main.py::config_from_args``)."""
+    return Config(
+        optim=OptimConfig(lr=args.lr, parity_schedule_bug=args.schedule == "parity"),
+        data=data_config(args),
+        train=TrainConfig(
+            epochs=args.epochs,
+            loss=args.loss,
+            checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume,
+            checkpoint_every=args.checkpoint_every,
+            seed=args.seed,
+        ),
+    )
+
+
+def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
+    data = data_config(args)
     serve = ServeConfig(
         max_batch=args.serve_max_batch,
         max_wait_ms=args.serve_max_wait_ms,
@@ -148,11 +200,27 @@ def run_serve(args) -> ServeRun:
     return ServeRun(summary, results, samples, model)
 
 
+def run_train(args) -> Trainer:
+    """Training (no ``--serve``): load the splits, build the trainer on
+    the chosen device with weights from ``--seed``, fit, and return the
+    trainer (its ``best_metric``, ``history`` and model)."""
+    device = resolve_device(args.device)
+    cfg = train_config(args)
+    train_samples, test_samples = datasets.load(cfg.data)
+    mc = model_config(args, train_samples)
+    checkpointer = Checkpointer(cfg.train.checkpoint_dir) if cfg.train.checkpoint_dir else None
+    trainer = Trainer(cfg, mc, train_samples, test_samples,
+                      checkpointer=checkpointer, device=device)
+    trainer.fit()
+    return trainer
+
+
 def main(argv: list[str] | None = None) -> float:
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    """Trains and returns the best test metric, or with ``--serve``
+    serves and returns the share of requests answered."""
+    args = build_parser().parse_args(argv)
     if not args.serve:
-        parser.error("only --serve is ported so far; training comes in a later slice")
+        return run_train(args).best_metric
     run = run_serve(args)
     print(json.dumps({"serve_summary": run.summary}))
     return run.summary["completed"] / max(1, run.summary["requests"])

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gnot_tpu_torch.config import ModelConfig
+from gnot_tpu_torch.config import ModelConfig, NotPortedError
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
 
 
@@ -90,11 +90,11 @@ class GNOT(nn.Module):
         super().__init__()
         cfg = self.config = config
         if cfg.attention_mode != "masked":
-            raise ValueError("the port serves masked mode only; parity mode is not ported yet")
+            raise NotPortedError("the port runs masked mode only; parity mode is not ported yet")
         if cfg.dtype != "float32":
-            raise ValueError(f"the port computes in float32 only, got dtype={cfg.dtype!r}")
+            raise NotPortedError(f"the port computes in float32 only, got dtype={cfg.dtype!r}")
         if cfg.scan_layers:
-            raise ValueError("scan_layers (the stacked-layer layout) is not ported yet")
+            raise NotPortedError("scan_layers (the stacked-layer layout) is not ported yet")
         has_funcs = cfg.n_input_functions > 0
         # Module order fixes the order the generator draws weights in.
         self.gating = Mlp(

@@ -53,7 +53,10 @@ CHUNK_K = 16
 HALF_COLS = 128
 # Logical K of a chunk, in wgmma order (step kk, k8 index j), to its
 # column: thread t4 of the kernel reads columns 4*t4..4*t4+3 as one
-# float4 and feeds them as j = t4, t4 + 4 of steps 0 and 1.
+# float4 and feeds them as j = t4, t4 + 4 of steps 0 and 1. Column
+# 4*(j%4) + 2*kk + j//4 is axis (j%4, kk, j//4) of a [4, 2, 2] view, so
+# the pack reorders K with a permute: no index tensor, whose making from
+# a list would be a blocking host-to-device copy on every repack.
 K_ORDER = [4 * (j % 4) + 2 * kk + j // 4 for kk in range(2) for j in range(8)]
 
 
@@ -129,10 +132,8 @@ def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
     nck = k // CHUNK_K
     w = kernel.new_zeros(e, k, 2 * HALF_COLS)
     w[:, :, :n] = kernel
-    order = torch.tensor(K_ORDER, device=kernel.device)
-    w = w.view(e, nck, CHUNK_K, 2 * HALF_COLS).index_select(2, order)
-    # [E, chunk, kk, j//4, j%4, half, n//8, n%8] -> wgmma order
-    w = w.view(e, nck, 2, 2, 4, 2, HALF_COLS // 8, 8).permute(0, 5, 1, 2, 3, 6, 7, 4)
+    # [E, chunk, j%4, kk, j//4, half, n//8, n%8] -> wgmma order
+    w = w.view(e, nck, 4, 2, 2, 2, HALF_COLS // 8, 8).permute(0, 5, 1, 3, 4, 6, 7, 2)
     hi, lo = tf32_split(w.contiguous())
     return torch.stack([hi, lo], dim=3).reshape(-1)
 
@@ -143,13 +144,10 @@ def unpack_weights(image: torch.Tensor, shape: Sequence[int]) -> tuple[torch.Ten
     e, k, n = shape
     nck = k // CHUNK_K
     v = image.view(e, 2, nck, 2, 2, 2, HALF_COLS // 8, 8, 4)
-    order = torch.tensor(K_ORDER, device=image.device)
     parts = []
     for p in range(2):
-        w = v[:, :, :, p].permute(0, 2, 3, 4, 7, 1, 5, 6).reshape(e, nck, CHUNK_K, 2 * HALF_COLS)
-        out = torch.empty_like(w)
-        out[:, :, order] = w
-        parts.append(out.reshape(e, k, 2 * HALF_COLS)[..., :n].contiguous())
+        w = v[:, :, :, p].permute(0, 2, 7, 3, 4, 1, 5, 6).reshape(e, k, 2 * HALF_COLS)
+        parts.append(w[..., :n].contiguous())
     return parts[0], parts[1]
 
 
@@ -168,7 +166,8 @@ def packed_weights(kernel: torch.Tensor) -> torch.Tensor:
     """``pack_weights(kernel)``, cached per tensor: the image is made again
     after an in-place update (the tensor's version moves) or for a new
     tensor, even one at a freed tensor's address. In-place writes
-    through ``.data`` bypass the version counter and are not seen; an
+    through ``.data`` bypass the version counter and are not seen, nor
+    are those of torch's fused AdamW (``fused=True``) on the card; an
     inference tensor has no version counter and is packed on every
     call."""
     if kernel.is_inference():

@@ -1,0 +1,63 @@
+"""Checkpoints of a training run: ``best`` and ``latest``.
+
+The part of ``gnot_tpu/train/checkpoint.py::Checkpointer`` the trainer
+calls, in the port's own format: one ``torch.save`` file per name,
+``<dir>/best.pt`` (written when the eval metric improves) and
+``<dir>/latest.pt`` (every ``checkpoint_every`` epochs, for ``--resume``).
+Each holds ``{"state", "epoch", "best_metric"}``, where ``state`` is
+``Trainer.state_dict()``: weights, AdamW state and the update count.
+
+A save writes a temporary file beside the target and renames it over the
+target (``os.replace``), so a crash leaves the previous checkpoint
+whole. Files are read with ``torch.load(weights_only=True)`` onto the
+CPU; ``load_state_dict`` moves each tensor to its parameter's device and
+keeps AdamW's step counts on the CPU, where torch's non-fused AdamW
+reads them without a device sync.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any
+
+import torch
+
+
+class Checkpointer:
+    def __init__(self, directory: str):
+        self.directory = Path(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def path(self, name: str) -> Path:
+        return self.directory / f"{name}.pt"
+
+    def _save(self, name: str, state: dict, epoch: int, best_metric: float) -> None:
+        payload = {
+            "state": state,
+            "epoch": int(epoch),
+            "best_metric": float(best_metric),
+        }
+        target = self.path(name)
+        tmp = target.with_name(f".{target.name}.tmp{os.getpid()}")
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, target)
+        finally:
+            tmp.unlink(missing_ok=True)
+
+    def save_best(self, state: dict, epoch: int, best_metric: float) -> None:
+        self._save("best", state, epoch, best_metric)
+
+    def save_latest(self, state: dict, epoch: int, best_metric: float) -> None:
+        """``epoch`` is the first epoch a resumed run trains."""
+        self._save("latest", state, epoch, best_metric)
+
+    def restore_latest(self) -> tuple[dict, int, float] | None:
+        """``(state, epoch, best_metric)`` of ``latest``, or None when there
+        is none."""
+        path = self.path("latest")
+        if not path.is_file():
+            return None
+        payload: dict[str, Any] = torch.load(path, map_location="cpu", weights_only=True)
+        return payload["state"], payload["epoch"], payload["best_metric"]

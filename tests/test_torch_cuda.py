@@ -11,13 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from gnot_tpu_torch.config import ModelConfig
+from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.data.batch import collate
 from gnot_tpu_torch.device import resolve_device
+from gnot_tpu_torch.models import layers
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.ops import fused_attention as fa
 from gnot_tpu_torch.ops import fused_ffn
+from gnot_tpu_torch.train.trainer import Trainer
 
 
 def _card() -> torch.device:
@@ -136,6 +138,115 @@ def test_model_on_card_matches_cpu(name):
         want = apply_batch(cpu_model, collate(samples)).numpy()
         got = apply_batch(cpu_model.to(device), collate(samples, device=device)).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- training through the FFN kernel ---------------------------------------
+
+
+def _trainer_on_card(width: int, n_head: int) -> Trainer:
+    samples = datasets.synth_elasticity(4, seed=9, base_points=300)  # ragged, 210-390 points
+    mc = ModelConfig(
+        **datasets.infer_model_dims(samples), n_attn_layers=2, n_attn_hidden_dim=width,
+        n_mlp_num_layers=4, n_mlp_hidden_dim=width, n_input_hidden_dim=width,
+        n_expert=3, n_head=n_head, ffn_impl="pallas",
+    )
+    trainer = Trainer(Config(data=DataConfig(n_train=4), train=TrainConfig(epochs=1)),
+                      mc, samples, [], device="cuda")
+    trainer.initialize()
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n_head", [(32, 4), (256, 8)])
+def test_train_step_through_the_kernel_matches_the_plain_ffn_on_card(width, n_head, monkeypatch):
+    """One AdamW step with every FFN forward in the kernel, and one from
+    the same weights and batch with the plain version: the same loss and
+    gradients (the backward is the same plain code; only the forward's
+    3xTF32 rounding differs)."""
+    _card()
+    kernel_run, plain_run = _trainer_on_card(width, n_head), _trainer_on_card(width, n_head)
+    batch = next(iter(kernel_run.train_loader))
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    loss = kernel_run.train_step(batch, 1e-3)
+    assert fused_ffn.fused_gated_ffn_kernel.launches == before + 2 * 2  # 2 FFNs x 2 blocks
+    monkeypatch.setattr(layers, "fused_gated_ffn", fused_ffn.fused_gated_ffn_reference)
+    want = plain_run.train_step(batch, 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing; the host batch stays whole
+    assert fused_ffn.fused_gated_ffn_kernel.launches == before + 4
+    torch.testing.assert_close(loss, want, rtol=1e-4, atol=1e-5)
+    plain_grads = dict(plain_run.model.named_parameters())
+    for name, p in kernel_run.model.named_parameters():
+        assert torch.isfinite(p.grad).all(), name
+        torch.testing.assert_close(p.grad, plain_grads[name].grad, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_kernel_reads_the_weights_the_optimizer_wrote_on_card():
+    """The trainer's AdamW step (torch's default implementation on the
+    card) moves every expert weight's version, so the kernel's next call
+    repacks and agrees with the plain version on the live weights."""
+    _card()
+    trainer = _trainer_on_card(64, 4)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 300, 64), dtype=np.float32)).cuda()
+    scores = torch.softmax(torch.from_numpy(rng.standard_normal((2, 300, 3), dtype=np.float32)), -1).cuda()
+    ffns = [m for m in trainer.model.modules() if isinstance(m, layers.GatedExpertFfn)]
+    weights = [([l.kernel for l in f.experts.layers()], [l.bias for l in f.experts.layers()]) for f in ffns]
+    first = [fused_ffn.fused_gated_ffn_kernel(x, scores, k, b).clone() for k, b in weights]
+    trainer.train_step(next(iter(trainer.train_loader)), 1e-2)
+    for (k, b), old in zip(weights, first):
+        got = fused_ffn.fused_gated_ffn_kernel(x, scores, k, b)
+        want = fused_ffn.fused_gated_ffn_reference(x, scores, k, b)
+        torch.cuda.synchronize()
+        assert not torch.allclose(got, old)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["foreach", "for-loop", "fused"])
+def test_which_adamw_implementations_refresh_the_packed_image_on_card(impl):
+    """torch's foreach and for-loop AdamW write a weight through in-place
+    ops that move its version, so the kernel's cached image is made
+    again. The fused implementation leaves the version where it was: the
+    kernel would read the old weights, so the trainer never fuses. Should
+    a torch release change that, this test says so."""
+    _card()
+    rng = np.random.default_rng(12)
+    kernel = torch.nn.Parameter(torch.from_numpy(rng.uniform(-0.2, 0.2, (3, 64, 64)).astype(np.float32)).cuda())
+    image = fused_ffn.packed_weights(kernel)
+    kw = {"foreach": dict(foreach=True), "fused": dict(fused=True), "for-loop": dict(foreach=False)}[impl]
+    opt = torch.optim.AdamW([kernel], lr=1e-2, **kw)
+    kernel.grad = torch.randn_like(kernel)
+    version = kernel._version
+    opt.step()
+    if impl == "fused":
+        assert kernel._version == version
+        assert fused_ffn.packed_weights(kernel) is image  # stale
+        return
+    fresh = fused_ffn.packed_weights(kernel)
+    assert fresh is not image
+    assert torch.equal(fresh, fused_ffn.pack_weights(kernel.detach()))
+
+
+@pytest.mark.cuda
+def test_a_train_step_never_waits_for_the_card():
+    """No stream synchronisation inside a train step (torch's sync debug
+    mode raises on one): the pinned batch copy, the repack of every
+    expert weight, the kernel launches, the backward and AdamW are all
+    enqueued; the loss stays on the card."""
+    _card()
+    trainer = _trainer_on_card(64, 4)
+    batch = next(iter(trainer.train_loader))
+    assert batch.coords.is_pinned()
+    trainer.train_step(batch, 1e-3)  # first use: library handles, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_step(batch, 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert loss.is_cuda and torch.isfinite(loss)
+    assert trainer.optimizer.defaults["fused"] is False
 
 
 # -- the four attention kernels ------------------------------------------

@@ -76,6 +76,24 @@ def test_cuda_is_the_default_and_refused_without_a_card(monkeypatch):
         resolve_device("meta")
 
 
+def test_training_runs_on_cuda_by_default_and_is_refused_without_a_card(monkeypatch):
+    """Without ``--serve`` the CLI trains, on ``cuda`` unless told
+    ``--device cpu``; without a card it raises before loading any data."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.config import Config, ModelConfig
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--synthetic", "darcy2d", "--n_train", "12", "--n_test", "4", "--epochs", "2"]
+    args = port_main.build_parser().parse_args(argv)
+    assert not args.serve and args.device == "cuda"
+    monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(Config(), ModelConfig(), [], [])
+
+
 def test_validate_kernels_refuses_without_a_card(monkeypatch):
     """The kernel-validation entry point runs on cuda only: without a card
     it raises before any check, and it takes no device option."""
