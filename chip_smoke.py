@@ -20,7 +20,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside its 3xTF32 tensor-core bound (and the earlier f32 CUDA-core
    bound), the plain version's and, as the yardstick, that of the
    model's ``ffn_impl="xla"`` torch path (batched cuBLAS f32 GEMMs) at
-   the same shape;
+   the same shape; then the same kernel on the bf16 mix of bf16 serving
+   (bf16 x, weights and biases, f32 scores) against its plain version
+   within one bf16 ulp, timed beside the f32 kernel and the
+   ``ffn_impl="xla"`` path in bf16 (cuBLAS bf16 GEMMs);
 3b. the kernel-validation entry point (``gnot_tpu_torch.validate_kernels``)
    in-process, every launch count set to 0 just before it and read just
    after: each attention kernel and the FFN kernel against its plain
@@ -35,6 +38,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``2 x n_attn_layers`` times per dispatch, each output held against a
    forward of the same weights with every FFN through the kernel's plain
    version;
+4b. the same serving path in bf16 (``--serve_dtype bfloat16``): 16/16
+   requests, every FFN launch at bf16, f32 outputs held against the same
+   bf16 forward through the kernel's plain version and against phase 4's
+   f32 server of the same weights, with the dispatch and request times,
+   the device busy time of one bf16 and one f32 dispatch and the peak
+   device memory;
 5. where one full-width dispatch spends its time: host-clock dispatch
    time with the kernel and with the plain torch FFN path, in turns, and
    a ``torch.profiler`` trace of device time by kernel;
@@ -55,7 +64,8 @@ the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``launches`` is its count over the path that drives it, read right after
 that path: phase 4 for the FFN kernel, phase 3b for the attention
 kernels (the model never launches them); the FFN kernel's
-``train_launches`` is its count over phase 6's training run. Launches
+``bf16_launches`` is its count over phase 4b's bf16 serving run and its
+``train_launches`` its count over phase 6's training run. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -78,11 +88,28 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores, TF32 on the tensor cores (dense), and HBM3 bandwidth.
+# tensor cores, TF32 and bf16 on the tensor cores (dense), and HBM3
+# bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# The bf16 kernel vs its plain version on the same bf16 inputs: both
+# compute in f32 and round once to bf16, so an element differs by at
+# most one bf16 ulp (2^-7 of its value) where the two f32 sums round
+# apart.
+BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-6
+# bf16 serving (phase 4b) vs the same bf16 forward with every FFN through
+# the kernel's plain version, relative norm over all outputs: one-ulp
+# differences in ~0.07% of the FFN outputs carried through four bf16
+# blocks (sound runs read 6.1e-7, worst request 1.0e-6). Phase 4b holds a
+# control to the same bar and fails unless it is caught: the bf16
+# ffn_impl=xla path, which rounds to bf16 between Linears.
+BF16_PLAIN_REL = 1e-5
+# bf16 serving vs the f32 server of the same weights, per request: the
+# JAX package's own bar (tests/test_serve.py:1468, tests/test_lowprec.py:212).
+BF16_F32_REL = 2e-2
 # Kernel vs plain version: the kernel multiplies in 3xTF32 on the tensor
 # cores (about f32's accuracy; their f32 accumulation truncates) and sums
 # each 256-long dot product in another order than PyTorch's f32 matmul,
@@ -174,27 +201,51 @@ def ffn_inputs(torch, np, b: int, l: int, width: int, n_expert: int, n_linears: 
     return to(x), to(scores), [to(k) for k in kernels], [to(bb) for bb in biases]
 
 
+def product_passes(a_f32: bool, w_f32: bool) -> tuple[int, int]:
+    """Tensor-core products per multiply-add that keep f32 accuracy, as
+    (TF32 products, bf16 products), for an activation and a weight that
+    are f32 or exact in bf16. An f32 operand splits into a TF32 hi and lo
+    (two pieces) or into three bf16 pieces (8 + 8 + 8 significand bits);
+    a bf16 operand is one piece in either. Cross terms below f32's
+    precision are dropped (TF32 lo x lo; bf16 pieces whose ranks sum past
+    2)."""
+    if a_f32 and w_f32:
+        return 3, 6
+    if a_f32 or w_f32:
+        return 2, 3
+    return 1, 1
+
+
 def ffn_bound_ms(x, scores, kernels, biases, tensor_cores: bool = True) -> tuple[float, str]:
     """Least time for the FFN's work on the card: the larger of its
-    compulsory bytes (inputs read once, output written once) over the
-    memory rate and its operations over their peak. With
-    ``tensor_cores`` (the kernel's 3xTF32 form) the products count three
-    times at the TF32 tensor-core rate and bias and gate at the f32 rate,
-    the two units running side by side; without, everything counts once
-    at the f32 CUDA-core rate (the bound of the earlier f32 kernel)."""
+    compulsory bytes (inputs read once, output written once, each at its
+    own dtype's size) over the memory rate and its operations over their
+    peak. With ``tensor_cores`` each Linear's products take the faster of
+    the TF32 and the bf16 split (``product_passes``) for its operands'
+    types: Linear 0 reads x, the later ones the f32 hidden activations;
+    bias and gate run at the f32 rate beside them. For f32 x and weights
+    that is 3xTF32 on every Linear (the kernel's form); for the bf16 mix,
+    one bf16 product on Linear 0 and three on the others. Without
+    ``tensor_cores`` everything counts once at the f32 CUDA-core rate
+    (the bound of the earlier f32 kernel)."""
     rows = x.shape[0] * x.shape[1]
     n_expert = scores.shape[-1]
     d_out = kernels[-1].shape[-1]
-    matmul = sum(rows * n_expert * 2 * k.shape[1] * k.shape[2] for k in kernels)
+    flops = [rows * n_expert * 2 * k.shape[1] * k.shape[2] for k in kernels]
     elementwise = sum(rows * n_expert * k.shape[2] for k in kernels) + rows * n_expert * 2 * d_out
-    nbytes = 4 * (
-        x.numel() + scores.numel() + rows * d_out
-        + sum(k.numel() for k in kernels) + sum(b.numel() for b in biases)
+    nbytes = (
+        x.element_size() * (x.numel() + rows * d_out) + scores.element_size() * scores.numel()
+        + sum(t.element_size() * t.numel() for t in (*kernels, *biases))
     )
     if tensor_cores:
-        t_ops = max(3 * matmul / PEAK_TF32_FLOPS, elementwise / PEAK_F32_FLOPS)
+        t_products = 0.0
+        for i, (f, k) in enumerate(zip(flops, kernels)):
+            a_f32 = i > 0 or x.element_size() == 4
+            tf32, bf16 = product_passes(a_f32, k.element_size() == 4)
+            t_products += f * min(tf32 / PEAK_TF32_FLOPS, bf16 / PEAK_BF16_FLOPS)
+        t_ops = max(t_products, elementwise / PEAK_F32_FLOPS)
     else:
-        t_ops = (matmul + elementwise) / PEAK_F32_FLOPS
+        t_ops = (sum(flops) + elementwise) / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -217,16 +268,197 @@ def hgmma_count(build, name: str) -> int:
 
 
 def xla_ffn_path(torch, layers, kernels, biases, gelu: str):
-    """The model's ``ffn_impl="xla"`` FFN module holding these weights:
-    an expert MLP of batched cuBLAS f32 GEMMs, then the gate einsum."""
+    """The model's ``ffn_impl="xla"`` FFN module holding these weights, in
+    their dtype: an expert MLP of batched cuBLAS GEMMs (f32, or bf16 for
+    bf16 weights), then the gate einsum."""
     n_expert, d_in, hidden = kernels[0].shape
-    ffn = layers.GatedExpertFfn(n_expert, len(kernels) - 1, hidden, kernels[-1].shape[-1],
-                                in_dim=d_in, ffn_impl="xla", gelu=gelu).to(kernels[0].device)
+    dtype = kernels[0].dtype
+    ffn = layers.GatedExpertFfn(
+        n_expert, len(kernels) - 1, hidden, kernels[-1].shape[-1], in_dim=d_in, ffn_impl="xla",
+        gelu=gelu, dtype=None if dtype == torch.float32 else dtype,
+    ).to(device=kernels[0].device, dtype=dtype)
     with torch.no_grad():
         for layer, k, b in zip(ffn.experts.layers(), kernels, biases):
             layer.kernel.copy_(k)
             layer.bias.copy_(b)
     return ffn.eval()
+
+
+def to_bf16(args):
+    """The bf16 serving mix of FFN inputs: x, weights and biases rounded
+    to bf16, the gate scores left f32."""
+    x, scores, kernels, biases = args
+    return (x.bfloat16(), scores, [k.bfloat16() for k in kernels],
+            [b.bfloat16() for b in biases])
+
+
+def bf16_ffn_phase(torch, np, layers, card, f32_kernel_ms, kernel, reference) -> dict:
+    """Phase 3, bf16: the FFN kernel on the bf16 mix at the serving launch
+    shape against its plain version on the same inputs, then its device
+    time beside the f32 kernel's (measured just before in this run), the
+    plain version's and the ``ffn_impl="xla"`` torch path in bf16. Returns
+    the bf16 fields of the kernel's entry."""
+    worst, max_abs = 0.0, 0.0
+    for (b, l), gelu in [((4, 1024), "tanh"), ((4, 1024), "erf"), ((3, 1000), "tanh")]:
+        args = to_bf16(ffn_inputs(torch, np, b, l, 256, 3, 5, seed=b * l + 1))
+        got = kernel(*args, gelu_kind=gelu)
+        want = reference(*args, gelu_kind=gelu)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        differ = (got != want).float().mean().item()
+        ulps = (err / want.float().abs().clamp_min(BF16_ATOL / BF16_RTOL)).max().item() / BF16_RTOL
+        log(f"[ffn-bf16] x [{b},{l},256] bf16, weights and biases bf16, scores f32, E=3 5 Linears "
+            f"gelu={gelu}: out {got.dtype}; max_abs_err {err.max().item():.3e}, worst {ulps:.3f} "
+            f"of the bar (one bf16 ulp: rtol 2^-7 atol {BF16_ATOL}); {differ:.4%} of elements not "
+            f"bitwise equal to the plain version")
+        if got.dtype != torch.bfloat16:
+            raise RuntimeError(f"the bf16 kernel wrote {got.dtype}")
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        worst, max_abs = max(worst, ulps), max(max_abs, err.max().item())
+
+    args = to_bf16(ffn_inputs(torch, np, 4, 1024, 256, 3, 5, seed=7))
+    kernel_call = lambda: kernel(*args, gelu_kind="tanh")  # noqa: E731
+    plain_call = lambda: reference(*args, gelu_kind="tanh")  # noqa: E731
+    xla_ffn = xla_ffn_path(torch, layers, args[2], args[3], "tanh")
+    with torch.inference_mode():
+        torch_call = lambda: xla_ffn(args[0], args[1])  # noqa: E731
+        xla_err = (torch_call().float() - plain_call().float()).abs().max().item()
+        bf16_ms = device_ms(torch, kernel_call)
+        plain_ms = device_ms(torch, plain_call)
+        xla_ms = device_ms(torch, torch_call)
+    bound_ms, bound_by = ffn_bound_ms(*args)
+    # The kernel's own form: 3xTF32 less the product with the bf16
+    # weights' all-zero lo image, two TF32 products on every Linear.
+    rows, n_expert = args[0].shape[0] * args[0].shape[1], args[1].shape[-1]
+    form_ms = sum(2 * rows * n_expert * 2 * k.shape[1] * k.shape[2]
+                  for k in args[2]) / PEAK_TF32_FLOPS * 1e3
+    log(f"[ffn-bf16] time at [4,1024,256] E=3 5 Linears tanh, bf16 mix, weights warm in L2: "
+        f"device time kernel {bf16_ms:.4f} ms (the f32 kernel {f32_kernel_ms:.4f} ms in this run), "
+        f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: bf16 tensor cores, one "
+        f"product on Linear 0's bf16 x and weights, three on each later Linear's f32 "
+        f"activations split into three bf16 pieces), {bound_ms / bf16_ms:.1%} of bound; the "
+        f"kernel's own form (2 TF32 products on every Linear) {form_ms:.4f} ms; the "
+        f"ffn_impl=xla torch path in bf16 (batched cuBLAS bf16 GEMMs, bf16 between Linears) "
+        f"{xla_ms:.4f} ms, its max_abs_err vs the plain version {xla_err:.3e} on {card}")
+    return dict(bf16_ms=bf16_ms, bf16_plain_ms=plain_ms, bf16_max_abs_err=max_abs,
+                bf16_bound_ms=bound_ms, bf16_xla_ms=xla_ms)
+
+
+def profile_dispatch(torch, engine, group) -> tuple[float, float, list]:
+    """One warm 4-row dispatch of ``group`` under ``torch.profiler``:
+    (device busy ms, wall ms, kernel rows longest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    key = engine.bucket_key(group[0])
+
+    def dispatch():
+        return engine.infer(group, pad_nodes=key[0], pad_funcs=key[1], rows=4)
+
+    dispatch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    return sum(r[0] for r in rows), wall_ms, rows
+
+
+def bf16_serving_phase(torch, np, port_main, layers, f32_run, f32_peak_mib, card) -> int:
+    """Phase 4b: ``--serve_dtype bfloat16`` at full width through the
+    port's serve entry point, with the counts set to 0 just before and
+    read just after. Returns the FFN kernel's launches over the run."""
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    argv = ["--serve", "--serve_dtype", "bfloat16", "--ffn_impl", "pallas", "--synthetic",
+            "ns2d", "--n_test", "16", "--serve_max_batch", "4", "--device", "cuda"]
+    args = port_main.build_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
+    run = port_main.run_serve(args)
+    launches = fused_gated_ffn_kernel.launches
+    by_dtype = dict(fused_gated_ffn_kernel.launches_by_dtype)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    summary = run.summary
+    log(f"[serve-bf16] python -m gnot_tpu_torch.main {' '.join(argv)}")
+    log(f"[serve-bf16] summary {json.dumps(summary)}")
+    n_ok = sum(r.ok for r in run.results)
+    if n_ok != len(run.results) or len(run.results) != 16 or summary["dtype"] != "bfloat16":
+        raise RuntimeError(f"{n_ok}/{len(run.results)} bf16 requests ok, dtype {summary['dtype']}: "
+                           f"{[(r.reason, r.detail) for r in run.results if not r.ok]}")
+    cfg = run.model.config
+    dispatches = summary["dispatches"] + summary["warmed_buckets"]
+    expected = 2 * cfg.n_attn_layers * dispatches
+    log(f"[serve-bf16] {n_ok}/16 ok; fused_gated_ffn launches {launches} = 2 x "
+        f"{cfg.n_attn_layers} blocks x {dispatches} dispatches ({summary['dispatches']} served + "
+        f"{summary['warmed_buckets']} warm-up), by dtype {json.dumps(by_dtype)}")
+    if launches != expected or launches == 0 or by_dtype != {"torch.bfloat16": launches}:
+        raise RuntimeError(f"expected {expected} bf16 FFN kernel launches, counted {launches} "
+                           f"{by_dtype}")
+    for r in run.results:
+        if r.output.dtype != np.float32 or not np.all(np.isfinite(r.output)):
+            raise RuntimeError(f"bad bf16 served output {r.output.dtype}")
+
+    # The same bf16 forward with every FFN through the kernel's plain version.
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain = InferenceEngine(run.model, batch_size=4, dtype="bfloat16").predict(run.samples)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    # The control: the same weights served in bf16 through ffn_impl=xla,
+    # which rounds to bf16 between Linears, as the kernel must not.
+    with torch.device("meta"):
+        xla_model = type(run.model)(dataclasses.replace(cfg, ffn_impl="xla"))
+    xla_model.load_state_dict(run.model.state_dict(), strict=True, assign=True)
+    control = InferenceEngine(xla_model.eval(), batch_size=4, dtype="bfloat16").predict(run.samples)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    plain_all = np.concatenate(plain)
+    plain_rel = rel(np.concatenate([r.output for r in run.results]), plain_all)
+    control_rel = rel(np.concatenate(control), plain_all)
+    plain_worst = max(rel(r.output, w) for r, w in zip(run.results, plain))
+    f32_rels = [rel(r.output, w.output) for r, w in zip(run.results, f32_run.results)]
+    log(f"[serve-bf16] outputs vs the same bf16 forward through the kernel's plain version on "
+        f"the card: relative norm {plain_rel:.3e} over all outputs, worst request {plain_worst:.3e} "
+        f"(bar {BF16_PLAIN_REL} over all outputs); the control (ffn_impl=xla in bf16, rounding "
+        f"between Linears) reads {control_rel:.3e}, {control_rel / BF16_PLAIN_REL:.1f}x the bar")
+    if control_rel <= BF16_PLAIN_REL:
+        raise RuntimeError(f"the bar {BF16_PLAIN_REL} does not catch the control ({control_rel})")
+    log(f"[serve-bf16] outputs vs phase 4's f32 server of the same weights: relative norm per "
+        f"request max {max(f32_rels):.3e} median {statistics.median(f32_rels):.3e} (bar "
+        f"{BF16_F32_REL} per request)")
+    if plain_rel > BF16_PLAIN_REL or max(f32_rels) >= BF16_F32_REL:
+        raise RuntimeError(f"bf16 serving off its bars: {plain_rel} vs plain, "
+                           f"{max(f32_rels)} vs f32")
+
+    f32_summary = f32_run.summary
+    log(f"[serve-bf16] host clock, bf16 vs phase 4's f32 run: dispatch p50 "
+        f"{summary['dispatch_ms_p50']:.3f} vs {f32_summary['dispatch_ms_p50']:.3f} ms, max "
+        f"{summary['dispatch_ms_max']:.3f} vs {f32_summary['dispatch_ms_max']:.3f} ms; request "
+        f"latency p50 {summary['latency_ms_p50']:.3f} vs {f32_summary['latency_ms_p50']:.3f} ms, "
+        f"p99 {summary['latency_ms_p99']:.3f} vs {f32_summary['latency_ms_p99']:.3f} ms; peak "
+        f"device memory {peak_mib:.1f} MiB (phase 4: {f32_peak_mib:.1f} MiB)")
+    group = run.samples[:4]
+    engines = {"bf16": InferenceEngine(run.model, batch_size=4, dtype="bfloat16"),
+               "f32": InferenceEngine(f32_run.model, batch_size=4)}
+    top = {}
+    for label in ("f32", "bf16", "bf16", "f32"):
+        busy, wall, top[label] = profile_dispatch(torch, engines[label], group)
+        ffn_ms = sum(r[0] for r in top[label] if "fused_gated_ffn" in r[2])
+        ffn_n = sum(r[1] for r in top[label] if "fused_gated_ffn" in r[2])
+        log(f"[serve-bf16] one {label} dispatch (ffn_impl=pallas): device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall ({busy / wall:.1%} busy) in {sum(r[1] for r in top[label])} "
+            f"kernels; fused_gated_ffn {ffn_ms:.3f} ms in {ffn_n} launches")
+    for label, rows in top.items():
+        for ms, count, name in rows[:8]:
+            log(f"[serve-bf16]   {label:4s} {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    return launches
 
 
 def attention_bounds(name: str, c: dict, n_head: int) -> tuple[float, str]:
@@ -369,8 +601,6 @@ def where_the_time_goes(torch, kernel_model, plain_model, group, engine_cls) -> 
     (plain, kernel, kernel, plain; median of 10 each), then a
     ``torch.profiler`` trace of one kernel dispatch: device time by
     kernel and the device's busy share of the dispatch's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     engines = {"xla": engine_cls(plain_model, batch_size=4),
                "pallas": engine_cls(kernel_model, batch_size=4)}
     key = engines["pallas"].bucket_key(group[0])
@@ -391,14 +621,7 @@ def where_the_time_goes(torch, kernel_model, plain_model, group, engine_cls) -> 
         f"turns xla/pallas/pallas/xla: ffn_impl=xla {medians['xla']} ms, "
         f"ffn_impl=pallas {medians['pallas']} ms")
 
-    dispatch("pallas")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dispatch("pallas")
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = kernel_rows(prof)
-    busy_ms = sum(r[0] for r in rows)
+    busy_ms, wall_ms, rows = profile_dispatch(torch, engines["pallas"], group)
     log(f"[time] one pallas dispatch: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({busy_ms / wall_ms:.1%} busy, {1 - busy_ms / wall_ms:.1%} idle)")
     for ms, count, name in rows[:10]:
@@ -758,6 +981,8 @@ def main() -> int:
     log(f"[ffn] the model's ffn_impl=xla torch path (batched cuBLAS f32 GEMMs) at the same "
         f"shape: device time {torch_ms:.4f} ms ({torch_ms / kernel_ms:.2f}x the kernel's), "
         f"max_abs_err vs the plain version {torch_err:.3e}")
+    bf16 = bf16_ffn_phase(torch, np, layers, card, kernel_ms,
+                          fused_gated_ffn_kernel, fused_gated_ffn_reference)
 
     # -- phase 3b: the kernel-validation entry point, attention timings --
     attn = attention_phase(torch, torch.device("cuda"), card)
@@ -815,6 +1040,9 @@ def main() -> int:
         f"{summary['dispatch_ms_p50']:.3f} ms max {summary['dispatch_ms_max']:.3f} ms "
         f"(host clock); peak device memory {peak_mib:.1f} MiB")
 
+    # -- phase 4b: the serving path in bf16 at full width -----------------
+    bf16_launches = bf16_serving_phase(torch, np, port_main, layers, run, peak_mib, card)
+
     # -- phase 5: where one full-width dispatch spends its time ----------
     plain_model = copy.deepcopy(run.model)
     for m in plain_model.modules():
@@ -838,6 +1066,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "bf16_launches": bf16_launches,
+        **bf16,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from gnot_tpu_torch.models.precision import SERVE_DTYPES
+
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
@@ -49,6 +51,8 @@ class ModelConfig:
     # reference's op) or "tanh". "" resolves to "erf" in parity mode
     # and "tanh" otherwise.
     gelu: str = ""
+    # Compute dtype of the block stack: "float32", or "bfloat16" for
+    # serving (models/precision.py). Weights stay float32 at rest.
     dtype: str = "float32"
     remat: bool = False
     scan_layers: bool = False
@@ -66,6 +70,8 @@ class ModelConfig:
             )
         if self.gelu not in ("erf", "tanh"):
             raise ValueError(f"unknown gelu {self.gelu!r}")
+        if self.dtype not in SERVE_DTYPES:
+            raise ValueError(f"unknown dtype {self.dtype!r}; one of {SERVE_DTYPES}")
         if self.attention_mode == "parity" and self.gelu != "erf":
             raise ValueError(
                 "parity mode reproduces the reference bit-for-bit and "
@@ -203,6 +209,11 @@ class ServeConfig:
     # At most queue_limit requests in the system; beyond it submissions
     # fast-fail ("shed_queue_full").
     queue_limit: int = 64
+    # Serving compute dtype (models/precision.py): "float32", or
+    # "bfloat16" (the block stack in bf16 with f32 accumulation, an f32
+    # attention normalizer and an f32 output head; the engine publishes
+    # a bf16 copy of the f32 weights).
+    dtype: str = "float32"
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -215,3 +226,5 @@ class ServeConfig:
             raise ValueError(
                 f"queue_limit must be >= 1, got {self.queue_limit}"
             )
+        if self.dtype not in SERVE_DTYPES:
+            raise ValueError(f"unknown serve dtype {self.dtype!r}; one of {SERVE_DTYPES}")

@@ -1,5 +1,6 @@
-// Fused gated soft-MoE expert FFN for NVIDIA Hopper (sm_90a), float32 in
-// and out, products on the tensor cores in 3xTF32.
+// Fused gated soft-MoE expert FFN for NVIDIA Hopper (sm_90a), float32 or
+// bfloat16 in and out, computed in float32, products on the tensor cores
+// in 3xTF32.
 //
 // Replaces the TPU kernel gnot_tpu/ops/pallas_ffn.py:206 fused_gated_ffn
 // (pallas_call in _ffn_call, body _ffn_kernel :123). For every token row,
@@ -64,10 +65,30 @@
 // each CTA streams 3.9 MB of hi+lo weights from L2 per launch; a 64-row
 // tile reads each weight byte once for 64 rows.
 //
+//   * bfloat16 I/O (bf16 serving): x, weights, biases and the output in
+//     bf16, gate scores in f32, the mix the JAX model passes its kernel
+//     (pallas_ffn.py:128-145, :178). The kernel is templated on the
+//     activation type: x is widened to f32 into the first hidden buffer
+//     (exact), biases are read as f32, and the whole expert stack and the
+//     gate-weighted sum stay f32, with one rounding to bf16 (nearest
+//     even) at the store; nothing is rounded between Linears. The bf16
+//     weights reach the kernel as the same f32 hi/lo image; a bf16 value
+//     is exact in TF32, so the lo image is all zeros and the a_hi * b_lo
+//     product adds exact zeros: the bf16 kernel skips it (two products
+//     per k8 step, the same sums): 2 x 8.05 GFLOP / 495 TFLOP/s = 0.0325
+//     ms at the serving shapes. On Linear 0 the bf16 x is exact in TF32
+//     too, and its a_lo * b_hi product (all zeros) still runs. The least
+//     time for the function is lower (chip_smoke.py ffn_bound_ms): on the
+//     bf16 tensor cores (989 TFLOP/s), one product on Linear 0's bf16 x
+//     and weights, three on each later Linear's f32 activations split
+//     into three bf16 pieces (exact to f32), 13 x 1.61 GFLOP = 0.0212 ms.
+//
 // Supported: 1..8 Linears, every width a multiple of 16 in [16, 256],
-// any n_expert >= 1, any row count. The launcher refuses anything else.
+// any n_expert >= 1, any row count, f32 or bf16 activations. The
+// launcher refuses anything else.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,12 +111,14 @@ constexpr int kHiddenFloats = kRows * kLd;
 constexpr int kSmemBytes =
     kStages * kChunkBytes + 2 * kHiddenFloats * 4 + kCols * 4 + 2 * kStages * 8;
 
+// T is the activation type of x, biases and out: float or __nv_bfloat16.
+template <typename T>
 struct FfnArgs {
-  const float* x;       // [rows, dims[0]]
-  const float* scores;  // [rows, n_expert]
-  float* out;           // [rows, dims[n_linears]]
-  const float* w[kMaxLinears];  // w[i]: packed image of Linear i
-  const float* b[kMaxLinears];  // b[i]: [n_expert, dims[i+1]]
+  const T* x;           // [rows, dims[0]]
+  const float* scores;  // [rows, n_expert], f32 for either T
+  T* out;               // [rows, dims[n_linears]]
+  const float* w[kMaxLinears];  // w[i]: packed f32 image of Linear i
+  const T* b[kMaxLinears];      // b[i]: [n_expert, dims[i+1]]
   int dims[kMaxLinears + 1];
   int n_linears;
   int n_expert;
@@ -135,6 +158,28 @@ __device__ __forceinline__ float gelu(float x) {
     return __fdividef(x, 1.0f + exp2f(-2.8853900817779268f * u));  // 2 log2(e)
   }
   return 0.5f * x * (1.0f + erf_poly(x * 0.7071067811865476f));
+}
+
+// Four consecutive activations widened to f32 (bf16 -> f32 is exact), and
+// two f32 values stored as T (one rounding, nearest even, for bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -279,9 +324,11 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <int kGelu>
+template <int kGelu, typename T>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
-    fused_gated_ffn_kernel(const __grid_constant__ FfnArgs a) {
+    fused_gated_ffn_kernel(const __grid_constant__ FfnArgs<T> a) {
+  // bf16 weights have an all-zero lo image (see the header).
+  constexpr bool kLoWeights = sizeof(T) == sizeof(float);
   extern __shared__ __align__(1024) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);  // kStages weight chunks
   float* hid = ring + kStages * kChunkFloats;     // two [64, kLd] buffers
@@ -359,9 +406,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       const int r = (4 * j) / din;
       const int c = (4 * j) % din;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < a.rows) {
-        v = __ldg(reinterpret_cast<const float4*>(a.x + static_cast<size_t>(row0 + r) * din + c));
-      }
+      if (row0 + r < a.rows) v = load4(a.x + static_cast<size_t>(row0 + r) * din + c);
       *reinterpret_cast<float4*>(hid + r * kLd + c) = v;
     }
     consumer_sync();
@@ -374,7 +419,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       // first chunk (a global load per value in the epilogue would
       // stall it once per column group).
       const int bcol = half * kCols + tid;
-      const float bias_v = bcol < n ? __ldg(a.b[i] + static_cast<size_t>(e) * n + bcol) : 0.f;
+      const float bias_v = bcol < n ? load1(a.b[i] + static_cast<size_t>(e) * n + bcol) : 0.f;
       float acc[64];
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[j] = 0.f;
@@ -395,7 +440,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           const uint64_t b_hi = b_desc(sb + kk * 4096);
           const uint64_t b_lo = b_desc(sb + 8192 + kk * 4096);
           wgmma_m64n128k8(acc, al[kk], b_hi);  // small terms first
-          wgmma_m64n128k8(acc, ah[kk], b_lo);
+          if constexpr (kLoWeights) {
+            wgmma_m64n128k8(acc, ah[kk], b_lo);
+          }
           wgmma_m64n128k8(acc, ah[kk], b_hi);
         }
         wgmma_commit();
@@ -455,68 +502,77 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     const int col = half * kCols + 8 * j + 2 * t4;
     if (col >= dout) continue;
     if (row0 + r0 < a.rows) {
-      *reinterpret_cast<float2*>(a.out + static_cast<size_t>(row0 + r0) * dout + col) =
-          make_float2(gacc[4 * j], gacc[4 * j + 1]);
+      store2(a.out + static_cast<size_t>(row0 + r0) * dout + col, gacc[4 * j], gacc[4 * j + 1]);
     }
     if (row0 + r1 < a.rows) {
-      *reinterpret_cast<float2*>(a.out + static_cast<size_t>(row0 + r1) * dout + col) =
-          make_float2(gacc[4 * j + 2], gacc[4 * j + 3]);
+      store2(a.out + static_cast<size_t>(row0 + r1) * dout + col, gacc[4 * j + 2],
+             gacc[4 * j + 3]);
     }
   }
 }
 
-template <int kGelu>
-cudaError_t launch(const FfnArgs& a, cudaStream_t stream) {
+template <int kGelu, typename T>
+cudaError_t launch(const FfnArgs<T>& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_gated_ffn_kernel<kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    const cudaError_t err = cudaFuncSetAttribute(fused_gated_ffn_kernel<kGelu, T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int tiles = (a.rows + kRows - 1) / kRows;
-  fused_gated_ffn_kernel<kGelu><<<2 * tiles, kThreads, kSmemBytes, stream>>>(a);
+  fused_gated_ffn_kernel<kGelu, T><<<2 * tiles, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run(const void* x, const void* scores, void* out, const int* dims,
+                const uint64_t* w, const uint64_t* b, int n_linears, int n_expert, int rows,
+                int gelu, cudaStream_t stream) {
+  FfnArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.scores = static_cast<const float*>(scores);
+  a.out = static_cast<T*>(out);
+  for (int i = 0; i <= kMaxLinears; ++i) a.dims[i] = i <= n_linears ? dims[i] : 0;
+  for (int i = 0; i < kMaxLinears; ++i) {
+    a.w[i] = i < n_linears ? reinterpret_cast<const float*>(w[i]) : nullptr;
+    a.b[i] = i < n_linears ? reinterpret_cast<const T*>(b[i]) : nullptr;
+  }
+  a.n_linears = n_linears;
+  a.n_expert = n_expert;
+  a.rows = rows;
+  return gelu == 0 ? launch<0, T>(a, stream) : launch<1, T>(a, stream);
 }
 
 }  // namespace
 
 // x, scores, out: device pointers. weights: host array of n_linears
-// device pointers to packed images (ops/fused_ffn.py::pack_weights).
+// device pointers to packed f32 images (ops/fused_ffn.py::pack_weights).
 // biases: host array of n_linears device pointers, [n_expert, out] each.
 // dims: host array of n_linears + 1 widths. gelu: 0 = tanh, 1 = erf.
-// Returns a cudaError_t (0 = launched).
+// dtype: the type of x, biases and out, 0 = float32, 1 = bfloat16
+// (scores are float32 either way). Returns a cudaError_t (0 = launched).
 extern "C" int gnot_fused_gated_ffn(const void* x, const void* scores, void* out,
                                     const void* weights, const void* biases,
                                     const void* dims, int n_linears, int n_expert,
-                                    int rows, int gelu, void* stream) {
+                                    int rows, int gelu, int dtype, void* stream) {
   if (n_linears < 1 || n_linears > kMaxLinears || n_expert < 1 || rows < 0 ||
-      (gelu != 0 && gelu != 1)) {
+      (gelu != 0 && gelu != 1) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FfnArgs a;
-  a.x = static_cast<const float*>(x);
-  a.scores = static_cast<const float*>(scores);
-  a.out = static_cast<float*>(out);
   const int* d = static_cast<const int*>(dims);
   for (int i = 0; i <= n_linears; ++i) {
     if (d[i] < 16 || d[i] > kMaxWidth || d[i] % 16 != 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    a.dims[i] = d[i];
   }
-  for (int i = n_linears + 1; i <= kMaxLinears; ++i) a.dims[i] = 0;
+  if (rows == 0) return 0;
   const uint64_t* w = static_cast<const uint64_t*>(weights);
   const uint64_t* b = static_cast<const uint64_t*>(biases);
-  for (int i = 0; i < kMaxLinears; ++i) {
-    a.w[i] = i < n_linears ? reinterpret_cast<const float*>(w[i]) : nullptr;
-    a.b[i] = i < n_linears ? reinterpret_cast<const float*>(b[i]) : nullptr;
-  }
-  a.n_linears = n_linears;
-  a.n_expert = n_expert;
-  a.rows = rows;
-  if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = gelu == 0 ? launch<0>(a, s) : launch<1>(a, s);
+  const cudaError_t err =
+      dtype == 0 ? run<float>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s)
+                 : run<__nv_bfloat16>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s);
   return static_cast<int>(err);
 }

@@ -220,10 +220,17 @@ def collate(
     pad_nodes: int = 0,
     pad_funcs: int = 0,
     device: torch.device | str = "cpu",
+    dtype: str = "float32",
 ) -> MeshBatch:
     """Pad and stack ragged samples on the host, then move them onto
     ``device`` as one ``MeshBatch``. ``pad_nodes``/``pad_funcs`` force
-    fixed pad lengths (0 = per-batch max, optionally bucketed)."""
+    fixed pad lengths (0 = per-batch max, optionally bucketed).
+    ``dtype="bfloat16"`` is the bf16 serving batch: every float field,
+    masks included, is rounded to bf16 (nearest even) on the host, so the
+    copy to the card moves half the bytes; bitwise what the JAX
+    package's ``collate(dtype="bfloat16")`` gives."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"collate dtype must be float32|bfloat16, got {dtype!r}")
     if pad_nodes:
         max_nodes = pad_nodes
     else:
@@ -258,9 +265,10 @@ def collate(
         coords=coords, theta=theta, y=y, node_mask=node_mask,
         funcs=funcs, func_mask=func_mask,
     )
+    target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     return MeshBatch(
         **{
-            k: None if v is None else torch.from_numpy(v).to(device)
+            k: None if v is None else torch.from_numpy(v).to(target).to(device)
             for k, v in arrays.items()
         }
     )

@@ -7,10 +7,12 @@ defaults, so the same command line works in both packages. Two modes:
   single-device ``Trainer`` on the synthetic or pickled train split,
   weights from ``--seed``, eval on the test split every epoch, the
   reference's console lines; ``main`` returns the best test metric.
-* ``--serve``: weights are initialised from ``--seed``, one dispatch per
-  bucket warms the engine, the test set is submitted as requests through
-  the ``InferenceServer``, the server drains, and the summary is printed
-  as one JSON line.
+* ``--serve``: the weights of ``--checkpoint_dir``'s ``best``, else its
+  ``latest``, checkpoint, else fresh from ``--seed``; one dispatch per
+  bucket warms the engine, the test split (synthetic or pickled) is
+  submitted as requests through the ``InferenceServer`` at
+  ``--serve_dtype``, the server drains, and the summary is printed as
+  one JSON line.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -36,6 +38,7 @@ from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.data.batch import MeshSample
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
+from gnot_tpu_torch.models.precision import SERVE_DTYPES
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.server import InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
@@ -90,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_bucket", action="store_true", help="pad to per-batch max (parity)")
     p.add_argument(
         "--serve", action="store_true",
-        help="serving mode: fresh weights from --seed, drive the test set "
+        help="serving mode: restore --checkpoint_dir's best (else latest) "
+             "weights, else fresh ones from --seed, drive the test set "
              "through the InferenceServer as requests, drain, report",
     )
     p.add_argument("--serve_max_batch", type=int, default=4,
@@ -99,6 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving: max ms a request waits for batchmates")
     p.add_argument("--serve_queue_limit", type=int, default=64,
                    help="serving: bounded-queue admission limit")
+    p.add_argument(
+        "--serve_dtype", type=str, default="float32", choices=list(SERVE_DTYPES),
+        help="serving compute dtype (models/precision.py): bfloat16 runs the "
+             "block stack in bf16 with f32 attention accumulation, an f32 "
+             "attention normalizer and an f32 output head; params stay f32 "
+             "at rest (the engine publishes a cast copy per reload) and "
+             "batches assemble in bf16",
+    )
     return p
 
 
@@ -138,14 +150,9 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         max_batch=args.serve_max_batch,
         max_wait_ms=args.serve_max_wait_ms,
         queue_limit=args.serve_queue_limit,
+        dtype=args.serve_dtype,
     )
     return data, serve
-
-
-def served_samples(data: DataConfig) -> list[MeshSample]:
-    """The served requests: the synthetic test split (seed + 1, the same
-    samples ``gnot_tpu``'s ``load`` gives)."""
-    return datasets.synth(data.synthetic, data.n_test, data.seed + 1, data.synth_size)
 
 
 def model_config(args, samples: list[MeshSample]) -> ModelConfig:
@@ -172,16 +179,35 @@ class ServeRun:
     model: GNOT
 
 
+def restore_for_serving(model: GNOT, checkpoint_dir: str) -> str:
+    """Load the ``best`` checkpoint's weights into ``model``, else the
+    ``latest`` one's (``gnot_tpu/main.py``'s serve restore); returns which
+    was loaded, or "" when none was: with a ``checkpoint_dir`` that holds
+    neither, after printing the reference's note."""
+    if checkpoint_dir:
+        ck = Checkpointer(checkpoint_dir)
+        for name, restore in (("best", ck.restore_best), ("latest", ck.restore_latest)):
+            restored = restore()
+            if restored is not None:
+                model.load_state_dict(restored[0]["model"])
+                return name
+        print("note: no restorable checkpoint — serving fresh weights")
+    return ""
+
+
 def run_serve(args) -> ServeRun:
-    """``--serve``: build the model from ``--seed`` on the chosen device,
-    start the server with one warm-up dispatch per bucket, submit the
-    test set as requests, wait for every future, drain, and report."""
+    """``--serve``: build the model on the chosen device with the weights
+    of ``--checkpoint_dir`` (else from ``--seed``), start the server with
+    one warm-up dispatch per bucket, submit the test split of
+    ``datasets.load`` as requests, wait for every future, drain, and
+    report."""
     device = resolve_device(args.device)
     data, sc = configs_from_args(args)
-    samples = served_samples(data)
+    train_samples, samples = datasets.load(data)
     gen = torch.Generator().manual_seed(args.seed)
-    model = GNOT(model_config(args, samples), generator=gen).to(device)
-    engine = InferenceEngine(model, batch_size=data.batch_size)
+    model = GNOT(model_config(args, train_samples), generator=gen).to(device)
+    restored = restore_for_serving(model, args.checkpoint_dir)
+    engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
     server = InferenceServer(
         engine,
         max_batch=sc.max_batch,
@@ -196,7 +222,8 @@ def run_serve(args) -> ServeRun:
         results = [f.result(timeout=DRAIN_TIMEOUT_S) for f in futures]
     finally:
         summary = server.drain(DRAIN_TIMEOUT_S)
-    summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device))
+    summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device),
+                   restored=restored)
     return ServeRun(summary, results, samples, model)
 
 

@@ -1,7 +1,7 @@
 """GNOT — General Neural Operator Transformer (arXiv 2302.14376).
 
-Port of ``gnot_tpu/models/gnot.py`` for masked mode, unpacked, float32,
-with the reference's quirks as they are:
+Port of ``gnot_tpu/models/gnot.py`` for masked mode, unpacked, float32
+or bfloat16 compute, with the reference's quirks as they are:
 
 * geometry gating is computed on the **raw coordinates only** (before
   the theta concat), softmaxed over experts in f32, and reused by every
@@ -9,8 +9,14 @@ with the reference's quirks as they are:
 * there is **no LayerNorm anywhere**;
 * the residual inside attention adds the softmaxed q (see layers.py).
 
-Parity mode, reduced-precision compute, the stacked-layer layout and the
-packed layout are not ported yet; the model refuses them.
+With ``dtype="bfloat16"`` (bf16 serving, ``models/precision.py``) every
+block computes in bf16 on its weights cast to bf16, the gate scores stay
+f32, and the output head reads f32 input: its weights, bf16 in a served
+copy as every float weight is, are promoted to f32 there, as flax's
+``dtype=None`` head promotes JAX's cast tree.
+
+Parity mode, ``remat``, the stacked-layer layout and the packed layout
+are not ported yet; the model refuses them.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 
 from gnot_tpu_torch.config import ModelConfig, NotPortedError
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
+from gnot_tpu_torch.models.precision import torch_dtype
 
 
 class HNABlock(nn.Module):
@@ -30,15 +37,16 @@ class HNABlock(nn.Module):
     def __init__(self, cfg: ModelConfig, has_funcs: bool, generator=None):
         super().__init__()
         n_funcs = cfg.n_input_functions if has_funcs else 0
+        dtype = model_dtype(cfg)
         ffn = dict(
             in_dim=cfg.n_attn_hidden_dim, ffn_impl=cfg.ffn_impl,
-            gelu=cfg.gelu, generator=generator,
+            gelu=cfg.gelu, generator=generator, dtype=dtype,
         )
         self.cross_attention = LinearAttention(
             cfg.n_attn_hidden_dim, cfg.n_head, n_funcs,
             query_dim=cfg.n_input_hidden_dim,
             func_dim=cfg.n_input_hidden_dim,
-            generator=generator,
+            generator=generator, dtype=dtype,
         )
         self.ffn1 = GatedExpertFfn(
             cfg.n_expert, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
@@ -46,7 +54,7 @@ class HNABlock(nn.Module):
         )
         self.self_attention = LinearAttention(
             cfg.n_attn_hidden_dim, cfg.n_head, 0,
-            query_dim=cfg.n_input_hidden_dim, generator=generator,
+            query_dim=cfg.n_input_hidden_dim, generator=generator, dtype=dtype,
         )
         self.ffn2 = GatedExpertFfn(
             cfg.n_expert, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
@@ -70,6 +78,12 @@ class HNABlock(nn.Module):
         return query + self.ffn2(self_out, scores)
 
 
+def model_dtype(cfg: ModelConfig) -> torch.dtype | None:
+    """The block stack's compute dtype: None (each layer's own, f32) for
+    float32 configs, as ``gnot_tpu.models.gnot.model_dtype``."""
+    return torch_dtype(cfg.dtype) if cfg.dtype != "float32" else None
+
+
 def gating_scores(gating_out: torch.Tensor) -> torch.Tensor:
     """Softmax over experts in f32, computed once (model.py:155-156)."""
     return torch.softmax(gating_out.float(), dim=-1)
@@ -91,29 +105,34 @@ class GNOT(nn.Module):
         cfg = self.config = config
         if cfg.attention_mode != "masked":
             raise NotPortedError("the port runs masked mode only; parity mode is not ported yet")
-        if cfg.dtype != "float32":
-            raise NotPortedError(f"the port computes in float32 only, got dtype={cfg.dtype!r}")
+        if cfg.remat:
+            raise NotPortedError(
+                "remat (activation checkpointing of each block) is not ported yet"
+            )
         if cfg.scan_layers:
             raise NotPortedError("scan_layers (the stacked-layer layout) is not ported yet")
         has_funcs = cfg.n_input_functions > 0
+        dtype = model_dtype(cfg)
         # Module order fixes the order the generator draws weights in.
         self.gating = Mlp(
             cfg.input_dim, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
-            cfg.n_expert, cfg.gelu, generator=generator,
+            cfg.n_expert, cfg.gelu, generator=generator, dtype=dtype,
         )
         self.x_embed = Mlp(
             cfg.input_dim + cfg.theta_dim, cfg.n_mlp_num_layers,
             cfg.n_input_hidden_dim, cfg.n_input_hidden_dim, cfg.gelu,
-            generator=generator,
+            generator=generator, dtype=dtype,
         )
         if has_funcs:
             self.input_func_mlps = Mlp(
                 cfg.input_func_dim, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
                 cfg.n_input_hidden_dim, cfg.gelu,
-                stack=cfg.n_input_functions, generator=generator,
+                stack=cfg.n_input_functions, generator=generator, dtype=dtype,
             )
         for i in range(cfg.n_attn_layers):
             self.add_module(f"block_{i}", HNABlock(cfg, has_funcs, generator))
+        # The output head computes in the promoted dtype of its f32 input
+        # and its weights (dtype None): always f32 (``out_module``).
         self.out_mlp = Mlp(
             cfg.n_input_hidden_dim, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
             cfg.out_dim, cfg.gelu, generator=generator,

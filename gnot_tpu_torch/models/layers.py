@@ -9,6 +9,12 @@ layer (per input function, per expert) holds ``kernel [S, in, out]`` and
 kernel reads without a copy. Initialization matches ``torch.nn.Linear``
 (U(+-1/sqrt(fan_in)) for weight and bias), drawn from an explicit
 ``torch.Generator``.
+
+``dtype`` is the compute dtype, as flax's ``Dense(dtype=...)``: input,
+kernel and bias are cast to it before the product, whatever dtype the
+weights are held in. ``None`` computes in the promoted dtype of the
+three, so a head held in bf16 computes in f32 on f32 input (flax's
+``dtype=None``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from gnot_tpu_torch.ops.attention import (
     normalized_linear_attention,
     split_heads,
 )
-from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn
+from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, kernel_takes
 
 
 def torch_linear_init(
@@ -36,36 +42,81 @@ def torch_linear_init(
     return nn.Parameter(t)
 
 
-class Dense(nn.Module):
-    """``x @ kernel + bias`` with the flax ``Dense`` layout."""
+def _promoted(dtype: torch.dtype | None, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """``tensors`` cast to ``dtype``, or to their promoted dtype when it is
+    None (flax's ``promote_dtype``)."""
+    if dtype is None:
+        dtype = tensors[0].dtype
+        for t in tensors[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in tensors]
 
-    def __init__(self, in_dim: int, out_dim: int, generator=None):
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with the flax ``Dense`` layout, computed in
+    ``dtype``."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator=None, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = torch_linear_init((in_dim, out_dim), in_dim, generator)
         self.bias = torch_linear_init((out_dim,), in_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel) + self.bias
+        x, kernel, bias = _promoted(self.dtype, x, self.kernel, self.bias)
+        return torch.matmul(x, kernel) + bias
 
 
 class StackedDense(nn.Module):
     """``S`` Denses with per-slice params: ``[S, ..., in] -> [S, ..., out]``
-    as one batched matmul (flax ``nn.vmap(nn.Dense)``)."""
+    as one batched matmul (flax ``nn.vmap(nn.Dense)``), computed in
+    ``dtype``."""
 
-    def __init__(self, stack: int, in_dim: int, out_dim: int, generator=None):
+    def __init__(
+        self, stack: int, in_dim: int, out_dim: int, generator=None,
+        dtype: torch.dtype | None = None,
+    ):
         super().__init__()
+        self.dtype = dtype
         self.kernel = torch_linear_init((stack, in_dim, out_dim), in_dim, generator)
         self.bias = torch_linear_init((stack, out_dim), in_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.kernel.shape[0]
-        flat = x.reshape(s, -1, x.shape[-1])
-        out = torch.baddbmm(self.bias[:, None, :], flat, self.kernel)
-        return out.reshape(*x.shape[:-1], self.kernel.shape[-1])
+        x, kernel, bias = _promoted(self.dtype, x, self.kernel, self.bias)
+        flat = x.reshape(kernel.shape[0], -1, x.shape[-1])
+        if flat.dtype == torch.float32:
+            out = torch.baddbmm(bias[:, None, :], flat, kernel)
+        else:  # the product rounded, then the sum: flax's Dense below f32
+            out = torch.bmm(flat, kernel) + bias[:, None, :]
+        return out.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a weakly typed
+    constant to the array's dtype before the op."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu_lowp(x: torch.Tensor, gelu: str) -> torch.Tensor:
+    """``jax.nn.gelu`` below f32: its formula op by op in x's dtype, each
+    op's result rounded, constants rounded first. ``F.gelu`` in bf16
+    computes in f32 and rounds once, which differs from the JAX package
+    on ~40% of elements by a bf16 ulp."""
+    if gelu == "tanh":
+        c, a = _in_dtype(0.7978845608028654, x.dtype), _in_dtype(0.044715, x.dtype)
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x**3))))
+    return 0.5 * x * torch.special.erfc(-x * _in_dtype(0.7071067811865476, x.dtype))
 
 
 def _gelu(gelu: str):
-    return lambda x: F.gelu(x, approximate="tanh" if gelu == "tanh" else "none")
+    approximate = "tanh" if gelu == "tanh" else "none"
+
+    def act(x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return F.gelu(x, approximate=approximate)
+        return gelu_lowp(x, gelu)
+
+    return act
 
 
 class Mlp(nn.Module):
@@ -84,6 +135,7 @@ class Mlp(nn.Module):
         *,
         stack: int = 0,
         generator=None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -91,9 +143,9 @@ class Mlp(nn.Module):
         dims = [in_dim] + [hidden_dim] * num_layers + [output_dim]
         for i in range(num_layers + 1):
             layer = (
-                StackedDense(stack, dims[i], dims[i + 1], generator)
+                StackedDense(stack, dims[i], dims[i + 1], generator, dtype)
                 if stack
-                else Dense(dims[i], dims[i + 1], generator)
+                else Dense(dims[i], dims[i + 1], generator, dtype)
             )
             self.add_module(f"dense_{i}", layer)
 
@@ -128,18 +180,19 @@ class LinearAttention(nn.Module):
         query_dim: int,
         func_dim: int = 0,
         generator=None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.n_head = n_head
         self.n_input_functions = n_input_functions
-        self.query = Dense(query_dim, n_embed, generator)
+        self.query = Dense(query_dim, n_embed, generator, dtype)
         if n_input_functions > 0:
-            self.key = StackedDense(n_input_functions, func_dim, n_embed, generator)
-            self.value = StackedDense(n_input_functions, func_dim, n_embed, generator)
+            self.key = StackedDense(n_input_functions, func_dim, n_embed, generator, dtype)
+            self.value = StackedDense(n_input_functions, func_dim, n_embed, generator, dtype)
         else:
-            self.key = Dense(query_dim, n_embed, generator)
-            self.value = Dense(query_dim, n_embed, generator)
-        self.fc_out = Dense(n_embed, n_embed, generator)
+            self.key = Dense(query_dim, n_embed, generator, dtype)
+            self.value = Dense(query_dim, n_embed, generator, dtype)
+        self.fc_out = Dense(n_embed, n_embed, generator, dtype)
 
     def forward(
         self,
@@ -177,9 +230,12 @@ class GatedExpertFfn(nn.Module):
     geometry-gating ``scores``. The E expert MLPs are stacked
     (``experts.dense_i.kernel [E, in, out]``). ``ffn_impl='xla'`` runs
     them as batched matmuls in plain torch; ``'pallas'`` runs the whole
-    expert stack in the fused gated-FFN kernel (ops/fused_ffn.py), which
-    on a CUDA tensor launches the Hopper kernel and raises on a width it
-    does not take.
+    expert stack in the fused gated-FFN kernel (ops/fused_ffn.py) where
+    the kernel takes the shapes (``kernel_takes``, as
+    ``fits_vmem`` guards the JAX call) and the torch path elsewhere. On
+    a CUDA tensor the kernel launches; on a CPU tensor its plain version
+    runs. In bf16 the kernel gets bf16 tokens, weights and biases and the
+    f32 gate scores, the mix the JAX model passes its kernel.
     """
 
     def __init__(
@@ -193,6 +249,7 @@ class GatedExpertFfn(nn.Module):
         ffn_impl: str = "xla",
         gelu: str = "erf",
         generator=None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         if ffn_impl not in ("xla", "pallas"):
@@ -201,19 +258,16 @@ class GatedExpertFfn(nn.Module):
         self.gelu = gelu
         self.experts = Mlp(
             in_dim, num_layers, hidden_dim, output_dim, gelu,
-            stack=n_expert, generator=generator,
+            stack=n_expert, generator=generator, dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
         if self.ffn_impl == "pallas":
             layers = self.experts.layers()
-            return fused_gated_ffn(
-                x,
-                scores,
-                [l.kernel for l in layers],
-                [l.bias for l in layers],
-                gelu_kind=self.gelu,
-            )
+            kernels = [l.kernel for l in layers]
+            biases = [l.bias for l in layers]
+            if kernel_takes(x, scores, kernels, biases):
+                return fused_gated_ffn(x, scores, kernels, biases, gelu_kind=self.gelu)
         e = scores.shape[-1]
         out = self.experts(x.unsqueeze(0).expand(e, *x.shape))  # [E, B, L, D]
         return torch.einsum("ebld,ble->bld", out, scores.to(out.dtype))

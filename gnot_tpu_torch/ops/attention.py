@@ -1,14 +1,21 @@
 """Normalized (Galerkin-style) linear attention — the GNOT core op.
 
-Port of the float32 branch of ``gnot_tpu/ops/attention.py``. The JAX
-package leaves this work to XLA einsums, so it stays plain torch here:
+Port of ``gnot_tpu/ops/attention.py``. The JAX package leaves this work
+to XLA einsums, so it stays plain torch here:
 
 * queries AND keys are softmax-normalized over the **feature** (head_dim)
   axis, not the sequence axis;
 * the normalizer is ``alpha = 1 / sum_d(q_d * (sum_l k_ld))``;
 * the output is ``alpha * q @ (k^T v)``;
 * with ``kv_mask`` (masked mode) padded key rows are zeroed after the
-  feature softmax, so they drop out of both reductions.
+  feature softmax, so they drop out of both reductions;
+* operands below float32 (bf16 serving, ``models/precision.py``) take
+  the policy branch: the Gram ``k^T v``, ``k_sum`` and the normalizer
+  ``1/<q, k_sum>`` are computed in f32 and only the output is cast back
+  to q's dtype. The operands are upcast first (exact for bf16): a torch
+  matmul of bf16 tensors rounds its result to bf16, where JAX's
+  ``preferred_element_type=float32`` keeps it f32. The all-f32 path is
+  the historical one, unchanged.
 
 ``packed_normalized_linear_attention`` is the same op over packed rows
 (several samples per row as chunk-aligned segments): the einsum path the
@@ -24,6 +31,12 @@ import torch
 def feature_softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the trailing (head feature) axis in float32."""
     return torch.softmax(x.float(), dim=-1).to(x.dtype)
+
+
+def _reduced_precision(*tensors: torch.Tensor) -> bool:
+    """True when any operand is below float32: the switch for the
+    f32-accumulation branch of the precision policy."""
+    return any(t.dtype != torch.float32 for t in tensors)
 
 
 def normalized_linear_attention(
@@ -47,10 +60,15 @@ def normalized_linear_attention(
       eps: optional denominator guard (0 matches the reference).
 
     Returns:
-      ``[..., B, H, Lq, D]`` attention output (pre residual / out-projection).
+      ``[..., B, H, Lq, D]`` attention output (pre residual / out-projection),
+      in q's dtype.
     """
     if kv_mask is not None:
         k = k * kv_mask[..., None, :, None].to(k.dtype)
+    out_dtype = q.dtype
+    lowp = _reduced_precision(q, k, v)
+    if lowp:
+        q, k, v = q.float(), k.float(), v.float()
     k_sum = k.sum(dim=-2)  # [..., B, H, D]
     denom = torch.matmul(q, k_sum.unsqueeze(-1)).squeeze(-1)  # [..., B, H, Lq]
     if kv_mask is not None:
@@ -63,7 +81,8 @@ def normalized_linear_attention(
     alpha = 1.0 / (denom + eps)
     kv = torch.matmul(k.transpose(-1, -2), v)  # [..., B, H, D, D]
     out = torch.matmul(q, kv)  # [..., B, H, Lq, D]
-    return alpha.unsqueeze(-1) * out
+    out = alpha.unsqueeze(-1) * out
+    return out.to(out_dtype) if lowp else out
 
 
 def segment_one_hot(seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -82,7 +101,7 @@ def packed_normalized_linear_attention(
     kv_seg_oh: torch.Tensor,
     kv_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Normalized linear attention over packed sequences (float32).
+    """Normalized linear attention over packed sequences.
 
     Several samples (segments) share one sequence row, each a contiguous
     chunk-aligned span. ``k_sum`` and ``k^T v`` are sums over the
@@ -103,7 +122,8 @@ def packed_normalized_linear_attention(
         not fill their last chunk).
 
     Returns:
-      ``[Bq, H, Lq, D]``, rows aligned with ``q``.
+      ``[Bq, H, Lq, D]``, rows aligned with ``q``, in q's dtype; below
+      float32 every contraction and the normalizer are f32.
     """
     bq, h, lq, d = q.shape
     bk, _, lk, _ = k.shape
@@ -115,6 +135,10 @@ def packed_normalized_linear_attention(
     cq, ck = lq // nq, lk // nk
     if kv_mask is not None:
         k = k * kv_mask[:, None, :, None].to(k.dtype)
+    out_dtype = q.dtype
+    lowp = _reduced_precision(q, k, v)
+    if lowp:
+        q, k, v = q.float(), k.float(), v.float()
     oh_k = kv_seg_oh.to(k.dtype)
     oh_q = q_seg_oh.to(q.dtype)
 
@@ -135,8 +159,8 @@ def packed_normalized_linear_attention(
     # softmaxed k rows are strictly positive); select 1 for a clean 0.
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     out = torch.einsum("bhncd,bhnde->bhnce", qc, kv_q)
-    out = out / denom[..., None]
-    return out.reshape(bq, h, lq, d)
+    out = (out / denom[..., None]).reshape(bq, h, lq, d)
+    return out.to(out_dtype) if lowp else out
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

@@ -13,15 +13,17 @@ geometry gate combines them.
   serving shapes. A
   cluster of two blocks owns each 64-row tile and keeps its activations
   in shared memory through the whole expert stack (the source's header
-  has the design).
+  has the design). It takes f32 x, weights and biases, or bf16 ones
+  (bf16 serving), with f32 gate scores, computes in f32 either way and
+  writes x's dtype, as the TPU kernel does.
 * ``pack_weights`` turns one ``[E, in, out]`` kernel into the image the
   CUDA kernel streams (K-major, hi and lo, zero-padded, in wgmma's
   shared-memory order); ``unpack_weights`` inverts it. ``packed_weights``
   caches the image per weight tensor and version, so a serving dispatch
   pays no pack.
 * ``fused_gated_ffn_reference`` is the plain PyTorch version, a port of
-  ``_reference_impl``, in full f32: the CPU tests and the on-card check
-  use it.
+  ``_reference_impl``, in full f32 whatever the inputs' dtype, returning
+  x's dtype: the CPU tests and the on-card check use it.
 * ``fused_gated_ffn`` dispatches on where the tensors lie: the plain
   version for CPU tensors, the kernel for CUDA tensors. On a CUDA tensor
   it launches the kernel or raises; it never falls back. It is a
@@ -130,7 +132,9 @@ def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
     column groups 32 floats apart; K is reordered by ``K_ORDER``."""
     e, k, n = kernel.shape
     nck = k // CHUNK_K
-    w = kernel.new_zeros(e, k, 2 * HALF_COLS)
+    # f32 for either weight dtype: a bf16 weight widens exactly, and its
+    # lo part is then all zeros.
+    w = kernel.new_zeros(e, k, 2 * HALF_COLS, dtype=torch.float32)
     w[:, :, :n] = kernel
     # [E, chunk, j%4, kk, j//4, half, n//8, n%8] -> wgmma order
     w = w.view(e, nck, 4, 2, 2, 2, HALF_COLS // 8, 8).permute(0, 5, 1, 3, 4, 6, 7, 2)
@@ -171,7 +175,10 @@ def packed_weights(kernel: torch.Tensor) -> torch.Tensor:
     inference tensor has no version counter and is packed on every
     call."""
     if kernel.is_inference():
-        return pack_weights(kernel)
+        image = pack_weights(kernel)
+        with _pack_lock:
+            packed_weights.packs += 1
+        return image
     key = id(kernel)
     version = (kernel._version, kernel.data_ptr())
     with _pack_lock:
@@ -183,7 +190,42 @@ def packed_weights(kernel: torch.Tensor) -> torch.Tensor:
     ref = weakref.ref(kernel, lambda r, key=key: _drop_pack(key, r))
     with _pack_lock:
         _pack_cache[key] = (ref, version, image)
+        packed_weights.packs += 1
     return image
+
+
+#: Images made so far (cache misses): a served model repacks once per
+#: publish, never per dispatch.
+packed_weights.packs = 0
+
+
+#: The dtype mixes the kernel takes, by the dtype of x (and of the output):
+#: x, weights and biases all float32, or all bfloat16 (bf16 serving);
+#: the gate scores are float32 in both, as the JAX model passes them.
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dtypes_taken(x, scores, kernels, biases) -> bool:
+    return (
+        x.dtype in KERNEL_DTYPES
+        and scores.dtype == torch.float32
+        and all(t.dtype == x.dtype for t in (*kernels, *biases))
+    )
+
+
+def _widths_taken(dims: Sequence[int]) -> bool:
+    return all(d % 16 == 0 and 16 <= d <= MAX_WIDTH for d in dims)
+
+
+def kernel_takes(x, scores, kernels, biases) -> bool:
+    """Whether the kernel takes these shapes: 1..8 Linears, every width a
+    multiple of 16 in [16, 256]. The model's counterpart of ``fits_vmem``
+    (``gnot_tpu/ops/pallas_ffn.py``): where it is false the model takes
+    its torch path, while the wrapper itself raises. Dtypes are not read
+    here: every model dtype (f32, bf16, with f32 scores) is a mix the
+    kernel takes, so any other mix is a fault the wrapper raises on."""
+    dims = [x.shape[-1]] + [k.shape[-1] for k in kernels]
+    return 1 <= len(kernels) <= MAX_LINEARS and _widths_taken(dims)
 
 
 def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
@@ -212,17 +254,21 @@ def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
                 f"bias {i} must be [{n_expert}, {k.shape[2]}], got {tuple(b.shape)}"
             )
         dims.append(k.shape[2])
-    bad = [d for d in dims if d % 16 or not 16 <= d <= MAX_WIDTH]
-    if bad:
+    if not _widths_taken(dims):
         raise ValueError(
             f"the fused FFN kernel takes widths that are multiples of 16 "
             f"in [16, {MAX_WIDTH}]; got widths {dims}"
         )
+    if not _dtypes_taken(x, scores, kernels, biases):
+        raise ValueError(
+            "the fused FFN kernel takes float32 x, weights and biases, or "
+            "bfloat16 ones, with float32 scores; got x "
+            f"{x.dtype}, scores {scores.dtype}, weights "
+            f"{sorted({str(t.dtype) for t in (*kernels, *biases)})}"
+        )
     for t in (x, scores, *kernels, *biases):
         if not t.is_cuda or t.device != x.device:
             raise ValueError("every tensor must lie on the same CUDA device")
-        if t.dtype != torch.float32:
-            raise ValueError(f"the fused FFN kernel is float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the fused FFN kernel needs contiguous tensors")
         if t.data_ptr() % 16:
@@ -236,7 +282,7 @@ class _Launcher:
 
     def __init__(self, lib: ctypes.CDLL) -> None:
         self.fn = lib.gnot_fused_gated_ffn
-        self.fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        self.fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
         self.w = (ctypes.c_uint64 * MAX_LINEARS)()
         self.b = (ctypes.c_uint64 * MAX_LINEARS)()
@@ -269,6 +315,8 @@ def fused_gated_ffn_kernel(
     weights go in as their cached packed images (``packed_weights``)."""
     out = launch(x, scores, kernels, biases, gelu_kind)
     fused_gated_ffn_kernel.launches += 1
+    by_dtype = fused_gated_ffn_kernel.launches_by_dtype
+    by_dtype[str(x.dtype)] = by_dtype.get(str(x.dtype), 0) + 1
     return out
 
 
@@ -279,7 +327,7 @@ def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = N
     dims = _check_kernel_args(x, scores, kernels, biases, gelu_kind)
     launcher = launcher or _get_launcher()
     images = [packed_weights(k) for k in kernels]
-    out = torch.empty(*x.shape[:2], dims[-1], device=x.device, dtype=torch.float32)
+    out = torch.empty(*x.shape[:2], dims[-1], device=x.device, dtype=x.dtype)
     n = len(kernels)
     with launcher.lock:
         for i in range(n):
@@ -296,6 +344,7 @@ def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = N
             scores.shape[-1],
             x.shape[0] * x.shape[1],
             GELU_CODES[gelu_kind],
+            KERNEL_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
@@ -303,8 +352,10 @@ def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = N
     return out
 
 
-#: Kernel launches so far: the wrapper adds one where it launches.
+#: Kernel launches so far: the wrapper adds one where it launches, to the
+#: total and to the count of x's dtype ("torch.float32", "torch.bfloat16").
 fused_gated_ffn_kernel.launches = 0
+fused_gated_ffn_kernel.launches_by_dtype = {}
 
 
 class _FusedGatedFfn(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """InferenceEngine: the forward path for inference, offline and serving.
 
 Port of ``gnot_tpu/serve/engine.py::InferenceEngine`` without the AOT
-table, program catalog, sanitizer or precision policy. Two entry points:
+table, program catalog or sanitizer. Two entry points:
 
 * ``predict(samples)`` — the offline, all-at-once path: bucketed
   batches of ``batch_size``, per-sample unpadded outputs.
@@ -14,6 +14,16 @@ table, program catalog, sanitizer or precision policy. Two entry points:
 The weights are swapped atomically under a lock (``swap_params``); a
 dispatch reads the published model once, so in-flight requests always
 see one consistent weight set.
+
+``dtype`` is the serving compute dtype (``models/precision.py``).
+"bfloat16" serves the caller's f32 weights through the precision
+policy: the engine publishes a bf16 copy (``serve_model``, which holds
+``cast_params`` of the weights) and casts again on every
+``swap_params``, so the caller's model stays f32 at rest; batches
+collate in bf16; responses are f32 (the policy's head). Dispatch
+signatures carry each field's dtype, so bf16 and f32 dispatches at the
+same shapes are distinct. The FFN kernel packs the published copy's
+weights once, at the first dispatch after a publish.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from gnot_tpu_torch.data.batch import (
     unpad_rows_numpy,
     validate_samples,
 )
+from gnot_tpu_torch.models import precision
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 
 
@@ -39,12 +50,15 @@ class InferenceEngine:
     """Validated, bucketed, statically-shaped batched forward of one
     ``GNOT`` on one device."""
 
-    def __init__(self, model: GNOT, *, batch_size: int):
+    def __init__(self, model: GNOT, *, batch_size: int, dtype: str = "float32"):
+        self.policy = precision.policy_for(dtype)
+        self.dtype = dtype
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
         self._lock = threading.Lock()
-        # The published model; swap_params replaces the reference.
-        self._model = model.eval()  #: guarded_by _lock
+        # The published model (a cast copy below f32); swap_params
+        # replaces the reference.
+        self._model = precision.serve_model(model, dtype).eval()  #: guarded_by _lock
         # Distinct dispatch signatures seen so far.
         self._shapes: set[tuple] = set()  #: guarded_by _lock
 
@@ -52,12 +66,13 @@ class InferenceEngine:
 
     def swap_params(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Publish a new weight set (hot reload). A copy of the model
-        takes the new weights; in-flight dispatches keep the model they
-        already read, the next dispatch sees the new one."""
+        takes the new weights, cast to the serving dtype; in-flight
+        dispatches keep the model they already read, the next dispatch
+        sees the new one."""
         with self._lock:
             current = self._model
         fresh = copy.deepcopy(current)
-        fresh.load_state_dict(state_dict, strict=True)
+        fresh.load_state_dict(precision.cast_params(state_dict, self.dtype), strict=True)
         fresh.eval()
         with self._lock:
             self._model = fresh
@@ -123,6 +138,7 @@ class InferenceEngine:
             pad_nodes=pad_nodes,
             pad_funcs=pad_funcs,
             device=self.device,
+            dtype=self.dtype,
         )
         self._note_shape(batch)
         out = self._forward(self.model, batch)
@@ -156,7 +172,7 @@ class InferenceEngine:
         outs: list[np.ndarray] = []
         for start in range(0, len(samples), self.batch_size):
             chunk = samples[start : start + self.batch_size]
-            batch = collate(chunk, device=self.device)
+            batch = collate(chunk, device=self.device, dtype=self.dtype)
             self._note_shape(batch)
             out = self._forward(model, batch)
             outs.extend(

@@ -184,9 +184,11 @@ class InferenceServer:
 
     def summary(self) -> dict:
         """Requests, completions, sheds, dispatches, distinct dispatch
-        shapes and the host-clock latency of requests and dispatches."""
+        shapes, the serving dtype and the host-clock latency of requests
+        and dispatches."""
         with self._lock:
             return {
+                "dtype": self.engine.dtype,
                 "requests": self._submitted,
                 "completed": self._completed,
                 "shed": dict(self._shed),

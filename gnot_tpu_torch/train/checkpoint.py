@@ -53,11 +53,19 @@ class Checkpointer:
         """``epoch`` is the first epoch a resumed run trains."""
         self._save("latest", state, epoch, best_metric)
 
-    def restore_latest(self) -> tuple[dict, int, float] | None:
-        """``(state, epoch, best_metric)`` of ``latest``, or None when there
-        is none."""
-        path = self.path("latest")
+    def _restore(self, name: str) -> tuple[dict, int, float] | None:
+        path = self.path(name)
         if not path.is_file():
             return None
         payload: dict[str, Any] = torch.load(path, map_location="cpu", weights_only=True)
         return payload["state"], payload["epoch"], payload["best_metric"]
+
+    def restore_latest(self) -> tuple[dict, int, float] | None:
+        """``(state, epoch, best_metric)`` of ``latest``, or None when there
+        is none."""
+        return self._restore("latest")
+
+    def restore_best(self) -> tuple[dict, int, float] | None:
+        """``(state, epoch, best_metric)`` of ``best``, or None when there
+        is none."""
+        return self._restore("best")

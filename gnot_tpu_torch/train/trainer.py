@@ -28,7 +28,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from gnot_tpu_torch.config import Config, ModelConfig, OptimConfig
+from gnot_tpu_torch.config import Config, ModelConfig, NotPortedError, OptimConfig
 from gnot_tpu_torch.data.batch import Loader, MeshBatch
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
@@ -92,6 +92,12 @@ class Trainer:
         checkpointer=None,
         device: torch.device | str = "cuda",
     ):
+        if model_cfg.dtype != "float32":
+            raise NotPortedError(
+                f"training computes in float32 only, got dtype={model_cfg.dtype!r}: "
+                "bf16 training (--dtype) is not ported yet (bf16 serving is: "
+                "--serve --serve_dtype bfloat16)"
+            )
         # First, so TF32 stays off before any weight reaches the card.
         self.device = resolve_device(str(device))
         self.config = config

@@ -140,6 +140,119 @@ def test_model_on_card_matches_cpu(name):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+# -- bf16 serving through the FFN kernel -------------------------------------
+
+#: The bf16 kernel against its plain version on the same bf16 inputs: both
+#: compute in f32 and round once to bf16, so they differ by at most one
+#: bf16 ulp (2^-7 of the value) where their f32 sums round apart.
+BF16_ULP = dict(rtol=2.0**-7, atol=1e-6)
+
+
+def _bf16(args):
+    x, scores, kernels, biases = args
+    return (x.bfloat16(), scores, [k.bfloat16() for k in kernels],
+            [b.bfloat16() for b in biases])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu", ["tanh", "erf"])
+@pytest.mark.parametrize("b,l", [(4, 1024), (3, 1000)])  # the serving shape; a ragged tile
+def test_bf16_kernel_matches_plain_version_on_card(gelu, b, l):
+    _card()
+    args = _bf16(_ffn_inputs_dims(21, b, l, [256] * 6, 3))
+    before = dict(fused_ffn.fused_gated_ffn_kernel.launches_by_dtype)
+    got = fused_ffn.fused_gated_ffn(*args, gelu_kind=gelu)
+    want = fused_ffn.fused_gated_ffn_reference(*args, gelu_kind=gelu)
+    torch.cuda.synchronize()
+    after = fused_ffn.fused_gated_ffn_kernel.launches_by_dtype
+    assert after["torch.bfloat16"] == before.get("torch.bfloat16", 0) + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **BF16_ULP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["f16", "bf16_scores", "bf16_x_f32_weights", "f32_x_bf16_weights"])
+def test_kernel_refuses_dtypes_outside_the_jax_mix_on_card(mix):
+    _card()
+    x, scores, ks, bs = _ffn_inputs_dims(22, 2, 64, [32, 64, 32], 2)
+    if mix == "f16":
+        x, ks, bs = x.half(), [k.half() for k in ks], [b.half() for b in bs]
+    elif mix == "bf16_scores":
+        x, scores, ks, bs = _bf16((x, scores, ks, bs))
+        scores = scores.bfloat16()
+    elif mix == "bf16_x_f32_weights":
+        x = x.bfloat16()
+    else:
+        ks, bs = [k.bfloat16() for k in ks], [b.bfloat16() for b in bs]
+    with pytest.raises(ValueError, match="float32 x, weights and biases, or bfloat16"):
+        fused_ffn.fused_gated_ffn_kernel(x, scores, ks, bs)
+    # The model's predicate reads shapes only: the mix reaches the
+    # wrapper through the model's FFN and raises there too.
+    assert fused_ffn.kernel_takes(x, scores, ks, bs)
+    with pytest.raises(ValueError, match="float32 x, weights and biases, or bfloat16"):
+        fused_ffn.fused_gated_ffn(x, scores, ks, bs)
+
+
+@pytest.mark.cuda
+def test_width_512_serves_through_the_torch_path_on_card():
+    """``--ffn_impl pallas`` at width 512 (the FFN's width is
+    ``--n_mlp_hidden_dim``, which the residual ties to the other two):
+    widths the kernel does not take run the torch FFN path (0 launches),
+    as the JAX model's ``fits_vmem`` guard does, instead of raising."""
+    from gnot_tpu_torch import main as port_main
+
+    _card()
+    argv = ["--serve", "--ffn_impl", "pallas", "--n_mlp_hidden_dim", "512",
+            "--n_attn_hidden_dim", "512", "--n_input_hidden_dim", "512",
+            "--n_attn_layers", "1", "--synthetic", "elasticity", "--synth_size", "40",
+            "--n_test", "4", "--device", "cuda"]
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    run = port_main.run_serve(port_main.build_parser().parse_args(argv))
+    assert fused_ffn.fused_gated_ffn_kernel.launches == before
+    assert run.summary["completed"] == 4 and all(r.ok for r in run.results)
+    assert all(np.all(np.isfinite(r.output)) for r in run.results)
+
+
+@pytest.mark.cuda
+def test_bf16_publish_packs_once_not_per_dispatch_on_card():
+    """A bf16 engine packs the published copy's expert weights at its first
+    dispatch and never again until the next publish."""
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    device = _card()
+    samples = datasets.synth_elasticity(4, seed=4, base_points=40)
+    cfg = ModelConfig(
+        **datasets.infer_model_dims(samples), n_attn_layers=2, n_attn_hidden_dim=32,
+        n_mlp_num_layers=2, n_mlp_hidden_dim=32, n_input_hidden_dim=32,
+        n_expert=2, n_head=4, ffn_impl="pallas",
+    )
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(2)).to(device)
+    eng = InferenceEngine(model, batch_size=4, dtype="bfloat16")
+    n_images = 2 * cfg.n_attn_layers * (cfg.n_mlp_num_layers + 1)
+    key = eng.bucket_key(samples[0])
+
+    def dispatch():
+        return eng.infer(samples[:1], pad_nodes=key[0], pad_funcs=key[1], rows=4)[0]
+
+    packs, launches = fused_ffn.packed_weights.packs, fused_ffn.fused_gated_ffn_kernel.launches
+    bf16 = fused_ffn.fused_gated_ffn_kernel.launches_by_dtype.get("torch.bfloat16", 0)
+    first = dispatch()
+    for _ in range(3):
+        dispatch()
+    assert fused_ffn.packed_weights.packs - packs == n_images
+    assert fused_ffn.fused_gated_ffn_kernel.launches - launches == 4 * 2 * cfg.n_attn_layers
+    assert (fused_ffn.fused_gated_ffn_kernel.launches_by_dtype["torch.bfloat16"] - bf16
+            == 4 * 2 * cfg.n_attn_layers)
+    assert first.dtype == np.float32 and np.all(np.isfinite(first))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    eng.swap_params(model.state_dict())
+    assert not np.allclose(dispatch(), first)
+    dispatch()
+    assert fused_ffn.packed_weights.packs - packs == 2 * n_images
+
+
 # -- training through the FFN kernel ---------------------------------------
 
 

@@ -14,7 +14,8 @@ PORT_FILES = sorted((ROOT / "gnot_tpu_torch").rglob("*.py")) + [ROOT / "chip_smo
 # Files that must run where JAX is not installed: the port, the on-card
 # smoke test, and the card-only tests.
 JAX_FREE_FILES = PORT_FILES + [ROOT / "tests" / "test_torch_cuda.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gnot_tpu"}
+# ml_dtypes is not installed beside the card: the port's bf16 is torch.bfloat16.
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gnot_tpu", "ml_dtypes"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -74,6 +75,28 @@ def test_cuda_is_the_default_and_refused_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_bf16_serving_runs_on_cuda_by_default_and_is_refused_without_a_card(monkeypatch):
+    """``--serve_dtype bfloat16`` changes the dtype, not the device: the
+    bf16 engine serves on ``cuda`` unless told ``--device cpu``, and
+    without a card the entry point raises before building anything."""
+    from gnot_tpu_torch import main as port_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = port_main.build_parser().parse_args(["--serve", "--serve_dtype", "bfloat16"])
+    assert args.device == "cuda" and args.serve_dtype == "bfloat16"
+    monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.run_serve(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(["--serve", "--serve_dtype", "bfloat16", "--ffn_impl", "pallas"])
+
+
+def test_scanner_sees_ml_dtypes_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import ml_dtypes\nfrom ml_dtypes import bfloat16\n")
+    assert _imported_roots(f) & FORBIDDEN == {"ml_dtypes"}
 
 
 def test_training_runs_on_cuda_by_default_and_is_refused_without_a_card(monkeypatch):

@@ -111,3 +111,60 @@ def test_torch_linear_init_bounds_and_generator():
     b = tl.Dense(64, 8, generator=g2)
     assert torch.equal(a.kernel, b.kernel) and torch.equal(a.bias, b.bias)
     assert a.kernel.abs().max().item() <= 1 / 8 and a.bias.abs().max().item() <= 1 / 8
+
+
+def _ffn_args(dims, e=3, b=1, l=5, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    x = t(rng.standard_normal((b, l, dims[0])))
+    scores = torch.softmax(t(rng.standard_normal((b, l, e))), -1)
+    kernels = [t(rng.standard_normal((e, dims[i], dims[i + 1])) * 0.1) for i in range(len(dims) - 1)]
+    biases = [t(rng.standard_normal((e, dims[i + 1])) * 0.1) for i in range(len(dims) - 1)]
+    return x, scores, kernels, biases
+
+
+@pytest.mark.parametrize(
+    "dims,takes",
+    [([256] * 6, True), ([32, 64, 64, 32], True), ([16, 16], True),
+     ([256, 512, 512, 256], False), ([256, 17, 17, 256], False), ([32] * 10, False),
+     ([256] * 10, False), ([16] * 9, True), ([8, 16], False)],
+    ids=["defaults", "tool", "one_linear", "width_512", "width_17", "nine_linears_32",
+         "nine_linears_256", "eight_linears", "width_8"],
+)
+def test_kernel_takes_only_the_shapes_it_runs(dims, takes):
+    """The model-level predicate of the FFN kernel (``fits_vmem``'s
+    counterpart): 1..8 Linears, every width a multiple of 16 in [16, 256]."""
+    from gnot_tpu_torch.ops import fused_ffn
+
+    assert fused_ffn.kernel_takes(*_ffn_args(dims)) is takes
+
+
+@pytest.mark.parametrize("hidden,num_layers", [(512, 2), (17, 2), (32, 8), (256, 4)],
+                         ids=["width_512", "width_17", "nine_linears", "defaults"])
+def test_gated_ffn_takes_the_torch_path_where_the_kernel_does_not_fit(hidden, num_layers, monkeypatch):
+    """``ffn_impl="pallas"`` calls the kernel only where it takes the
+    shapes; elsewhere it runs the torch path, as the JAX model does, and
+    gives exactly the ``xla`` module's output."""
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append(1)
+        return fused_gated_ffn(*args, **kw)
+
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn
+
+    monkeypatch.setattr(tl, "fused_gated_ffn", recording)
+    gen = torch.Generator().manual_seed(0)
+    kernel = tl.GatedExpertFfn(3, num_layers, hidden, 32, in_dim=32, ffn_impl="pallas",
+                               gelu="tanh", generator=gen)
+    xla = tl.GatedExpertFfn(3, num_layers, hidden, 32, in_dim=32, ffn_impl="xla", gelu="tanh")
+    xla.load_state_dict(kernel.state_dict())
+    x, scores, _, _ = _ffn_args([32], seed=1)
+    with torch.no_grad():
+        got, want = kernel(x, scores), xla(x, scores)
+    fits = hidden == 256
+    assert len(calls) == int(fits)
+    if fits:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert torch.equal(got, want)

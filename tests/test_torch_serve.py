@@ -188,8 +188,95 @@ def test_main_serves_in_process_on_cpu(capsys):
         "--n_input_hidden_dim", "32", "--n_expert", "2", "--n_head", "4",
     ]
     assert port_main.main(argv) == 1.0
-    line = capsys.readouterr().out.strip().splitlines()[-1]
+    out = capsys.readouterr().out
+    # No --checkpoint_dir: fresh weights without the reference's note,
+    # which it prints only for a directory that holds no checkpoint.
+    assert "no restorable checkpoint" not in out
+    line = out.strip().splitlines()[-1]
     summary = json.loads(line)["serve_summary"]
     assert summary["requests"] == summary["completed"] == 5
     assert summary["device"] == "cpu"
     assert summary["dispatch_shapes"] <= summary["warmed_buckets"]
+
+
+SERVE_SMALL = [
+    "--n_attn_layers", "1", "--n_attn_hidden_dim", "16", "--n_mlp_num_layers", "1",
+    "--n_mlp_hidden_dim", "16", "--n_input_hidden_dim", "16", "--n_expert", "2",
+    "--n_head", "2", "--ffn_impl", "pallas", "--device", "cpu",
+]
+
+
+@pytest.mark.parametrize("data", ["synthetic", "pickle"])
+def test_serve_serves_the_trained_checkpoint(data, tmp_path, capsys):
+    """``--serve --checkpoint_dir D`` after a one-epoch training run into D
+    serves the trained weights on the test split of ``datasets.load``
+    (pickles included): every output equals the trained model's
+    ``predict`` within the f32 model bar. Without a checkpoint it says
+    so and serves fresh weights."""
+    import pickle
+
+    from gnot_tpu_torch.data.batch import MeshSample
+
+    if data == "pickle":
+        paths = []
+        for name, seed, n in (("train", 1, 6), ("test", 2, 5)):
+            records = [[s.coords, s.y, s.theta, s.funcs]
+                       for s in datasets.synth_elasticity(n, seed=seed, base_points=40)]
+            paths.append(tmp_path / f"{name}.pkl")
+            paths[-1].write_bytes(pickle.dumps(records))
+        data_argv = ["--train_data", str(paths[0]), "--test_data", str(paths[1])]
+    else:
+        data_argv = ["--synthetic", "elasticity", "--synth_size", "40",
+                     "--n_train", "6", "--n_test", "5"]
+    ck = tmp_path / "ck"
+    argv = SERVE_SMALL + data_argv + ["--checkpoint_dir", str(ck)]
+    trainer = port_main.run_train(port_main.build_parser().parse_args(argv + ["--epochs", "1"]))
+    assert (ck / "best.pt").is_file()
+    test_samples = trainer.test_loader.samples
+    want = InferenceEngine(trainer.model, batch_size=MAX_BATCH).predict(test_samples)
+    capsys.readouterr()
+
+    run = port_main.run_serve(port_main.build_parser().parse_args(argv + ["--serve"]))
+    assert run.summary["restored"] == "best"
+    assert "no restorable checkpoint" not in capsys.readouterr().out
+    assert len(run.results) == len(test_samples) == 5
+    for r, s, t, w in zip(run.results, run.samples, test_samples, want):
+        assert isinstance(s, MeshSample) and np.array_equal(s.coords, t.coords)
+        assert r.ok, r.detail
+        np.testing.assert_allclose(r.output, w, rtol=RTOL, atol=ATOL)
+
+    fresh_argv = SERVE_SMALL + data_argv + ["--serve", "--checkpoint_dir", str(tmp_path / "none")]
+    fresh = port_main.run_serve(port_main.build_parser().parse_args(fresh_argv))
+    assert "note: no restorable checkpoint — serving fresh weights" in capsys.readouterr().out
+    assert fresh.summary["restored"] == ""
+    assert not np.allclose(fresh.results[0].output, want[0], rtol=RTOL, atol=ATOL)
+
+
+def test_serve_restores_latest_when_there_is_no_best(tmp_path):
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    ck = Checkpointer(str(tmp_path))
+    assert ck.restore_best() is None and ck.restore_latest() is None
+    ck.save_latest({"model": {"w": torch.ones(2)}}, 3, 0.5)
+    assert ck.restore_best() is None
+    ck.save_best({"model": {"w": torch.zeros(2)}}, 1, 0.25)
+    state, epoch, best = ck.restore_best()
+    assert (epoch, best) == (1, 0.25) and torch.equal(state["model"]["w"], torch.zeros(2))
+    state, epoch, _ = ck.restore_latest()
+    assert epoch == 3 and torch.equal(state["model"]["w"], torch.ones(2))
+
+
+def test_main_serves_bf16_in_process_on_cpu(capsys):
+    """``--serve_dtype bfloat16``: the summary names the dtype, every
+    request completes with f32 outputs."""
+    argv = SERVE_SMALL + ["--serve", "--synthetic", "elasticity", "--synth_size", "40",
+                          "--n_test", "5", "--serve_dtype", "bfloat16"]
+    args = port_main.build_parser().parse_args(argv)
+    assert port_main.build_parser().parse_args([]).serve_dtype == "float32"
+    run = port_main.run_serve(args)
+    assert run.summary["dtype"] == "bfloat16"
+    assert run.summary["completed"] == 5
+    assert all(r.output.dtype == np.float32 for r in run.results)
+    assert run.model.config.dtype == "float32"  # the caller's model stays f32
+    with pytest.raises(SystemExit):
+        port_main.build_parser().parse_args(["--serve_dtype", "float16"])
