@@ -23,7 +23,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same shape; then the same kernel on the bf16 mix of bf16 serving
    (bf16 x, weights and biases, f32 scores) against its plain version
    within one bf16 ulp, timed beside the f32 kernel and the
-   ``ffn_impl="xla"`` path in bf16 (cuBLAS bf16 GEMMs);
+   ``ffn_impl="xla"`` path in bf16 (cuBLAS bf16 GEMMs); then the bf16
+   training mix (bf16 x, f32 weights and biases, f32 scores), bitwise the
+   f32 instance on the widened x rounded once to bf16 and within one bf16
+   ulp of its plain version, both GELUs, timed beside its bound;
 3b. the kernel-validation entry point (``gnot_tpu_torch.validate_kernels``)
    in-process, every launch count set to 0 just before it and read just
    after: each attention kernel and the FFN kernel against its plain
@@ -57,15 +60,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against it, the kernel agreeing with the plain version on the live
    weights after the optimizer's last step and after one more, host-clock
    step times with the kernel and with ``ffn_impl=xla`` in turns, and
-   where one train step spends its time, phase by phase for both paths.
+   where one train step spends its time, phase by phase for both paths;
+6b. the same training in bf16 (``--dtype bfloat16``, checkpoints kept
+   under ``build/chip_smoke/``): the reference's lines, every FFN launch
+   of the bf16 training mix, 8 per train step and eval forward, the run
+   held step by step against the same run through the plain version (bar
+   ``BF16_TRAIN_REL``), which must catch two controls (f32 training, and
+   the serving instance on bf16-cast weights); the plain run again with
+   cuBLAS's reduced-precision bf16 reduction off; host-clock step times,
+   bf16 and f32, kernel and ``ffn_impl=xla``, in turns; peak memory;
+6c. one epoch with ``--remat`` (16 launches a step, the losses of the
+   same run without remat at rtol 1e-5, peak memory beside it), then
+   ``--eval_only --predict_out --export_torch`` from phase 6b's
+   checkpoints: the metric of phase 6b's best epoch, a prediction pickle
+   that reads back, and the reference's names of the best weights.
+No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Each kernel's
 ``launches`` is its count over the path that drives it, read right after
 that path: phase 4 for the FFN kernel, phase 3b for the attention
 kernels (the model never launches them); the FFN kernel's
-``bf16_launches`` is its count over phase 4b's bf16 serving run and its
-``train_launches`` its count over phase 6's training run. Launches
+``bf16_launches`` is its count over phase 4b's bf16 serving run, its
+``train_launches`` its count over phase 6's training run and its
+``train_bf16_launches`` over phase 6b's, with ``launches_by_mix`` naming
+the dtype mix of each (``mix_*``: the training mix's phase-3 fields). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -127,6 +146,19 @@ MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
 TRAIN_LATER_RTOL = 1e-5
 TRAIN_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epochs", "2",
               "--batch_size", "4", "--ffn_impl", "pallas", "--device", "cuda"]
+# bf16 training through the kernel vs the same run through its plain
+# version (phase 6b), worst relative difference over the step losses and
+# test metrics: the two forwards differ only where their f32 sums round to
+# bf16 apart, one ulp in a few elements in ten thousand. A quarter of what
+# bf16 itself costs the CPU run of tests/test_torch_lowprec.py (the JAX
+# bf16-vs-f32 gap of its step losses, 1.4e-5 to 1.9e-5), where the port's
+# bf16 run reads 0.02 to 0.06 of that gap. Two controls must fail it: f32
+# training (phase 6's run) and bf16 training through the serving instance
+# (bf16-cast weights, the lo product skipped).
+BF16_TRAIN_REL = 5e-6
+# Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
+# under the checkout's gitignored build/, emptied first.
+TRAIN_OUT = ROOT / "build" / "chip_smoke"
 
 
 def log(msg: str) -> None:
@@ -344,6 +376,53 @@ def bf16_ffn_phase(torch, np, layers, card, f32_kernel_ms, kernel, reference) ->
                 bf16_bound_ms=bound_ms, bf16_xla_ms=xla_ms)
 
 
+def training_mix_ffn_phase(torch, np, card, f32_kernel_ms, kernel, reference) -> dict:
+    """Phase 3, the bf16 training mix: the FFN kernel on bf16 x with f32
+    weights and biases (and f32 scores) at the training launch shape and a
+    ragged one, both GELUs. It must be bitwise the f32 instance run on the
+    widened x with its output rounded to bf16 (the same products, the lo
+    weight image included, one rounding at the store), and within one bf16
+    ulp of its plain version. Then its device time beside the f32
+    kernel's, the plain version's and its bound. Returns the mix's fields
+    of the kernel's entry."""
+    max_abs = 0.0
+    for (b, l), gelu in [((4, 1024), "tanh"), ((4, 1024), "erf"), ((3, 1000), "tanh"),
+                         ((3, 1000), "erf")]:
+        x, scores, kernels, biases = ffn_inputs(torch, np, b, l, 256, 3, 5, seed=b * l + 2)
+        x = x.bfloat16()
+        got = kernel(x, scores, kernels, biases, gelu_kind=gelu)
+        f32 = kernel(x.float(), scores, kernels, biases, gelu_kind=gelu).bfloat16()
+        want = reference(x, scores, kernels, biases, gelu_kind=gelu)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        ulps = (err / want.float().abs().clamp_min(BF16_ATOL / BF16_RTOL)).max().item() / BF16_RTOL
+        not_f32 = int((got != f32).sum().item())
+        log(f"[ffn-mix] x [{b},{l},256] bf16, weights and biases f32, scores f32, E=3 5 Linears "
+            f"gelu={gelu}: out {got.dtype}; {not_f32} of {got.numel()} elements differ from the "
+            f"f32 instance on the widened x rounded once to bf16; vs the plain version max_abs_err "
+            f"{err.max().item():.3e}, worst {ulps:.3f} of the bar (one bf16 ulp), "
+            f"{(got != want).float().mean().item():.4%} of elements not bitwise equal")
+        if got.dtype != torch.bfloat16 or not_f32:
+            raise RuntimeError(f"the training-mix kernel is not the f32 kernel rounded once: "
+                               f"{got.dtype}, {not_f32} elements differ")
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        max_abs = max(max_abs, err.max().item())
+
+    x, scores, kernels, biases = ffn_inputs(torch, np, 4, 1024, 256, 3, 5, seed=7)
+    args = (x.bfloat16(), scores, kernels, biases)
+    with torch.inference_mode():
+        mix_ms = device_ms(torch, lambda: kernel(*args, gelu_kind="tanh"))
+        plain_ms = device_ms(torch, lambda: reference(*args, gelu_kind="tanh"))
+    bound_ms, bound_by = ffn_bound_ms(*args)
+    log(f"[ffn-mix] time at [4,1024,256] E=3 5 Linears tanh, bf16 x, f32 weights warm in L2: "
+        f"device time kernel {mix_ms:.4f} ms (the f32 kernel {f32_kernel_ms:.4f} ms in this run), "
+        f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: Linear 0's f32 weights in "
+        f"three bf16 pieces against its bf16 x on the bf16 tensor cores, 3xTF32 on the later "
+        f"Linears), {bound_ms / mix_ms:.1%} of bound on {card}")
+    return dict(mix_ms=mix_ms, mix_plain_ms=plain_ms, mix_max_abs_err=max_abs,
+                mix_bound_ms=bound_ms)
+
+
 def profile_dispatch(torch, engine, group) -> tuple[float, float, list]:
     """One warm 4-row dispatch of ``group`` under ``torch.profiler``:
     (device busy ms, wall ms, kernel rows longest first)."""
@@ -399,7 +478,7 @@ def bf16_serving_phase(torch, np, port_main, layers, f32_run, f32_peak_mib, card
     log(f"[serve-bf16] {n_ok}/16 ok; fused_gated_ffn launches {launches} = 2 x "
         f"{cfg.n_attn_layers} blocks x {dispatches} dispatches ({summary['dispatches']} served + "
         f"{summary['warmed_buckets']} warm-up), by dtype {json.dumps(by_dtype)}")
-    if launches != expected or launches == 0 or by_dtype != {"torch.bfloat16": launches}:
+    if launches != expected or launches == 0 or by_dtype != {"bf16": launches}:
         raise RuntimeError(f"expected {expected} bf16 FFN kernel launches, counted {launches} "
                            f"{by_dtype}")
     for r in run.results:
@@ -720,10 +799,10 @@ def step_phases(torch, batch_loss, trainer, batch, reps: int = 5) -> dict[str, t
     return {n: (statistics.median(host[n]), statistics.median(dev[n])) for n in host}
 
 
-def training_phase(torch, np, card: str) -> int:
+def training_phase(torch, np, card: str):
     """Phase 6: training at full width through the port's train entry
     point, with the FFN kernel in every forward. Returns the kernel's
-    launches over the run."""
+    launches over the run, the run's trainer and its peak memory (MiB)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gnot_tpu_torch import main as port_main
@@ -738,14 +817,14 @@ def training_phase(torch, np, card: str) -> int:
     from gnot_tpu_torch.train.trainer import Trainer, batch_loss
 
     args = port_main.build_parser().parse_args(TRAIN_ARGV)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    held_mib = reset_peak(torch)
     fused_gated_ffn_kernel.launches = 0
     t0 = time.perf_counter()
     trainer, lines = train_quietly(port_main, args)
     wall_s = time.perf_counter() - t0
     launches = fused_gated_ffn_kernel.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    own_mib = peak_mib - held_mib
     log(f"[train] python -m gnot_tpu_torch.main {' '.join(TRAIN_ARGV)}: {wall_s:.2f} s")
     for line in lines:
         if line:
@@ -757,7 +836,8 @@ def training_phase(torch, np, card: str) -> int:
     expected = 2 * cfg.n_attn_layers * (steps + eval_batches)
     log(f"[train] fused_gated_ffn launches {launches} = 2 x {cfg.n_attn_layers} blocks x "
         f"({steps} train steps + {eval_batches} eval batches); peak device memory "
-        f"{peak_mib:.1f} MiB")
+        f"{peak_mib:.1f} MiB, {held_mib:.1f} MiB of it held before the run: the run's own "
+        f"{own_mib:.1f} MiB")
     if launches != expected or launches == 0:
         raise RuntimeError(f"expected {expected} FFN kernel launches in training, counted {launches}")
 
@@ -771,8 +851,7 @@ def training_phase(torch, np, card: str) -> int:
     if fused_gated_ffn_kernel.launches != 0:
         raise RuntimeError(f"the plain-FFN run launched the kernel "
                            f"{fused_gated_ffn_kernel.launches} times")
-    losses = lambda t: np.concatenate([r.step_losses for r in t.history]).astype(np.float64)  # noqa: E731
-    got, want = losses(trainer), losses(plain)
+    got, want = step_losses(np, trainer), step_losses(np, plain)
     got_m = np.array([r.test_metric for r in trainer.history])
     want_m = np.array([r.test_metric for r in plain.history])
     rel = lambda a, b: np.abs(a - b) / np.abs(b)  # noqa: E731
@@ -796,7 +875,7 @@ def training_phase(torch, np, card: str) -> int:
         stale, _ = train_quietly(port_main, args)
     finally:
         trainer_mod.make_optimizer = make_optimizer
-    stale_rel = rel(losses(stale)[1:], want[1:]).max()
+    stale_rel = rel(step_losses(np, stale)[1:], want[1:]).max()
     log(f"[train] stale-image control (fused AdamW): steps 2..{len(got)} worst rel "
         f"{stale_rel:.3e} vs the plain-FFN run, {stale_rel / TRAIN_LATER_RTOL:.1f}x the bar")
     np.testing.assert_allclose(got[0], want[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
@@ -894,7 +973,207 @@ def training_phase(torch, np, card: str) -> int:
         f"{type(trainer.optimizer).__name__}(foreach={trainer.optimizer.defaults['foreach']}, "
         f"fused={trainer.optimizer.defaults['fused']}) over "
         f"{sum(len(g['params']) for g in trainer.optimizer.param_groups)} tensors")
-    return launches
+    return launches, trainer, own_mib
+
+
+def reset_peak(torch) -> float:
+    """Wait for the card and restart the peak-memory count; returns the
+    MiB allocated now, which earlier phases' models and images hold, so
+    that a run's own peak is the new peak less it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**20
+
+
+def step_losses(np, trainer):
+    """Every train step's loss of a run, in order, as float64."""
+    return np.concatenate([r.step_losses for r in trainer.history]).astype(np.float64)
+
+
+def worst_rel(np, a, b) -> float:
+    """The largest ``|a - b| / |b|`` over the elements."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def bf16_training_phase(torch, np, card: str, f32_trainer, f32_peak_mib: float):
+    """Phase 6b: ``--dtype bfloat16`` training at full width through the
+    port's train entry point, the counts set to 0 just before and read just
+    after; the same run with every FFN through the plain version and with
+    its two controls; host-clock step times against f32; peak memory.
+    Returns the run's trainer and its launches by dtype mix."""
+    import shutil
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--dtype", "bfloat16", "--checkpoint_dir", str(TRAIN_OUT / "ck_bf16")]
+    args = port_main.build_parser().parse_args(argv)
+    held_mib = reset_peak(torch)
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
+    t0 = time.perf_counter()
+    trainer, lines = train_quietly(port_main, args)
+    wall_s = time.perf_counter() - t0
+    launches = fused_gated_ffn_kernel.launches
+    by_mix = dict(fused_gated_ffn_kernel.launches_by_dtype)
+    own_mib = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+    log(f"[train-bf16] python -m gnot_tpu_torch.main {' '.join(argv)}: {wall_s:.2f} s")
+    for line in lines:
+        if line:
+            log(f"[train-bf16]   {line}")
+    check_reference_lines(lines, args.epochs)
+    cfg = trainer.model_cfg
+    steps, eval_batches = trainer.host_step, args.epochs * len(trainer.test_loader)
+    expected = 2 * cfg.n_attn_layers * (steps + eval_batches)
+    log(f"[train-bf16] fused_gated_ffn launches {launches} = 2 x {cfg.n_attn_layers} blocks x "
+        f"({steps} train steps + {eval_batches} eval batches), by dtype mix {json.dumps(by_mix)}; "
+        f"the run's own peak device memory (above what earlier phases hold) {own_mib:.1f} MiB "
+        f"(phase 6, f32: {f32_peak_mib:.1f} MiB)")
+    if launches != expected or by_mix != {"bf16-x/f32-w": expected}:
+        raise RuntimeError(f"expected {expected} launches of the bf16 training mix, counted "
+                           f"{launches} {by_mix}")
+    if {p.dtype for p in trainer.model.parameters()} != {torch.float32}:
+        raise RuntimeError("bf16 training left a parameter outside f32")
+
+    # The same run through the plain version, and two runs the bar must
+    # catch: f32 training (phase 6) and the kernel's serving instance on
+    # bf16-cast weights, which skips the lo weight product.
+    plain_args = port_main.build_parser().parse_args(TRAIN_ARGV + ["--dtype", "bfloat16"])
+
+    def serving_instance(x, scores, kernels, biases, gelu_kind):
+        return fused_gated_ffn(x, scores, [k.bfloat16() for k in kernels],
+                               [b.bfloat16() for b in biases], gelu_kind=gelu_kind)
+
+    runs = {}
+    matmul = torch.backends.cuda.matmul
+    for name, ffn, reduced in (("plain", fused_gated_ffn_reference, True),
+                               ("plain, f32 cuBLAS reduction", fused_gated_ffn_reference, False),
+                               ("serving instance", serving_instance, True)):
+        fused_gated_ffn_kernel.launches = 0
+        layers.fused_gated_ffn = ffn
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            runs[name], _ = train_quietly(port_main, plain_args)
+        finally:
+            layers.fused_gated_ffn = fused_gated_ffn
+            matmul.allow_bf16_reduced_precision_reduction = True
+        if (fused_gated_ffn_kernel.launches == 0) != name.startswith("plain"):
+            raise RuntimeError(f"the {name} run launched the kernel "
+                               f"{fused_gated_ffn_kernel.launches} times")
+    metrics = lambda t: np.array([r.test_metric for r in t.history])  # noqa: E731
+    reading = lambda t, ref: max(worst_rel(np, step_losses(np, t), step_losses(np, ref)),  # noqa: E731
+                                 worst_rel(np, metrics(t), metrics(ref)))
+    plain = runs["plain"]
+    got = reading(trainer, plain)
+    exact = reading(trainer, runs["plain, f32 cuBLAS reduction"])
+    flag = reading(runs["plain, f32 cuBLAS reduction"], plain)
+    controls = {"f32 training (phase 6)": reading(f32_trainer, plain),
+                "the serving instance on bf16-cast weights": reading(runs["serving instance"], plain)}
+    log(f"[train-bf16] step losses, kernel {step_losses(np, trainer).tolist()}")
+    log(f"[train-bf16] step losses, plain  {step_losses(np, plain).tolist()} (0 kernel launches)")
+    log(f"[train-bf16] vs the plain-FFN bf16 run, worst relative difference over step losses and "
+        f"test metrics: kernel {got:.3e} (bar {BF16_TRAIN_REL}); controls " + ", ".join(
+            f"{k} {v:.3e} ({v / BF16_TRAIN_REL:.1f}x the bar)" for k, v in controls.items()))
+    log(f"[train-bf16] cuBLAS bf16 GEMMs with reduced-precision reduction off "
+        f"(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction=False; on by "
+        f"default): the plain run moves by {flag:.3e}; the kernel run against it {exact:.3e}")
+    if got > BF16_TRAIN_REL:
+        raise RuntimeError(f"bf16 training through the kernel is {got} from the plain run")
+    caught = [k for k, v in controls.items() if v <= BF16_TRAIN_REL]
+    if caught:
+        raise RuntimeError(f"the bar {BF16_TRAIN_REL} does not catch {caught}")
+
+    # Host-clock step time, f32 and bf16, kernel and torch FFN path, in turns.
+    times: dict[tuple[str, str], list[float]] = {}
+    order = [("float32", "pallas"), ("bfloat16", "pallas"), ("bfloat16", "xla"), ("float32", "xla")]
+    for dtype, impl in order + order[::-1]:
+        base = trainer if dtype == "bfloat16" else f32_trainer
+        times.setdefault((dtype, impl), []).append(
+            statistics.median(step_times(torch, Trainer, base, impl)[1:]))
+    log("[train-bf16] step time, host clock around each waited-for step, median of steps 2..8, "
+        "two turns each: " + "; ".join(f"{d} ffn_impl={i} {[round(t, 3) for t in v]} ms"
+                                       for (d, i), v in times.items()) + f" on {card}")
+    return trainer, by_mix
+
+
+def remat_and_artifacts_phase(torch, np, card: str, f32_peak_mib: float, bf16_trainer) -> None:
+    """Phase 6c: one short ``--remat`` run at full width against the same
+    run without remat (launches, losses, peak memory); then
+    ``--eval_only``, ``--predict_out`` and ``--export_torch`` from phase
+    6b's checkpoints, each checked."""
+    from gnot_tpu_torch import interop
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+
+    short = list(TRAIN_ARGV)
+    short[short.index("--epochs") + 1] = "1"
+    runs, peaks, counts = {}, {}, {}
+    for name, extra in (("remat", ["--remat"]), ("no remat", [])):
+        held_mib = reset_peak(torch)
+        fused_gated_ffn_kernel.launches = 0
+        runs[name], _ = train_quietly(port_main, port_main.build_parser().parse_args(short + extra))
+        counts[name] = fused_gated_ffn_kernel.launches
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+    remat = runs["remat"]
+    cfg = remat.model_cfg
+    steps, eval_batches = remat.host_step, len(remat.test_loader)
+    expected = 2 * cfg.n_attn_layers * (2 * steps + eval_batches)
+    rel = worst_rel(np, step_losses(np, remat), step_losses(np, runs["no remat"]))
+    log(f"[remat] python -m gnot_tpu_torch.main {' '.join(short)} --remat: fused_gated_ffn "
+        f"launches {counts['remat']} = 2 x {cfg.n_attn_layers} blocks x (2 x {steps} train steps "
+        f"+ {eval_batches} eval batches), without remat {counts['no remat']}; step losses vs the "
+        f"run without remat worst rel {rel:.3e} (bar rtol 1e-5); the run's own peak device "
+        f"memory {peaks['remat']:.1f} MiB with remat, {peaks['no remat']:.1f} MiB without "
+        f"(phase 6's two-epoch run: {f32_peak_mib:.1f} MiB)")
+    if counts["remat"] != expected or not cfg.remat:
+        raise RuntimeError(f"expected {expected} launches in the remat run, counted "
+                           f"{counts['remat']}")
+    np.testing.assert_allclose(step_losses(np, remat), step_losses(np, runs["no remat"]),
+                               rtol=1e-5)
+
+    pred, pth = TRAIN_OUT / "pred_bf16.pkl", TRAIN_OUT / "model_bf16.pth"
+    argv = TRAIN_ARGV + ["--dtype", "bfloat16", "--checkpoint_dir", str(TRAIN_OUT / "ck_bf16"),
+                         "--eval_only", "--predict_out", str(pred), "--export_torch", str(pth)]
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
+    trainer, lines = train_quietly(port_main, port_main.build_parser().parse_args(argv))
+    by_mix = dict(fused_gated_ffn_kernel.launches_by_dtype)
+    log(f"[artifacts] python -m gnot_tpu_torch.main {' '.join(argv)}")
+    for line in lines:
+        log(f"[artifacts]   {line}")
+    best = bf16_trainer.best_metric
+    log(f"[artifacts] eval metric {trainer.best_metric!r} vs phase 6b's best {best!r} "
+        f"(bitwise: {trainer.best_metric == best}); fused_gated_ffn launches by dtype mix "
+        f"{json.dumps(by_mix)}")
+    np.testing.assert_allclose(trainer.best_metric, best, rtol=1e-6)
+    eval_line = [line for line in lines if line.startswith("Eval (best checkpoint from epoch ")]
+    if len(eval_line) != 1 or list(by_mix) != ["bf16-x/f32-w"]:
+        raise RuntimeError(f"eval-only run: lines {lines}, launches {by_mix}")
+    records = datasets.load_pickle(str(pred))
+    _, test = datasets.load(trainer.config.data)
+    if len(records) != len(test) or any(
+            r.y.shape != (s.coords.shape[0], cfg.out_dim) or not np.all(np.isfinite(r.y))
+            or not np.array_equal(r.coords, s.coords) for r, s in zip(records, test)):
+        raise RuntimeError("the prediction pickle does not read back as the test split's "
+                           "predictions")
+    exported = torch.load(pth, weights_only=True)
+    want = interop.reference_state_dict(trainer.model.state_dict(), trainer.model_cfg)
+    if sorted(exported) != sorted(want) or any(
+            not torch.equal(exported[k], want[k]) for k in want):
+        raise RuntimeError("the exported state_dict is not the port's reference naming of the "
+                           "best weights")
+    log(f"[artifacts] {len(records)} prediction records read back (finite, the test meshes); "
+        f"{len(exported)} exported tensors under the reference's names, equal to the best "
+        f"checkpoint's weights, on {card}")
 
 
 def main() -> int:
@@ -983,6 +1262,8 @@ def main() -> int:
         f"max_abs_err vs the plain version {torch_err:.3e}")
     bf16 = bf16_ffn_phase(torch, np, layers, card, kernel_ms,
                           fused_gated_ffn_kernel, fused_gated_ffn_reference)
+    mix = training_mix_ffn_phase(torch, np, card, kernel_ms,
+                                 fused_gated_ffn_kernel, fused_gated_ffn_reference)
 
     # -- phase 3b: the kernel-validation entry point, attention timings --
     attn = attention_phase(torch, torch.device("cuda"), card)
@@ -996,8 +1277,11 @@ def main() -> int:
                      fused_attention.nla_reduce_seg_kernel, fused_attention.nla_apply_seg_kernel]
     for w in [fused_gated_ffn_kernel, *attn_wrappers]:
         w.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
     run = port_main.run_serve(serve_args)
     launches = fused_gated_ffn_kernel.launches
+    if fused_gated_ffn_kernel.launches_by_dtype != {"f32": launches}:
+        raise RuntimeError(f"f32 serving launched {fused_gated_ffn_kernel.launches_by_dtype}")
     log(f"[serve] attention kernel launches {[w.launches for w in attn_wrappers]}: the model "
         "runs attention as torch einsums (attention_impl='pallas' is refused)")
     summary = run.summary
@@ -1051,7 +1335,14 @@ def main() -> int:
     where_the_time_goes(torch, run.model, plain_model, run.samples[:4], InferenceEngine)
 
     # -- phase 6: training at full width ----------------------------------
-    train_launches = training_phase(torch, np, card)
+    train_launches, f32_trainer, f32_peak_mib = training_phase(torch, np, card)
+
+    # -- phase 6b: bf16 training at full width ----------------------------
+    bf16_trainer, train_bf16_by_mix = bf16_training_phase(torch, np, card, f32_trainer,
+                                                          f32_peak_mib)
+
+    # -- phase 6c: remat, then eval, predict and export from 6b -----------
+    remat_and_artifacts_phase(torch, np, card, f32_peak_mib, bf16_trainer)
 
     kernels = [{
         "name": "fused_gated_ffn",
@@ -1068,6 +1359,10 @@ def main() -> int:
         "library_ms": None,
         "bf16_launches": bf16_launches,
         **bf16,
+        "train_bf16_launches": train_bf16_by_mix["bf16-x/f32-w"],
+        "launches_by_mix": {"f32": launches, "bf16": bf16_launches,
+                            "bf16-x/f32-w": train_bf16_by_mix["bf16-x/f32-w"]},
+        **mix,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

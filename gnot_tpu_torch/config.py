@@ -51,9 +51,11 @@ class ModelConfig:
     # reference's op) or "tanh". "" resolves to "erf" in parity mode
     # and "tanh" otherwise.
     gelu: str = ""
-    # Compute dtype of the block stack: "float32", or "bfloat16" for
-    # serving (models/precision.py). Weights stay float32 at rest.
+    # Compute dtype of the block stack: "float32", or "bfloat16" (bf16
+    # training on f32 master weights, or bf16 serving of a cast copy:
+    # models/precision.py). Weights stay float32 at rest.
     dtype: str = "float32"
+    # Recompute each block's activations in the backward (nn.remat).
     remat: bool = False
     scan_layers: bool = False
 

@@ -1,6 +1,6 @@
 // Fused gated soft-MoE expert FFN for NVIDIA Hopper (sm_90a), float32 or
-// bfloat16 in and out, computed in float32, products on the tensor cores
-// in 3xTF32.
+// bfloat16 in and out, float32 or bfloat16 weights, computed in float32,
+// products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel gnot_tpu/ops/pallas_ffn.py:206 fused_gated_ffn
 // (pallas_call in _ffn_call, body _ffn_kernel :123). For every token row,
@@ -67,8 +67,8 @@
 //
 //   * bfloat16 I/O (bf16 serving): x, weights, biases and the output in
 //     bf16, gate scores in f32, the mix the JAX model passes its kernel
-//     (pallas_ffn.py:128-145, :178). The kernel is templated on the
-//     activation type: x is widened to f32 into the first hidden buffer
+//     (pallas_ffn.py:128-145, :178). For bf16 activations x is widened
+//     to f32 into the first hidden buffer
 //     (exact), biases are read as f32, and the whole expert stack and the
 //     gate-weighted sum stay f32, with one rounding to bf16 (nearest
 //     even) at the store; nothing is rounded between Linears. The bf16
@@ -83,9 +83,26 @@
 //     and weights, three on each later Linear's f32 activations split
 //     into three bf16 pieces (exact to f32), 13 x 1.61 GFLOP = 0.0212 ms.
 //
+//   * bf16 activations with f32 weights and biases (bf16 training): the
+//     JAX model computes its blocks in bf16 on the f32 master weights and
+//     hands its kernel the weights uncast (gnot_tpu/models/layers.py,
+//     GatedExpertFfn). The kernel is templated on the activation type TX
+//     (x, out) and the parameter type TP (biases; the weight image is f32
+//     either way) apart. The lo image of an f32 weight is not zero, so
+//     whether the a_hi * b_lo product runs follows TP, not TX: skipping it
+//     here would compute another function. x widens exactly, its a_lo is
+//     zero on Linear 0, and the output rounds once at the store, so this
+//     instance is bitwise the f32 instance run on the widened x with its
+//     output rounded to bf16 (chip_smoke.py phase 3 checks it). Its least
+//     time (chip_smoke.py ffn_bound_ms): Linear 0's f32 weights in three
+//     bf16 pieces against its bf16 x, three products at 989 TFLOP/s, and
+//     3xTF32 on the later Linears, 0.0049 + 0.0390 = 0.044 ms at the
+//     serving shapes; the kernel runs 3xTF32 on every Linear (0.0488 ms).
+//
 // Supported: 1..8 Linears, every width a multiple of 16 in [16, 256],
-// any n_expert >= 1, any row count, f32 or bf16 activations. The
-// launcher refuses anything else.
+// any n_expert >= 1, any row count, and three type mixes: f32 x, weights
+// and biases; bf16 ones; bf16 x with f32 weights and biases. The scores
+// are f32 in all three. The launcher refuses anything else.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -111,14 +128,15 @@ constexpr int kHiddenFloats = kRows * kLd;
 constexpr int kSmemBytes =
     kStages * kChunkBytes + 2 * kHiddenFloats * 4 + kCols * 4 + 2 * kStages * 8;
 
-// T is the activation type of x, biases and out: float or __nv_bfloat16.
-template <typename T>
+// TX is the activation type of x and out, TP the parameter type of the
+// weights and biases: float or __nv_bfloat16 each.
+template <typename TX, typename TP>
 struct FfnArgs {
-  const T* x;           // [rows, dims[0]]
-  const float* scores;  // [rows, n_expert], f32 for either T
-  T* out;               // [rows, dims[n_linears]]
+  const TX* x;          // [rows, dims[0]]
+  const float* scores;  // [rows, n_expert], f32 for every mix
+  TX* out;              // [rows, dims[n_linears]]
   const float* w[kMaxLinears];  // w[i]: packed f32 image of Linear i
-  const T* b[kMaxLinears];      // b[i]: [n_expert, dims[i+1]]
+  const TP* b[kMaxLinears];     // b[i]: [n_expert, dims[i+1]]
   int dims[kMaxLinears + 1];
   int n_linears;
   int n_expert;
@@ -161,7 +179,7 @@ __device__ __forceinline__ float gelu(float x) {
 }
 
 // Four consecutive activations widened to f32 (bf16 -> f32 is exact), and
-// two f32 values stored as T (one rounding, nearest even, for bf16).
+// two f32 values stored as TX (one rounding, nearest even, for bf16).
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -324,11 +342,12 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <int kGelu, typename T>
+template <int kGelu, typename TX, typename TP>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
-    fused_gated_ffn_kernel(const __grid_constant__ FfnArgs<T> a) {
-  // bf16 weights have an all-zero lo image (see the header).
-  constexpr bool kLoWeights = sizeof(T) == sizeof(float);
+    fused_gated_ffn_kernel(const __grid_constant__ FfnArgs<TX, TP> a) {
+  // bf16 weights have an all-zero lo image, f32 weights do not: the
+  // parameter type decides (see the header).
+  constexpr bool kLoWeights = sizeof(TP) == sizeof(float);
   extern __shared__ __align__(1024) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);  // kStages weight chunks
   float* hid = ring + kStages * kChunkFloats;     // two [64, kLd] buffers
@@ -511,38 +530,38 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int kGelu, typename T>
-cudaError_t launch(const FfnArgs<T>& a, cudaStream_t stream) {
+template <int kGelu, typename TX, typename TP>
+cudaError_t launch(const FfnArgs<TX, TP>& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(fused_gated_ffn_kernel<kGelu, T>,
+    const cudaError_t err = cudaFuncSetAttribute(fused_gated_ffn_kernel<kGelu, TX, TP>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int tiles = (a.rows + kRows - 1) / kRows;
-  fused_gated_ffn_kernel<kGelu, T><<<2 * tiles, kThreads, kSmemBytes, stream>>>(a);
+  fused_gated_ffn_kernel<kGelu, TX, TP><<<2 * tiles, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TX, typename TP>
 cudaError_t run(const void* x, const void* scores, void* out, const int* dims,
                 const uint64_t* w, const uint64_t* b, int n_linears, int n_expert, int rows,
                 int gelu, cudaStream_t stream) {
-  FfnArgs<T> a;
-  a.x = static_cast<const T*>(x);
+  FfnArgs<TX, TP> a;
+  a.x = static_cast<const TX*>(x);
   a.scores = static_cast<const float*>(scores);
-  a.out = static_cast<T*>(out);
+  a.out = static_cast<TX*>(out);
   for (int i = 0; i <= kMaxLinears; ++i) a.dims[i] = i <= n_linears ? dims[i] : 0;
   for (int i = 0; i < kMaxLinears; ++i) {
     a.w[i] = i < n_linears ? reinterpret_cast<const float*>(w[i]) : nullptr;
-    a.b[i] = i < n_linears ? reinterpret_cast<const T*>(b[i]) : nullptr;
+    a.b[i] = i < n_linears ? reinterpret_cast<const TP*>(b[i]) : nullptr;
   }
   a.n_linears = n_linears;
   a.n_expert = n_expert;
   a.rows = rows;
-  return gelu == 0 ? launch<0, T>(a, stream) : launch<1, T>(a, stream);
+  return gelu == 0 ? launch<0, TX, TP>(a, stream) : launch<1, TX, TP>(a, stream);
 }
 
 }  // namespace
@@ -551,14 +570,16 @@ cudaError_t run(const void* x, const void* scores, void* out, const int* dims,
 // device pointers to packed f32 images (ops/fused_ffn.py::pack_weights).
 // biases: host array of n_linears device pointers, [n_expert, out] each.
 // dims: host array of n_linears + 1 widths. gelu: 0 = tanh, 1 = erf.
-// dtype: the type of x, biases and out, 0 = float32, 1 = bfloat16
-// (scores are float32 either way). Returns a cudaError_t (0 = launched).
+// dtype: the type mix, 0 = float32 x, out, weights and biases; 1 = all
+// bfloat16; 2 = bfloat16 x and out with float32 weights and biases (the
+// packed image is float32 in all three, scores are float32 in all three).
+// Returns a cudaError_t (0 = launched).
 extern "C" int gnot_fused_gated_ffn(const void* x, const void* scores, void* out,
                                     const void* weights, const void* biases,
                                     const void* dims, int n_linears, int n_expert,
                                     int rows, int gelu, int dtype, void* stream) {
   if (n_linears < 1 || n_linears > kMaxLinears || n_expert < 1 || rows < 0 ||
-      (gelu != 0 && gelu != 1) || (dtype != 0 && dtype != 1)) {
+      (gelu != 0 && gelu != 1) || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int* d = static_cast<const int*>(dims);
@@ -571,8 +592,14 @@ extern "C" int gnot_fused_gated_ffn(const void* x, const void* scores, void* out
   const uint64_t* w = static_cast<const uint64_t*>(weights);
   const uint64_t* b = static_cast<const uint64_t*>(biases);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? run<float>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s)
-                 : run<__nv_bfloat16>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s);
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = run<float, float>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s);
+  } else if (dtype == 1) {
+    err = run<bf16, bf16>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s);
+  } else {
+    err = run<bf16, float>(x, scores, out, d, w, b, n_linears, n_expert, rows, gelu, s);
+  }
   return static_cast<int>(err);
 }

@@ -81,6 +81,16 @@ def load_pickle(path: str) -> list[MeshSample]:
     return samples
 
 
+def save_pickle(samples: Sequence[MeshSample], path: str) -> None:
+    """Write samples in the reference pickle schema (round-trippable), as
+    ``gnot_tpu/data/datasets.py::save_pickle``."""
+    records = [
+        [s.coords, s.y, np.asarray(s.theta), tuple(s.funcs)] for s in samples
+    ]
+    with open(path, "wb") as f:
+        pickle.dump(records, f)
+
+
 def _smooth_target(coords: np.ndarray, theta: np.ndarray, funcs) -> np.ndarray:
     """Deterministic smooth operator output: learnable but nontrivial."""
     t = float(np.sum(theta))

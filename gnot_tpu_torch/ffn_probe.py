@@ -185,7 +185,7 @@ def main() -> int:
     for name, lib in libs.items():
         launcher = fused_ffn._Launcher(lib)
         call = lambda: fused_ffn.launch(*args, "tanh", launcher)  # noqa: E731
-        err = (call() - want).abs().max().item()
+        err = (call()[0] - want).abs().max().item()
         print(f"[probe] {name:14s} [4,1024,256] E=3 5 Linears: {event_ms(call):.4f} ms, "
               f"max_abs_err vs plain {err:.3e}", flush=True)
     phases = libs["phases"]

@@ -8,7 +8,8 @@ numpy arrays (``jax.device_get(params)``) and returns the port's
 kernels ``[in, out]``, stacked layers with the leading ``[E]`` or ``[F]``
 axis — so the map is one to one with no transposes. The JAX side's
 torch-reference naming is documented at
-``gnot_tpu/interop/torch_oracle.py:9-23``.
+``gnot_tpu/interop/torch_oracle.py:9-23``; ``reference_state_dict``
+names the port's weights that way (``--export_torch``).
 """
 
 from __future__ import annotations
@@ -59,3 +60,54 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return {
         k: torch.from_numpy(np.array(flat[k], dtype=np.float32)) for k in expected
     }
+
+
+def reference_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig) -> dict:
+    """The port's weights as a state_dict the reference PyTorch GNOT loads:
+    a copy of the naming of ``gnot_tpu/interop/torch_oracle.py::
+    flax_to_state_dict`` (``x.layers.{2i}``, ``blocks.{b}.ffn{n}.{e}.layers.
+    {2i}``, ...), each Dense kernel transposed to torch's ``[out, in]`` and
+    each stacked layer cut into its ModuleList entries. f32 CPU tensors."""
+    sd = {k: v.detach().to("cpu", torch.float32) for k, v in state_dict.items()}
+    out: dict[str, torch.Tensor] = {}
+
+    def put_linear(prefix: str, kernel: torch.Tensor, bias: torch.Tensor) -> None:
+        out[f"{prefix}.weight"] = kernel.T.contiguous()
+        out[f"{prefix}.bias"] = bias.clone()
+
+    def put_mlp(prefix: str, tree: str) -> None:
+        for i in range(cfg.n_mlp_num_layers + 1):
+            leaf = f"{tree}.dense_{i}"
+            put_linear(f"{prefix}.layers.{2 * i}", sd[f"{leaf}.kernel"], sd[f"{leaf}.bias"])
+
+    def put_stacked(prefixes: list[str], leaf: str) -> None:
+        for s, prefix in enumerate(prefixes):
+            put_linear(prefix, sd[f"{leaf}.kernel"][s], sd[f"{leaf}.bias"][s])
+
+    def put_stacked_mlp(prefixes: list[str], tree: str) -> None:
+        for i in range(cfg.n_mlp_num_layers + 1):
+            put_stacked([f"{p}.layers.{2 * i}" for p in prefixes], f"{tree}.dense_{i}")
+
+    put_mlp("x", "x_embed")
+    put_mlp("gating", "gating")
+    put_mlp("out", "out_mlp")
+    n_funcs = cfg.n_input_functions
+    if n_funcs > 0:
+        put_stacked_mlp([f"input_func_mlps.{f}" for f in range(n_funcs)], "input_func_mlps")
+    for b in range(cfg.n_attn_layers):
+        pb, blk = f"blocks.{b}", f"block_{b}"
+        for k in ("query", "fc_out"):
+            leaf = f"{blk}.cross_attention.{k}"
+            put_linear(f"{pb}.cross_attention.{k}", sd[f"{leaf}.kernel"], sd[f"{leaf}.bias"])
+        for k in ("key", "value"):
+            leaf = f"{blk}.cross_attention.{k}"
+            if n_funcs > 0:
+                put_stacked([f"{pb}.cross_attention.{k}.{f}" for f in range(n_funcs)], leaf)
+            else:
+                put_linear(f"{pb}.cross_attention.{k}", sd[f"{leaf}.kernel"], sd[f"{leaf}.bias"])
+        for k in ("query", "key", "value", "fc_out"):
+            leaf = f"{blk}.self_attention.{k}"
+            put_linear(f"{pb}.self_attention.{k}", sd[f"{leaf}.kernel"], sd[f"{leaf}.bias"])
+        for ffn in ("ffn1", "ffn2"):
+            put_stacked_mlp([f"{pb}.{ffn}.{e}" for e in range(cfg.n_expert)], f"{blk}.{ffn}.experts")
+    return out

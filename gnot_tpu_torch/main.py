@@ -6,7 +6,13 @@ defaults, so the same command line works in both packages. Two modes:
 * training (no ``--serve``, the default, as in ``gnot_tpu``): the
   single-device ``Trainer`` on the synthetic or pickled train split,
   weights from ``--seed``, eval on the test split every epoch, the
-  reference's console lines; ``main`` returns the best test metric.
+  reference's console lines, in f32 or (``--dtype bfloat16``) bf16
+  compute; ``main`` returns the best test metric. ``--eval_only``
+  evaluates ``--checkpoint_dir``'s best checkpoint instead of training.
+  Then ``--export_torch`` saves the weights as a state_dict the
+  reference's torch GNOT loads, and ``--predict_out`` writes the test
+  split's predictions as a reference-schema pickle; both use the best
+  checkpoint when ``--checkpoint_dir`` is set, else the final weights.
 * ``--serve``: the weights of ``--checkpoint_dir``'s ``best``, else its
   ``latest``, checkpoint, else fresh from ``--seed``; one dispatch per
   bucket warms the engine, the test split (synthetic or pickled) is
@@ -26,6 +32,7 @@ import time
 
 import torch
 
+from gnot_tpu_torch import interop
 from gnot_tpu_torch.config import (
     Config,
     DataConfig,
@@ -76,9 +83,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
+        "--gelu", type=str, default="", choices=["", "erf", "tanh"],
+        help="GELU flavor: erf (torch nn.GELU, the reference op) or tanh "
+             "(the standard approximation). Default: tanh (masked mode)",
+    )
+    p.add_argument(
         "--ffn_impl", type=str, default="xla", choices=["xla", "pallas"],
         help="xla: batched-matmul expert FFN in torch; pallas: the fused "
              "gated-FFN kernel (hand-written CUDA on the card)",
+    )
+    p.add_argument(
+        "--dtype", type=str, default="float32", choices=list(SERVE_DTYPES),
+        help="compute dtype of the block stack: bfloat16 computes the blocks "
+             "in bf16 on the f32 weights (f32 gradients, AdamW state and "
+             "checkpoints; f32 attention accumulation and output head)",
+    )
+    p.add_argument(
+        "--remat", action="store_true",
+        help="recompute each block's activations in the backward (less "
+             "activation memory, one more forward of each block)",
+    )
+    p.add_argument(
+        "--predict_out", type=str, default="",
+        help="after the run, write test-set predictions to this pickle as "
+             "[X, Y_pred, theta, (f...)] records (reference schema); uses the "
+             "best checkpoint when --checkpoint_dir is set, else the "
+             "final-epoch weights",
+    )
+    p.add_argument(
+        "--export_torch", type=str, default="",
+        help="after the run, save the weights as a reference-compatible torch "
+             "state_dict .pth (best checkpoint when --checkpoint_dir is set, "
+             "else the final weights)",
     )
     p.add_argument(
         "--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -90,6 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", type=str, default="")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint_every", type=int, default=0)
+    p.add_argument(
+        "--eval_only", action="store_true",
+        help="restore the best checkpoint and evaluate (no training)",
+    )
     p.add_argument("--no_bucket", action="store_true", help="pad to per-batch max (parity)")
     p.add_argument(
         "--serve", action="store_true",
@@ -166,6 +206,9 @@ def model_config(args, samples: list[MeshSample]) -> ModelConfig:
         n_expert=args.n_expert,
         n_head=args.n_head,
         ffn_impl=args.ffn_impl,
+        gelu=args.gelu,
+        dtype=args.dtype,
+        remat=args.remat,
     )
 
 
@@ -229,8 +272,11 @@ def run_serve(args) -> ServeRun:
 
 def run_train(args) -> Trainer:
     """Training (no ``--serve``): load the splits, build the trainer on
-    the chosen device with weights from ``--seed``, fit, and return the
-    trainer (its ``best_metric``, ``history`` and model)."""
+    the chosen device with weights from ``--seed``, fit (or with
+    ``--eval_only`` evaluate the best checkpoint), then export and
+    predict as asked (``gnot_tpu/main.py``). Returns the trainer: its
+    ``best_metric`` (with ``--eval_only``, the metric just evaluated),
+    ``history`` and model."""
     device = resolve_device(args.device)
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
@@ -238,13 +284,35 @@ def run_train(args) -> Trainer:
     checkpointer = Checkpointer(cfg.train.checkpoint_dir) if cfg.train.checkpoint_dir else None
     trainer = Trainer(cfg, mc, train_samples, test_samples,
                       checkpointer=checkpointer, device=device)
-    trainer.fit()
+    if args.eval_only:
+        trainer.best_metric = trainer.evaluate_from_checkpoint()
+    else:
+        trainer.fit()
+    if (args.export_torch or args.predict_out) and not args.eval_only:
+        # The artifacts of the reported best metric, not of the last epoch.
+        if checkpointer is not None:
+            trainer.restore_best()
+        else:
+            print("note: no --checkpoint_dir, so export/predict artifacts "
+                  "use the FINAL-epoch weights, not the reported best")
+    if args.export_torch:
+        torch.save(interop.reference_state_dict(trainer.model.state_dict(), mc),
+                   args.export_torch)
+        print(f"Exported torch state_dict to {args.export_torch}")
+    if args.predict_out:
+        preds = trainer.predict(test_samples)
+        datasets.save_pickle(
+            [dataclasses.replace(s, y=p) for s, p in zip(test_samples, preds)],
+            args.predict_out,
+        )
+        print(f"Wrote {len(preds)} predictions to {args.predict_out}")
     return trainer
 
 
 def main(argv: list[str] | None = None) -> float:
-    """Trains and returns the best test metric, or with ``--serve``
-    serves and returns the share of requests answered."""
+    """Trains (or evaluates) and returns the best (or evaluated) test
+    metric, or with ``--serve`` serves and returns the share of requests
+    answered."""
     args = build_parser().parse_args(argv)
     if not args.serve:
         return run_train(args).best_metric

@@ -9,20 +9,26 @@ or bfloat16 compute, with the reference's quirks as they are:
 * there is **no LayerNorm anywhere**;
 * the residual inside attention adds the softmaxed q (see layers.py).
 
-With ``dtype="bfloat16"`` (bf16 serving, ``models/precision.py``) every
-block computes in bf16 on its weights cast to bf16, the gate scores stay
-f32, and the output head reads f32 input: its weights, bf16 in a served
-copy as every float weight is, are promoted to f32 there, as flax's
-``dtype=None`` head promotes JAX's cast tree.
+With ``dtype="bfloat16"`` every block computes in bf16 on its weights
+cast to bf16 (bf16 training keeps f32 weights and casts them in each
+layer, as flax's ``Dense(dtype=...)``; bf16 serving holds a bf16 copy,
+``models/precision.py``), the gate scores stay f32, and the output head
+reads f32 input: its weights, bf16 in a served copy as every float
+weight is, are promoted to f32 there, as flax's ``dtype=None`` head
+promotes JAX's cast tree.
 
-Parity mode, ``remat``, the stacked-layer layout and the packed layout
-are not ported yet; the model refuses them.
+With ``remat`` each block's activations are recomputed in the backward
+instead of kept (``torch.utils.checkpoint``), as ``nn.remat(HNABlock)``.
+
+Parity mode, the stacked-layer layout and the packed layout are not
+ported yet; the model refuses them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnot_tpu_torch.config import ModelConfig, NotPortedError
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
@@ -105,10 +111,6 @@ class GNOT(nn.Module):
         cfg = self.config = config
         if cfg.attention_mode != "masked":
             raise NotPortedError("the port runs masked mode only; parity mode is not ported yet")
-        if cfg.remat:
-            raise NotPortedError(
-                "remat (activation checkpointing of each block) is not ported yet"
-            )
         if cfg.scan_layers:
             raise NotPortedError("scan_layers (the stacked-layer layout) is not ported yet")
         has_funcs = cfg.n_input_functions > 0
@@ -160,9 +162,15 @@ class GNOT(nn.Module):
                 )
             funcs = self.input_func_mlps(input_functions)  # [F, B, Lf, D]
         for i in range(cfg.n_attn_layers):
-            query = getattr(self, f"block_{i}")(
-                scores, query, funcs, node_mask=node_mask, func_mask=func_mask
-            )
+            block = getattr(self, f"block_{i}")
+            args = (scores, query, funcs)
+            kw = dict(node_mask=node_mask, func_mask=func_mask)
+            if cfg.remat and torch.is_grad_enabled():
+                # nn.remat(HNABlock): only the block's inputs are kept for
+                # the backward, which runs the block's forward again.
+                query = checkpoint(block, *args, use_reentrant=False, **kw)
+            else:
+                query = block(*args, **kw)
         return self.out_mlp(query.float()).float()
 
 

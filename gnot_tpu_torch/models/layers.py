@@ -234,8 +234,10 @@ class GatedExpertFfn(nn.Module):
     the kernel takes the shapes (``kernel_takes``, as
     ``fits_vmem`` guards the JAX call) and the torch path elsewhere. On
     a CUDA tensor the kernel launches; on a CPU tensor its plain version
-    runs. In bf16 the kernel gets bf16 tokens, weights and biases and the
-    f32 gate scores, the mix the JAX model passes its kernel.
+    runs. A bf16 model gives the kernel bf16 tokens and f32 gate scores,
+    with the weights and biases it holds: bf16 in a served copy (bf16
+    serving), the f32 master weights in training (bf16 training), the two
+    mixes the JAX model passes its kernel.
     """
 
     def __init__(

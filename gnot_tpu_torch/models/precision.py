@@ -106,9 +106,11 @@ def cast_params(
 def serve_model(model, dtype: str):
     """The model to serve at ``dtype``: the same architecture computing at
     the policy's dtype, holding a ``cast_params`` copy of ``model``'s
-    weights on its device. ``model`` itself for float32 or when it already
-    computes at ``dtype``; ``model`` is never changed."""
-    if dtype == "float32" or model.config.dtype == dtype:
+    weights on its device, also when ``model`` already computes at
+    ``dtype`` on f32 weights (as bf16 training leaves it): JAX's engine
+    publishes ``cast_params`` whatever its model's dtype. ``model`` itself
+    for float32; ``model`` is never changed."""
+    if dtype == "float32":
         return model
     # Built on the meta device (no weights drawn), then every weight
     # replaced by its cast copy.

@@ -13,9 +13,12 @@ geometry gate combines them.
   serving shapes. A
   cluster of two blocks owns each 64-row tile and keeps its activations
   in shared memory through the whole expert stack (the source's header
-  has the design). It takes f32 x, weights and biases, or bf16 ones
-  (bf16 serving), with f32 gate scores, computes in f32 either way and
-  writes x's dtype, as the TPU kernel does.
+  has the design). It takes three dtype mixes (``KERNEL_DTYPES``), all
+  with f32 gate scores: f32 x, weights and biases; bf16 ones (bf16
+  serving, which publishes bf16 weights); bf16 x with the f32 weights and
+  biases (bf16 training, where the model computes in bf16 on its f32
+  master weights). It computes in f32 in every mix and writes x's dtype,
+  as the TPU kernel does.
 * ``pack_weights`` turns one ``[E, in, out]`` kernel into the image the
   CUDA kernel streams (K-major, hi and lo, zero-padded, in wgmma's
   shared-memory order); ``unpack_weights`` inverts it. ``packed_weights``
@@ -30,6 +33,8 @@ geometry gate combines them.
   ``torch.autograd.Function`` whose backward is autograd through the
   plain version, as the JAX ``custom_vjp`` recomputes ``_reference_impl``
   (``pallas_ffn._fused_bwd``): the JAX package has no backward kernel.
+  The gradients come back in each input's dtype, as JAX's vjp returns
+  them: bf16 for bf16 x, f32 for the scores and f32 weights.
 
 The public layout is the JAX one: x ``[B, L, Din]``, scores ``[B, L, E]``,
 per-Linear kernels ``[E, in, out]`` and biases ``[E, out]``.
@@ -199,18 +204,25 @@ def packed_weights(kernel: torch.Tensor) -> torch.Tensor:
 packed_weights.packs = 0
 
 
-#: The dtype mixes the kernel takes, by the dtype of x (and of the output):
-#: x, weights and biases all float32, or all bfloat16 (bf16 serving);
-#: the gate scores are float32 in both, as the JAX model passes them.
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The dtype mixes the kernel takes, (x and output dtype, weight and bias
+#: dtype) -> (the launcher's code, the mix's name): float32 throughout;
+#: bfloat16 throughout (bf16 serving); bfloat16 x with float32 weights and
+#: biases (bf16 training). The gate scores are float32 in every mix, as
+#: the JAX model passes them.
+KERNEL_DTYPES = {
+    (torch.float32, torch.float32): (0, "f32"),
+    (torch.bfloat16, torch.bfloat16): (1, "bf16"),
+    (torch.bfloat16, torch.float32): (2, "bf16-x/f32-w"),
+}
 
 
-def _dtypes_taken(x, scores, kernels, biases) -> bool:
-    return (
-        x.dtype in KERNEL_DTYPES
-        and scores.dtype == torch.float32
-        and all(t.dtype == x.dtype for t in (*kernels, *biases))
-    )
+def _dtype_mix(x, scores, kernels, biases) -> tuple[int, str] | None:
+    """The kernel's code and name for these inputs' dtypes, or None for a
+    mix it does not take."""
+    params = {t.dtype for t in (*kernels, *biases)}
+    if scores.dtype != torch.float32 or len(params) != 1:
+        return None
+    return KERNEL_DTYPES.get((x.dtype, params.pop()))
 
 
 def _widths_taken(dims: Sequence[int]) -> bool:
@@ -222,13 +234,14 @@ def kernel_takes(x, scores, kernels, biases) -> bool:
     multiple of 16 in [16, 256]. The model's counterpart of ``fits_vmem``
     (``gnot_tpu/ops/pallas_ffn.py``): where it is false the model takes
     its torch path, while the wrapper itself raises. Dtypes are not read
-    here: every model dtype (f32, bf16, with f32 scores) is a mix the
-    kernel takes, so any other mix is a fault the wrapper raises on."""
+    here: every mix a model gives its FFN (f32 or bf16 compute, on f32
+    or bf16 weights, with f32 scores) is one the kernel takes, so any
+    other mix is a fault the wrapper raises on."""
     dims = [x.shape[-1]] + [k.shape[-1] for k in kernels]
     return 1 <= len(kernels) <= MAX_LINEARS and _widths_taken(dims)
 
 
-def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
+def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> tuple[list[int], int, str]:
     if gelu_kind not in GELU_CODES:
         raise ValueError(f"unknown gelu {gelu_kind!r}; one of {sorted(GELU_CODES)}")
     if not 1 <= len(kernels) <= MAX_LINEARS or len(biases) != len(kernels):
@@ -259,12 +272,13 @@ def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
             f"the fused FFN kernel takes widths that are multiples of 16 "
             f"in [16, {MAX_WIDTH}]; got widths {dims}"
         )
-    if not _dtypes_taken(x, scores, kernels, biases):
+    mix = _dtype_mix(x, scores, kernels, biases)
+    if mix is None:
         raise ValueError(
             "the fused FFN kernel takes float32 x, weights and biases, or "
-            "bfloat16 ones, with float32 scores; got x "
-            f"{x.dtype}, scores {scores.dtype}, weights "
-            f"{sorted({str(t.dtype) for t in (*kernels, *biases)})}"
+            "bfloat16 ones, or bfloat16 x with float32 weights and biases, "
+            f"with float32 scores; got x {x.dtype}, scores {scores.dtype}, "
+            f"weights {sorted({str(t.dtype) for t in (*kernels, *biases)})}"
         )
     for t in (x, scores, *kernels, *biases):
         if not t.is_cuda or t.device != x.device:
@@ -273,7 +287,7 @@ def _check_kernel_args(x, scores, kernels, biases, gelu_kind) -> list[int]:
             raise ValueError("the fused FFN kernel needs contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError("the fused FFN kernel needs 16-byte aligned tensors")
-    return dims
+    return dims, *mix
 
 
 class _Launcher:
@@ -313,18 +327,21 @@ def fused_gated_ffn_kernel(
     """Launch the Hopper kernel on PyTorch's current stream. Raises on
     arguments it does not take and when the launch is refused. The
     weights go in as their cached packed images (``packed_weights``)."""
-    out = launch(x, scores, kernels, biases, gelu_kind)
+    out, mix = launch(x, scores, kernels, biases, gelu_kind)
     fused_gated_ffn_kernel.launches += 1
-    by_dtype = fused_gated_ffn_kernel.launches_by_dtype
-    by_dtype[str(x.dtype)] = by_dtype.get(str(x.dtype), 0) + 1
+    by_mix = fused_gated_ffn_kernel.launches_by_dtype
+    by_mix[mix] = by_mix.get(mix, 0) + 1
     return out
 
 
-def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = None) -> torch.Tensor:
+def launch(
+    x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = None
+) -> tuple[torch.Tensor, str]:
     """One launch through ``launcher``'s library (by default the
     wrapper's; ``gnot_tpu_torch.ffn_probe`` passes variants); counts
-    nothing. The arguments are checked before anything is built."""
-    dims = _check_kernel_args(x, scores, kernels, biases, gelu_kind)
+    nothing. Returns the output and the name of the dtype mix launched.
+    The arguments are checked before anything is built."""
+    dims, code, mix = _check_kernel_args(x, scores, kernels, biases, gelu_kind)
     launcher = launcher or _get_launcher()
     images = [packed_weights(k) for k in kernels]
     out = torch.empty(*x.shape[:2], dims[-1], device=x.device, dtype=x.dtype)
@@ -344,16 +361,16 @@ def launch(x, scores, kernels, biases, gelu_kind, launcher: _Launcher | None = N
             scores.shape[-1],
             x.shape[0] * x.shape[1],
             GELU_CODES[gelu_kind],
-            KERNEL_DTYPES[x.dtype],
+            code,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_gated_ffn launch failed: cudaError {err}")
-    return out
+    return out, mix
 
 
 #: Kernel launches so far: the wrapper adds one where it launches, to the
-#: total and to the count of x's dtype ("torch.float32", "torch.bfloat16").
+#: total and to the count of its dtype mix ("f32", "bf16", "bf16-x/f32-w").
 fused_gated_ffn_kernel.launches = 0
 fused_gated_ffn_kernel.launches_by_dtype = {}
 

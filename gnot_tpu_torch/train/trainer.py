@@ -18,6 +18,12 @@ version (``ops/fused_ffn.py``). The kernel reads each expert weight as a
 packed image cached per tensor version, and ``torch.optim.AdamW`` updates
 the weights in place, which moves their version: each step's first
 forward repacks them.
+
+With ``ModelConfig(dtype="bfloat16")`` (``--dtype bfloat16``) the model
+computes its blocks in bf16 on its f32 weights, as the JAX trainer does:
+the FFN kernel gets bf16 tokens with the f32 master weights and biases,
+the rel-L2 loss reads the f32 output head, and the gradients, AdamW
+state and checkpoints stay f32.
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from gnot_tpu_torch.config import Config, ModelConfig, NotPortedError, OptimConfig
+from gnot_tpu_torch.config import Config, ModelConfig, OptimConfig
 from gnot_tpu_torch.data.batch import Loader, MeshBatch
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.ops.segment import LOSSES
+from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.train.schedule import make_lr_fn
 
 
@@ -92,12 +99,6 @@ class Trainer:
         checkpointer=None,
         device: torch.device | str = "cuda",
     ):
-        if model_cfg.dtype != "float32":
-            raise NotPortedError(
-                f"training computes in float32 only, got dtype={model_cfg.dtype!r}: "
-                "bf16 training (--dtype) is not ported yet (bf16 serving is: "
-                "--serve --serve_dtype bfloat16)"
-            )
         # First, so TF32 stays off before any weight reaches the card.
         self.device = resolve_device(str(device))
         self.config = config
@@ -230,6 +231,39 @@ class Trainer:
         ):
             self.checkpointer.save_latest(self.state_dict(), epoch + 1, self.best_metric)
         return record
+
+    def restore_best(self) -> int | None:
+        """Load the best checkpoint's state (weights, AdamW state, update
+        count), making the optimizer first if need be; returns its epoch,
+        or None when there is no best checkpoint."""
+        if self.optimizer is None:
+            self.initialize()
+        restored = self.checkpointer.restore_best()
+        if restored is None:
+            return None
+        state, epoch, _ = restored
+        self.load_state_dict(state)
+        return epoch
+
+    def evaluate_from_checkpoint(self) -> float:
+        """Restore the best checkpoint and evaluate it, no training
+        (``gnot_tpu/train/trainer.py::evaluate_from_checkpoint``)."""
+        if self.checkpointer is None:
+            raise ValueError("eval-only mode needs --checkpoint_dir")
+        epoch = self.restore_best()
+        if epoch is None:
+            raise FileNotFoundError(f"no best checkpoint under {self.checkpointer.directory}")
+        res = self.evaluate()
+        print(f"Eval (best checkpoint from epoch {epoch}): {res}")
+        return res
+
+    def predict(self, samples) -> list[np.ndarray]:
+        """Per-sample unpadded outputs ``[n_i, out_dim]`` of the current
+        weights, through the serving engine's offline path at the train
+        batch size and the model's own compute dtype, as
+        ``gnot_tpu/train/trainer.py::predict``."""
+        engine = InferenceEngine(self.model, batch_size=self.config.data.batch_size)
+        return engine.predict(samples)
 
     def fit(self) -> float:
         """Train from ``start_epoch`` to ``train.epochs``; returns the best

@@ -138,10 +138,58 @@ def test_params_from_jax_every_leaf_lands_both_ways():
         params_from_jax(params, wrong)
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(attention_mode="parity"), dict(remat=True), dict(scan_layers=True)],
-)
+def _loss_and_grads(model, batch) -> tuple[float, dict[str, np.ndarray]]:
+    """sum(out^2) over real rows and its gradients, as numpy."""
+    model.zero_grad(set_to_none=True)
+    out = apply_batch(model, batch)
+    loss = torch.sum(out**2 * batch.node_mask[..., None])
+    loss.backward()
+    return float(loss), {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("ffn_impl", ["xla", "pallas"])
+def test_remat_gradients_equal_no_remat_and_jax_remat(ffn_impl, monkeypatch):
+    """``remat=True`` (``torch.utils.checkpoint`` around each block, as
+    ``nn.remat(HNABlock)``) changes what the backward keeps, not what it
+    computes: the loss and gradients of the same weights without remat
+    (rtol 1e-6), and the JAX ``remat=True`` model's (the model-level
+    bar). Each block's two FFNs run once more in the recompute: 4 FFN
+    forwards without remat and 8 with it over 2 blocks, and the backward
+    recomputes each FFN through the plain version in both (4 more)."""
+    from gnot_tpu_torch.ops import fused_ffn
+
+    samples = _samples("elasticity")
+    mc, jmodel, params = _jax_model(samples, ffn_impl=ffn_impl, remat=True)
+    assert jmodel.config.remat
+    jb = jax_collate(samples)
+
+    def jax_loss(p):
+        out = jmodel.apply({"params": p}, jb.coords, jb.theta, jb.funcs,
+                           node_mask=jb.node_mask, func_mask=jb.func_mask)
+        return jax.numpy.sum(out**2 * jb.node_mask[..., None])
+
+    want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
+    want_grads = flatten_tree(jax.device_get(want_grads))
+    calls = []
+    plain = fused_ffn.fused_gated_ffn_reference
+    monkeypatch.setattr(fused_ffn, "fused_gated_ffn_reference",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    batch = collate(samples)
+    runs = {}
+    for remat in (False, True):
+        calls.clear()
+        runs[remat] = _loss_and_grads(_port_model(dict(mc, remat=remat), params), batch)
+        if ffn_impl == "pallas":
+            assert len(calls) == 2 * SMALL["n_attn_layers"] * (3 if remat else 2)
+    (loss, grads), (loss_r, grads_r) = runs[False], runs[True]
+    np.testing.assert_allclose(loss_r, loss, rtol=1e-6)
+    np.testing.assert_allclose(loss_r, float(want_loss), rtol=RTOL, atol=ATOL)
+    for name, g in grads_r.items():
+        np.testing.assert_allclose(g, grads[name], rtol=1e-6, atol=1e-12, err_msg=name)
+        np.testing.assert_allclose(g, want_grads[name], rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("kwargs", [dict(attention_mode="parity"), dict(scan_layers=True)])
 def test_gnot_refuses_unported_modes(kwargs):
     with pytest.raises(ValueError, match="not ported|masked mode"):
         GNOT(ModelConfig(**SMALL, **kwargs))

@@ -280,3 +280,25 @@ def test_main_serves_bf16_in_process_on_cpu(capsys):
     assert run.model.config.dtype == "float32"  # the caller's model stays f32
     with pytest.raises(SystemExit):
         port_main.build_parser().parse_args(["--serve_dtype", "float16"])
+
+
+@pytest.mark.parametrize("serve_dtype", ["float32", "bfloat16"])
+def test_serve_dtype_flag_reaches_the_model_as_in_jax_main(serve_dtype):
+    """``--serve --dtype bfloat16``: the model config carries the compute
+    dtype into the engine, as JAX's trainer config carries it into
+    ``serve_model``. Served at float32, the bf16 model computes on its f32
+    weights (the same forward as ``Trainer.predict``); served at bfloat16,
+    on a bf16 copy of them. The caller's model keeps f32 weights."""
+    from gnot_tpu_torch.models import precision
+
+    argv = SERVE_SMALL + ["--serve", "--synthetic", "elasticity", "--synth_size", "40",
+                          "--n_test", "4", "--dtype", "bfloat16", "--serve_dtype", serve_dtype]
+    run = port_main.run_serve(port_main.build_parser().parse_args(argv))
+    assert run.model.config.dtype == "bfloat16"
+    assert {p.dtype for p in run.model.parameters()} == {torch.float32}
+    assert run.summary["completed"] == 4 and run.summary["dtype"] == serve_dtype
+    served = precision.serve_model(run.model, serve_dtype)
+    assert (served is run.model) == (serve_dtype == "float32")
+    want = InferenceEngine(run.model, batch_size=4, dtype=serve_dtype).predict(run.samples)
+    for r, w in zip(run.results, want):
+        np.testing.assert_allclose(r.output, w, rtol=1e-5, atol=1e-6)

@@ -292,3 +292,134 @@ def test_cli_trains_on_reference_pickles(tmp_path, capsys):
     assert trainer.model_cfg.out_dim == 2 and trainer.host_step == 2
     assert np.isfinite(trainer.best_metric)
     assert "Epoch 0, Test Metric: " in capsys.readouterr().out
+
+
+# -- the rest of the train-mode command line --------------------------------
+
+CLI_SMALL = ["--device", "cpu", "--synthetic", "elasticity", "--synth_size", "40", "--n_train", "8",
+             "--n_test", "4", "--n_attn_layers", "2", "--n_attn_hidden_dim", "32",
+             "--n_mlp_num_layers", "2", "--n_mlp_hidden_dim", "32", "--n_input_hidden_dim", "32",
+             "--n_expert", "2", "--n_head", "4", "--ffn_impl", "pallas"]
+
+
+@pytest.mark.parametrize("gelu,want", [("", "tanh"), ("erf", "erf"), ("tanh", "tanh")])
+def test_cli_gelu_dtype_and_remat_reach_the_model_config(gelu, want):
+    argv = CLI_SMALL + (["--gelu", gelu] if gelu else []) + ["--dtype", "bfloat16", "--remat"]
+    args = port_main.build_parser().parse_args(argv)
+    mc = port_main.model_config(args, datasets.synth_elasticity(2, seed=0, base_points=40))
+    assert (mc.gelu, mc.dtype, mc.remat) == (want, "bfloat16", True)
+    jax_mc = JaxModelConfig(gelu=gelu)
+    assert ModelConfig(gelu=gelu).gelu == jax_mc.gelu == want
+    defaults = port_main.build_parser().parse_args([])
+    assert (defaults.gelu, defaults.dtype, defaults.remat, defaults.eval_only,
+            defaults.predict_out, defaults.export_torch) == ("", "float32", False, False, "", "")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cli_eval_only_evaluates_the_best_checkpoint(dtype, tmp_path, capsys):
+    """``--eval_only`` restores ``best`` and evaluates it: JAX's printed
+    line, and the metric the training run recorded for that epoch."""
+    ck = str(tmp_path / "ck")
+    argv = CLI_SMALL + ["--dtype", dtype, "--checkpoint_dir", ck]
+    trained = port_main.run_train(port_main.build_parser().parse_args(argv + ["--epochs", "2"]))
+    capsys.readouterr()
+    best_epoch = min(trained.history, key=lambda r: r.test_metric).epoch
+    got = port_main.main(argv + ["--eval_only"])
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"Eval (best checkpoint from epoch {best_epoch}): {got}"]
+    assert got == trained.best_metric
+
+
+def test_eval_only_raises_jax_errors(tmp_path):
+    with pytest.raises(ValueError, match="eval-only mode needs --checkpoint_dir"):
+        port_main.main(CLI_SMALL + ["--eval_only"])
+    empty = tmp_path / "empty"
+    with pytest.raises(FileNotFoundError, match="no best checkpoint under"):
+        port_main.main(CLI_SMALL + ["--eval_only", "--checkpoint_dir", str(empty)])
+    jcfg, cfg = _fit_configs()
+    train, test = datasets.load(cfg.data)
+    mc = dict(SMALL, **datasets.infer_model_dims(train))
+    jt = jax_trainer.Trainer(dataclasses.replace(jcfg, model=JaxModelConfig(**mc)),
+                             JaxModelConfig(**mc), train, test)
+    with pytest.raises(ValueError, match="eval-only mode needs --checkpoint_dir"):
+        jt.evaluate_from_checkpoint()
+
+
+def _carried_trainers():
+    """A JAX trainer and the port's holding the same initial weights."""
+    jcfg, cfg = _fit_configs()
+    train, test = datasets.load(cfg.data)
+    mc = dict(SMALL, **datasets.infer_model_dims(train))
+    jt = jax_trainer.Trainer(dataclasses.replace(jcfg, model=JaxModelConfig(**mc)),
+                             JaxModelConfig(**mc), train, test)
+    jt.initialize()
+    params = jax.device_get(jt.state.params)
+    port = Trainer(cfg, ModelConfig(**mc), train, test, device="cpu")
+    _carry(port, params)
+    return jt, port, params, test
+
+
+def test_predict_matches_jax_predict():
+    jt, port, _, test = _carried_trainers()
+    want, got = jt.predict(test), port.predict(test)
+    assert [g.shape for g in got] == [w.shape for w in want] == [s.y.shape for s in test]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+def test_reference_state_dict_is_jax_flax_to_state_dict():
+    """``--export_torch``'s naming: the same keys as the JAX package's
+    ``flax_to_state_dict`` of the same weights, every tensor bitwise."""
+    from gnot_tpu.interop.torch_oracle import flax_to_state_dict
+    from gnot_tpu_torch.interop import reference_state_dict
+
+    _, port, params, _ = _carried_trainers()
+    want = flax_to_state_dict(params, JaxModelConfig(**dataclasses.asdict(port.model_cfg)))
+    got = reference_state_dict(port.model.state_dict(), port.model_cfg)
+    assert sorted(got) == sorted(want)
+    for name, t in want.items():
+        assert got[name].dtype == t.dtype == torch.float32, name
+        assert torch.equal(got[name], t), name
+
+
+def test_cli_predict_out_and_export_torch_use_the_best_checkpoint(tmp_path, capsys):
+    """``--predict_out`` and ``--export_torch`` after a run with
+    ``--checkpoint_dir``: the records read back by both packages' readers
+    give the same arrays, equal to the best checkpoint's predictions; the
+    exported state_dict is the best checkpoint's weights under the
+    reference's names. Without ``--checkpoint_dir`` JAX's note is printed."""
+    from gnot_tpu_torch.interop import reference_state_dict
+
+    ck, pred, pth = tmp_path / "ck", tmp_path / "pred.pkl", tmp_path / "model.pth"
+    argv = CLI_SMALL + ["--epochs", "2", "--checkpoint_dir", str(ck), "--predict_out", str(pred),
+                        "--export_torch", str(pth)]
+    trainer = port_main.run_train(port_main.build_parser().parse_args(argv))
+    out = capsys.readouterr().out
+    assert f"Exported torch state_dict to {pth}" in out
+    assert f"Wrote 4 predictions to {pred}" in out
+    best = Checkpointer(str(ck)).restore_best()[0]["model"]
+    for name, p in trainer.model.state_dict().items():
+        assert torch.equal(p, best[name]), name  # the best weights, restored
+    _, test = datasets.load(trainer.config.data)
+    want = trainer.predict(test)
+    port_read, jax_read = datasets.load_pickle(str(pred)), jax_datasets.load_pickle(str(pred))
+    assert len(port_read) == len(jax_read) == len(test)
+    for s, p, j, w in zip(test, port_read, jax_read, want):
+        for field in ("coords", "theta"):
+            np.testing.assert_array_equal(getattr(p, field), getattr(s, field))
+            np.testing.assert_array_equal(getattr(j, field), getattr(s, field))
+        np.testing.assert_array_equal(p.y, w)
+        np.testing.assert_array_equal(j.y, w)
+        for pf, jf, sf in zip(p.funcs, j.funcs, s.funcs):
+            np.testing.assert_array_equal(pf, sf)
+            np.testing.assert_array_equal(jf, sf)
+    exported = torch.load(pth, weights_only=True)
+    ref = reference_state_dict(best, trainer.model_cfg)
+    assert sorted(exported) == sorted(ref)
+    for name, t in ref.items():
+        assert torch.equal(exported[name], t), name
+
+    port_main.run_train(port_main.build_parser().parse_args(
+        CLI_SMALL + ["--epochs", "1", "--export_torch", str(tmp_path / "final.pth")]))
+    assert "note: no --checkpoint_dir, so export/predict artifacts use the FINAL-epoch weights" \
+        in capsys.readouterr().out
