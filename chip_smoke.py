@@ -73,7 +73,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    same run without remat at rtol 1e-5, peak memory beside it), then
    ``--eval_only --predict_out --export_torch`` from phase 6b's
    checkpoints: the metric of phase 6b's best epoch, a prediction pickle
-   that reads back, and the reference's names of the best weights.
+   that reads back, and the reference's names of the best weights;
+7. parity training at full width: ``--synthetic darcy2d --attention_mode
+   parity --n_train 16 --n_test 8 --epochs 2 --batch_size 4 --ffn_impl
+   pallas`` (erf GELU, bucketing off, cuBLAS TF32 off): the reference's
+   lines, every launch with the erf GELU, 8 per train and eval forward,
+   held step by step against the plain-FFN run to phase 6's bars; then
+   one ragged batch through the parity model with and without masks
+   (equal) and through a masked model of the same weights (outside the
+   model-level bar on every padded sample: the padding-pollution
+   control);
+8. packed serving at full width: ``--serve --serve_packed --synthetic
+   elasticity`` (16 ragged requests, a ``PackPlan`` derived from them,
+   chunk 64), f32 then ``--serve_dtype bfloat16``: 16/16 ``ok``, 8
+   launches per packed dispatch, the plan and its real / capacity tokens,
+   every f32 output against its solo padded dispatch (rtol 1e-5 atol
+   1e-5), bf16 against f32 (``BF16_F32_REL``) and, on the same
+   dispatches, against the plain version (``BF16_PLAIN_REL``, with phase
+   4b's control); a packed forward finite in its pad tail; host-clock
+   time of the 16 requests as packed and as padded dispatches, in turns;
+   the kernel at the packed launch shape against its plain version, its
+   device time beside its bound;
+9. packed training at full width: ``--synthetic elasticity --packed
+   --n_train 16 --n_test 8 --epochs 2 --batch_size 4 --ffn_impl pallas``:
+   the reference's lines, 8 launches per step and eval forward, held
+   step by step against the plain-FFN run to phase 6's bars, the final
+   test metric within rtol 0.05 of the unpacked run of the same data,
+   and host-clock step times packed and unpacked, in turns.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -84,7 +110,11 @@ kernels (the model never launches them); the FFN kernel's
 ``bf16_launches`` is its count over phase 4b's bf16 serving run, its
 ``train_launches`` its count over phase 6's training run and its
 ``train_bf16_launches`` over phase 6b's, with ``launches_by_mix`` naming
-the dtype mix of each (``mix_*``: the training mix's phase-3 fields). Launches
+the dtype mix of each (``mix_*``: the training mix's phase-3 fields);
+``parity_train_launches``, ``packed_serve_launches``,
+``packed_serve_bf16_launches`` and ``packed_train_launches`` are its counts
+over phases 7, 8 (f32, bf16) and 9 (``packed_*``: the packed launch
+shape's time and bound). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -156,6 +186,24 @@ TRAIN_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epoc
 # training (phase 6's run) and bf16 training through the serving instance
 # (bf16-cast weights, the lo product skipped).
 BF16_TRAIN_REL = 5e-6
+# Phase 7: parity training at full width (erf GELU, bucketing off).
+PARITY_ARGV = ["--synthetic", "darcy2d", "--attention_mode", "parity", "--n_train", "16",
+               "--n_test", "8", "--epochs", "2", "--batch_size", "4", "--ffn_impl", "pallas",
+               "--device", "cuda"]
+# Phase 8: packed serving of ragged elasticity traffic (the serve dtype is
+# appended per run).
+PACKED_SERVE_ARGV = ["--serve", "--serve_packed", "--synthetic", "elasticity", "--n_test", "16",
+                     "--serve_max_batch", "4", "--ffn_impl", "pallas", "--device", "cuda"]
+# A packed request's output against its own solo padded dispatch: only
+# the summation order of the attention sums differs (tests/test_serve.py:644).
+SOLO_RTOL, SOLO_ATOL = 1e-5, 1e-5
+# Phase 9: packed training of ragged elasticity, and its final test metric
+# against the unpacked run of the same data: the JAX bar for packed against
+# unpacked eval (tests/test_trainer.py:743).
+PACKED_TRAIN_ARGV = ["--synthetic", "elasticity", "--packed", "--n_train", "16", "--n_test", "8",
+                     "--epochs", "2", "--batch_size", "4", "--ffn_impl", "pallas",
+                     "--device", "cuda"]
+PACKED_EVAL_RTOL = 0.05
 # Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
 # under the checkout's gitignored build/, emptied first.
 TRAIN_OUT = ROOT / "build" / "chip_smoke"
@@ -808,7 +856,6 @@ def training_phase(torch, np, card: str):
     from gnot_tpu_torch import main as port_main
     from gnot_tpu_torch.models import layers
     from gnot_tpu_torch.ops.fused_ffn import (
-        fused_gated_ffn,
         fused_gated_ffn_kernel,
         fused_gated_ffn_reference,
         pack_weights,
@@ -817,51 +864,12 @@ def training_phase(torch, np, card: str):
     from gnot_tpu_torch.train.trainer import Trainer, batch_loss
 
     args = port_main.build_parser().parse_args(TRAIN_ARGV)
-    held_mib = reset_peak(torch)
-    fused_gated_ffn_kernel.launches = 0
-    t0 = time.perf_counter()
-    trainer, lines = train_quietly(port_main, args)
-    wall_s = time.perf_counter() - t0
-    launches = fused_gated_ffn_kernel.launches
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    own_mib = peak_mib - held_mib
-    log(f"[train] python -m gnot_tpu_torch.main {' '.join(TRAIN_ARGV)}: {wall_s:.2f} s")
-    for line in lines:
-        if line:
-            log(f"[train]   {line}")
-    check_reference_lines(lines, args.epochs)
-    cfg = trainer.model_cfg
-    steps = trainer.host_step
-    eval_batches = args.epochs * len(trainer.test_loader)
-    expected = 2 * cfg.n_attn_layers * (steps + eval_batches)
-    log(f"[train] fused_gated_ffn launches {launches} = 2 x {cfg.n_attn_layers} blocks x "
-        f"({steps} train steps + {eval_batches} eval batches); peak device memory "
-        f"{peak_mib:.1f} MiB, {held_mib:.1f} MiB of it held before the run: the run's own "
+    trainer, plain, launches, _, own_mib = held_against_plain(torch, np, port_main, layers,
+                                                              TRAIN_ARGV, "train")
+    expect_train_launches(trainer, launches, args.epochs, "train")
+    log(f"[train] the run's own peak device memory (above what earlier phases hold) "
         f"{own_mib:.1f} MiB")
-    if launches != expected or launches == 0:
-        raise RuntimeError(f"expected {expected} FFN kernel launches in training, counted {launches}")
-
-    # The same run, every FFN through the kernel's plain version.
-    fused_gated_ffn_kernel.launches = 0
-    layers.fused_gated_ffn = fused_gated_ffn_reference
-    try:
-        plain, _ = train_quietly(port_main, args)
-    finally:
-        layers.fused_gated_ffn = fused_gated_ffn
-    if fused_gated_ffn_kernel.launches != 0:
-        raise RuntimeError(f"the plain-FFN run launched the kernel "
-                           f"{fused_gated_ffn_kernel.launches} times")
-    got, want = step_losses(np, trainer), step_losses(np, plain)
-    got_m = np.array([r.test_metric for r in trainer.history])
-    want_m = np.array([r.test_metric for r in plain.history])
-    rel = lambda a, b: np.abs(a - b) / np.abs(b)  # noqa: E731
-    log(f"[train] step losses, kernel {got.tolist()}")
-    log(f"[train] step losses, plain  {want.tolist()} (0 kernel launches)")
-    log(f"[train] vs the plain-FFN run: step 1 loss abs diff {abs(got[0] - want[0]):.3e} rel "
-        f"{rel(got[0], want[0]):.3e} (bar rtol 1e-4 atol 1e-5); steps 2..{len(got)} worst rel "
-        f"{rel(got[1:], want[1:]).max():.3e}, test metrics worst rel {rel(got_m, want_m).max():.3e}, "
-        f"best metric rel {rel(trainer.best_metric, plain.best_metric):.3e} (bar rtol "
-        f"{TRAIN_LATER_RTOL})")
+    cfg = trainer.model_cfg
 
     # Control: the kernel run again with torch's fused AdamW, which writes
     # the weights without moving their version, so the kernel reads the
@@ -875,13 +883,9 @@ def training_phase(torch, np, card: str):
         stale, _ = train_quietly(port_main, args)
     finally:
         trainer_mod.make_optimizer = make_optimizer
-    stale_rel = rel(step_losses(np, stale)[1:], want[1:]).max()
-    log(f"[train] stale-image control (fused AdamW): steps 2..{len(got)} worst rel "
-        f"{stale_rel:.3e} vs the plain-FFN run, {stale_rel / TRAIN_LATER_RTOL:.1f}x the bar")
-    np.testing.assert_allclose(got[0], want[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
-    np.testing.assert_allclose(got[1:], want[1:], rtol=TRAIN_LATER_RTOL)
-    np.testing.assert_allclose(got_m, want_m, rtol=TRAIN_LATER_RTOL)
-    np.testing.assert_allclose(trainer.best_metric, plain.best_metric, rtol=TRAIN_LATER_RTOL)
+    stale_rel = worst_rel(np, step_losses(np, stale)[1:], step_losses(np, plain)[1:])
+    log(f"[train] stale-image control (fused AdamW): steps 2.. worst rel {stale_rel:.3e} vs the "
+        f"plain-FFN run, {stale_rel / TRAIN_LATER_RTOL:.1f}x the bar")
 
     # The kernel on the live weights after the optimizer's last step, and
     # after one more step: every FFN module against the plain version.
@@ -1176,6 +1180,368 @@ def remat_and_artifacts_phase(torch, np, card: str, f32_peak_mib: float, bf16_tr
         f"checkpoint's weights, on {card}")
 
 
+def held_against_plain(torch, np, port_main, layers, argv: list[str], tag: str):
+    """``run_train`` of ``argv`` with the FFN kernel's counts set to 0 just
+    before and read just after, the reference's lines checked, then the
+    same run with every FFN through the kernel's plain version (which must
+    launch nothing), held step by step to phase 6's bars: step 1 at
+    MODEL_RTOL/ATOL, later steps, the test metrics and the best metric at
+    TRAIN_LATER_RTOL. Returns the kernel run's trainer, the plain run's,
+    the kernel's launches in total and by GELU, and the kernel run's own
+    peak device memory (MiB above what earlier phases hold)."""
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+
+    args = port_main.build_parser().parse_args(argv)
+    held_mib = reset_peak(torch)
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_gelu = {}
+    t0 = time.perf_counter()
+    trainer, lines = train_quietly(port_main, args)
+    wall_s = time.perf_counter() - t0
+    launches = fused_gated_ffn_kernel.launches
+    by_gelu = dict(fused_gated_ffn_kernel.launches_by_gelu)
+    own_mib = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+    log(f"[{tag}] python -m gnot_tpu_torch.main {' '.join(argv)}: {wall_s:.2f} s")
+    for line in lines:
+        if line:
+            log(f"[{tag}]   {line}")
+    check_reference_lines(lines, args.epochs)
+
+    fused_gated_ffn_kernel.launches = 0
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain, _ = train_quietly(port_main, args)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    if fused_gated_ffn_kernel.launches != 0:
+        raise RuntimeError(f"the plain-FFN run launched the kernel "
+                           f"{fused_gated_ffn_kernel.launches} times")
+    got, want = step_losses(np, trainer), step_losses(np, plain)
+    got_m = np.array([r.test_metric for r in trainer.history])
+    want_m = np.array([r.test_metric for r in plain.history])
+    log(f"[{tag}] step losses, kernel {got.tolist()}")
+    log(f"[{tag}] step losses, plain  {want.tolist()} (0 kernel launches)")
+    log(f"[{tag}] vs the plain-FFN run: step 1 loss abs diff {abs(got[0] - want[0]):.3e} (bar "
+        f"rtol {MODEL_RTOL} atol {MODEL_ATOL}); steps 2..{len(got)} worst rel "
+        f"{worst_rel(np, got[1:], want[1:]):.3e}, test metrics worst rel "
+        f"{worst_rel(np, got_m, want_m):.3e} (bar rtol {TRAIN_LATER_RTOL})")
+    np.testing.assert_allclose(got[0], want[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=TRAIN_LATER_RTOL)
+    np.testing.assert_allclose(got_m, want_m, rtol=TRAIN_LATER_RTOL)
+    np.testing.assert_allclose(trainer.best_metric, plain.best_metric, rtol=TRAIN_LATER_RTOL)
+    return trainer, plain, launches, by_gelu, own_mib
+
+
+def expect_train_launches(trainer, launches: int, epochs: int, tag: str) -> int:
+    """Fails unless the kernel launched twice per block in every train step
+    and every eval forward of the run; returns the expected count."""
+    cfg = trainer.model_cfg
+    steps, eval_batches = trainer.host_step, epochs * len(trainer.test_loader)
+    expected = 2 * cfg.n_attn_layers * (steps + eval_batches)
+    log(f"[{tag}] fused_gated_ffn launches {launches} = 2 x {cfg.n_attn_layers} blocks x "
+        f"({steps} train steps + {eval_batches} eval forwards)")
+    if launches != expected or launches == 0:
+        raise RuntimeError(f"expected {expected} FFN kernel launches, counted {launches}")
+    return expected
+
+
+def parity_training_phase(torch, np, card: str) -> int:
+    """Phase 7: ``--attention_mode parity`` training at full width through
+    the port's train entry point (erf GELU, bucketing off), held against
+    the plain-FFN run; then one ragged batch's forward through the parity
+    model and through a masked model of the same weights, which must
+    differ on every padded sample. Returns the kernel's launches."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.data.batch import collate
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.models.gnot import GNOT, apply_batch
+
+    trainer, _, launches, by_gelu, _ = held_against_plain(torch, np, port_main, layers,
+                                                          PARITY_ARGV, "parity")
+    expect_train_launches(trainer, launches, 2, "parity")
+    cfg = trainer.model_cfg
+    log(f"[parity] launches by GELU {json.dumps(by_gelu)}; the loaders pad to the per-batch max "
+        f"(bucket={trainer.train_loader.bucket}); cuBLAS TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32} (JAX's precision_scope: full f32)")
+    if (by_gelu != {"erf": launches} or cfg.attention_mode != "parity"
+            or trainer.train_loader.bucket or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(f"parity training ran {by_gelu}, bucket {trainer.train_loader.bucket}, "
+                           f"TF32 {torch.backends.cuda.matmul.allow_tf32}")
+
+    # The padding-pollution control: a ragged batch (the test meshes cut to
+    # 256, 219, 182 and 145 points) through the parity model, with and
+    # without masks, each sample alone (no padding), and through a masked
+    # model of the same weights.
+    ragged = [dataclasses.replace(s, coords=s.coords[:n], y=s.y[:n])
+              for s, n in zip(trainer.test_loader.samples, (256, 219, 182, 145))]
+    batch = collate(ragged, bucket=False, device=trainer.device)
+    masked = GNOT(dataclasses.replace(cfg, attention_mode="masked")).to(trainer.device)
+    masked.load_state_dict(trainer.model.state_dict(), strict=True)
+    with torch.no_grad():
+        got = apply_batch(trainer.model, batch).cpu().numpy()
+        unmasked = trainer.model(batch.coords, batch.theta, batch.funcs).cpu().numpy()
+        other = apply_batch(masked, batch).cpu().numpy()
+        solo = [apply_batch(trainer.model, collate([s], bucket=False, device=trainer.device))
+                .cpu().numpy()[0] for s in ragged]
+    real = lambda a, i: a[i, :len(ragged[i].y)]  # noqa: E731
+    pollution = [float(np.max(np.abs(real(got, i) - solo[i]))) for i in range(len(ragged))]
+    diffs = [float(np.max(np.abs(real(other, i) - real(got, i)))) for i in range(len(ragged))]
+    log(f"[parity] ragged batch [4 x 256 points, real 256/219/182/145]: parity with vs without "
+        f"masks max abs diff {float(np.max(np.abs(got - unmasked))):.3e}; the padding's "
+        f"pollution, batch row vs the sample alone, max abs diff per sample "
+        f"{[f'{d:.3e}' for d in pollution]} (the unpadded first within rtol {MODEL_RTOL} atol "
+        f"{MODEL_ATOL}, the padded outside it); masked vs parity on the real rows "
+        f"{[f'{d:.3e}' for d in diffs]} on {card}")
+    if not np.array_equal(got, unmasked) or not np.all(np.isfinite(got)):
+        raise RuntimeError("the parity forward depends on the masks it must drop")
+    np.testing.assert_allclose(real(got, 0), solo[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    for i in range(1, len(ragged)):
+        if np.allclose(real(got, i), solo[i], rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            raise RuntimeError(f"padded sample {i} equals its solo forward: no pollution")
+        if np.allclose(real(other, i), real(got, i), rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            raise RuntimeError(f"parity and masked agree on padded sample {i}")
+    return launches
+
+
+def packed_dispatches(samples, plan) -> list[list]:
+    """``samples`` in arrival order cut into plan-shaped packed dispatches
+    (first-fit prefixes), as the server cuts a backlog."""
+    from gnot_tpu_torch.data.batch import pack_prefix
+
+    groups, rest = [], list(samples)
+    while rest:
+        n = max(1, len(pack_prefix([s.coords.shape[0] for s in rest], plan)))
+        groups.append(rest[:n])
+        rest = rest[n:]
+    return groups
+
+
+def packed_serving_phase(torch, np, card: str) -> tuple[int, int, dict]:
+    """Phase 8: ``--serve --serve_packed`` at full width on ragged
+    elasticity traffic, f32 then bf16, each run with the counts set to 0
+    just before and read just after; every f32 output against its solo
+    padded dispatch; bf16 against f32 and, on the same dispatches, against
+    the plain version; host-clock dispatch times packed vs padded on the
+    same traffic; the kernel at the packed launch shape. Returns the f32
+    and bf16 launches and the packed shape's fields of the kernel entry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.data.batch import pack_collate, pack_prefix
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.models.gnot import apply_batch
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    runs, counts = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        argv = PACKED_SERVE_ARGV + ["--serve_dtype", dtype]
+        fused_gated_ffn_kernel.launches = 0
+        fused_gated_ffn_kernel.launches_by_dtype = {}
+        runs[dtype] = run = port_main.run_serve(port_main.build_parser().parse_args(argv))
+        counts[dtype] = (fused_gated_ffn_kernel.launches,
+                         dict(fused_gated_ffn_kernel.launches_by_dtype))
+        summary, plan = run.summary, run.pack_plan
+        log(f"[serve-packed] python -m gnot_tpu_torch.main {' '.join(argv)}")
+        log(f"[serve-packed] summary {json.dumps(summary)}")
+        n_ok = sum(r.ok for r in run.results)
+        if n_ok != len(run.results) or len(run.results) != 16:
+            raise RuntimeError(f"{n_ok}/{len(run.results)} packed requests ok: "
+                               f"{[(r.reason, r.detail) for r in run.results if not r.ok]}")
+        cfg = run.model.config
+        dispatches = summary["dispatches"] + summary["warmed_buckets"]
+        expected = 2 * cfg.n_attn_layers * dispatches
+        packed = summary["pad_waste_by_bucket"].get(f"packed:{plan.n_rows}x{plan.row_len}", {})
+        launches, by_dtype = counts[dtype]
+        mix = "f32" if dtype == "float32" else "bf16"
+        log(f"[serve-packed] {dtype}: {n_ok}/16 ok; plan {plan.n_rows} rows x {plan.row_len} "
+            f"tokens (chunk {plan.chunk}, {plan.n_slots} slots, functions padded to "
+            f"{plan.pad_funcs}); {packed.get('dispatches', 0)} packed dispatches carrying "
+            f"{packed.get('real_tokens', 0)} real of {packed.get('capacity_tokens', 0)} capacity "
+            f"tokens (fill {packed.get('fill_frac', 0):.1%}); fused_gated_ffn launches {launches} "
+            f"= 2 x {cfg.n_attn_layers} blocks x {dispatches} dispatches ({summary['dispatches']} "
+            f"served + {summary['warmed_buckets']} warm-up), by dtype {json.dumps(by_dtype)}")
+        if launches != expected or not packed.get("dispatches") or by_dtype != {mix: launches}:
+            raise RuntimeError(f"expected {expected} {mix} launches over packed dispatches, "
+                               f"counted {launches} {by_dtype}, packed {packed}")
+
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    plan = f32.pack_plan
+    engine = InferenceEngine(f32.model, batch_size=4)
+    worst = 0.0
+    for r, s in zip(f32.results, f32.samples):
+        key = engine.bucket_key(s)
+        solo = engine.infer([s], pad_nodes=key[0], pad_funcs=key[1], rows=4)[0]
+        if r.output.shape != solo.shape or not np.all(np.isfinite(r.output)):
+            raise RuntimeError(f"bad packed output {r.output.shape} vs {solo.shape}")
+        np.testing.assert_allclose(r.output, solo, rtol=SOLO_RTOL, atol=SOLO_ATOL)
+        worst = max(worst, float(np.max(np.abs(r.output - solo))))
+    log(f"[serve-packed] f32 outputs vs each request's solo padded dispatch: max_abs_err "
+        f"{worst:.3e} (bar rtol {SOLO_RTOL} atol {SOLO_ATOL})")
+
+    # bf16: per request against the f32 packed server; then kernel against
+    # plain version on the same dispatches, with the ffn_impl=xla control.
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    f32_rels = [rel(r.output, w.output) for r, w in zip(bf16.results, f32.results)]
+    groups = packed_dispatches(bf16.samples, plan)
+    eng16 = InferenceEngine(bf16.model, batch_size=4, dtype="bfloat16")
+    serve16 = lambda eng: np.concatenate(  # noqa: E731
+        [o for g in groups for o in eng.infer_packed(g, plan)])
+    kernel_out = serve16(eng16)
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain_out = serve16(eng16)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    cfg = bf16.model.config
+    with torch.device("meta"):
+        xla_model = type(bf16.model)(dataclasses.replace(cfg, ffn_impl="xla"))
+    xla_model.load_state_dict(bf16.model.state_dict(), strict=True, assign=True)
+    control = serve16(InferenceEngine(xla_model.eval(), batch_size=4, dtype="bfloat16"))
+    plain_rel, control_rel = rel(kernel_out, plain_out), rel(control, plain_out)
+    log(f"[serve-packed] bf16 vs the f32 packed server per request: max {max(f32_rels):.3e} "
+        f"median {statistics.median(f32_rels):.3e} (bar {BF16_F32_REL}); on the same "
+        f"{len(groups)} packed dispatches, kernel vs plain version relative norm {plain_rel:.3e} "
+        f"(bar {BF16_PLAIN_REL}), the control (ffn_impl=xla in bf16) {control_rel:.3e}, "
+        f"{control_rel / BF16_PLAIN_REL:.1f}x the bar")
+    if max(f32_rels) >= BF16_F32_REL or plain_rel > BF16_PLAIN_REL or control_rel <= BF16_PLAIN_REL:
+        raise RuntimeError(f"bf16 packed serving off its bars: {max(f32_rels)} vs f32, "
+                           f"{plain_rel} vs plain, control {control_rel}")
+
+    # The pad tail of a packed forward is finite.
+    first = groups[0]
+    placements = pack_prefix([s.coords.shape[0] for s in first], plan)
+    pb = pack_collate(first, placements, n_rows=plan.n_rows, row_len=plan.row_len,
+                      chunk=plan.chunk, n_slots=plan.n_slots, pad_funcs=plan.pad_funcs,
+                      device=engine.device)
+    with torch.no_grad():
+        out = apply_batch(engine.model, pb)
+    pad = pb.node_mask == 0
+    if not torch.isfinite(out).all():
+        raise RuntimeError("the packed forward is not finite in the pad tail")
+    log(f"[serve-packed] one packed forward [{plan.n_rows}x{plan.row_len}], "
+        f"{int(pad.sum())} pad tokens: every output finite")
+
+    # Host-clock dispatch time on the same traffic: packed dispatches vs the
+    # padded per-bucket dispatches (4 rows each), in turns.
+    buckets: dict = {}
+    for s in f32.samples:
+        buckets.setdefault(engine.bucket_key(s), []).append(s)
+    padded = [(key, g[i:i + 4]) for key, g in buckets.items() for i in range(0, len(g), 4)]
+    paths = {
+        "padded": lambda: [engine.infer(g, pad_nodes=k[0], pad_funcs=k[1], rows=4)
+                           for k, g in padded],
+        "packed": lambda: [engine.infer_packed(g, plan) for g in groups],
+    }
+    times: dict[str, list[float]] = {"padded": [], "packed": []}
+    for label in ("padded", "packed", "packed", "padded"):
+        paths[label]()
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            paths[label]()  # each dispatch ends in a device-to-host copy
+            reps.append((time.perf_counter() - t0) * 1e3)
+        times[label].append(statistics.median(reps))
+    busy = {}
+    for label, fn in paths.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+        rows = kernel_rows(prof)
+        ffn = [r for r in rows if "fused_gated_ffn" in r[2]]
+        busy[label] = (sum(r[0] for r in rows), sum(r[1] for r in rows),
+                       sum(r[0] for r in ffn), sum(r[1] for r in ffn))
+    log("[serve-packed] device busy for all 16 requests: " + "; ".join(
+        f"{label} {b[0]:.3f} ms in {b[1]} kernels, fused_gated_ffn {b[2]:.3f} ms in {b[3]} "
+        f"launches" for label, b in busy.items()))
+    real = sum(s.coords.shape[0] for s in f32.samples)
+    padded_capacity = sum(4 * k[0] for k, _ in padded)
+    log(f"[serve-packed] the 16 requests ({real} real tokens): {len(groups)} packed dispatches "
+        f"of {plan.capacity_tokens} tokens ({real / (len(groups) * plan.capacity_tokens):.1%} "
+        f"full) vs {len(padded)} padded dispatches of {padded_capacity} tokens in all "
+        f"({real / padded_capacity:.1%} full); host clock for all of them, median of 5, turns "
+        f"padded/packed/packed/padded: padded {[round(t, 3) for t in times['padded']]} ms, "
+        f"packed {[round(t, 3) for t in times['packed']]} ms on {card}")
+
+    # The kernel at the packed launch shape, pad rows zero, against its
+    # plain version; then its device time beside its bound.
+    x, scores, kernels, biases = ffn_inputs(torch, np, plan.n_rows, plan.row_len, 256, 3, 5,
+                                            seed=11)
+    x = x * pb.node_mask[..., None]
+    max_abs = 0.0
+    for gelu in ("tanh", "erf"):
+        got = fused_gated_ffn_kernel(x, scores, kernels, biases, gelu_kind=gelu)
+        want = fused_gated_ffn_reference(x, scores, kernels, biases, gelu_kind=gelu)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got[pad]).all():
+            raise RuntimeError("the kernel's pad-row outputs are not finite")
+        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        max_abs = max(max_abs, (got - want).abs().max().item())
+    with torch.inference_mode():
+        kernel_ms = device_ms(torch, lambda: fused_gated_ffn_kernel(x, scores, kernels, biases,
+                                                                    gelu_kind="tanh"))
+        plain_ms = device_ms(torch, lambda: fused_gated_ffn_reference(x, scores, kernels, biases,
+                                                                      gelu_kind="tanh"))
+    bound_ms, bound_by = ffn_bound_ms(x, scores, kernels, biases)
+    shape = [plan.n_rows, plan.row_len, 256]
+    log(f"[serve-packed] kernel at the packed launch shape x {shape} E=3 5 Linears, pad rows "
+        f"zero: max_abs_err {max_abs:.3e} vs the plain version (rtol {KERNEL_RTOL} atol "
+        f"{KERNEL_ATOL}), pad-row outputs finite; device time kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / kernel_ms:.1%} "
+        f"of bound on {card}")
+    fields = dict(packed_shape=shape, packed_ms=kernel_ms, packed_plain_ms=plain_ms,
+                  packed_bound_ms=bound_ms, packed_max_abs_err=max_abs)
+    return counts["float32"][0], counts["bfloat16"][0], fields
+
+
+def packed_training_phase(torch, np, card: str) -> int:
+    """Phase 9: ``--packed`` training at full width on ragged elasticity,
+    held against the plain-FFN run, its final test metric against the
+    unpacked run of the same data (rtol PACKED_EVAL_RTOL), and host-clock
+    step times packed vs unpacked. Returns the kernel's launches."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.data.batch import PackedLoader
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    trainer, _, launches, _, packed_mib = held_against_plain(
+        torch, np, port_main, layers, PACKED_TRAIN_ARGV, "train-packed")
+    loader = trainer.train_loader
+    if not isinstance(loader, PackedLoader) or not isinstance(trainer.test_loader, PackedLoader):
+        raise RuntimeError("--packed training did not take the packed loaders")
+    expect_train_launches(trainer, launches, 2, "train-packed")
+    unpacked_argv = [a for a in PACKED_TRAIN_ARGV if a != "--packed"]
+    held_mib = reset_peak(torch)
+    unpacked, _ = train_quietly(port_main, port_main.build_parser().parse_args(unpacked_argv))
+    unpacked_mib = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+    got, want = trainer.history[-1].test_metric, unpacked.history[-1].test_metric
+    log(f"[train-packed] dispatches of {loader.n_rows} rows x {loader.row_len} tokens (chunk "
+        f"{loader.chunk}, {loader.n_slots} slots); {trainer.host_step} packed steps vs "
+        f"{unpacked.host_step} padded; final test metric packed {got!r} vs unpacked {want!r}, "
+        f"rel {abs(got - want) / abs(want):.3e} (bar rtol {PACKED_EVAL_RTOL}); each run's own "
+        f"peak device memory (above what earlier phases hold) packed {packed_mib:.1f} MiB, "
+        f"unpacked {unpacked_mib:.1f} MiB")
+    np.testing.assert_allclose(got, want, rtol=PACKED_EVAL_RTOL)
+
+    times: dict[str, list[float]] = {"packed": [], "unpacked": []}
+    for label in ("packed", "unpacked", "unpacked", "packed"):
+        base = trainer if label == "packed" else unpacked
+        times[label].append(statistics.median(step_times(torch, Trainer, base, "pallas")[1:]))
+    log(f"[train-packed] step time, host clock around each waited-for step, median of steps "
+        f"2.., turns packed/unpacked/unpacked/packed: packed {[round(t, 3) for t in times['packed']]}"
+        f" ms, unpacked {[round(t, 3) for t in times['unpacked']]} ms on {card}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "gnot_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no gnot_tpu_torch package beside {__file__}; "
@@ -1344,6 +1710,16 @@ def main() -> int:
     # -- phase 6c: remat, then eval, predict and export from 6b -----------
     remat_and_artifacts_phase(torch, np, card, f32_peak_mib, bf16_trainer)
 
+    # -- phase 7: parity training at full width ---------------------------
+    parity_launches = parity_training_phase(torch, np, card)
+
+    # -- phase 8: packed serving at full width, f32 and bf16 ---------------
+    packed_serve_launches, packed_bf16_launches, packed_fields = packed_serving_phase(
+        torch, np, card)
+
+    # -- phase 9: packed training at full width ----------------------------
+    packed_train_launches = packed_training_phase(torch, np, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -1363,6 +1739,11 @@ def main() -> int:
         "launches_by_mix": {"f32": launches, "bf16": bf16_launches,
                             "bf16-x/f32-w": train_bf16_by_mix["bf16-x/f32-w"]},
         **mix,
+        "parity_train_launches": parity_launches,
+        "packed_serve_launches": packed_serve_launches,
+        "packed_serve_bf16_launches": packed_bf16_launches,
+        "packed_train_launches": packed_train_launches,
+        **packed_fields,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -3,7 +3,7 @@
 ``ModelConfig`` mirrors ``gnot_tpu/config.py::ModelConfig`` field for
 field, with the same defaults and the same refusals. ``OptimConfig``
 mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
-keep only the fields ``datasets.load``, the ``Loader``, the single-device
+keep only the fields ``datasets.load``, the loaders, the single-device
 trainer and the serving path read. Values that select a part of the JAX
 package not ported yet raise ``NotPortedError``.
 """
@@ -36,7 +36,8 @@ class ModelConfig:
     n_input_hidden_dim: int = 256
     n_expert: int = 3
     n_head: int = 8
-    # "parity": unmasked padding, pollution-faithful to the reference.
+    # "parity": unmasked padding, pollution-faithful to the reference
+    # (masks dropped, the interleaved head merge, erf GELU).
     # "masked": correct masking; results independent of pad lengths.
     attention_mode: str = "masked"
     # "xla" is the only attention impl: the fused attention kernel lost
@@ -139,8 +140,8 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data fields ``datasets.load``, the ``Loader`` and the serving
-    path read (``gnot_tpu`` DataConfig)."""
+    """The data fields ``datasets.load``, the ``Loader``, the
+    ``PackedLoader`` and the serving path read (``gnot_tpu`` DataConfig)."""
 
     train_path: str = ""
     test_path: str = ""
@@ -160,6 +161,18 @@ class DataConfig:
     # Fixed pad lengths (0 = per-batch).
     pad_nodes: int = 0
     pad_funcs: int = 0
+    # "Pack, don't pad": several samples share each sequence row as
+    # chunk-aligned contiguous segments, with attention and losses kept
+    # exactly per sample through segment Grams
+    # (ops.attention.packed_normalized_linear_attention). Recovers the
+    # tokens bucket padding wastes on ragged meshes. Masked mode only.
+    # pack_chunk is the segment alignment in tokens.
+    packed: bool = False
+    pack_chunk: int = 128
+
+    def __post_init__(self) -> None:
+        if self.packed and self.pack_chunk < 1:
+            raise ValueError(f"pack_chunk must be >= 1, got {self.pack_chunk}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +229,13 @@ class ServeConfig:
     # attention normalizer and an f32 output head; the engine publishes
     # a bf16 copy of the f32 weights).
     dtype: str = "float32"
+    # Packed dispatch ("pack, don't pad"): requests that fit the plan
+    # (data/batch.py::PackPlan, derived from the traffic) are first-fit
+    # packed as chunk-aligned segments into one fixed dispatch shape
+    # instead of one padded row each; the rest take the per-bucket
+    # padded path. pack_chunk is the segment alignment, a multiple of 8.
+    packed: bool = False
+    pack_chunk: int = 64
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -230,3 +250,7 @@ class ServeConfig:
             )
         if self.dtype not in SERVE_DTYPES:
             raise ValueError(f"unknown serve dtype {self.dtype!r}; one of {SERVE_DTYPES}")
+        if self.pack_chunk < 8 or self.pack_chunk % 8:
+            raise ValueError(
+                f"pack_chunk must be a positive multiple of 8, got {self.pack_chunk}"
+            )

@@ -14,13 +14,15 @@ number of distinct dispatch shapes is O(log L). Packing runs in numpy
 (``pack_rows_numpy``, the same bytes as ``gnot_tpu``'s native packer);
 the finished batch is a ``MeshBatch`` of tensors on one device.
 
-``PackedBatch``, ``pack_collate``, ``PackPlan`` and ``pack_prefix`` port
-the packed ("pack, don't pad") layout, float32 only: several samples
-share a row as chunk-aligned segments, and ``node_seg``/``func_seg`` are
-the chunk -> segment tables the segment attention kernels take.
+``PackedBatch``, ``pack_collate``, ``PackPlan``, ``pack_prefix`` and
+``PackedLoader`` port the packed ("pack, don't pad") layout: several
+samples share a row as chunk-aligned segments, and ``node_seg`` /
+``func_seg`` are the chunk -> segment tables the packed model and the
+segment attention kernels take.
 
-``Loader`` is the training epoch iterator: shuffle, batch, collate on the
-host in a prefetch thread; the trainer moves each batch to the device.
+``Loader`` and ``PackedLoader`` are the training epoch iterators:
+shuffle, batch (or pack), collate on the host in a prefetch thread; the
+trainer moves each batch to the device.
 """
 
 from __future__ import annotations
@@ -93,8 +95,8 @@ class MeshBatch:
 
 @dataclasses.dataclass
 class PackedBatch:
-    """A packed batch, numpy arrays on the host: samples share each row as
-    chunk-aligned contiguous segments.
+    """A packed batch, every field a tensor on the same device: samples
+    share each row as chunk-aligned contiguous segments.
 
     Shapes: R rows, L row length (a multiple of the chunk C), N = L / C
     chunks per row, S sample slots, F input functions, Lf function pad
@@ -102,19 +104,46 @@ class PackedBatch:
     ``[F, S, Lf, df]``, each slot one one-chunk segment.
     """
 
-    coords: np.ndarray  # [R, L, dx]
-    theta: np.ndarray  # [S, T] per-sample params (slot-indexed)
-    y: np.ndarray  # [R, L, dy]
-    node_mask: np.ndarray  # [R, L]
-    node_seg: np.ndarray  # [R, N] int32 chunk -> slot ids; pad chunks = S
-    funcs: np.ndarray | None = None  # [F, S, Lf, df]
-    func_mask: np.ndarray | None = None  # [F, S, Lf]
-    func_seg: np.ndarray | None = None  # [S, 1] slot ids (S for empty slots)
+    coords: torch.Tensor  # [R, L, dx]
+    theta: torch.Tensor  # [S, T] per-sample params (slot-indexed)
+    y: torch.Tensor  # [R, L, dy]
+    node_mask: torch.Tensor  # [R, L]
+    node_seg: torch.Tensor  # [R, N] int32 chunk -> slot ids; pad chunks = S
+    funcs: torch.Tensor | None = None  # [F, S, Lf, df]
+    func_mask: torch.Tensor | None = None  # [F, S, Lf]
+    func_seg: torch.Tensor | None = None  # [S, 1] slot ids (S for empty slots)
     n_seg: int = 0
 
     @property
     def n_real_points(self) -> int:
-        return int(np.sum(self.node_mask))
+        return int(self.node_mask.float().sum())
+
+    def signature(self) -> tuple:
+        """``(shape, dtype)`` of every tensor field and ``n_seg``: one
+        entry per distinct dispatch shape."""
+        return tuple(
+            (tuple(t.shape), str(t.dtype)) if t is not None else None
+            for t in (
+                self.coords, self.theta, self.y, self.node_mask, self.node_seg,
+                self.funcs, self.func_mask, self.func_seg,
+            )
+        ) + (self.n_seg,)
+
+    def _map(self, fn) -> "PackedBatch":
+        return PackedBatch(
+            **{
+                f.name: v if (v := getattr(self, f.name)) is None or f.name == "n_seg" else fn(v)
+                for f in dataclasses.fields(self)
+            }
+        )
+
+    def to(self, device: torch.device | str, non_blocking: bool = False) -> "PackedBatch":
+        """The same batch with every tensor on ``device``."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "PackedBatch":
+        """The same batch in page-locked host memory."""
+        return self._map(torch.Tensor.pin_memory)
 
 
 def bucket_length(n: int, *, min_size: int = 64) -> int:
@@ -283,10 +312,17 @@ def pack_collate(
     chunk: int,
     n_slots: int,
     pad_funcs: int,
+    device: torch.device | str = "cpu",
+    dtype: str = "float32",
 ) -> PackedBatch:
-    """Assemble one ``PackedBatch`` from samples and their chunk-aligned
-    ``(row, offset)`` placements. Slot ids are assignment order; unused
-    rows and slots stay zero / pad."""
+    """Assemble one ``PackedBatch`` on ``device`` from samples and their
+    chunk-aligned ``(row, offset)`` placements. Slot ids are assignment
+    order; unused rows and slots stay zero / pad. ``dtype="bfloat16"`` is
+    the bf16 packed serving dispatch: every float field is rounded to bf16
+    (nearest even) on the host, the segment tables stay int32; bitwise
+    what the JAX package's ``pack_collate(dtype="bfloat16")`` gives."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"pack_collate dtype must be float32|bfloat16, got {dtype!r}")
     dx = samples[0].coords.shape[-1]
     dy = samples[0].y.shape[-1]
     n_funcs = len(samples[0].funcs)
@@ -313,10 +349,18 @@ def pack_collate(
             func_mask[j, slot, : f.shape[0]] = 1.0
         if n_funcs:
             func_seg[slot, 0] = slot
+    target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+    def put(a: np.ndarray | None) -> torch.Tensor | None:
+        if a is None:
+            return None
+        t = torch.from_numpy(a)
+        return (t if a.dtype == np.int32 else t.to(target)).to(device)
+
     return PackedBatch(
-        coords=coords, theta=theta, y=y, node_mask=node_mask,
-        node_seg=node_seg, funcs=funcs, func_mask=func_mask,
-        func_seg=func_seg, n_seg=n_slots,
+        coords=put(coords), theta=put(theta), y=put(y), node_mask=put(node_mask),
+        node_seg=put(node_seg), funcs=put(funcs), func_mask=put(func_mask),
+        func_seg=put(func_seg), n_seg=n_slots,
     )
 
 
@@ -390,6 +434,28 @@ class PackPlan:
     def capacity_tokens(self) -> int:
         """Token capacity of one dispatch (the pad-waste denominator)."""
         return self.n_rows * self.row_len
+
+    @classmethod
+    def for_slices(
+        cls,
+        samples: Sequence[MeshSample],
+        *,
+        chunk: int,
+        batch_size: int,
+        per_devices: int,
+    ) -> "PackPlan":
+        """``from_samples`` whose row count divides over a
+        ``per_devices``-wide replica slice, so that every slice gets whole
+        rows; the one place the alignment rule lives (the serve entry
+        point calls it with one device)."""
+        plan = cls.from_samples(samples, chunk=chunk, batch_size=batch_size)
+        per = max(1, per_devices)
+        if plan.n_rows % per:
+            plan = cls.from_samples(
+                samples, chunk=chunk, batch_size=batch_size,
+                n_rows=-(-plan.n_rows // per) * per,
+            )
+        return plan
 
 
 def pack_prefix(sizes: Sequence[int], plan: PackPlan) -> list[tuple[int, int]]:
@@ -532,3 +598,127 @@ class Loader:
 
     def __iter__(self) -> Iterator[MeshBatch]:
         yield from _prefetched(self.epoch_indices(), self.collate_at)
+
+
+class PackedLoader:
+    """Epoch iterator over packed batches (``gnot_tpu/data/batch.py::PackedLoader``).
+
+    The epoch's (shuffled) sample stream is first-fit packed into rows of
+    one fixed length, then ``n_rows`` consecutive rows form each
+    dispatch: every dispatch has one shape, and rows fill to ~90% where
+    bucket padding fills ~70% on ragged meshes. ``batch_size`` is the
+    nominal samples per step (the row count is sized so a dispatch carries
+    about that many on average); the count per dispatch varies with the
+    packing. The order is ``np.random.default_rng((seed, epoch))``'s
+    shuffle, the JAX package's draw, so both packages pack the same
+    dispatches. ``row_multiple`` rounds the row count up so rows split
+    evenly over a data axis.
+    """
+
+    def __init__(
+        self,
+        samples: Sequence[MeshSample],
+        batch_size: int,
+        *,
+        chunk: int = 128,
+        shuffle: bool = False,
+        seed: int = 0,
+        row_multiple: int = 1,
+        pin_memory: bool = False,
+    ):
+        if not samples:
+            raise ValueError("PackedLoader needs at least one sample")
+        self.samples = list(samples)
+        self.batch_size = batch_size
+        self.chunk = chunk
+        self.shuffle = shuffle
+        self.seed = seed
+        self.pin_memory = pin_memory
+        self._epoch = 0
+        self._aligned = [-(-s.coords.shape[0] // chunk) * chunk for s in self.samples]
+        max_a, min_a = max(self._aligned), min(self._aligned)
+        # ~2 max-size samples per row, bucketed, on the chunk grid.
+        self.row_len = -(-bucket_length(2 * max_a) // chunk) * chunk
+        mean_a = float(np.mean(self._aligned))
+        n_rows = max(1, -(-int(batch_size * mean_a) // self.row_len))
+        self.n_rows = -(-n_rows // row_multiple) * row_multiple
+        # No n_rows-row window can carry more samples than this.
+        self.n_slots = self.n_rows * (self.row_len // min_a)
+        self.pad_funcs = max((f.shape[0] for s in self.samples for f in s.funcs), default=0)
+        if self.pad_funcs:
+            self.pad_funcs = bucket_length(self.pad_funcs)
+        self._canonical_len: int | None = None
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _unshuffled(self, fn):
+        """``fn()`` on the canonical (unshuffled) stream, leaving the
+        epoch counter and the shuffle flag as they were."""
+        epoch, shuffle = self._epoch, self.shuffle
+        self.shuffle = False
+        try:
+            return fn()
+        finally:
+            self._epoch, self.shuffle = epoch, shuffle
+
+    def probe_batch(self) -> PackedBatch:
+        """The canonical stream's first dispatch, for shape probing; the
+        epoch counter does not move."""
+        return self.collate_at(self._unshuffled(self.epoch_dispatches)[0])
+
+    def epoch_dispatches(self) -> list[tuple[list[int], list[tuple[int, int]]]]:
+        """This epoch's dispatches as ``(sample indices, (row, offset)
+        placements)``; advances the epoch. First-fit with open rows: each
+        sample goes into the first row it fits, and a row whose space
+        left fits no sample closes."""
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
+        min_a = min(self._aligned)
+        open_rows: list[list] = []  # [used, [(sample index, offset)]]
+        closed: list[list] = []
+        for i in order:
+            a = self._aligned[i]
+            for rb in open_rows:
+                if rb[0] + a <= self.row_len:
+                    rb[1].append((int(i), rb[0]))
+                    rb[0] += a
+                    break
+            else:
+                open_rows.append([a, [(int(i), 0)]])
+            closed.extend(rb for rb in open_rows if self.row_len - rb[0] < min_a)
+            open_rows = [rb for rb in open_rows if self.row_len - rb[0] >= min_a]
+        rows = [rb[1] for rb in closed + open_rows]
+        dispatches = []
+        for start in range(0, len(rows), self.n_rows):
+            group = rows[start : start + self.n_rows]
+            idx = [i for row in group for i, _ in row]
+            placements = [(r, off) for r, row in enumerate(group) for _, off in row]
+            dispatches.append((idx, placements))
+        return dispatches
+
+    def __len__(self) -> int:
+        """The canonical stream's exact dispatch count; a shuffled epoch
+        may pack one row group more or fewer, so callers that must not
+        drop a dispatch iterate to the end (``Trainer.evaluate``)."""
+        if self._canonical_len is None:
+            self._canonical_len = len(self._unshuffled(self.epoch_dispatches))
+        return self._canonical_len
+
+    def collate_at(self, dispatch) -> PackedBatch:
+        idx, placements = dispatch
+        batch = pack_collate(
+            [self.samples[i] for i in idx],
+            placements,
+            n_rows=self.n_rows,
+            row_len=self.row_len,
+            chunk=self.chunk,
+            n_slots=self.n_slots,
+            pad_funcs=self.pad_funcs,
+        )
+        return batch.pin_memory() if self.pin_memory else batch
+
+    def __iter__(self) -> Iterator[PackedBatch]:
+        yield from _prefetched(self.epoch_dispatches(), self.collate_at)

@@ -7,7 +7,9 @@ defaults, so the same command line works in both packages. Two modes:
   single-device ``Trainer`` on the synthetic or pickled train split,
   weights from ``--seed``, eval on the test split every epoch, the
   reference's console lines, in f32 or (``--dtype bfloat16``) bf16
-  compute; ``main`` returns the best test metric. ``--eval_only``
+  compute, masked or (``--attention_mode parity``, bucketing off)
+  reference-parity numerics, padded or (``--packed``) packed batches;
+  ``main`` returns the best test metric. ``--eval_only``
   evaluates ``--checkpoint_dir``'s best checkpoint instead of training.
   Then ``--export_torch`` saves the weights as a state_dict the
   reference's torch GNOT loads, and ``--predict_out`` writes the test
@@ -18,7 +20,9 @@ defaults, so the same command line works in both packages. Two modes:
   bucket warms the engine, the test split (synthetic or pickled) is
   submitted as requests through the ``InferenceServer`` at
   ``--serve_dtype``, the server drains, and the summary is printed as
-  one JSON line.
+  one JSON line. With ``--serve_packed`` the requests that fit a
+  ``PackPlan`` derived from that traffic are served packed, the plan
+  warmed with one packed dispatch.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -42,7 +46,7 @@ from gnot_tpu_torch.config import (
     TrainConfig,
 )
 from gnot_tpu_torch.data import datasets
-from gnot_tpu_torch.data.batch import MeshSample
+from gnot_tpu_torch.data.batch import MeshSample, PackPlan
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
 from gnot_tpu_torch.models.precision import SERVE_DTYPES
@@ -86,6 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--gelu", type=str, default="", choices=["", "erf", "tanh"],
         help="GELU flavor: erf (torch nn.GELU, the reference op) or tanh "
              "(the standard approximation). Default: tanh (masked mode)",
+    )
+    p.add_argument(
+        "--attention_mode", type=str, default="masked", choices=["masked", "parity"],
+        help="masked: padding masked out of attention (pad-length invariant); "
+             "parity: the reference's numerics (unmasked padding, interleaved "
+             "head merge, erf GELU; turns bucketing off)",
     )
     p.add_argument(
         "--ffn_impl", type=str, default="xla", choices=["xla", "pallas"],
@@ -132,6 +142,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--no_bucket", action="store_true", help="pad to per-batch max (parity)")
     p.add_argument(
+        "--packed", action="store_true",
+        help="pack several samples per sequence row (chunk-aligned segments, "
+             "exact per-sample attention and losses) instead of padding each "
+             "to its bucket length; masked mode",
+    )
+    p.add_argument(
+        "--pack_chunk", type=int, default=128,
+        help="segment alignment granularity for --packed (tokens)",
+    )
+    p.add_argument(
         "--serve", action="store_true",
         help="serving mode: restore --checkpoint_dir's best (else latest) "
              "weights, else fresh ones from --seed, drive the test set "
@@ -151,6 +171,18 @@ def build_parser() -> argparse.ArgumentParser:
              "at rest (the engine publishes a cast copy per reload) and "
              "batches assemble in bf16",
     )
+    p.add_argument(
+        "--serve_packed", action="store_true",
+        help="serving: first-fit pack the requests as chunk-aligned segments "
+             "into one fixed dispatch shape (a PackPlan derived from the "
+             "traffic) instead of one padded row each; each response is "
+             "exactly its own nodes, and requests the plan does not fit take "
+             "the padded per-bucket path",
+    )
+    p.add_argument(
+        "--serve_pack_chunk", type=int, default=64,
+        help="serving: packed-mode segment alignment in tokens (multiple of 8)",
+    )
     return p
 
 
@@ -164,7 +196,9 @@ def data_config(args) -> DataConfig:
         n_test=args.n_test,
         batch_size=args.batch_size,
         seed=args.seed,
-        bucket=not args.no_bucket,
+        bucket=not args.no_bucket and args.attention_mode != "parity",
+        packed=args.packed,
+        pack_chunk=args.pack_chunk,
     )
 
 
@@ -191,6 +225,8 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         max_wait_ms=args.serve_max_wait_ms,
         queue_limit=args.serve_queue_limit,
         dtype=args.serve_dtype,
+        packed=args.serve_packed,
+        pack_chunk=args.serve_pack_chunk,
     )
     return data, serve
 
@@ -205,6 +241,7 @@ def model_config(args, samples: list[MeshSample]) -> ModelConfig:
         n_input_hidden_dim=args.n_input_hidden_dim,
         n_expert=args.n_expert,
         n_head=args.n_head,
+        attention_mode=args.attention_mode,
         ffn_impl=args.ffn_impl,
         gelu=args.gelu,
         dtype=args.dtype,
@@ -220,6 +257,7 @@ class ServeRun:
     results: list[ServeResult]
     samples: list[MeshSample]
     model: GNOT
+    pack_plan: PackPlan | None = None
 
 
 def restore_for_serving(model: GNOT, checkpoint_dir: str) -> str:
@@ -241,7 +279,8 @@ def restore_for_serving(model: GNOT, checkpoint_dir: str) -> str:
 def run_serve(args) -> ServeRun:
     """``--serve``: build the model on the chosen device with the weights
     of ``--checkpoint_dir`` (else from ``--seed``), start the server with
-    one warm-up dispatch per bucket, submit the test split of
+    one warm-up dispatch per bucket (and, with ``--serve_packed``, one
+    packed dispatch of the plan derived from the traffic), submit the test split of
     ``datasets.load`` as requests, wait for every future, drain, and
     report."""
     device = resolve_device(args.device)
@@ -251,11 +290,19 @@ def run_serve(args) -> ServeRun:
     model = GNOT(model_config(args, train_samples), generator=gen).to(device)
     restored = restore_for_serving(model, args.checkpoint_dir)
     engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
+    # Packed dispatch: the one fixed dispatch shape comes from the traffic
+    # itself, the samples about to be served.
+    pack_plan = (
+        PackPlan.for_slices(samples, chunk=sc.pack_chunk, batch_size=sc.max_batch,
+                            per_devices=1)
+        if sc.packed else None
+    )
     server = InferenceServer(
         engine,
         max_batch=sc.max_batch,
         max_wait_ms=sc.max_wait_ms,
         queue_limit=sc.queue_limit,
+        pack_plan=pack_plan,
     )
     t0 = time.monotonic()
     server.start(warmup=samples)
@@ -267,7 +314,9 @@ def run_serve(args) -> ServeRun:
         summary = server.drain(DRAIN_TIMEOUT_S)
     summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device),
                    restored=restored)
-    return ServeRun(summary, results, samples, model)
+    if pack_plan is not None:
+        summary["pack_plan"] = dataclasses.asdict(pack_plan)
+    return ServeRun(summary, results, samples, model, pack_plan)
 
 
 def run_train(args) -> Trainer:

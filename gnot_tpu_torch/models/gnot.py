@@ -1,7 +1,7 @@
 """GNOT — General Neural Operator Transformer (arXiv 2302.14376).
 
-Port of ``gnot_tpu/models/gnot.py`` for masked mode, unpacked, float32
-or bfloat16 compute, with the reference's quirks as they are:
+Port of ``gnot_tpu/models/gnot.py``, float32 or bfloat16 compute, with
+the reference's quirks as they are:
 
 * geometry gating is computed on the **raw coordinates only** (before
   the theta concat), softmaxed over experts in f32, and reused by every
@@ -20,8 +20,29 @@ promotes JAX's cast tree.
 With ``remat`` each block's activations are recomputed in the backward
 instead of kept (``torch.utils.checkpoint``), as ``nn.remat(HNABlock)``.
 
-Parity mode, the stacked-layer layout and the packed layout are not
-ported yet; the model refuses them.
+Two modes (``ModelConfig.attention_mode``), as in the JAX package:
+
+* ``"masked"`` (the default): the ragged structure rides as 0/1 masks
+  folded into the attention reductions, so results do not depend on
+  pad lengths;
+* ``"parity"``: the reference's numerics. The masks are dropped before
+  the forward, so padded rows pollute ``k_sum`` and ``k^T v`` as they do
+  in the reference, and heads merge by the reference's interleave
+  (``layers.LinearAttention``); the GELU is erf. JAX pins full-f32
+  contractions for this mode (``precision_scope``); on the card that is
+  cuBLAS with TF32 off, which ``device.resolve_device`` sets for every
+  entry point, so no scope is needed here.
+
+``node_seg`` / ``func_seg`` / ``n_seg`` select the packed layout ("pack,
+don't pad"): several samples share each row as chunk-aligned segments,
+theta is per sample ``[S, T]`` and each token gathers its own, and
+attention stays exactly per sample through segment Grams. The one-hot
+segment maps are computed once per forward and handed to every block as
+tensors, so they cross a ``remat`` checkpoint like any other input.
+Masked mode only.
+
+The stacked-layer layout (``scan_layers``) is not ported yet; the model
+refuses it.
 """
 
 from __future__ import annotations
@@ -31,8 +52,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gnot_tpu_torch.config import ModelConfig, NotPortedError
+from gnot_tpu_torch.data.batch import PackedBatch
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
 from gnot_tpu_torch.models.precision import torch_dtype
+from gnot_tpu_torch.ops.attention import segment_one_hot
 
 
 class HNABlock(nn.Module):
@@ -44,6 +67,7 @@ class HNABlock(nn.Module):
         super().__init__()
         n_funcs = cfg.n_input_functions if has_funcs else 0
         dtype = model_dtype(cfg)
+        parity = cfg.attention_mode == "parity"
         ffn = dict(
             in_dim=cfg.n_attn_hidden_dim, ffn_impl=cfg.ffn_impl,
             gelu=cfg.gelu, generator=generator, dtype=dtype,
@@ -52,7 +76,7 @@ class HNABlock(nn.Module):
             cfg.n_attn_hidden_dim, cfg.n_head, n_funcs,
             query_dim=cfg.n_input_hidden_dim,
             func_dim=cfg.n_input_hidden_dim,
-            generator=generator, dtype=dtype,
+            parity=parity, generator=generator, dtype=dtype,
         )
         self.ffn1 = GatedExpertFfn(
             cfg.n_expert, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
@@ -60,7 +84,8 @@ class HNABlock(nn.Module):
         )
         self.self_attention = LinearAttention(
             cfg.n_attn_hidden_dim, cfg.n_head, 0,
-            query_dim=cfg.n_input_hidden_dim, generator=generator, dtype=dtype,
+            query_dim=cfg.n_input_hidden_dim, parity=parity, generator=generator,
+            dtype=dtype,
         )
         self.ffn2 = GatedExpertFfn(
             cfg.n_expert, cfg.n_mlp_num_layers, cfg.n_mlp_hidden_dim,
@@ -75,12 +100,15 @@ class HNABlock(nn.Module):
         *,
         node_mask: torch.Tensor | None = None,
         func_mask: torch.Tensor | None = None,
+        node_seg_oh: torch.Tensor | None = None,
+        func_seg_oh: torch.Tensor | None = None,
     ) -> torch.Tensor:
         cross = self.cross_attention(
-            query, input_functions, query_mask=node_mask, func_mask=func_mask
+            query, input_functions, query_mask=node_mask, func_mask=func_mask,
+            q_seg_oh=node_seg_oh, kv_seg_oh=func_seg_oh,
         )
         query = query + self.ffn1(cross, scores)
-        self_out = self.self_attention(query, query_mask=node_mask)
+        self_out = self.self_attention(query, query_mask=node_mask, q_seg_oh=node_seg_oh)
         return query + self.ffn2(self_out, scores)
 
 
@@ -101,6 +129,17 @@ def query_features(coords: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return torch.cat([coords, theta_b], dim=-1)
 
 
+def packed_query_features(
+    coords: torch.Tensor, theta: torch.Tensor, node_seg: torch.Tensor
+) -> torch.Tensor:
+    """Packed layout: theta is per sample ``[S, T]`` and each token
+    gathers its segment's (pad tokens clip to slot 0; attention sums and
+    the loss leave them out, so their value is inert)."""
+    tok_seg = torch.repeat_interleave(node_seg, coords.shape[1] // node_seg.shape[1], dim=1)
+    th = theta[torch.clamp(tok_seg.long(), 0, theta.shape[0] - 1)]
+    return torch.cat([coords, th.to(coords.dtype)], dim=-1)
+
+
 class GNOT(nn.Module):
     """Full GNOT model (reference model.py:142-172). Parameter names
     follow the JAX tree: ``gating``, ``x_embed``, ``input_func_mlps``,
@@ -109,8 +148,6 @@ class GNOT(nn.Module):
     def __init__(self, config: ModelConfig, *, generator: torch.Generator | None = None):
         super().__init__()
         cfg = self.config = config
-        if cfg.attention_mode != "masked":
-            raise NotPortedError("the port runs masked mode only; parity mode is not ported yet")
         if cfg.scan_layers:
             raise NotPortedError("scan_layers (the stacked-layer layout) is not ported yet")
         has_funcs = cfg.n_input_functions > 0
@@ -148,11 +185,26 @@ class GNOT(nn.Module):
         *,
         node_mask: torch.Tensor | None = None,
         func_mask: torch.Tensor | None = None,
+        node_seg: torch.Tensor | None = None,
+        func_seg: torch.Tensor | None = None,
+        n_seg: int = 0,
     ) -> torch.Tensor:
         cfg = self.config
+        if node_seg is not None and cfg.attention_mode == "parity":
+            raise ValueError(
+                "packed layout requires masked mode (attention_mode='masked'): "
+                "parity reproduces the reference's per-batch padding "
+                "pollution, which has no packed equivalent"
+            )
+        if cfg.attention_mode == "parity":
+            node_mask = func_mask = None
         # Geometry gating on raw coordinates, computed once.
         scores = gating_scores(self.gating(coords))
-        query = self.x_embed(query_features(coords, theta))
+        if node_seg is not None:
+            feats = packed_query_features(coords, theta, node_seg)
+        else:
+            feats = query_features(coords, theta)
+        query = self.x_embed(feats)
         funcs = None
         if cfg.n_input_functions > 0:
             if input_functions is None:
@@ -161,10 +213,17 @@ class GNOT(nn.Module):
                     "functions but was called without them"
                 )
             funcs = self.input_func_mlps(input_functions)  # [F, B, Lf, D]
+        # One-hot segment maps, computed once and handed to every block.
+        node_seg_oh = func_seg_oh = None
+        if node_seg is not None:
+            node_seg_oh = segment_one_hot(node_seg, n_seg)
+            if func_seg is not None:
+                func_seg_oh = segment_one_hot(func_seg, n_seg)
         for i in range(cfg.n_attn_layers):
             block = getattr(self, f"block_{i}")
             args = (scores, query, funcs)
-            kw = dict(node_mask=node_mask, func_mask=func_mask)
+            kw = dict(node_mask=node_mask, func_mask=func_mask,
+                      node_seg_oh=node_seg_oh, func_seg_oh=func_seg_oh)
             if cfg.remat and torch.is_grad_enabled():
                 # nn.remat(HNABlock): only the block's inputs are kept for
                 # the backward, which runs the block's forward again.
@@ -175,8 +234,20 @@ class GNOT(nn.Module):
 
 
 def apply_batch(model: GNOT, batch) -> torch.Tensor:
-    """The forward invocation serving uses (the unpacked branch of
-    ``gnot_tpu/train/trainer.py::apply_batch``)."""
+    """The one forward invocation of training, eval and serving
+    (``gnot_tpu/train/trainer.py::apply_batch``): a ``PackedBatch`` takes
+    the packed layout."""
+    if isinstance(batch, PackedBatch):
+        return model(
+            batch.coords,
+            batch.theta,
+            batch.funcs,
+            node_mask=batch.node_mask,
+            func_mask=batch.func_mask,
+            node_seg=batch.node_seg,
+            func_seg=batch.func_seg,
+            n_seg=batch.n_seg,
+        )
     return model(
         batch.coords,
         batch.theta,

@@ -27,6 +27,7 @@ from gnot_tpu_torch.ops.attention import (
     feature_softmax,
     merge_heads,
     normalized_linear_attention,
+    packed_normalized_linear_attention,
     split_heads,
 )
 from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, kernel_takes
@@ -160,8 +161,7 @@ class Mlp(nn.Module):
 
 
 class LinearAttention(nn.Module):
-    """Heterogeneous normalized linear attention (model.py:33-107),
-    non-parity, unpacked.
+    """Heterogeneous normalized linear attention (model.py:33-107).
 
     Cross mode (``n_input_functions > 0``): per-input-function K/V
     projections (stacked, one batched matmul), per-function attention
@@ -169,6 +169,19 @@ class LinearAttention(nn.Module):
     As in the reference, q and k are softmaxed over the feature axis, the
     residual adds the *softmaxed* q, and one ``fc_out`` closes both
     branches.
+
+    ``parity=True`` merges heads as the reference does: it reshapes the
+    permuted ``[B, H, L, D]`` tensor straight to ``[B, L, H*D]``
+    (model.py:81,83,103-104), an interleave that mixes heads and sequence
+    positions across output rows, where masked mode transposes them back
+    (``merge_heads``). torch's ``reshape`` reads the logical row-major
+    order of the non-contiguous tensor, as JAX's does, and copies.
+
+    ``q_seg_oh`` / ``kv_seg_oh`` select the packed layout
+    (``packed_normalized_linear_attention``): one-hot chunk->segment maps
+    of the query rows and, in cross mode, of the slot-indexed
+    input-function rows, one map shared by every function. Masked mode
+    only: the interleaved merge mixes rows, so it has no packed form.
     """
 
     def __init__(
@@ -179,12 +192,14 @@ class LinearAttention(nn.Module):
         *,
         query_dim: int,
         func_dim: int = 0,
+        parity: bool = False,
         generator=None,
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.n_head = n_head
         self.n_input_functions = n_input_functions
+        self.parity = parity
         self.query = Dense(query_dim, n_embed, generator, dtype)
         if n_input_functions > 0:
             self.key = StackedDense(n_input_functions, func_dim, n_embed, generator, dtype)
@@ -194,6 +209,12 @@ class LinearAttention(nn.Module):
             self.value = Dense(query_dim, n_embed, generator, dtype)
         self.fc_out = Dense(n_embed, n_embed, generator, dtype)
 
+    def _merge(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parity:
+            b, h, l, d = x.shape
+            return x.reshape(b, l, h * d)
+        return merge_heads(x)
+
     def forward(
         self,
         query: torch.Tensor,
@@ -201,7 +222,12 @@ class LinearAttention(nn.Module):
         *,
         query_mask: torch.Tensor | None = None,
         func_mask: torch.Tensor | None = None,
+        q_seg_oh: torch.Tensor | None = None,
+        kv_seg_oh: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        packed = q_seg_oh is not None
+        if packed and self.parity:
+            raise ValueError("packed attention requires parity=False")
         h = self.n_head
         q = feature_softmax(split_heads(self.query(query), h))  # [B, H, Lq, D]
         if self.n_input_functions > 0:
@@ -213,13 +239,29 @@ class LinearAttention(nn.Module):
             # function, mean over functions (model.py:77-86).
             k = feature_softmax(split_heads(self.key(input_functions), h))
             v = split_heads(self.value(input_functions), h)  # [F, B, H, Lf, D]
-            out = normalized_linear_attention(q, k, v, kv_mask=func_mask)
-            res = merge_heads(q) + merge_heads(out.mean(dim=0))
+            if packed:
+                # The funcs tensor is slot-indexed: one kv_seg_oh serves
+                # every function.
+                out = torch.stack([
+                    packed_normalized_linear_attention(
+                        q, k[f], v[f], q_seg_oh=q_seg_oh, kv_seg_oh=kv_seg_oh,
+                        kv_mask=None if func_mask is None else func_mask[f],
+                    )
+                    for f in range(k.shape[0])
+                ])  # [F, Bq, H, Lq, D]
+            else:
+                out = normalized_linear_attention(q, k, v, kv_mask=func_mask)
+            res = self._merge(q) + self._merge(out.mean(dim=0))
         else:
             k = feature_softmax(split_heads(self.key(query), h))
             v = split_heads(self.value(query), h)
-            out = normalized_linear_attention(q, k, v, kv_mask=query_mask)
-            res = merge_heads(q) + merge_heads(out)
+            if packed:
+                out = packed_normalized_linear_attention(
+                    q, k, v, q_seg_oh=q_seg_oh, kv_seg_oh=q_seg_oh, kv_mask=query_mask
+                )
+            else:
+                out = normalized_linear_attention(q, k, v, kv_mask=query_mask)
+            res = self._merge(q) + self._merge(out)
         return self.fc_out(res)
 
 

@@ -331,6 +331,8 @@ def fused_gated_ffn_kernel(
     fused_gated_ffn_kernel.launches += 1
     by_mix = fused_gated_ffn_kernel.launches_by_dtype
     by_mix[mix] = by_mix.get(mix, 0) + 1
+    by_gelu = fused_gated_ffn_kernel.launches_by_gelu
+    by_gelu[gelu_kind] = by_gelu.get(gelu_kind, 0) + 1
     return out
 
 
@@ -370,9 +372,11 @@ def launch(
 
 
 #: Kernel launches so far: the wrapper adds one where it launches, to the
-#: total and to the count of its dtype mix ("f32", "bf16", "bf16-x/f32-w").
+#: total, to the count of its dtype mix ("f32", "bf16", "bf16-x/f32-w")
+#: and to the count of its GELU ("tanh", "erf").
 fused_gated_ffn_kernel.launches = 0
 fused_gated_ffn_kernel.launches_by_dtype = {}
+fused_gated_ffn_kernel.launches_by_gelu = {}
 
 
 class _FusedGatedFfn(torch.autograd.Function):

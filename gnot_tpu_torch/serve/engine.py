@@ -1,7 +1,7 @@
 """InferenceEngine: the forward path for inference, offline and serving.
 
 Port of ``gnot_tpu/serve/engine.py::InferenceEngine`` without the AOT
-table, program catalog or sanitizer. Two entry points:
+table, program catalog or sanitizer. Three entry points:
 
 * ``predict(samples)`` — the offline, all-at-once path: bucketed
   batches of ``batch_size``, per-sample unpadded outputs.
@@ -10,6 +10,11 @@ table, program catalog or sanitizer. Two entry points:
   padded to ``rows`` with repeats of the last sample, so a bucket always
   dispatches at one shape; ``dispatch_shapes`` counts the distinct
   shapes seen (the JAX engine's ``compiled_shapes``).
+* ``infer_packed(samples, plan)`` — ONE dispatch of many small requests
+  packed into the plan's fixed shape as chunk-aligned segments sharing
+  rows ("pack, don't pad"); segment Grams keep attention per sample, so
+  each output matches its solo padded dispatch to summation order, and
+  request i gets exactly its own ``[n_i, out]`` rows.
 
 The weights are swapped atomically under a lock (``swap_params``); a
 dispatch reads the published model once, so in-flight requests always
@@ -37,8 +42,11 @@ import torch
 
 from gnot_tpu_torch.data.batch import (
     MeshSample,
+    PackPlan,
     bucket_length,
     collate,
+    pack_collate,
+    pack_prefix,
     unpad_rows_numpy,
     validate_samples,
 )
@@ -160,6 +168,50 @@ class InferenceEngine:
             seen.add(key)
             self.infer([s], pad_nodes=key[0], pad_funcs=key[1], rows=rows)
         return len(seen)
+
+    def infer_packed(
+        self,
+        samples: Sequence[MeshSample],
+        plan: PackPlan,
+        *,
+        placements: Sequence[tuple[int, int]] | None = None,
+    ) -> list[np.ndarray]:
+        """ONE dispatch of ``samples`` packed into ``plan``'s fixed shape
+        (first-fit prefix placements unless given), in the serving dtype;
+        returns per-request outputs ``[n_i, out]``, each cut from its own
+        segment. Every sample must fit: the server's batcher cuts
+        dispatches to the packable prefix."""
+        reqs = list(samples)
+        if not reqs:
+            return []
+        if placements is None:
+            placements = pack_prefix([s.coords.shape[0] for s in reqs], plan)
+        if len(placements) != len(reqs):
+            raise ValueError(
+                f"infer_packed() got {len(reqs)} samples but only "
+                f"{len(placements)} fit the plan {plan}; the batcher's "
+                "take_fn must cut dispatches to the packable prefix"
+            )
+        batch = pack_collate(
+            reqs, placements, n_rows=plan.n_rows, row_len=plan.row_len,
+            chunk=plan.chunk, n_slots=plan.n_slots, pad_funcs=plan.pad_funcs,
+            device=self.device, dtype=self.dtype,
+        )
+        self._note_shape(batch)
+        out = self._forward(self.model, batch)
+        return unpad_rows_numpy(
+            out, [(r, off, s.coords.shape[0]) for s, (r, off) in zip(reqs, placements)]
+        )
+
+    def warmup_packed(self, samples: Sequence[MeshSample], plan: PackPlan) -> int:
+        """One packed dispatch of the first sample that fits ``plan``
+        (outputs discarded), as ``warmup`` does per bucket. Returns 1 when
+        one fit, else 0."""
+        fits = [s for s in samples if plan.packable(s)]
+        if not fits:
+            return 0
+        self.infer_packed(fits[:1], plan)
+        return 1
 
     # -- the offline path --------------------------------------------------
 

@@ -7,6 +7,15 @@ resolved futures, and ``drain`` stops admission, flushes what is
 queued, joins the worker and returns a summary. Every future resolves
 on every path; a request is never left hanging.
 
+With ``pack_plan`` the server dispatches packed ("pack, don't pad"):
+every request the plan fits shares one bucket (``PACKED_BUCKET``) whose
+dispatches the batcher cuts by first-fit FIFO prefix packing, and each
+goes through ``engine.infer_packed`` as chunk-aligned segments of the
+plan's fixed shape; a request the plan does not fit takes the padded
+per-bucket path, so packing rejects nothing the padded server accepts.
+``summary()`` reports each bucket's real and capacity tokens
+(``pad_waste_by_bucket``).
+
 Not ported yet: the circuit breaker, deadlines, tenants, rollout
 sessions, fault injection, hot reload and tracing.
 """
@@ -23,9 +32,14 @@ from typing import Sequence
 
 import numpy as np
 
-from gnot_tpu_torch.data.batch import MeshSample
+from gnot_tpu_torch.data.batch import MeshSample, PackPlan, pack_prefix
 from gnot_tpu_torch.serve.batcher import Batcher
 from gnot_tpu_torch.serve.engine import InferenceEngine
+
+#: The bucket key every plan-fitting request shares in packed dispatch
+#: mode (``pack_plan=``); the batcher sizes its dispatches by first-fit
+#: prefix packing instead of max_batch.
+PACKED_BUCKET = ("packed",)
 
 REASONS = (
     "ok",
@@ -71,18 +85,32 @@ class InferenceServer:
         max_batch: int = 4,
         max_wait_ms: float = 10.0,
         queue_limit: int = 64,
+        pack_plan: PackPlan | None = None,
     ):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.engine = engine
         self.max_batch = max_batch
         self.queue_limit = queue_limit
+        self.pack_plan = pack_plan
         self._clock = time.monotonic
+
+        def key_fn(r):
+            if pack_plan is not None and pack_plan.packable(r.sample):
+                return PACKED_BUCKET
+            return engine.bucket_key(r.sample)
+
+        def take_fn(key, reqs):
+            if key is not PACKED_BUCKET:
+                return None
+            return len(pack_prefix([r.sample.coords.shape[0] for r in reqs], pack_plan))
+
         # Owned by the worker thread alone once start() ran.
         self.batcher = Batcher(
             max_batch=max_batch,
             max_wait_ms=max_wait_ms,
-            key_fn=lambda r: engine.bucket_key(r.sample),
+            key_fn=key_fn,
+            take_fn=take_fn if pack_plan is not None else None,
         )
         self._inbound: queue.Queue = queue.Queue()
         self._draining = threading.Event()
@@ -96,13 +124,16 @@ class InferenceServer:
         self._shed: dict[str, int] = {}  #: guarded_by _lock
         self._latency_ms: list[float] = []  #: guarded_by _lock
         self._dispatch_ms: list[float] = []  #: guarded_by _lock
+        # Per bucket: dispatches, real and capacity node tokens.
+        self._pack_stats: dict[str, dict[str, int]] = {}  #: guarded_by _lock
 
     # -- client side -------------------------------------------------------
 
     def start(self, warmup: Sequence[MeshSample] = ()) -> "InferenceServer":
         """Start the worker. With ``warmup`` samples the worker first runs
-        one dispatch per bucket among them (``engine.warmup``) and this
-        returns once that is done (``self.warmed`` buckets). The warm-up
+        one dispatch per bucket among them (``engine.warmup``), and with a
+        ``pack_plan`` one packed dispatch (``engine.warmup_packed``), and
+        this returns once that is done (``self.warmed`` dispatches). The warm-up
         runs on the worker thread itself because PyTorch keeps per-thread
         CUDA state (the cuBLAS handle and its workspace): warmed on
         another thread, the first live dispatch would still pay for it."""
@@ -184,9 +215,18 @@ class InferenceServer:
 
     def summary(self) -> dict:
         """Requests, completions, sheds, dispatches, distinct dispatch
-        shapes, the serving dtype and the host-clock latency of requests
-        and dispatches."""
+        shapes, the serving dtype, the host-clock latency of requests
+        and dispatches, and per bucket the real and capacity node tokens
+        of its dispatches (fill = real / capacity, pad waste = 1 - fill)."""
         with self._lock:
+            pad_waste = {
+                key: {
+                    **st,
+                    "fill_frac": st["real_tokens"] / st["capacity_tokens"],
+                    "pad_waste_frac": 1.0 - st["real_tokens"] / st["capacity_tokens"],
+                }
+                for key, st in sorted(self._pack_stats.items())
+            }
             return {
                 "dtype": self.engine.dtype,
                 "requests": self._submitted,
@@ -198,13 +238,17 @@ class InferenceServer:
                 "latency_ms_p99": _percentile(self._latency_ms, 99),
                 "dispatch_ms_p50": _percentile(self._dispatch_ms, 50),
                 "dispatch_ms_max": max(self._dispatch_ms, default=None),
+                "pad_waste_by_bucket": pad_waste,
             }
 
     # -- worker side -------------------------------------------------------
 
     def _run(self, warmup: list[MeshSample], ready: Future) -> None:
         try:
-            ready.set_result(self.engine.warmup(warmup, rows=self.max_batch))
+            warmed = self.engine.warmup(warmup, rows=self.max_batch)
+            if self.pack_plan is not None:
+                warmed += self.engine.warmup_packed(warmup, self.pack_plan)
+            ready.set_result(warmed)
         except Exception as err:  # noqa: BLE001 — handed to start()'s caller
             ready.set_exception(err)
             return
@@ -235,25 +279,53 @@ class InferenceServer:
                 return
 
     def _dispatch(self, key, reqs: list[_Request]) -> None:
-        """ONE engine dispatch for one bucket's batch, padded to
-        ``max_batch`` rows; resolves every request of the batch."""
-        pn, pf = key
+        """One bucket's batch: padded to ``max_batch`` rows in ONE engine
+        dispatch, or for the packed bucket cut into plan-shaped packed
+        dispatches in arrival order (first-fit prefixes). Resolves every
+        request of the batch."""
+        if key is not PACKED_BUCKET:
+            self._dispatch_one(reqs, None, key)
+            return
+        rest = reqs
+        while rest:
+            placements = pack_prefix([r.sample.coords.shape[0] for r in rest], self.pack_plan)
+            n = max(1, len(placements))
+            self._dispatch_one(rest[:n], placements[:n], key)
+            rest = rest[n:]
+
+    def _dispatch_one(self, reqs: list[_Request], placements, key) -> None:
+        """ONE engine dispatch: packed at ``placements`` into the pack
+        plan, or (None) padded at the bucket ``key``'s shape; then the
+        pad-waste tally, the finiteness check and the resolves."""
+        plan = self.pack_plan if placements is not None else None
         t0 = self._clock()
         with self._lock:
             self._dispatches += 1
         try:
-            outs = self.engine.infer(
-                [r.sample for r in reqs], pad_nodes=pn, pad_funcs=pf,
-                rows=self.max_batch,
-            )
+            samples = [r.sample for r in reqs]
+            if plan is not None:
+                outs = self.engine.infer_packed(samples, plan, placements=placements)
+            else:
+                pn, pf = key
+                outs = self.engine.infer(samples, pad_nodes=pn, pad_funcs=pf,
+                                         rows=self.max_batch)
         except Exception as err:  # noqa: BLE001 — the worker must keep serving
             traceback.print_exc()
             detail = f"{type(err).__name__}: {err}"
             for r in reqs:
                 self._finish(r, ServeResult(ok=False, reason="error_dispatch", detail=detail))
             return
+        if plan is not None:
+            bucket, capacity = f"packed:{plan.n_rows}x{plan.row_len}", plan.capacity_tokens
+        else:
+            bucket, capacity = f"{key[0]}x{key[1]}", self.max_batch * key[0]
         with self._lock:
             self._dispatch_ms.append((self._clock() - t0) * 1e3)
+            st = self._pack_stats.setdefault(
+                bucket, {"dispatches": 0, "real_tokens": 0, "capacity_tokens": 0})
+            st["dispatches"] += 1
+            st["real_tokens"] += sum(r.sample.coords.shape[0] for r in reqs)
+            st["capacity_tokens"] += capacity
         bad = sum(not np.all(np.isfinite(o)) for o in outs)
         for r, o in zip(reqs, outs):
             if bad:

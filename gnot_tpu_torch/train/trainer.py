@@ -1,7 +1,7 @@
 """Training loop: AdamW steps, per-epoch eval, best-metric checkpoints.
 
-Port of the single-device, unpacked branch of
-``gnot_tpu/train/trainer.py``, which reproduces the reference regime
+Port of the single-device branch of ``gnot_tpu/train/trainer.py``,
+which reproduces the reference regime
 (``main.py:50-153``): AdamW at torch's defaults, the OneCycle schedule
 (with the per-epoch stepping bug by default, see schedule.py), rel-L2 as
 train objective and eval metric, the reference's console lines, and
@@ -19,6 +19,12 @@ packed image cached per tensor version, and ``torch.optim.AdamW`` updates
 the weights in place, which moves their version: each step's first
 forward repacks them.
 
+With ``DataConfig(packed=True)`` (``--packed``) both loaders are
+``PackedLoader``s and every train and eval step takes the packed forward
+and the per-segment pooled loss (``PACKED_LOSSES``): the eval metric of a
+dispatch is the mean over the samples it carries. In parity mode the loss
+stays masked, as in the reference, which unpads before pooling.
+
 With ``ModelConfig(dtype="bfloat16")`` (``--dtype bfloat16``) the model
 computes its blocks in bf16 on its f32 weights, as the JAX trainer does:
 the FFN kernel gets bf16 tokens with the f32 master weights and biases,
@@ -34,11 +40,11 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from gnot_tpu_torch.config import Config, ModelConfig, OptimConfig
-from gnot_tpu_torch.data.batch import Loader, MeshBatch
+from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, OptimConfig
+from gnot_tpu_torch.data.batch import Loader, MeshBatch, PackedBatch, PackedLoader
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
-from gnot_tpu_torch.ops.segment import LOSSES
+from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.train.schedule import make_lr_fn
 
@@ -70,10 +76,35 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
 
 
-def batch_loss(model: GNOT, batch: MeshBatch, loss_name: str) -> torch.Tensor:
-    """Forward + per-graph pooled loss, always masked: the reference
-    unpads before pooling (main.py:89)."""
-    return LOSSES[loss_name](apply_batch(model, batch), batch.y, batch.node_mask)
+def batch_loss(model: GNOT, batch: MeshBatch | PackedBatch, loss_name: str) -> torch.Tensor:
+    """Forward + per-graph pooled loss, always masked, parity mode
+    included: the reference unpads before pooling (main.py:89). A
+    ``PackedBatch`` pools per segment, the mean over the samples present
+    in the dispatch (``packed_loss_fn``)."""
+    preds = apply_batch(model, batch)
+    if isinstance(batch, PackedBatch):
+        return PACKED_LOSSES[loss_name](preds, batch.y, batch.node_mask, batch.node_seg,
+                                        batch.n_seg)
+    return LOSSES[loss_name](preds, batch.y, batch.node_mask)
+
+
+def make_loaders(data: DataConfig, train_samples, test_samples, *, pin_memory: bool):
+    """The train (shuffled) and test loaders of ``data``: ``PackedLoader``s
+    with ``data.packed``, else ``Loader``s (an empty test split gets an
+    empty ``Loader`` either way)."""
+    if data.packed:
+        train = PackedLoader(train_samples, data.batch_size, chunk=data.pack_chunk,
+                             shuffle=data.shuffle_train, seed=data.seed,
+                             pin_memory=pin_memory)
+        test = (PackedLoader(test_samples, data.batch_size, chunk=data.pack_chunk,
+                             pin_memory=pin_memory)
+                if len(test_samples) else Loader([], data.batch_size))
+        return train, test
+    pads = dict(bucket=data.bucket, pad_nodes=data.pad_nodes, pad_funcs=data.pad_funcs,
+                pin_memory=pin_memory)
+    train = Loader(train_samples, data.batch_size, shuffle=data.shuffle_train,
+                   seed=data.seed, drop_remainder=data.drop_remainder, **pads)
+    return train, Loader(test_samples, data.batch_size, **pads)
 
 
 @dataclasses.dataclass
@@ -105,27 +136,16 @@ class Trainer:
         self.model_cfg = model_cfg
         self.checkpointer = checkpointer
         data = config.data
+        if data.packed and model_cfg.attention_mode == "parity":
+            raise ValueError(
+                "packed mode requires attention_mode='masked' (parity "
+                "reproduces the reference's per-batch padding pollution, "
+                "which has no packed equivalent)"
+            )
         # Batches for the card are page-locked on the prefetch thread, so
         # each step's copy neither blocks the host nor drains the stream.
-        pin = self.device.type == "cuda"
-        self.train_loader = Loader(
-            train_samples,
-            data.batch_size,
-            shuffle=data.shuffle_train,
-            seed=data.seed,
-            bucket=data.bucket,
-            drop_remainder=data.drop_remainder,
-            pad_nodes=data.pad_nodes,
-            pad_funcs=data.pad_funcs,
-            pin_memory=pin,
-        )
-        self.test_loader = Loader(
-            test_samples,
-            data.batch_size,
-            bucket=data.bucket,
-            pad_nodes=data.pad_nodes,
-            pad_funcs=data.pad_funcs,
-            pin_memory=pin,
+        self.train_loader, self.test_loader = make_loaders(
+            data, train_samples, test_samples, pin_memory=self.device.type == "cuda"
         )
         self.lr_fn = make_lr_fn(
             config.optim,

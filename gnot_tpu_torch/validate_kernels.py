@@ -282,17 +282,15 @@ def full_width_cases(device) -> dict[str, dict]:
     func_mask = collate(datasets.synth_ns2d(4, seed=0)).func_mask  # [1, 4, 512]
     cases["cross"] = dict(q=normal(4, 1024, e), k=normal(1, 4, 512, e), v=normal(1, 4, 512, e),
                           mask=func_mask.to(device))
-    pb = packed_batch()
+    pb = packed_batch().to(device)
     r, l = pb.node_mask.shape
-    node_seg = _t(pb.node_seg, device)
     cases["self_packed"] = dict(
         q=normal(r, l, e), k=normal(1, r, l, e), v=normal(1, r, l, e),
-        mask=_t(pb.node_mask[None], device), q_seg=node_seg, kv_seg=node_seg, n_seg=pb.n_seg)
+        mask=pb.node_mask[None], q_seg=pb.node_seg, kv_seg=pb.node_seg, n_seg=pb.n_seg)
     _, s, lf = pb.func_mask.shape
     cases["cross_packed"] = dict(
         q=normal(r, l, e), k=normal(1, s, lf, e), v=normal(1, s, lf, e),
-        mask=_t(pb.func_mask, device), q_seg=node_seg, kv_seg=_t(pb.func_seg, device),
-        n_seg=pb.n_seg)
+        mask=pb.func_mask, q_seg=pb.node_seg, kv_seg=pb.func_seg, n_seg=pb.n_seg)
     mask = (rng.uniform(size=(2, 2, 300)) > 0.3).astype(np.float32)
     mask[1, 0] = 0.0  # an all-masked slab
     cases["ragged"] = dict(q=normal(2, 1000, e), k=normal(2, 2, 300, e), v=normal(2, 2, 300, e),

@@ -13,7 +13,7 @@ import torch
 
 from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from gnot_tpu_torch.data import datasets
-from gnot_tpu_torch.data.batch import collate
+from gnot_tpu_torch.data.batch import PackedLoader, PackPlan, collate, pack_collate, pack_prefix
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models import layers
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
@@ -138,6 +138,67 @@ def test_model_on_card_matches_cpu(name):
         want = apply_batch(cpu_model, collate(samples)).numpy()
         got = apply_batch(cpu_model.to(device), collate(samples, device=device)).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- parity mode and the packed layout ----------------------------------------
+
+
+def _small_cfg(samples, **model) -> ModelConfig:
+    return ModelConfig(
+        **datasets.infer_model_dims(samples), n_attn_layers=2, n_attn_hidden_dim=32,
+        n_mlp_num_layers=2, n_mlp_hidden_dim=32, n_input_hidden_dim=32,
+        n_expert=2, n_head=4, ffn_impl="pallas", **model,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["parity", "packed"])
+def test_parity_and_packed_forwards_launch_the_kernel_on_card(mode):
+    """A parity forward (erf GELU, masks dropped, the interleaved merge)
+    and a packed forward launch the kernel twice per block on the card
+    and agree with the same weights on the CPU; cuBLAS TF32 stays off
+    (JAX's parity ``precision_scope``), and the packed pad tail is
+    finite."""
+    device = _card()
+    samples = datasets.synth_elasticity(5, seed=4, base_points=40)
+    attention_mode = "parity" if mode == "parity" else "masked"
+    cfg = _small_cfg(samples, attention_mode=attention_mode)
+    cpu_model = GNOT(cfg, generator=torch.Generator().manual_seed(1)).eval()
+    if mode == "packed":
+        batch = PackedLoader(samples, batch_size=5, chunk=16).probe_batch()
+    else:
+        batch = collate(samples, bucket=False)
+    with torch.inference_mode():
+        want = apply_batch(cpu_model, batch).numpy()
+        before = fused_ffn.fused_gated_ffn_kernel.launches
+        got = apply_batch(cpu_model.to(device), batch.to(device)).cpu().numpy()
+    assert fused_ffn.fused_gated_ffn_kernel.launches - before == 2 * cfg.n_attn_layers
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_kernel_at_a_packed_launch_shape_on_card(chunk):
+    """The kernel at full width on the rows a packed elasticity dispatch
+    gives it, pad tokens as zero rows with their gate scores, against its
+    plain version; the pad tail is finite."""
+    _card()
+    samples = datasets.synth_elasticity(16, seed=0)
+    plan = PackPlan.for_slices(samples, chunk=chunk, batch_size=4, per_devices=1)
+    x, scores, kernels, biases = _ffn_inputs_dims(3, plan.n_rows, plan.row_len, [256] * 6, 3)
+    placements = pack_prefix([s.coords.shape[0] for s in samples], plan)
+    mask = pack_collate(samples[: len(placements)], placements, n_rows=plan.n_rows,
+                        row_len=plan.row_len, chunk=chunk, n_slots=plan.n_slots,
+                        pad_funcs=plan.pad_funcs, device="cuda").node_mask
+    x = x * mask[..., None]
+    for gelu in ("tanh", "erf"):
+        got = fused_ffn.fused_gated_ffn_kernel(x, scores, kernels, biases, gelu_kind=gelu)
+        want = fused_ffn.fused_gated_ffn_reference(x, scores, kernels, biases, gelu_kind=gelu)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[mask == 0]).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 # -- bf16 serving through the FFN kernel -------------------------------------

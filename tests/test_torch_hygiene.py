@@ -160,3 +160,26 @@ def test_build_paths():
     assert build.sources() == ["fused_gated_ffn", "nla_apply", "nla_reduce"]
     assert build.library_path("fused_gated_ffn").parent == ROOT / "build" / "gnot_tpu_torch"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--attention_mode", "parity", "--synthetic", "darcy2d"],
+     ["--packed", "--synthetic", "elasticity"],
+     ["--serve", "--serve_packed", "--synthetic", "elasticity"],
+     ["--serve", "--serve_packed", "--serve_dtype", "bfloat16", "--synthetic", "elasticity"]],
+    ids=["parity", "packed", "serve_packed", "serve_packed_bf16"],
+)
+def test_parity_and_packed_run_on_cuda_by_default_and_are_refused_without_a_card(
+        argv, monkeypatch):
+    """Parity mode, packed training and packed serving change the layout
+    or the numerics, not the device: each runs on ``cuda`` unless told
+    ``--device cpu``, and without a card raises before loading any data."""
+    from gnot_tpu_torch import main as port_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = port_main.build_parser().parse_args(argv)
+    assert args.device == "cuda"
+    monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(argv + ["--ffn_impl", "pallas"])

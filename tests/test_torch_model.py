@@ -13,7 +13,7 @@ from gnot_tpu.data import datasets
 from gnot_tpu.data.batch import collate as jax_collate
 from gnot_tpu.models.gnot import GNOT as JaxGNOT
 from gnot_tpu_torch.config import ModelConfig
-from gnot_tpu_torch.data.batch import collate
+from gnot_tpu_torch.data.batch import PackedLoader, collate
 from gnot_tpu_torch.interop import flatten_tree, params_from_jax
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 
@@ -189,7 +189,16 @@ def test_remat_gradients_equal_no_remat_and_jax_remat(ffn_impl, monkeypatch):
         np.testing.assert_allclose(g, want_grads[name], rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("kwargs", [dict(attention_mode="parity"), dict(scan_layers=True)])
+@pytest.mark.parametrize(
+    "kwargs", [dict(attention_mode="parity", packed=True), dict(scan_layers=True)]
+)
 def test_gnot_refuses_unported_modes(kwargs):
+    """The stacked-layer layout is not ported; the packed layout in parity
+    mode has no equivalent in either package (tests/test_model.py:507)."""
+    kwargs = dict(kwargs)
+    packed = kwargs.pop("packed", False)
+    samples = _samples("elasticity")
     with pytest.raises(ValueError, match="not ported|masked mode"):
-        GNOT(ModelConfig(**SMALL, **kwargs))
+        model = GNOT(ModelConfig(**SMALL, **datasets.infer_model_dims(samples), **kwargs))
+        if packed:
+            apply_batch(model, PackedLoader(samples, batch_size=4, chunk=16).probe_batch())

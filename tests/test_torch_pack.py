@@ -48,7 +48,7 @@ def test_plan_prefix_and_collate_bitwise_equal(name, n, kw):
     got = port_batch.pack_collate(samples_p[: len(placed_p)], placed_p, **geometry)
     want = jax_batch.pack_collate(samples_j[: len(placed_j)], placed_j, **geometry)
     for field in BATCH_FIELDS:
-        a, b = getattr(got, field), np.asarray(getattr(want, field))
+        a, b = getattr(got, field).numpy(), np.asarray(getattr(want, field))
         assert a.dtype == b.dtype and a.shape == b.shape, field
         np.testing.assert_array_equal(a, b, err_msg=field)
     assert got.n_seg == want.n_seg == plan_p.n_slots

@@ -239,9 +239,9 @@ def test_the_trainers_optimizer_moves_every_expert_weight_version():
         lambda: OptimConfig(grad_accum=2),
         lambda: OptimConfig(flat_params=True),
         lambda: TrainConfig(steps_per_dispatch=4),
-        lambda: Trainer(Config(), ModelConfig(**SMALL, attention_mode="parity"), [], [], device="cpu"),
+        lambda: Trainer(Config(), ModelConfig(**SMALL, scan_layers=True), [], [], device="cpu"),
     ],
-    ids=["grad_accum", "flat_params", "steps_per_dispatch", "parity"],
+    ids=["grad_accum", "flat_params", "steps_per_dispatch", "scan_layers"],
 )
 def test_unported_training_options_are_refused(build):
     with pytest.raises(NotPortedError, match="not ported yet"):
