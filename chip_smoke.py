@@ -99,7 +99,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the reference's lines, 8 launches per step and eval forward, held
    step by step against the plain-FFN run to phase 6's bars, the final
    test metric within rtol 0.05 of the unpacked run of the same data,
-   and host-clock step times packed and unpacked, in turns.
+   and host-clock step times packed and unpacked, in turns;
+10. the rest of the training loop at full width, ``--synthetic ns2d
+   --n_train 16 --n_test 8 --epochs 1 --batch_size 4 --ffn_impl pallas``
+   (4 batches, 2 eval batches): (a) ``--grad_accum 2`` held step by step
+   against the plain-FFN run to phase 6's bars, 8 launches per micro-step
+   forward and eval forward, and every expert weight packed on the first
+   micro-step after each update and on no other (``packed_weights.packs``
+   per micro-step); (b) ``--steps_per_dispatch 4``: losses, test metric
+   and every weight bitwise the K=1 run's, then host-clock step times of
+   K=1 and K=4 in turns; (c) ``--flat_params`` held against the tree
+   layout (the K=1 run) to phase 6's bars, saying whether it is bitwise,
+   every weight 16-byte aligned, the CUDA kernels of one
+   ``optimizer.step()`` flat and tree (``torch.profiler``), the
+   stale-image control (the kernel against its plain version on the live
+   weights after the last step and after one more), host-clock step
+   times flat and tree in turns; (d) ``--scan_layers --ffn_impl xla``
+   within rtol 1e-5 of the standard ``xla`` run, 0 kernel launches.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -114,7 +130,10 @@ the dtype mix of each (``mix_*``: the training mix's phase-3 fields);
 ``parity_train_launches``, ``packed_serve_launches``,
 ``packed_serve_bf16_launches`` and ``packed_train_launches`` are its counts
 over phases 7, 8 (f32, bf16) and 9 (``packed_*``: the packed launch
-shape's time and bound). Launches
+shape's time and bound); ``accum_train_launches``,
+``dispatch_train_launches`` and ``flat_train_launches`` over phase 10's
+``--grad_accum 2``, ``--steps_per_dispatch 4`` and ``--flat_params``
+runs. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -204,6 +223,12 @@ PACKED_TRAIN_ARGV = ["--synthetic", "elasticity", "--packed", "--n_train", "16",
                      "--epochs", "2", "--batch_size", "4", "--ffn_impl", "pallas",
                      "--device", "cuda"]
 PACKED_EVAL_RTOL = 0.05
+# Phase 10: the rest of the training loop, one epoch each (4 batches, 2
+# eval batches); the options are appended per run.
+LOOP_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epochs", "1",
+             "--batch_size", "4", "--ffn_impl", "pallas", "--device", "cuda"]
+# The stacked layout runs the standard layout's kernels in the same order.
+SCAN_RTOL = 1e-5
 # Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
 # under the checkout's gitignored build/, emptied first.
 TRAIN_OUT = ROOT / "build" / "chip_smoke"
@@ -236,28 +261,36 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     """Mean device time of one ``fn()``: the summed duration of every
     kernel it runs on the card (``torch.profiler``, CUPTI), over
     ``iters`` calls. Unlike ``cuda_ms`` it leaves out the host's time
-    between launches, which bounds short kernels called from Python."""
+    between launches, which bounds short kernels called from Python.
+    CUPTI now and then hands back a profile without device events; such a
+    profile is taken again, and after ``attempts`` empty ones the time is
+    ``cuda_ms``'s (CUDA events over back-to-back calls, host included),
+    which the log says."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = getattr(evt, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                us = getattr(evt, "self_device_time_total", None)
+                total_us += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log("[profiler] a profile recorded no device time; profiling again")
+    log(f"[profiler] {attempts} profiles recorded no device time: CUDA events over "
+        "back-to-back calls instead (host enqueue included)")
+    return cuda_ms(torch, fn, iters, warmup)
 
 
 def ffn_inputs(torch, np, b: int, l: int, width: int, n_expert: int, n_linears: int, seed: int):
@@ -916,7 +949,7 @@ def training_phase(torch, np, card: str):
         worst = max(worst, (out - want_out).abs().max().item())
     log(f"[train] kernel vs plain on the live weights of all {len(ffns)} FFN modules, after the "
         f"run's last step and after one more AdamW step ({type(trainer.optimizer).__name__}, "
-        f"foreach={trainer.optimizer.defaults['foreach']} -> torch's default on the card): "
+        f"foreach={trainer.optimizer.defaults['foreach']}): "
         f"max_abs_err {worst:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL}); images repacked")
 
     # Host-clock step time, the kernel and the torch FFN path in turns.
@@ -1542,6 +1575,232 @@ def packed_training_phase(torch, np, card: str) -> int:
     return launches
 
 
+def loop_epoch_ms(torch, trainer_cls, trainer, k: int, epochs: int = 3) -> list[float]:
+    """Host-clock ms per train step of a fresh trainer of ``trainer``'s run
+    over ``epochs`` epochs, ``k`` steps per dispatch (``k`` 1: one
+    ``train_step`` per batch), the card waited for only at each epoch's
+    end: the epoch's steps timed together, divided by their count."""
+    from gnot_tpu_torch.train.trainer import group_batches, stack_batches
+
+    fresh = fresh_trainer(trainer_cls, trainer, trainer.model_cfg.ffn_impl)
+    times = []
+    for epoch in range(epochs):
+        fresh.train_loader.set_epoch(epoch)
+        batches = list(fresh.train_loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for kind, item in group_batches(batches, k):
+            if kind == "group":
+                lrs = [fresh.lr_fn(fresh.host_step + i, epoch) for i in range(len(item))]
+                fresh.multi_train_step(stack_batches(item, pin_memory=True), lrs)
+            else:
+                fresh.train_step(item, fresh.lr_fn(fresh.host_step, epoch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    return times
+
+
+def optimizer_kernels(torch, trainer) -> tuple[int, float]:
+    """CUDA kernels of one ``optimizer.step()`` (``torch.profiler``) after
+    one forward and backward of the trainer's first batch, and the step's
+    host-clock ms, waited for, median of 5 unprofiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch.train.trainer import batch_loss
+
+    batch = next(iter(trainer.train_loader)).to(trainer.device)
+    if trainer.flat is not None:
+        trainer.flat.zero_grad()
+    else:
+        trainer.optimizer.zero_grad(set_to_none=True)
+    batch_loss(trainer.model, batch, trainer.config.train.loss).backward()
+    host = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    count = 0
+    for _ in range(3):  # a profile CUPTI hands back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.optimizer.step()
+            torch.cuda.synchronize()
+        count = sum(evt.count for evt in prof.key_averages()
+                    if str(getattr(evt, "device_type", "")).endswith("CUDA"))
+        if count:
+            break
+    return count, statistics.median(host[1:])
+
+
+def live_weights_check(torch, np, layers, trainer, tag: str) -> float:
+    """The stale-image control of a layout: the kernel against its plain
+    version on the live weights of every FFN module after the run's last
+    step, then after one more step, where every output must have moved.
+    Returns the worst absolute difference."""
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel, fused_gated_ffn_reference
+
+    cfg = trainer.model_cfg
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((4, 1024, cfg.n_attn_hidden_dim),
+                                             dtype=np.float32)).cuda()
+    logits = torch.from_numpy(rng.standard_normal((4, 1024, cfg.n_expert), dtype=np.float32))
+    scores = torch.softmax(logits, -1).cuda()
+    ffns = [m for m in trainer.model.modules() if isinstance(m, layers.GatedExpertFfn)]
+    weights = [([l.kernel for l in f.experts.layers()], [l.bias for l in f.experts.layers()])
+               for f in ffns]
+    worst, before = 0.0, []
+    for step in range(2):
+        if step:
+            trainer.train_loader.set_epoch(1)
+            trainer.train_step(next(iter(trainer.train_loader)), trainer.lr_fn(trainer.host_step, 1))
+        for i, (k, b) in enumerate(weights):
+            out = fused_gated_ffn_kernel(x, scores, k, b, gelu_kind=cfg.gelu)
+            want = fused_gated_ffn_reference(x, scores, k, b, gelu_kind=cfg.gelu)
+            torch.testing.assert_close(out, want, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+            worst = max(worst, (out - want).abs().max().item())
+            if step == 0:
+                before.append(out.clone())
+            elif torch.equal(out, before[i]):
+                raise RuntimeError(f"[{tag}] the FFN kernel's output did not move after a step")
+    log(f"[{tag}] kernel vs plain on the live weights of all {len(ffns)} FFN modules after the "
+        f"run's last step and after one more: max_abs_err {worst:.3e} (rtol {MODEL_RTOL} atol "
+        f"{MODEL_ATOL}); every output moved with the weights")
+    return worst
+
+
+def training_loop_phase(torch, np, card: str) -> dict[str, int]:
+    """Phase 10: gradient accumulation, K steps per dispatch, the flat and
+    the stacked layouts at full width through the port's train entry
+    point, one epoch each. Returns the FFN kernel's launches of the
+    accumulation, K-step and flat runs."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.ops import fused_ffn
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    counts = {}
+    n_kernels = lambda t: sum(len(f.experts.layers()) for f in t.model.modules()  # noqa: E731
+                              if isinstance(f, layers.GatedExpertFfn))
+
+    # (a) --grad_accum 2: held against the plain-FFN run of the same flags;
+    # the weight images packed once per update.
+    argv = LOOP_ARGV + ["--grad_accum", "2"]
+    accum, _, launches, _, _ = held_against_plain(torch, np, port_main, layers, argv, "accum")
+    counts["accum_train_launches"] = launches
+    expect_train_launches(accum, launches, 1, "accum")
+    if (accum.mini_step, accum.gradient_step) != (0, accum.host_step // 2):
+        raise RuntimeError(f"[accum] {accum.host_step} micro-steps made "
+                           f"{accum.gradient_step} updates, mini_step {accum.mini_step}")
+    fresh = fresh_trainer(Trainer, accum, "pallas")
+    packs = []
+    for batch in fresh.train_loader:
+        before = fused_ffn.packed_weights.packs
+        fresh.train_step(batch, fresh.lr_fn(fresh.host_step, 0))
+        packs.append(fused_ffn.packed_weights.packs - before)
+    want = [n_kernels(fresh) if i % 2 == 0 else 0 for i in range(len(packs))]
+    log(f"[accum] weight images packed per micro-step {packs} (expected {want}: every expert "
+        f"weight on the first micro-step after each update, none on the others); "
+        f"{fresh.gradient_step} updates")
+    if packs != want:
+        raise RuntimeError(f"[accum] packs per micro-step {packs}, expected {want}")
+
+    # (b) --steps_per_dispatch 4 against K=1: bitwise.
+    runs = {}
+    for k in (1, 4):
+        argv = LOOP_ARGV + (["--steps_per_dispatch", str(k)] if k > 1 else [])
+        fused_ffn.fused_gated_ffn_kernel.launches = 0
+        trainer, lines = train_quietly(port_main, port_main.build_parser().parse_args(argv))
+        check_reference_lines(lines, 1)
+        runs[k] = (trainer, fused_ffn.fused_gated_ffn_kernel.launches)
+    (one, one_launches), (four, four_launches) = runs[1], runs[4]
+    counts["dispatch_train_launches"] = four_launches
+    expect_train_launches(four, four_launches, 1, "dispatch")
+    bitwise = (np.array_equal(step_losses(np, one), step_losses(np, four))
+               and [r.test_metric for r in one.history] == [r.test_metric for r in four.history]
+               and all(torch.equal(p, four.model.state_dict()[n])
+                       for n, p in one.model.state_dict().items()))
+    log(f"[dispatch] K=4 step losses {step_losses(np, four).tolist()}, test metric "
+        f"{four.history[-1].test_metric!r}; K=1 {step_losses(np, one).tolist()}, "
+        f"{one.history[-1].test_metric!r}: bitwise equal (losses, metric, every weight) "
+        f"{bitwise}")
+    if not bitwise or one_launches != four_launches:
+        raise RuntimeError(f"[dispatch] K=4 is not the K=1 run bitwise ({one_launches} vs "
+                           f"{four_launches} launches)")
+    times: dict[int, list[float]] = {1: [], 4: []}
+    for k in (1, 4, 4, 1):
+        times[k].append(statistics.median(loop_epoch_ms(torch, Trainer, four, k)))
+    log(f"[dispatch] step time, host clock, an epoch's 4 steps timed together (median of 3 "
+        f"epochs), turns K=1/K=4/K=4/K=1: K=1 {[round(t, 3) for t in times[1]]} ms, K=4 "
+        f"{[round(t, 3) for t in times[4]]} ms on {card}")
+
+    # (c) --flat_params against the tree layout (the K=1 run above).
+    fused_ffn.fused_gated_ffn_kernel.launches = 0
+    flat, lines = train_quietly(port_main, port_main.build_parser().parse_args(
+        LOOP_ARGV + ["--flat_params"]))
+    check_reference_lines(lines, 1)
+    counts["flat_train_launches"] = fused_ffn.fused_gated_ffn_kernel.launches
+    expect_train_launches(flat, counts["flat_train_launches"], 1, "flat")
+    misaligned = [n for n, p in flat.model.named_parameters() if p.data_ptr() % 16]
+    if misaligned or flat.flat is None:
+        raise RuntimeError(f"[flat] not the flat layout, or misaligned weights {misaligned}")
+    got, want = step_losses(np, flat), step_losses(np, one)
+    got_m = np.array([r.test_metric for r in flat.history])
+    want_m = np.array([r.test_metric for r in one.history])
+    tree_params = one.model.state_dict()
+    same = (np.array_equal(got, want) and np.array_equal(got_m, want_m)
+            and all(torch.equal(p, tree_params[n]) for n, p in flat.standard_params().items()))
+    log(f"[flat] {flat.flat.layout.size} f32 in one buffer ({len(flat.flat.layout.names)} "
+        f"leaves, each at a multiple of 4 elements); vs the tree layout: step 1 loss abs diff "
+        f"{abs(got[0] - want[0]):.3e}, steps 2.. worst rel {worst_rel(np, got[1:], want[1:]):.3e}, "
+        f"test metric rel {worst_rel(np, got_m, want_m):.3e} (bars of phase 6); bitwise equal "
+        f"(losses, metric, every weight) {same}")
+    np.testing.assert_allclose(got[0], want[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=TRAIN_LATER_RTOL)
+    np.testing.assert_allclose(got_m, want_m, rtol=TRAIN_LATER_RTOL)
+    opt = {}
+    for label, t in (("tree", one), ("flat", flat), ("flat", flat), ("tree", one)):
+        opt.setdefault(label, []).append(optimizer_kernels(torch, t))
+    log(f"[flat] one optimizer.step() (torch.profiler, turns tree/flat/flat/tree): tree "
+        f"{[c for c, _ in opt['tree']]} CUDA kernels over "
+        f"{sum(len(g['params']) for g in one.optimizer.param_groups)} tensors, "
+        f"{[round(ms, 3) for _, ms in opt['tree']]} ms host clock (median of 5); flat "
+        f"{[c for c, _ in opt['flat']]} kernels over 1 tensor, "
+        f"{[round(ms, 3) for _, ms in opt['flat']]} ms")
+    live_weights_check(torch, np, layers, flat, "flat")
+    times = {"tree": [], "flat": []}
+    for label in ("tree", "flat", "flat", "tree"):
+        base = flat if label == "flat" else one
+        times[label].append(statistics.median(step_times(torch, Trainer, base, "pallas")[1:]))
+    log(f"[flat] step time, host clock around each waited-for step, median of steps 2..8, "
+        f"turns tree/flat/flat/tree: tree {[round(t, 3) for t in times['tree']]} ms, flat "
+        f"{[round(t, 3) for t in times['flat']]} ms on {card}")
+
+    # (d) --scan_layers --ffn_impl xla against the standard xla run.
+    scan_runs = {}
+    for scan in (False, True):
+        argv = [a for a in LOOP_ARGV if a not in ("--ffn_impl", "pallas")] + ["--ffn_impl", "xla"]
+        fused_ffn.fused_gated_ffn_kernel.launches = 0
+        trainer, lines = train_quietly(port_main, port_main.build_parser().parse_args(
+            argv + (["--scan_layers"] if scan else [])))
+        check_reference_lines(lines, 1)
+        if fused_ffn.fused_gated_ffn_kernel.launches:
+            raise RuntimeError("an ffn_impl=xla run launched the FFN kernel")
+        scan_runs[scan] = trainer
+    std, scan = scan_runs[False], scan_runs[True]
+    if scan.state_dict()["model"].get("blocks.ffn1.experts.dense_0.kernel") is None:
+        raise RuntimeError("--scan_layers did not train the stacked layout")
+    got, want = step_losses(np, scan), step_losses(np, std)
+    got_m = np.array([r.test_metric for r in scan.history])
+    want_m = np.array([r.test_metric for r in std.history])
+    log(f"[scan] stacked vs standard (ffn_impl=xla): step losses worst rel "
+        f"{worst_rel(np, got, want):.3e}, test metric rel {worst_rel(np, got_m, want_m):.3e} "
+        f"(bar rtol {SCAN_RTOL}); bitwise {np.array_equal(got, want) and np.array_equal(got_m, want_m)}")
+    np.testing.assert_allclose(got, want, rtol=SCAN_RTOL)
+    np.testing.assert_allclose(got_m, want_m, rtol=SCAN_RTOL)
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "gnot_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no gnot_tpu_torch package beside {__file__}; "
@@ -1720,6 +1979,9 @@ def main() -> int:
     # -- phase 9: packed training at full width ----------------------------
     packed_train_launches = packed_training_phase(torch, np, card)
 
+    # -- phase 10: accumulation, K steps per dispatch, flat and stacked ----
+    loop_launches = training_loop_phase(torch, np, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -1744,6 +2006,7 @@ def main() -> int:
         "packed_serve_bf16_launches": packed_bf16_launches,
         "packed_train_launches": packed_train_launches,
         **packed_fields,
+        **loop_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -4,8 +4,9 @@
 field, with the same defaults and the same refusals. ``OptimConfig``
 mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
 keep only the fields ``datasets.load``, the loaders, the single-device
-trainer and the serving path read. Values that select a part of the JAX
-package not ported yet raise ``NotPortedError``.
+trainer and the serving path read. ``NotPortedError`` names a part of
+the JAX package the port does not have yet (telemetry, recovery) for
+the code that selects it.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ class ModelConfig:
     dtype: str = "float32"
     # Recompute each block's activations in the backward (nn.remat).
     remat: bool = False
+    # The stacked-layer layout: the block weights stacked on a leading
+    # layer axis and one block module applied per layer
+    # (parallel/pipeline.py). Read by the trainer; the model class
+    # builds the standard layout either way, as in the JAX package.
     scan_layers: bool = False
 
     def __post_init__(self) -> None:
@@ -118,24 +123,21 @@ class OptimConfig:
     # True reproduces that; False steps the schedule per update.
     parity_schedule_bug: bool = True
     grad_clip_norm: float = 0.0  # 0 = off (reference has no clipping)
-    # Kept so configs read the same in both packages; only the defaults
-    # are ported.
+    # Gradient accumulation (optax.MultiSteps): the running mean of k
+    # micro-batch gradients makes one AdamW update (clipped first when
+    # grad_clip_norm > 0), so the effective batch is k x batch_size at
+    # the memory of one. Windows straddle epoch boundaries and a
+    # trailing partial window is never applied.
     grad_accum: int = 1
+    # Flat parameter layout: every weight, and every gradient, is a view
+    # into one f32 buffer (each leaf at a multiple of 4 elements, zero
+    # padding between), so AdamW updates one tensor instead of one per
+    # weight. Same math. Composes with neither scan_layers nor packed.
     flat_params: bool = False
 
     def __post_init__(self) -> None:
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
-        if self.grad_accum > 1:
-            raise NotPortedError(
-                f"grad_accum={self.grad_accum}: gradient accumulation "
-                "(optax.MultiSteps) is not ported yet"
-            )
-        if self.flat_params:
-            raise NotPortedError(
-                "flat_params: the flat [P]-vector parameter layout is not "
-                "ported yet"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +186,9 @@ class TrainConfig:
     checkpoint_dir: str = ""
     resume: bool = False
     checkpoint_every: int = 0  # epochs; 0 = best-only (reference behavior)
-    # Kept so configs read the same in both packages; only 1 is ported.
+    # K train (and eval) steps per dispatch: K same-shape host batches
+    # stacked in pinned memory, one host-to-device copy, the K steps run
+    # with no host read between them. Identical to K single steps.
     steps_per_dispatch: int = 1
     seed: int = 0
 
@@ -194,11 +198,6 @@ class TrainConfig:
         if self.steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
-            )
-        if self.steps_per_dispatch > 1:
-            raise NotPortedError(
-                f"steps_per_dispatch={self.steps_per_dispatch}: several "
-                "steps per dispatch are not ported yet"
             )
 
 
@@ -210,6 +209,27 @@ class Config:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+def refuse_compositions(config: Config, model_cfg: ModelConfig) -> None:
+    """The training options that do not compose, refused with the JAX
+    trainer's messages in its order (``gnot_tpu/train/trainer.py``)."""
+    if config.data.packed:
+        if model_cfg.attention_mode == "parity":
+            raise ValueError(
+                "packed mode requires attention_mode='masked' (parity "
+                "reproduces the reference's per-batch padding pollution, "
+                "which has no packed equivalent)"
+            )
+        if model_cfg.scan_layers:
+            raise ValueError("packed + scan_layers not composed yet; pick one")
+        if config.optim.flat_params:
+            raise ValueError("packed + flat_params not composed yet; pick one")
+    if config.optim.flat_params and model_cfg.scan_layers:
+        raise ValueError(
+            "flat_params and scan_layers both re-lay-out the params (flat "
+            "buffer vs stacked blocks) and do not compose; pick one"
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Weights carried from the JAX package into the port.
 
-``params_from_jax`` takes ``gnot_tpu``'s param tree as nested dicts of
-numpy arrays (``jax.device_get(params)``) and returns the port's
-``state_dict``. The port names its modules after the JAX tree
+``params_from_jax`` takes ``gnot_tpu``'s params as numpy (``jax.device_get``)
+in any of its three layouts, the standard tree, the stacked tree of
+``scan_layers`` or the flat ``[P]`` vector of ``flat_params``, and returns
+the port's standard-layout ``state_dict``. The port names its modules after the JAX tree
 (``block_{b}/ffn{n}/experts/dense_{i}`` becomes
 ``block_{b}.ffn{n}.experts.dense_{i}``) and keeps flax's layouts — Dense
 kernels ``[in, out]``, stacked layers with the leading ``[E]`` or ``[F]``
@@ -35,14 +36,50 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for ``GNOT(cfg)`` from a JAX param tree.
+def _jax_ravel_order(names) -> list[str]:
+    """``names`` in the leaf order of ``jax.tree`` (and so of
+    ``ravel_pytree``) over the nested dicts they name: sorted key by key."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def _unravel_jax(flat: np.ndarray, shapes: Mapping[str, tuple[int, ...]]) -> dict[str, np.ndarray]:
+    """JAX's ``ravel_pytree`` vector cut into its leaves: back to back, in
+    sorted-name order, each in C order."""
+    total = sum(int(np.prod(s)) for s in shapes.values())
+    if flat.shape != (total,):
+        raise ValueError(f"a flat JAX param vector of {total} values expected, got {flat.shape}")
+    out, off = {}, 0
+    for name in _jax_ravel_order(shapes):
+        n = int(np.prod(shapes[name]))
+        out[name] = flat[off:off + n].reshape(shapes[name])
+        off += n
+    return out
+
+
+def params_from_jax(tree, cfg: ModelConfig, *, template: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """The port's standard-layout ``state_dict`` for ``GNOT(cfg)`` from JAX
+    params: the standard tree; the stacked tree of ``scan_layers`` (a
+    ``blocks`` subtree with a leading layer axis, unstacked here); or the
+    flat ``[P]`` vector of ``flat_params`` (``ravel_pytree`` of the
+    standard tree), unravelled against ``template``, the JAX param tree
+    it came from, or without one against the names and shapes ``cfg``
+    gives.
 
     Every leaf of the tree must land on a port parameter and every port
     parameter must be set, with equal shapes; anything else raises."""
-    flat = flatten_tree(tree)
     with torch.device("meta"):
         expected = {k: tuple(v.shape) for k, v in GNOT(cfg).state_dict().items()}
+    if isinstance(tree, Mapping):
+        flat = flatten_tree(tree)
+    else:
+        shapes = (expected if template is None
+                  else {k: v.shape for k, v in flatten_tree(template).items()})
+        flat = _unravel_jax(np.asarray(tree), shapes)
+    stacked = {k: v for k, v in flat.items() if k.startswith("blocks.")}
+    if stacked:
+        flat = {k: v for k, v in flat.items() if not k.startswith("blocks.")}
+        for i in range(cfg.n_attn_layers):
+            flat.update({f"block_{i}.{k[len('blocks.'):]}": v[i] for k, v in stacked.items()})
     extra = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
     if extra or missing:

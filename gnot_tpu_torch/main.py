@@ -8,7 +8,10 @@ defaults, so the same command line works in both packages. Two modes:
   weights from ``--seed``, eval on the test split every epoch, the
   reference's console lines, in f32 or (``--dtype bfloat16``) bf16
   compute, masked or (``--attention_mode parity``, bucketing off)
-  reference-parity numerics, padded or (``--packed``) packed batches;
+  reference-parity numerics, padded or (``--packed``) packed batches,
+  with ``--grad_accum`` micro-batches per update, ``--steps_per_dispatch``
+  steps per host-to-device copy, and the weights in the standard, the
+  flat (``--flat_params``) or the stacked (``--scan_layers``) layout;
   ``main`` returns the best test metric. ``--eval_only``
   evaluates ``--checkpoint_dir``'s best checkpoint instead of training.
   Then ``--export_torch`` saves the weights as a state_dict the
@@ -16,7 +19,9 @@ defaults, so the same command line works in both packages. Two modes:
   split's predictions as a reference-schema pickle; both use the best
   checkpoint when ``--checkpoint_dir`` is set, else the final weights.
 * ``--serve``: the weights of ``--checkpoint_dir``'s ``best``, else its
-  ``latest``, checkpoint, else fresh from ``--seed``; one dispatch per
+  ``latest``, checkpoint (in the layout ``--flat_params`` /
+  ``--scan_layers`` name, served in the standard one), else fresh from
+  ``--seed``; one dispatch per
   bucket warms the engine, the test split (synthetic or pickled) is
   submitted as requests through the ``InferenceServer`` at
   ``--serve_dtype``, the server drains, and the summary is printed as
@@ -53,7 +58,7 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.server import InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
-from gnot_tpu_torch.train.trainer import Trainer
+from gnot_tpu_torch.train.trainer import Trainer, standard_weights, state_layout
 
 # How long the storm waits for each request, and drain() for stragglers.
 DRAIN_TIMEOUT_S = 30.0
@@ -85,6 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_test", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument(
+        "--grad_accum", type=int, default=1,
+        help="accumulate gradients over k micro-batches per optimizer update "
+             "(effective batch = k x batch_size): the running mean of k "
+             "gradients makes one AdamW update, at the memory of one batch",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--gelu", type=str, default="", choices=["", "erf", "tanh"],
@@ -114,6 +125,20 @@ def build_parser() -> argparse.ArgumentParser:
              "activation memory, one more forward of each block)",
     )
     p.add_argument(
+        "--flat_params", action="store_true",
+        help="flat parameter layout: every weight and gradient a view into one "
+             "f32 buffer (each leaf 16-byte aligned), so AdamW updates one tensor "
+             "instead of one per weight; same math; checkpoints keep the layout",
+    )
+    p.add_argument(
+        "--scan_layers", action="store_true",
+        help="the stacked-layer layout: the block weights stacked on a leading "
+             "layer axis, one block module applied per layer. Compiles nothing "
+             "in PyTorch (the same kernels run in the same order); it is the "
+             "JAX package's stacked layout and checkpoint format. Needs "
+             "--ffn_impl xla",
+    )
+    p.add_argument(
         "--predict_out", type=str, default="",
         help="after the run, write test-set predictions to this pickle as "
              "[X, Y_pred, theta, (f...)] records (reference schema); uses the "
@@ -139,6 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--eval_only", action="store_true",
         help="restore the best checkpoint and evaluate (no training)",
+    )
+    p.add_argument(
+        "--steps_per_dispatch", type=int, default=1,
+        help="K train (and eval) steps per dispatch: K same-shape batches "
+             "stacked in pinned memory, one host-to-device copy, no host read "
+             "between the steps (every kernel still launches per step); "
+             "identical to K single steps",
     )
     p.add_argument("--no_bucket", action="store_true", help="pad to per-batch max (parity)")
     p.add_argument(
@@ -205,7 +237,12 @@ def data_config(args) -> DataConfig:
 def train_config(args) -> Config:
     """The training run's config (``gnot_tpu/main.py::config_from_args``)."""
     return Config(
-        optim=OptimConfig(lr=args.lr, parity_schedule_bug=args.schedule == "parity"),
+        optim=OptimConfig(
+            lr=args.lr,
+            grad_accum=args.grad_accum,
+            flat_params=args.flat_params,
+            parity_schedule_bug=args.schedule == "parity",
+        ),
         data=data_config(args),
         train=TrainConfig(
             epochs=args.epochs,
@@ -213,6 +250,7 @@ def train_config(args) -> Config:
             checkpoint_dir=args.checkpoint_dir,
             resume=args.resume,
             checkpoint_every=args.checkpoint_every,
+            steps_per_dispatch=args.steps_per_dispatch,
             seed=args.seed,
         ),
     )
@@ -246,7 +284,14 @@ def model_config(args, samples: list[MeshSample]) -> ModelConfig:
         gelu=args.gelu,
         dtype=args.dtype,
         remat=args.remat,
+        scan_layers=args.scan_layers,
     )
+
+
+def param_layout(args) -> str:
+    """The parameter layout the flags select: "flat", "stacked" or
+    "standard"."""
+    return "flat" if args.flat_params else "stacked" if args.scan_layers else "standard"
 
 
 @dataclasses.dataclass
@@ -260,17 +305,27 @@ class ServeRun:
     pack_plan: PackPlan | None = None
 
 
-def restore_for_serving(model: GNOT, checkpoint_dir: str) -> str:
+def restore_for_serving(model: GNOT, checkpoint_dir: str, layout: str = "standard") -> str:
     """Load the ``best`` checkpoint's weights into ``model``, else the
-    ``latest`` one's (``gnot_tpu/main.py``'s serve restore); returns which
-    was loaded, or "" when none was: with a ``checkpoint_dir`` that holds
-    neither, after printing the reference's note."""
+    ``latest`` one's (``gnot_tpu/main.py``'s serve restore), converted from
+    the checkpoint's parameter layout, which must be ``layout``, to the
+    standard one; returns which was loaded, or "" when none was: with a
+    ``checkpoint_dir`` that holds neither, after printing the reference's
+    note."""
     if checkpoint_dir:
-        ck = Checkpointer(checkpoint_dir)
+        ck = Checkpointer(checkpoint_dir, extra_meta={"flat_params": layout == "flat"})
         for name, restore in (("best", ck.restore_best), ("latest", ck.restore_latest)):
             restored = restore()
             if restored is not None:
-                model.load_state_dict(restored[0]["model"])
+                state = restored[0]
+                if state_layout(state) != layout:
+                    raise ValueError(
+                        f"the '{name}' checkpoint holds the {state_layout(state)} parameter "
+                        f"layout but this run uses the {layout} layout; pass the layout "
+                        "flag it was trained with (--flat_params, --scan_layers)"
+                    )
+                model.load_state_dict(standard_weights(
+                    state["model"], model.state_dict(), model.config.n_attn_layers))
                 return name
         print("note: no restorable checkpoint — serving fresh weights")
     return ""
@@ -288,7 +343,7 @@ def run_serve(args) -> ServeRun:
     train_samples, samples = datasets.load(data)
     gen = torch.Generator().manual_seed(args.seed)
     model = GNOT(model_config(args, train_samples), generator=gen).to(device)
-    restored = restore_for_serving(model, args.checkpoint_dir)
+    restored = restore_for_serving(model, args.checkpoint_dir, param_layout(args))
     engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
     # itself, the samples about to be served.
@@ -330,7 +385,10 @@ def run_train(args) -> Trainer:
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
     mc = model_config(args, train_samples)
-    checkpointer = Checkpointer(cfg.train.checkpoint_dir) if cfg.train.checkpoint_dir else None
+    checkpointer = (
+        Checkpointer(cfg.train.checkpoint_dir, extra_meta={"flat_params": args.flat_params})
+        if cfg.train.checkpoint_dir else None
+    )
     trainer = Trainer(cfg, mc, train_samples, test_samples,
                       checkpointer=checkpointer, device=device)
     if args.eval_only:
@@ -345,7 +403,7 @@ def run_train(args) -> Trainer:
             print("note: no --checkpoint_dir, so export/predict artifacts "
                   "use the FINAL-epoch weights, not the reported best")
     if args.export_torch:
-        torch.save(interop.reference_state_dict(trainer.model.state_dict(), mc),
+        torch.save(interop.reference_state_dict(trainer.standard_params(), mc),
                    args.export_torch)
         print(f"Exported torch state_dict to {args.export_torch}")
     if args.predict_out:

@@ -41,8 +41,10 @@ segment maps are computed once per forward and handed to every block as
 tensors, so they cross a ``remat`` checkpoint like any other input.
 Masked mode only.
 
-The stacked-layer layout (``scan_layers``) is not ported yet; the model
-refuses it.
+``GNOT`` builds the standard layout (``block_{i}`` modules) whatever
+``scan_layers`` says, as the JAX module does; the stacked-layer layout is
+``parallel/pipeline.py::StackedGNOT``, which shares ``embed``, ``run_block``
+and ``head`` with this forward.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from gnot_tpu_torch.config import ModelConfig, NotPortedError
+from gnot_tpu_torch.config import ModelConfig
 from gnot_tpu_torch.data.batch import PackedBatch
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
 from gnot_tpu_torch.models.precision import torch_dtype
@@ -148,8 +150,6 @@ class GNOT(nn.Module):
     def __init__(self, config: ModelConfig, *, generator: torch.Generator | None = None):
         super().__init__()
         cfg = self.config = config
-        if cfg.scan_layers:
-            raise NotPortedError("scan_layers (the stacked-layer layout) is not ported yet")
         has_funcs = cfg.n_input_functions > 0
         dtype = model_dtype(cfg)
         # Module order fixes the order the generator draws weights in.
@@ -177,7 +177,7 @@ class GNOT(nn.Module):
             cfg.out_dim, cfg.gelu, generator=generator,
         )
 
-    def forward(
+    def embed(
         self,
         coords: torch.Tensor,
         theta: torch.Tensor,
@@ -188,7 +188,10 @@ class GNOT(nn.Module):
         node_seg: torch.Tensor | None = None,
         func_seg: torch.Tensor | None = None,
         n_seg: int = 0,
-    ) -> torch.Tensor:
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, dict]:
+        """The forward up to the first block: the gate scores, the query
+        embedding, the input-function embeddings (or None) and the keyword
+        arguments every block takes (masks, segment one-hots)."""
         cfg = self.config
         if node_seg is not None and cfg.attention_mode == "parity":
             raise ValueError(
@@ -219,18 +222,41 @@ class GNOT(nn.Module):
             node_seg_oh = segment_one_hot(node_seg, n_seg)
             if func_seg is not None:
                 func_seg_oh = segment_one_hot(func_seg, n_seg)
-        for i in range(cfg.n_attn_layers):
-            block = getattr(self, f"block_{i}")
-            args = (scores, query, funcs)
-            kw = dict(node_mask=node_mask, func_mask=func_mask,
-                      node_seg_oh=node_seg_oh, func_seg_oh=func_seg_oh)
-            if cfg.remat and torch.is_grad_enabled():
-                # nn.remat(HNABlock): only the block's inputs are kept for
-                # the backward, which runs the block's forward again.
-                query = checkpoint(block, *args, use_reentrant=False, **kw)
-            else:
-                query = block(*args, **kw)
+        kw = dict(node_mask=node_mask, func_mask=func_mask,
+                  node_seg_oh=node_seg_oh, func_seg_oh=func_seg_oh)
+        return scores, query, funcs, kw
+
+    def run_block(self, block, scores, query, funcs, kw: dict) -> torch.Tensor:
+        """One block on ``query``; with ``remat`` (while gradients are on)
+        only its inputs are kept for the backward, which runs it again
+        (``nn.remat(HNABlock)``)."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(block, scores, query, funcs, use_reentrant=False, **kw)
+        return block(scores, query, funcs, **kw)
+
+    def head(self, query: torch.Tensor) -> torch.Tensor:
+        """The output head on the last block's output, in f32."""
         return self.out_mlp(query.float()).float()
+
+    def forward(
+        self,
+        coords: torch.Tensor,
+        theta: torch.Tensor,
+        input_functions: torch.Tensor | None = None,
+        *,
+        node_mask: torch.Tensor | None = None,
+        func_mask: torch.Tensor | None = None,
+        node_seg: torch.Tensor | None = None,
+        func_seg: torch.Tensor | None = None,
+        n_seg: int = 0,
+    ) -> torch.Tensor:
+        scores, query, funcs, kw = self.embed(
+            coords, theta, input_functions, node_mask=node_mask, func_mask=func_mask,
+            node_seg=node_seg, func_seg=func_seg, n_seg=n_seg,
+        )
+        for i in range(self.config.n_attn_layers):
+            query = self.run_block(getattr(self, f"block_{i}"), scores, query, funcs, kw)
+        return self.head(query)
 
 
 def apply_batch(model: GNOT, batch) -> torch.Tensor:

@@ -52,17 +52,26 @@ def onecycle_lr(
 
 
 def make_lr_fn(optim_cfg, *, steps_per_epoch: int, epochs: int) -> Callable[[int, int], float]:
-    """Returns ``lr(step, epoch)`` where ``step`` is the optimizer update
-    count (the port has no gradient accumulation, so one update per batch).
+    """Returns ``lr(step, epoch)`` where ``step`` is the micro-step count
+    (one per batch).
 
     With the parity bug on, the schedule is evaluated at the epoch count
-    (the reference's per-epoch ``scheduler.step()``); otherwise at the
-    update count. Both size the cycle in per-batch steps (main.py:52).
+    (the reference's per-epoch ``scheduler.step()``), over the cycle the
+    reference sizes in per-batch steps (main.py:52). Otherwise it is
+    evaluated at the optimizer update count: with ``grad_accum = k`` an
+    update takes the learning rate of its k-th micro-step, so the
+    counter is ``step // k`` over a horizon of ``max(1, steps_per_epoch
+    * epochs // k)`` updates (accumulation windows straddle epochs, so
+    the whole micro-step horizon is divided, not each epoch's).
     """
-    total_steps = max(1, steps_per_epoch * epochs)
+    accum = max(1, optim_cfg.grad_accum)
+    if optim_cfg.parity_schedule_bug:
+        total_steps = steps_per_epoch * epochs
+    else:
+        total_steps = max(1, (steps_per_epoch * epochs) // accum)
 
     def lr(step: int, epoch: int) -> float:
-        counter = epoch if optim_cfg.parity_schedule_bug else step
+        counter = epoch if optim_cfg.parity_schedule_bug else step // accum
         return onecycle_lr(
             counter,
             max_lr=optim_cfg.lr,

@@ -16,7 +16,7 @@ With ``ffn_impl="pallas"`` every forward of a train step and of eval runs
 the fused gated-FFN kernel on the card; its backward recomputes the plain
 version (``ops/fused_ffn.py``). The kernel reads each expert weight as a
 packed image cached per tensor version, and ``torch.optim.AdamW`` updates
-the weights in place, which moves their version: each step's first
+the weights in place, which moves their version: each update's first
 forward repacks them.
 
 With ``DataConfig(packed=True)`` (``--packed``) both loaders are
@@ -30,21 +30,62 @@ computes its blocks in bf16 on its f32 weights, as the JAX trainer does:
 the FFN kernel gets bf16 tokens with the f32 master weights and biases,
 the rel-L2 loss reads the f32 output head, and the gradients, AdamW
 state and checkpoints stay f32.
+
+The rest of the JAX loop's single-device options:
+
+* ``OptimConfig(grad_accum=k)``: ``optax.MultiSteps``. Each micro-step
+  folds its gradient into a running mean, ``acc + (g - acc) / (n + 1)``;
+  the k-th micro-step of a window clips the mean (when
+  ``grad_clip_norm > 0``) and takes one AdamW update on it at its own
+  learning rate; the others move neither the weights nor AdamW's moments
+  and count, so the kernel's weight images are packed once per update.
+  ``host_step`` counts micro-steps, as the JAX state's ``step``.
+* ``TrainConfig(steps_per_dispatch=K)``: ``group_batches`` groups K
+  same-shape batches, ``stack_batches`` stacks them in pinned memory, and
+  ``multi_train_step`` / ``multi_eval_step`` run the K steps after one
+  host-to-device copy with no host read between them. Eager PyTorch
+  still launches every kernel of every step: what a group saves is K-1
+  copies and the K-1 loss tensors' separate reads.
+* ``OptimConfig(flat_params=True)``: ``FlatParams``. Every weight, and
+  every gradient, is a view into one f32 buffer, so AdamW (and clipping,
+  and the accumulation) runs over one tensor.
+* ``ModelConfig(scan_layers=True)``: the stacked-layer layout
+  (``parallel/pipeline.py::StackedGNOT``).
+
+``standard_params()`` gives the weights in the standard layout whatever
+the trainer holds; checkpoints keep the trainer's own layout, and
+``convert_flat_state`` / ``pipeline.convert_state_layout`` move a whole
+training state between layouts.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Iterable
+import logging
+import math
+from typing import Callable, Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
 
-from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, OptimConfig
+from gnot_tpu_torch.config import (
+    Config,
+    DataConfig,
+    ModelConfig,
+    OptimConfig,
+    refuse_compositions,
+)
 from gnot_tpu_torch.data.batch import Loader, MeshBatch, PackedBatch, PackedLoader
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES
+from gnot_tpu_torch.parallel.pipeline import (
+    StackedGNOT,
+    is_stacked,
+    stack_params,
+    unstack_params,
+)
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.train.schedule import make_lr_fn
 
@@ -54,13 +95,17 @@ def make_optimizer(cfg: OptimConfig, params: Iterable[torch.nn.Parameter]) -> to
     b1/b2/eps/weight_decay (``optax.adamw``: the same update, decay
     applied to all parameters). The learning rate is set per step.
 
-    Never the fused implementation: on the card it writes the weights
-    without moving their version, so the FFN kernel's cached weight
-    images would go stale (``tests/test_torch_cuda.py``). torch's default
-    there, foreach, moves it."""
+    The foreach implementation, asked for by name: a few multi-tensor
+    kernels per op over all the weights. ``fused=False`` alone would
+    leave torch on its for-loop implementation, one kernel per op per
+    weight (1,472 CUDA kernels an update at full width, 184 weights, on
+    an H100; ``chip_smoke.py`` phase 10). Never the fused one: on the
+    card it writes the weights without moving their version, so the FFN
+    kernel's cached weight images would go stale
+    (``tests/test_torch_cuda.py``); foreach moves it."""
     return torch.optim.AdamW(
         params, lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
-        weight_decay=cfg.weight_decay, fused=False,
+        weight_decay=cfg.weight_decay, foreach=True, fused=False,
     )
 
 
@@ -107,6 +152,219 @@ def make_loaders(data: DataConfig, train_samples, test_samples, *, pin_memory: b
     return train, Loader(test_samples, data.batch_size, **pads)
 
 
+def group_batches(batches, k: int) -> Iterator[tuple[str, object]]:
+    """Same-shape batches in runs of ``k`` for one dispatch each: yields
+    ``("group", [b1..bk])`` for full groups and ``("single", b)`` for the
+    batches of a group a shape change cut short and for the remainder.
+    The train and eval loops both iterate it; ``k < 2`` yields singles
+    only. A copy of ``gnot_tpu/train/trainer.py::group_batches``."""
+    if k < 2:
+        for b in batches:
+            yield "single", b
+        return
+    pending, key = [], None
+    for b in batches:
+        bk = b.signature()
+        if pending and bk != key:
+            # Shape change: the open group can stack no further.
+            for p in pending:
+                yield "single", p
+            pending = []
+        pending.append(b)
+        key = bk
+        if len(pending) == k:
+            yield "group", pending
+            pending = []
+    for p in pending:  # remainder
+        yield "single", p
+
+
+def stack_batches(batches: list, *, pin_memory: bool = False):
+    """Same-shape host batches stacked on a new leading step axis, into
+    page-locked memory with ``pin_memory``: one host-to-device copy moves
+    them all. ``n_seg`` (equal within a group) is kept."""
+    first = batches[0]
+    fields = {}
+    for f in dataclasses.fields(first):
+        value = getattr(first, f.name)
+        if isinstance(value, torch.Tensor):
+            out = torch.empty((len(batches), *value.shape), dtype=value.dtype,
+                              pin_memory=pin_memory)
+            fields[f.name] = torch.stack([getattr(b, f.name) for b in batches], out=out)
+        else:
+            fields[f.name] = value
+    return type(first)(**fields)
+
+
+def batch_at(stacked, i: int):
+    """Batch ``i`` of a ``stack_batches`` result, as views."""
+    return type(stacked)(**{
+        f.name: v[i] if isinstance(v := getattr(stacked, f.name), torch.Tensor) else v
+        for f in dataclasses.fields(stacked)
+    })
+
+
+# The flat layout's leaf alignment in f32 elements: 16 bytes, what the FFN
+# kernel asks of every tensor it reads, biases included.
+FLAT_ALIGN = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Where each weight lies in a flat buffer: leaf ``names[i]`` of shape
+    ``shapes[i]`` at ``offsets[i]``, a multiple of ``FLAT_ALIGN``
+    elements, with zeros between leaves. Unlike JAX's ``ravel_pytree``
+    (leaves back to back, in sorted-name order) the leaves keep the
+    template's order and every view is 16-byte aligned."""
+
+    names: tuple[str, ...]
+    shapes: tuple[tuple[int, ...], ...]
+    offsets: tuple[int, ...]
+    size: int
+
+    @classmethod
+    def of(cls, template: Mapping[str, torch.Tensor]) -> "FlatLayout":
+        offsets, off = [], 0
+        for t in template.values():
+            offsets.append(off)
+            off += -(-t.numel() // FLAT_ALIGN) * FLAT_ALIGN
+        shapes = tuple(tuple(t.shape) for t in template.values())
+        return cls(tuple(template), shapes, tuple(offsets), off)
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Each leaf of ``flat`` as a view in its shape."""
+        return {n: flat[o:o + math.prod(s)].view(s)
+                for n, s, o in zip(self.names, self.shapes, self.offsets)}
+
+    def flatten(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The flat f32 buffer of a ``{name: tensor}`` map of these leaves."""
+        if set(tree) != set(self.names):
+            raise ValueError(
+                f"the weights do not match the flat layout: extra "
+                f"{sorted(set(tree) - set(self.names))}, missing "
+                f"{sorted(set(self.names) - set(tree))}"
+            )
+        first = tree[self.names[0]]
+        flat = torch.zeros(self.size, dtype=torch.float32, device=first.device)
+        for name, view in self.views(flat).items():
+            view.copy_(tree[name])
+        return flat
+
+
+class FlatParams:
+    """A model's weights and gradients as views into one flat f32 buffer
+    each (``FlatLayout``), in place of its own parameters.
+
+    ``param`` is the buffer as one ``nn.Parameter`` with ``grad`` the
+    gradient buffer: the optimizer takes ``[param]``. Every weight of the
+    model becomes an ``nn.Parameter`` over its slice of the buffer, which
+    shares the buffer's storage and version counter, so an optimizer's
+    in-place write moves every weight's version and the FFN kernel
+    repacks its images; its ``.grad`` is its slice of the gradient
+    buffer, which autograd accumulates into in place. The gradient
+    buffer is zeroed in place (``zero_grad``), never dropped: a weight
+    whose ``.grad`` were set to None would no longer write the buffer.
+    The padding between leaves gets a zero gradient and so stays zero
+    through AdamW, weight decay and clipping."""
+
+    def __init__(self, model: torch.nn.Module):
+        named = dict(model.named_parameters())
+        self.layout = FlatLayout.of(named)
+        with torch.no_grad():
+            buf = self.layout.flatten({n: p.detach() for n, p in named.items()})
+        self.param = torch.nn.Parameter(buf)
+        self.param.grad = torch.zeros_like(buf)
+        grads = self.layout.views(self.param.grad)
+        for name, view in self.layout.views(buf).items():
+            owner, _, leaf = name.rpartition(".")
+            weight = torch.nn.Parameter(view)
+            weight.grad = grads[name]
+            setattr(model.get_submodule(owner), leaf, weight)
+
+    def zero_grad(self) -> None:
+        self.param.grad.zero_()
+
+    @torch.no_grad()
+    def load(self, flat: torch.Tensor) -> None:
+        if flat.shape != self.param.shape:
+            raise ValueError(
+                f"flat weights of {tuple(flat.shape)} do not fit the layout's "
+                f"{tuple(self.param.shape)}"
+            )
+        self.param.copy_(flat)
+
+
+def state_layout(state: dict) -> str:
+    """The parameter layout of a trainer state: "flat", "stacked" or
+    "standard"."""
+    if "flat" in state["model"]:
+        return "flat"
+    return "stacked" if is_stacked(state["model"]) else "standard"
+
+
+def map_param_state(state: dict, convert: Callable[[dict], dict]) -> dict:
+    """A trainer state (``Trainer.state_dict()``) with ``convert``, a map of
+    ``{name: tensor}`` dicts from one layout to another, applied to every
+    part shaped like the weights: the weights, both AdamW moments and the
+    gradient-accumulation mean. The optimizer's state is indexed by
+    parameter order, which is the order of ``state["model"]``; AdamW's
+    step count, equal across parameters, is carried over. The one
+    traversal both layout converters share (``convert_flat_state``,
+    ``pipeline.convert_state_layout``)."""
+    names = list(state["model"])
+    model = convert(state["model"])
+    new_names = list(model)
+    opt = state["optimizer"]
+    if len(opt["param_groups"]) != 1:
+        raise ValueError("a layout change takes an optimizer of one param group")
+    per = opt["state"]
+    new_per = {}
+    if per:
+        moments = {
+            key: convert({n: per[i][key] for i, n in enumerate(names)})
+            for key in ("exp_avg", "exp_avg_sq")
+        }
+        new_per = {
+            j: {"step": per[0]["step"].clone(), **{k: m[n] for k, m in moments.items()}}
+            for j, n in enumerate(new_names)
+        }
+    groups = [dict(opt["param_groups"][0], params=list(range(len(new_names))))]
+    out = dict(state, model=model, optimizer={"state": new_per, "param_groups": groups})
+    if "accum" in state:
+        out["accum"] = dict(state["accum"], acc=convert(state["accum"]["acc"]))
+    return out
+
+
+def convert_flat_state(state: dict, template: Mapping[str, torch.Tensor], to: str) -> dict:
+    """A trainer state moved between the flat layout and the standard one
+    (``gnot_tpu/train/trainer.py::convert_flat_state``): the weights, both
+    AdamW moments and the accumulation mean, so a ``--flat_params``
+    checkpoint resumes in a standard run and back. ``template`` is a
+    standard-layout ``{name: tensor}`` map (a ``GNOT`` state_dict) whose
+    order fixes the flat layout. No-op when the state is already in the
+    target layout."""
+    if to not in ("flat", "tree"):
+        raise ValueError(f"unknown layout {to!r} (want 'flat' or 'tree')")
+    if (state_layout(state) == "flat") == (to == "flat"):
+        return state
+    layout = FlatLayout.of(template)
+    if to == "flat":
+        return map_param_state(state, lambda p: {"flat": layout.flatten(p)})
+    return map_param_state(
+        state, lambda p: {n: v.clone() for n, v in layout.views(p["flat"]).items()})
+
+
+def standard_weights(
+    weights: Mapping[str, torch.Tensor], template: Mapping[str, torch.Tensor], n_layers: int
+) -> dict[str, torch.Tensor]:
+    """A checkpoint's weights (``state["model"]``) of any layout in the
+    standard one; ``template`` is a standard-layout map (a ``GNOT``
+    state_dict) whose order fixes the flat layout."""
+    if "flat" in weights:
+        return FlatLayout.of(template).views(weights["flat"])
+    return unstack_params(weights, n_layers) if is_stacked(weights) else dict(weights)
+
+
 @dataclasses.dataclass
 class EpochRecord:
     """What one epoch produced, on the host."""
@@ -135,73 +393,196 @@ class Trainer:
         self.config = config
         self.model_cfg = model_cfg
         self.checkpointer = checkpointer
-        data = config.data
-        if data.packed and model_cfg.attention_mode == "parity":
-            raise ValueError(
-                "packed mode requires attention_mode='masked' (parity "
-                "reproduces the reference's per-batch padding pollution, "
-                "which has no packed equivalent)"
-            )
+        refuse_compositions(config, model_cfg)
         # Batches for the card are page-locked on the prefetch thread, so
         # each step's copy neither blocks the host nor drains the stream.
         self.train_loader, self.test_loader = make_loaders(
-            data, train_samples, test_samples, pin_memory=self.device.type == "cuda"
+            config.data, train_samples, test_samples, pin_memory=self.device.type == "cuda"
         )
+        accum = config.optim.grad_accum
+        if accum > 1 and len(self.train_loader) % accum:
+            logging.getLogger(__name__).warning(
+                "steps_per_epoch=%d is not divisible by grad_accum=%d: "
+                "accumulation windows straddle epoch boundaries and the "
+                "final partial window is discarded",
+                len(self.train_loader),
+                accum,
+            )
         self.lr_fn = make_lr_fn(
             config.optim,
             steps_per_epoch=len(self.train_loader),
             epochs=config.train.epochs,
         )
         # Weights from train.seed through an explicit generator, as
-        # serving draws them; a mode the port lacks is refused here.
+        # serving draws them; the stacked layout draws the same weights
+        # and stacks them.
         gen = torch.Generator().manual_seed(config.train.seed)
-        self.model = GNOT(model_cfg, generator=gen).to(self.device)
+        model_cls = StackedGNOT if model_cfg.scan_layers else GNOT
+        self.model = model_cls(model_cfg, generator=gen).to(self.device)
+        self.flat = FlatParams(self.model) if config.optim.flat_params else None
         self.optimizer: torch.optim.AdamW | None = None
+        # Gradient accumulation (grad_accum > 1): the window's running
+        # mean gradient, one per optimizer tensor, and MultiSteps' counts.
+        self.acc: list[torch.Tensor] | None = None
+        self.mini_step = 0
+        self.gradient_step = 0
         self.best_metric = float("inf")
         self.start_epoch = 0
-        # Updates taken so far (the JAX state's step counter).
+        # Micro-steps taken so far (the JAX state's step counter).
         self.host_step = 0
         self.history: list[EpochRecord] = []
 
+    def _opt_params(self) -> list[torch.nn.Parameter]:
+        return [self.flat.param] if self.flat is not None else list(self.model.parameters())
+
     def initialize(self) -> None:
-        """The optimizer over the model's weights, and on ``resume`` the
+        """The optimizer over the model's weights (the flat buffer with
+        ``flat_params``), the accumulation state, and on ``resume`` the
         latest checkpoint's state."""
-        self.optimizer = make_optimizer(self.config.optim, self.model.parameters())
+        params = self._opt_params()
+        self.optimizer = make_optimizer(self.config.optim, params)
+        if self.config.optim.grad_accum > 1:
+            self.acc = [torch.zeros_like(p) for p in params]
         if self.checkpointer is not None and self.config.train.resume:
             restored = self.checkpointer.restore_latest()
             if restored is not None:
                 state, self.start_epoch, self.best_metric = restored
                 self.load_state_dict(state)
 
+    def _param_names(self) -> list[str]:
+        return ["flat"] if self.flat is not None else [n for n, _ in self.model.named_parameters()]
+
     def state_dict(self) -> dict:
-        """The training state a checkpoint holds: weights, AdamW moments
-        and step counts, and the update count."""
-        return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "step": self.host_step,
-        }
+        """The training state a checkpoint holds, in the trainer's own
+        layout: weights (``{"flat": buffer}`` with ``flat_params``), AdamW
+        moments and step counts, the micro-step count, and with
+        ``grad_accum > 1`` the accumulation mean and counts."""
+        model = ({"flat": self.flat.param.detach()} if self.flat is not None
+                 else self.model.state_dict())
+        state = {"model": model, "optimizer": self.optimizer.state_dict(), "step": self.host_step}
+        if self.acc is not None:
+            state["accum"] = {
+                "acc": dict(zip(self._param_names(), self.acc)),
+                "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+            }
+        return state
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Load a ``state_dict()`` of the same layout and accumulation; a
+        state of another layout raises (``convert_flat_state`` /
+        ``pipeline.convert_state_layout`` convert it first)."""
+        layout = "flat" if self.flat is not None else (
+            "stacked" if self.model_cfg.scan_layers else "standard")
+        if state_layout(state) != layout:
+            raise ValueError(
+                f"the state is in the {state_layout(state)} parameter layout but this "
+                f"trainer holds the {layout} layout"
+            )
+        if ("accum" in state) != (self.acc is not None):
+            raise ValueError(
+                f"the state {'holds' if 'accum' in state else 'lacks'} a gradient-"
+                f"accumulation state but this run has grad_accum="
+                f"{self.config.optim.grad_accum}"
+            )
+        if self.flat is not None:
+            self.flat.load(state["model"]["flat"])
+        else:
+            self.model.load_state_dict(state["model"])
+        # A copy: torch's optimizer would otherwise keep the given moment
+        # tensors as its own and update them in place.
+        self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
         self.host_step = int(state["step"])
+        if self.acc is not None:
+            accum = state["accum"]
+            with torch.no_grad():
+                for acc, name in zip(self.acc, self._param_names()):
+                    acc.copy_(accum["acc"][name])
+            self.mini_step = int(accum["mini_step"])
+            self.gradient_step = int(accum["gradient_step"])
+
+    def standard_params(self) -> dict[str, torch.Tensor]:
+        """The weights in the standard ``block_{i}`` layout, whatever the
+        trainer holds: what predict, export and serving read."""
+        params = self.model.state_dict()
+        if self.model_cfg.scan_layers:
+            return unstack_params(params, self.model_cfg.n_attn_layers)
+        return params
+
+    def load_standard_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Load standard-layout weights (a ``GNOT`` state_dict) into the
+        trainer's own layout."""
+        if self.model_cfg.scan_layers:
+            params = stack_params(params, self.model_cfg.n_attn_layers)
+        self.model.load_state_dict(params)
+
+    def standard_model(self) -> GNOT:
+        """A ``GNOT`` holding the current weights: the trainer's own model
+        in the standard and flat layouts, an unstacked copy in the stacked
+        one."""
+        if not self.model_cfg.scan_layers:
+            return self.model
+        with torch.device("meta"):
+            model = GNOT(self.model_cfg)
+        params = {k: v.clone() for k, v in self.standard_params().items()}
+        model.load_state_dict(params, assign=True)
+        return model
 
     def train_step(self, batch: MeshBatch, lr: float) -> torch.Tensor:
-        """One AdamW update on a host batch at learning rate ``lr``.
-        Returns the loss as a device scalar; nothing waits for the card."""
-        batch = batch.to(self.device, non_blocking=True)
+        """One micro-step on a host batch at learning rate ``lr``: with
+        ``grad_accum`` 1 an AdamW update, else the gradient folded into the
+        window's mean and, on the window's last micro-step, one update on
+        the mean. Returns the loss as a device scalar; nothing waits for
+        the card."""
+        return self._step(batch.to(self.device, non_blocking=True), lr)
+
+    def multi_train_step(self, batches, lrs: list[float]) -> torch.Tensor:
+        """``len(lrs)`` micro-steps over a ``stack_batches`` result, the
+        i-th on batch i at ``lrs[i]``, after one host-to-device copy and
+        with no host read between them. Returns their ``[K]`` losses as one
+        device tensor. The same steps, in the same order, as K
+        ``train_step`` calls (``make_multi_train_step``)."""
+        device_batches = batches.to(self.device, non_blocking=True)
+        return torch.stack(
+            [self._step(batch_at(device_batches, i), lr) for i, lr in enumerate(lrs)])
+
+    def _step(self, batch, lr: float) -> torch.Tensor:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.optimizer.zero_grad(set_to_none=True)
+        if self.flat is not None:
+            self.flat.zero_grad()
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
         loss = batch_loss(self.model, batch, self.config.train.loss)
         loss.backward()
-        if self.config.optim.grad_clip_norm > 0:
-            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-            clip_by_global_norm_(grads, self.config.optim.grad_clip_norm)
-        self.optimizer.step()
+        self._update()
         self.host_step += 1
         return loss.detach()
+
+    @torch.no_grad()
+    def _update(self) -> None:
+        """The optimizer transform on this micro-step's gradients:
+        ``optax.MultiSteps`` around clipping and AdamW, as the JAX
+        ``make_optimizer`` chains them."""
+        optim = self.config.optim
+        params = self.optimizer.param_groups[0]["params"]
+        grads = [p.grad for p in params]
+        if self.acc is not None:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self.mini_step + 1)
+            torch._foreach_add_(self.acc, delta)
+            if self.mini_step < optim.grad_accum - 1:
+                self.mini_step += 1
+                return
+            for g, acc in zip(grads, self.acc):
+                g.copy_(acc)
+        if optim.grad_clip_norm > 0:
+            clip_by_global_norm_(grads, optim.grad_clip_norm)
+        self.optimizer.step()
+        if self.acc is not None:
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+            self.gradient_step += 1
 
     @torch.no_grad()
     def eval_step(self, batch: MeshBatch) -> torch.Tensor:
@@ -210,27 +591,52 @@ class Trainer:
             self.model, batch.to(self.device, non_blocking=True), self.config.train.loss
         )
 
+    @torch.no_grad()
+    def multi_eval_step(self, batches) -> torch.Tensor:
+        """The ``[K]`` eval metrics of a ``stack_batches`` result, after
+        one host-to-device copy (``make_multi_eval_step``)."""
+        device_batches = batches.to(self.device, non_blocking=True)
+        return torch.stack([
+            batch_loss(self.model, batch_at(device_batches, i), self.config.train.loss)
+            for i in range(device_batches.coords.shape[0])
+        ])
+
+    def _groups(self, loader):
+        return group_batches(loader, self.config.train.steps_per_dispatch)
+
+    def _stacked(self, group: list):
+        return stack_batches(group, pin_memory=self.device.type == "cuda")
+
     def evaluate(self) -> float:
         """The mean of the per-batch metrics over the test set: a short
-        last batch weighs like a full one, as in the JAX package."""
+        last batch weighs like a full one, as in the JAX package. The test
+        batches are grouped as the train loop groups its own."""
         if len(self.test_loader) == 0:
             return float("inf")
-        metrics = torch.stack([self.eval_step(b) for b in self.test_loader])
-        return float(np.mean(metrics.cpu().numpy()))  # the one host sync
+        metrics = [
+            self.multi_eval_step(self._stacked(item)) if kind == "group"
+            else self.eval_step(item).reshape(1)
+            for kind, item in self._groups(self.test_loader)
+        ]
+        return float(np.mean(torch.cat(metrics).cpu().numpy()))  # the one host sync
 
     def run_epoch(self, epoch: int) -> EpochRecord:
-        """One epoch: the train steps, the reference's console lines,
-        eval, best-metric selection and the checkpoint saves."""
+        """One epoch: the train steps (``steps_per_dispatch`` at a time),
+        the reference's console lines, eval, best-metric selection and the
+        checkpoint saves."""
         cfg = self.config
         # The shuffle order is a function of (seed, epoch): a resumed run
         # replays the continuous run's batches.
         self.train_loader.set_epoch(epoch)
-        losses = [
-            self.train_step(batch, self.lr_fn(self.host_step, epoch))
-            for batch in self.train_loader
-        ]
+        losses = []
+        for kind, item in self._groups(self.train_loader):
+            if kind == "group":
+                lrs = [self.lr_fn(self.host_step + i, epoch) for i in range(len(item))]
+                losses.append(self.multi_train_step(self._stacked(item), lrs))
+            else:
+                losses.append(self.train_step(item, self.lr_fn(self.host_step, epoch)).reshape(1))
         step_losses = (
-            torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+            torch.cat(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
         )  # the epoch's one host sync for the train losses
         train_loss = float(np.mean(step_losses)) if losses else float("nan")
         # The reference's console lines (main.py:105,147-148).
@@ -253,9 +659,9 @@ class Trainer:
         return record
 
     def restore_best(self) -> int | None:
-        """Load the best checkpoint's state (weights, AdamW state, update
-        count), making the optimizer first if need be; returns its epoch,
-        or None when there is no best checkpoint."""
+        """Load the best checkpoint's state (weights, AdamW state, step
+        and accumulation counts), making the optimizer first if need be;
+        returns its epoch, or None when there is no best checkpoint."""
         if self.optimizer is None:
             self.initialize()
         restored = self.checkpointer.restore_best()
@@ -281,8 +687,9 @@ class Trainer:
         """Per-sample unpadded outputs ``[n_i, out_dim]`` of the current
         weights, through the serving engine's offline path at the train
         batch size and the model's own compute dtype, as
-        ``gnot_tpu/train/trainer.py::predict``."""
-        engine = InferenceEngine(self.model, batch_size=self.config.data.batch_size)
+        ``gnot_tpu/train/trainer.py::predict``; the stacked layout serves
+        its unstacked copy."""
+        engine = InferenceEngine(self.standard_model(), batch_size=self.config.data.batch_size)
         return engine.predict(samples)
 
     def fit(self) -> float:

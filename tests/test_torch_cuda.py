@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from gnot_tpu_torch.config import Config, DataConfig, ModelConfig, OptimConfig, TrainConfig
 from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.data.batch import PackedLoader, PackPlan, collate, pack_collate, pack_prefix
 from gnot_tpu_torch.device import resolve_device
@@ -432,6 +432,84 @@ def test_remat_step_launches_twice_and_packs_once_on_card(dtype):
         assert fused_ffn.fused_gated_ffn_kernel.launches - launches == 2 * 2 * 2
         assert fused_ffn.packed_weights.packs - packs == n_images
         assert torch.isfinite(loss)
+
+
+def _optim_trainer_on_card(width: int, n_head: int, **optim) -> Trainer:
+    samples = datasets.synth_elasticity(4, seed=9, base_points=300)
+    mc = ModelConfig(
+        **datasets.infer_model_dims(samples), n_attn_layers=2, n_attn_hidden_dim=width,
+        n_mlp_num_layers=4, n_mlp_hidden_dim=width, n_input_hidden_dim=width,
+        n_expert=3, n_head=n_head, ffn_impl="pallas",
+    )
+    cfg = Config(optim=OptimConfig(**optim), data=DataConfig(n_train=4),
+                 train=TrainConfig(epochs=1))
+    trainer = Trainer(cfg, mc, samples, [], device="cuda")
+    trainer.initialize()
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n_head", [(32, 4), (256, 8)])
+def test_flat_layout_step_through_the_kernel_on_card(width, n_head):
+    """A train step of the flat layout through the kernel: every weight and
+    bias the kernel reads is a view of the flat buffer at a 16-byte
+    boundary, so it launches (2 FFNs x 2 blocks) with no alignment error,
+    and the step agrees with the tree layout's from the same weights."""
+    _card()
+    flat = _optim_trainer_on_card(width, n_head, flat_params=True)
+    tree = _optim_trainer_on_card(width, n_head)
+    for name, p in flat.model.named_parameters():
+        assert p.data_ptr() % 16 == 0, name
+    batch = next(iter(flat.train_loader))
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    losses = [flat.train_step(batch, 1e-3) for _ in range(2)]  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    assert fused_ffn.fused_gated_ffn_kernel.launches == before + 2 * 2 * 2
+    want = [tree.train_step(batch, 1e-3) for _ in range(2)]  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    torch.testing.assert_close(torch.stack(losses), torch.stack(want), rtol=1e-4, atol=1e-5)
+    tree_params = tree.model.state_dict()
+    for name, p in flat.model.state_dict().items():
+        torch.testing.assert_close(p, tree_params[name], rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_kernel_reads_the_live_flat_weights_after_a_step_on_card():
+    """After AdamW writes the flat buffer (torch's default implementation on
+    the card) every FFN weight's version has moved: the kernel repacks,
+    its output moves, and it agrees with the plain version on the live
+    flat weights."""
+    _card()
+    trainer = _optim_trainer_on_card(64, 4, flat_params=True)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 300, 64), dtype=np.float32)).cuda()
+    scores = torch.softmax(torch.from_numpy(rng.standard_normal((2, 300, 3), dtype=np.float32)), -1).cuda()
+    ffns = [m for m in trainer.model.modules() if isinstance(m, layers.GatedExpertFfn)]
+    weights = [([l.kernel for l in f.experts.layers()], [l.bias for l in f.experts.layers()]) for f in ffns]
+    first = [fused_ffn.fused_gated_ffn_kernel(x, scores, k, b).clone() for k, b in weights]
+    trainer.train_step(next(iter(trainer.train_loader)), 1e-2)
+    for (k, b), old in zip(weights, first):
+        got = fused_ffn.fused_gated_ffn_kernel(x, scores, k, b)
+        want = fused_ffn.fused_gated_ffn_reference(x, scores, k, b)
+        torch.cuda.synchronize()
+        assert not torch.allclose(got, old)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_grad_accum_packs_once_per_update_on_card():
+    """grad_accum=2: each micro-step launches 2 FFNs x 2 blocks; the
+    micro-step after an update (and the first) packs every expert weight
+    once, the one after it packs none."""
+    _card()
+    trainer = _optim_trainer_on_card(32, 4, grad_accum=2)
+    n_images = 2 * 2 * (4 + 1)
+    batch = next(iter(trainer.train_loader))
+    for micro in range(4):
+        launches, packs = fused_ffn.fused_gated_ffn_kernel.launches, fused_ffn.packed_weights.packs
+        trainer.train_step(batch, 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+        assert fused_ffn.fused_gated_ffn_kernel.launches - launches == 2 * 2
+        assert fused_ffn.packed_weights.packs - packs == (n_images if micro % 2 == 0 else 0)
+    assert trainer.gradient_step == 2
 
 
 @pytest.mark.cuda

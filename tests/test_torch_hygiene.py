@@ -183,3 +183,32 @@ def test_parity_and_packed_run_on_cuda_by_default_and_are_refused_without_a_card
     monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main.main(argv + ["--ffn_impl", "pallas"])
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--grad_accum", "2"], ["--steps_per_dispatch", "4"], ["--flat_params"],
+     ["--scan_layers", "--ffn_impl", "xla"],
+     ["--serve", "--flat_params"], ["--serve", "--scan_layers", "--ffn_impl", "xla"]],
+    ids=["grad_accum", "steps_per_dispatch", "flat_params", "scan_layers", "serve_flat",
+         "serve_scan"],
+)
+def test_training_loop_options_run_on_cuda_by_default_and_are_refused_without_a_card(
+        argv, monkeypatch):
+    """Gradient accumulation, K steps per dispatch and the flat and stacked
+    layouts change the loop or the layout, not the device: each runs on
+    ``cuda`` unless told ``--device cpu``, and without a card raises
+    before loading any data."""
+    from gnot_tpu_torch import main as port_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = port_main.build_parser().parse_args(argv)
+    assert args.device == "cuda"
+    monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(argv)
+
+
+def test_the_stacked_layout_module_is_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"gnot_tpu_torch/parallel/pipeline.py", "gnot_tpu_torch/parallel/__init__.py"} <= names

@@ -189,12 +189,10 @@ def test_remat_gradients_equal_no_remat_and_jax_remat(ffn_impl, monkeypatch):
         np.testing.assert_allclose(g, want_grads[name], rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize(
-    "kwargs", [dict(attention_mode="parity", packed=True), dict(scan_layers=True)]
-)
+@pytest.mark.parametrize("kwargs", [dict(attention_mode="parity", packed=True)])
 def test_gnot_refuses_unported_modes(kwargs):
-    """The stacked-layer layout is not ported; the packed layout in parity
-    mode has no equivalent in either package (tests/test_model.py:507)."""
+    """The packed layout in parity mode has no equivalent in either
+    package (tests/test_model.py:507)."""
     kwargs = dict(kwargs)
     packed = kwargs.pop("packed", False)
     samples = _samples("elasticity")

@@ -22,7 +22,6 @@ from gnot_tpu_torch.config import (
     Config,
     DataConfig,
     ModelConfig,
-    NotPortedError,
     OptimConfig,
     TrainConfig,
 )
@@ -215,6 +214,26 @@ def test_packed_weights_are_fresh_after_an_adamw_step(foreach):
     assert torch.equal(after, fused_ffn.pack_weights(kernel.detach()))
 
 
+def test_the_trainers_adamw_is_the_foreach_implementation():
+    """``make_optimizer`` runs torch's foreach AdamW (multi-tensor ops over
+    all the weights at once), neither the for-loop implementation (one op
+    per weight, which ``fused=False`` alone selects) nor the fused one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch.train.trainer import make_optimizer
+
+    params = [torch.nn.Parameter(torch.ones(3, 4)), torch.nn.Parameter(torch.ones(5))]
+    opt = make_optimizer(OptimConfig(), params)
+    assert (opt.defaults["foreach"], opt.defaults["fused"]) == (True, False)
+    for p in params:
+        p.grad = torch.full_like(p, 0.5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        opt.step()
+    ops = {evt.key for evt in prof.key_averages()}
+    assert any(op.startswith("aten::_foreach_") for op in ops), sorted(ops)
+    assert params[0]._version > 0
+
+
 def test_the_trainers_optimizer_moves_every_expert_weight_version():
     """After one train step every FFN expert kernel the fused kernel
     reads has a new version, so each is repacked for the next forward."""
@@ -231,21 +250,6 @@ def test_the_trainers_optimizer_moves_every_expert_weight_version():
         fresh = fused_ffn.packed_weights(k)
         assert fresh is not image
         assert torch.equal(fresh, fused_ffn.pack_weights(k.detach()))
-
-
-@pytest.mark.parametrize(
-    "build",
-    [
-        lambda: OptimConfig(grad_accum=2),
-        lambda: OptimConfig(flat_params=True),
-        lambda: TrainConfig(steps_per_dispatch=4),
-        lambda: Trainer(Config(), ModelConfig(**SMALL, scan_layers=True), [], [], device="cpu"),
-    ],
-    ids=["grad_accum", "flat_params", "steps_per_dispatch", "scan_layers"],
-)
-def test_unported_training_options_are_refused(build):
-    with pytest.raises(NotPortedError, match="not ported yet"):
-        build()
 
 
 def test_invalid_training_options_are_errors():
