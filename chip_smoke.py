@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. every kernel under ``gnot_tpu_torch/csrc`` built for sm_90a, one
    ``nvcc`` per source started together, with the ``-Xptxas -v``
    register / shared-memory report, and the count of tensor-core
-   ``HGMMA`` instructions in the FFN library's SASS (``cuobjdump``),
-   which must be above 0;
+   instructions in the SASS (``cuobjdump``) of the FFN library
+   (``HGMMA``) and of the reduce library (``HMMA``), each of which must
+   be above 0;
 3. the FFN kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at a ragged row count, for both
    GELUs, with the kernel's device time (``torch.profiler``; CUDA events
@@ -32,9 +33,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    after: each attention kernel and the FFN kernel against its plain
    version, forward and gradients, at the JAX tool's shapes and at full
    width; then each attention kernel's device time (``torch.profiler``)
-   at full width beside its bound and its plain version's, and the
-   composed ops (``fused_nla``, ``fused_nla_packed``) beside the torch
-   einsum paths the model runs;
+   at full width beside its bound and its plain version's (the reduce
+   kernels beside two bounds, 3xTF32 on the tensor cores and f32 on the
+   CUDA cores, and their max abs errors beside the f32 FFMA kernel's;
+   the plain reduce with cuBLAS TF32 on, one TF32 product, must miss
+   the kernels' bar at every full-width case), and the composed ops
+   (``fused_nla``, ``fused_nla_packed``) beside the torch einsum paths
+   the model runs;
 4. the serving path at full width through ``gnot_tpu_torch.main``'s
    serve function with ``--ffn_impl pallas``: 16 NS2d-1k requests,
    ``max_batch=4``, every result ``ok``, the FFN kernel launched
@@ -147,6 +152,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -178,6 +184,9 @@ BF16_PLAIN_REL = 1e-5
 # bf16 serving vs the f32 server of the same weights, per request: the
 # JAX package's own bar (tests/test_serve.py:1468, tests/test_lowprec.py:212).
 BF16_F32_REL = 2e-2
+# The f32 FFMA reduce kernel's max abs error against its plain version over
+# every validate_kernels check on an H100, printed beside the current one.
+FFMA_REDUCE_ERR = {"kv": 6.2e-6, "ksum": 5.7e-6}
 # Kernel vs plain version: the kernel multiplies in 3xTF32 on the tensor
 # cores (about f32's accuracy; their f32 accumulation truncates) and sums
 # each 256-long dot product in another order than PyTorch's f32 matmul,
@@ -363,9 +372,10 @@ def ffn_bound_ms(x, scores, kernels, biases, tensor_cores: bool = True) -> tuple
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def hgmma_count(build, name: str) -> int:
-    """Tensor-core ``HGMMA`` instructions in a built library's SASS, read
-    with the toolkit's ``cuobjdump`` (or the copy Triton ships)."""
+def sass_count(build, name: str, opcode: str) -> int:
+    """Instructions of one SASS opcode (``HGMMA``: ``wgmma``; ``HMMA``:
+    ``mma.sync``) in a built library, read with the toolkit's
+    ``cuobjdump`` (or the copy Triton ships)."""
     import importlib.util
 
     candidates = [Path(build.nvcc()).parent / "cuobjdump"]
@@ -377,7 +387,8 @@ def hgmma_count(build, name: str) -> int:
         raise RuntimeError(f"no cuobjdump among {[str(c) for c in candidates]}")
     out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, timeout=300, check=True)
-    return sum("HGMMA" in line for line in out.stdout.splitlines())
+    pattern = re.compile(rf"\b{opcode}\b")
+    return sum(bool(pattern.search(line)) for line in out.stdout.splitlines())
 
 
 def xla_ffn_path(torch, layers, kernels, biases, gelu: str):
@@ -621,16 +632,21 @@ def bf16_serving_phase(torch, np, port_main, layers, f32_run, f32_peak_mib, card
     return launches
 
 
-def attention_bounds(name: str, c: dict, n_head: int) -> tuple[float, str]:
+def attention_bounds(name: str, c: dict, n_head: int,
+                     tensor_cores: bool = False) -> tuple[float, str]:
     """Least time for one attention stage on the case's inputs: the larger
     of its bytes (each input read once, each output written once) over the
-    memory rate and the f32 operations this data needs over the f32 peak.
+    memory rate and the operations this data needs over their peak.
     Operations count only rows that reach an output: for a reduce, key
     rows with mask != 0 in a chunk with a slot (2 E^2 for the Gram, ~6 E
     for softmax, mask and k_sum); for an apply, ~6 E per query row for the
     softmax and, per input function, 2 E D + 3 E per row of a chunk with a
     slot (the head-diagonal product, the denominator and the division).
-    An apply reads only the head-diagonal blocks of the Grams it uses."""
+    An apply reads only the head-diagonal blocks of the Grams it uses.
+    Everything counts at the f32 CUDA-core rate, except that with
+    ``tensor_cores`` a reduce's Gram takes the faster of the TF32 and the
+    bf16 split of f32 operands (``product_passes``, as ``ffn_bound_ms``:
+    3xTF32, the kernel's form) with the rest at the f32 rate beside it."""
     q, k, mask = c["q"], c["k"], c["mask"]
     f, bk, lk, e = k.shape
     b, l, _ = q.shape
@@ -650,13 +666,48 @@ def attention_bounds(name: str, c: dict, n_head: int) -> tuple[float, str]:
         slots_used = b
     if name.startswith("nla_reduce"):
         rows = int(((mask != 0) & key_live[None]).sum())
-        flops = rows * (2 * e * e + 6 * e)
+        gram, rest = rows * 2 * e * e, rows * 6 * e
         nbytes = 4 * (2 * k.numel() + mask.numel() + f * n_seg * (e * e + e)) + seg_bytes
     else:
-        flops = b * l * 6 * e + f * int(q_live.sum()) * (2 * e * d + 3 * e)
+        gram, rest = 0, b * l * 6 * e + f * int(q_live.sum()) * (2 * e * d + 3 * e)
         nbytes = 4 * (2 * q.numel() + f * b * l * e + f * slots_used * (e * d + e)) + seg_bytes
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    if tensor_cores and gram:
+        tf32, bf16 = product_passes(True, True)
+        t_ops = max(gram * min(tf32 / PEAK_TF32_FLOPS, bf16 / PEAK_BF16_FLOPS),
+                    rest / PEAK_F32_FLOPS)
+    else:
+        t_ops = (gram + rest) / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tf32_control(torch, name: str, plain, got, case_name: str) -> float:
+    """The plain reduce with cuBLAS TF32 on (one TF32 product, the form
+    3xTF32 replaces) against the f32 plain version, as the worst multiple
+    of ``OUT_TOL``'s allowance; raises unless it exceeds the bar, which
+    the kernel's output ``got`` is printed against too. Restores the flag."""
+    from gnot_tpu_torch import validate_kernels as vk
+
+    rtol, atol = vk.OUT_TOL
+    want = plain()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    def worst(outs) -> float:
+        return max(((o - w).abs() / (atol + rtol * w.abs())).max().item()
+                   for o, w in zip(outs, want))
+
+    control, kernel = worst(tf32), worst(got)
+    log(f"[attn] {name} {case_name}: worst |x - plain| / (atol + rtol |plain|) at OUT_TOL: "
+        f"kernel {kernel:.3f}, plain with cuBLAS TF32 (one TF32 product, the control) {control:.3f}")
+    if control <= 1.0:
+        raise RuntimeError(f"{name} {case_name}: the one-TF32-product control holds OUT_TOL, so "
+                           "the bar cannot tell 3xTF32 from 1xTF32")
+    return control
 
 
 def attention_phase(torch, device, card: str) -> dict[str, dict]:
@@ -686,6 +737,14 @@ def attention_phase(torch, device, card: str) -> dict[str, dict]:
     idle = [n for n, count in launches.items() if count == 0]
     if idle or fused_gated_ffn_kernel.launches == 0:
         raise RuntimeError(f"kernels never launched by validate_kernels: {idle}")
+    for name in ("nla_reduce", "nla_reduce_seg"):
+        errs = {out: max(c.max_abs_err for c in checks
+                         if c.kernel == name and c.name.endswith(f" {out}"))
+                for out in ("kv", "ksum")}
+        log(f"[attn] {name} (3xTF32 mma.sync) max_abs_err over validate_kernels: kv "
+            f"{errs['kv']:.3e}, ksum {errs['ksum']:.3e} (the f32 FFMA kernel before it: kv "
+            f"{FFMA_REDUCE_ERR['kv']:.1e}, ksum {FFMA_REDUCE_ERR['ksum']:.1e}; tolerance rtol "
+            f"{vk.OUT_TOL[0]} atol {vk.OUT_TOL[1]})")
 
     n_head = vk.N_HEAD
     cases = vk.full_width_cases(device)
@@ -720,15 +779,26 @@ def attention_phase(torch, device, card: str) -> dict[str, dict]:
             err = max((got - want).abs().max().item() for got, want in zip(kernel(), plain()))
             kernel_ms = device_ms(torch, kernel)
             plain_ms = device_ms(torch, plain)
-            bound_ms, bound_by = attention_bounds(name, c, n_head)
+            bound_ms, bound_by = attention_bounds(name, c, n_head, tensor_cores=True)
+            times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            bounds = f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / kernel_ms:.1%} of bound"
+            reduce = name.startswith("nla_reduce")
+            if reduce:
+                f32_bound_ms, f32_bound_by = attention_bounds(name, c, n_head)
+                times.update(f32_bound_ms=f32_bound_ms, f32_bound_by=f32_bound_by)
+                bounds = (f"3xTF32 tensor-core {bounds}; f32 CUDA-core bound {f32_bound_ms:.4f} "
+                          f"ms ({f32_bound_by}), {f32_bound_ms / kernel_ms:.1%} of it")
             log(f"[attn] {name} {case_name} q {list(c['q'].shape)} k {list(c['k'].shape)}: device time "
-                f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / kernel_ms:.1%} of bound; back-to-back calls "
+                f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; {bounds}; back-to-back calls "
                 f"(host included) kernel {cuda_ms(torch, kernel):.4f} ms, plain "
-                f"{cuda_ms(torch, plain):.4f} ms; max_abs_err {err:.3e}")
+                f"{cuda_ms(torch, plain):.4f} ms; max_abs_err {err:.3e} on {card}")
+            if reduce:
+                times["tf32_control"] = tf32_control(torch, name, plain, kernel(), case_name)
+            # The entry's top level is the self case's; "cases" holds both.
+            entry = timed.setdefault(name, {"cases": {}})
+            entry["cases"][case_name] = times
             if case_name in ("self", "self_packed"):
-                timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
+                entry.update(times)
 
     # The composed kernels beside the torch einsum paths the model runs
     # (several PyTorch calls each, not one library call).
@@ -1840,10 +1910,11 @@ def main() -> int:
             if "ptxas" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(procs)} kernel(s) built in {time.monotonic() - t0:.1f} s")
-    n_hgmma = hgmma_count(build, "fused_gated_ffn")
-    log(f"[build] fused_gated_ffn SASS: {n_hgmma} HGMMA (tensor-core) instructions")
-    if n_hgmma == 0:
-        raise RuntimeError("the FFN library has no HGMMA instruction: not on the tensor cores")
+    for name, opcode in (("fused_gated_ffn", "HGMMA"), ("nla_reduce", "HMMA")):
+        n_mma = sass_count(build, name, opcode)
+        log(f"[build] {name} SASS: {n_mma} {opcode} (tensor-core) instructions")
+        if n_mma == 0:
+            raise RuntimeError(f"lib{name}.so has no {opcode} instruction: not on the tensor cores")
 
     # -- phase 3: each kernel against its plain version on the card -----
     width, n_expert, n_linears = 256, 3, 5

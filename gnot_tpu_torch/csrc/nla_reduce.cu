@@ -12,10 +12,14 @@
 // (the pad chunks carry id S). A slot that no chunk belongs to comes out
 // exactly zero.
 //
-// What bounds it on this card: arithmetic. At full width (F*B = 4 Grams of
-// 256x256 over Lk = 1024 rows) one call is 2 * 1024 * 256^2 * 4 = 0.54 GFLOP
-// against ~9.4 MB of compulsory traffic: 8.0 us at 67 TFLOP/s (f32 outside
-// the tensor cores) against 2.8 us at 3.35 TB/s.
+// What bounds it on this card. At full width (F*B = 4 Grams of 256x256
+// over Lk = 1024 rows) the compulsory traffic (k, v and the mask read once,
+// kv and k_sum written once) is ~9.4 MB: 2.8 us at 3.35 TB/s. The Gram is
+// 2 E^2 flops per unmasked key row, 0.26 GFLOP at the self shape (~1,980
+// of 4,096 rows unmasked; 0.54 GFLOP if every row counted). On the f32
+// CUDA cores (67 TFLOP/s) that is 3.9 us, so arithmetic bounds it there.
+// On the tensor cores in 3xTF32 (three TF32 products per multiply-add at
+// 495 TFLOP/s, f32's accuracy) it is 1.6 us, so bytes bound it: 2.8 us.
 //
 // What the design does about it:
 //   * The TPU kernel walks the Lk tiles in order and adds each into an output
@@ -38,13 +42,33 @@
 //     with cp.async, double-buffered, so the next rows load while this step
 //     computes and no step waits on device memory row by row. It
 //     softmaxes the k stripe per head with warp shuffles (64 columns hold
-//     whole heads for D = 16 and 32), and each thread keeps an 8x8 piece of
-//     the tile in registers: four 16-byte shared-memory reads per 64 FMAs, so
-//     the FMA units and not shared memory set the pace.
+//     whole heads for D = 16 and 32) and sums k_sum on the CUDA cores.
+//   * The Gram tile is multiplied on the tensor cores with mma.sync
+//     m16n8k8 TF32: each of the 4 warps owns a 32x64 quarter of the tile,
+//     2 x 8 m16n8 tiles, 64 f32 accumulators a thread. Per 8 key rows a
+//     warp loads its A (ks^T, read down the columns of the k stripe) and B
+//     (the v stripe) fragments from shared memory by hand, splits each
+//     value into a TF32 hi and the TF32 rounding of the rest (lo), and adds
+//     lo*hi + hi*lo + hi*hi into f32 (3xTF32; lo*lo lies below f32's
+//     precision). That is 48 HMMA, 24 shared loads and 72 split
+//     instructions a thread per 8 rows, where an FFMA loop issues 512
+//     FFMA and 32 16-byte loads. The shared row strides are padded to 72
+//     and 136 floats (8 mod 32 words), so a fragment load (8 tile columns
+//     x 4 key rows) hits 32 distinct banks.
+//   * What a step costs (reduce_probe's source variants, one block alone
+//     on an SM of an H100 SXM at 700 W): ~6.1 us a 32-row step, of which
+//     the softmax ~4.2 (each row's IEEE division branches to its slow
+//     path, which keeps the unrolled rows' shuffle chains from
+//     overlapping), the product loop ~1.6 and the staging ~0.9. So the
+//     products are not the bound now: the softmax is.
+//   * mma.sync and not wgmma: TF32 wgmma reads its shared-memory operands
+//     K-major only, and here K is the key-row axis while k and v arrive
+//     with their features contiguous, so wgmma would need a transposing
+//     copy of every stage. mma.sync fragments are loaded from any layout.
 //   * Rows past a chunk's end and columns past E are zero-filled by the copy
 //     and carry mask 0, so no input is padded.
-// Plain FFMA in f32 on the CUDA cores; TF32 would change the numbers, and
-// wgmma/TMA pipelining is later work.
+// f32 in and out. wgmma with TMA, skipping masked rows and warp
+// specialisation are later work.
 //
 // Supported: D in {16, 32}, E a multiple of D up to 256, any F, B, Lk. The
 // launchers refuse anything else.
@@ -58,6 +82,10 @@ constexpr int kThreads = 128;
 constexpr int kTi = 64;    // output tile rows: Gram rows i (k features)
 constexpr int kTj = 128;   // output tile columns: Gram columns j (v features)
 constexpr int kRows = 32;  // key rows staged per step
+// Shared row strides of the staged stripes, padded to 8 mod 32 words so a
+// fragment load (lane g*4+q reads row q, column g) hits 32 distinct banks.
+constexpr int kStrideK = kTi + 8;
+constexpr int kStrideV = kTj + 8;
 constexpr int kMaxE = 256;
 constexpr int kCombineThreads = 256;
 
@@ -104,10 +132,35 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 struct Stage {
-  float k[kRows][kTi];
-  float v[kRows][kTj];
+  float k[kRows][kStrideK];
+  float v[kRows][kStrideV];
   float m[kRows];
 };
+
+// Round to TF32 (nearest, ties away from zero): the low 13 bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-21 |x|), hi and lo both TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[16x8] += a[16x8] * b[8x8] on the tensor cores, TF32 in, f32 sums. With
+// g = lane / 4 and q = lane % 4: a holds (row, col) (g, q), (g+8, q),
+// (g, q+4), (g+8, q+4); b holds (q, g), (q+4, g); d holds (g, 2q),
+// (g, 2q+1), (g+8, 2q), (g+8, 2q+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // Start copying rows r0..r0+31 of the k stripe [i0, i0+wi), the v stripe
 // [j0, j0+wj) and the mask into `st`; rows at or past r_end and columns
@@ -160,13 +213,17 @@ reduce_partial(const __grid_constant__ ReduceArgs a) {
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int tx = t & 15;  // tile columns 4tx..4tx+3 and 64+4tx..64+4tx+3
-  const int ty = t >> 4;  // tile rows 4ty..4ty+3 and 32+4ty..32+4ty+3
-  float acc[8][8];
+  const int g = lane >> 2;            // mma fragment row group
+  const int q = lane & 3;             // and thread within it
+  const int wm = (warp >> 1) * 32;    // the warp's tile rows wm..wm+31
+  const int wn = (warp & 1) * 64;     // and columns wn..wn+63
+  float acc[2][8][4];                 // [m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.f;
   float ksum_acc = 0.f;
 
   if (r_begin < r_end) stage_rows(st[0], kp, vp, mp, a.e, r_begin, r_end, i0, wi, j0, wj);
@@ -206,18 +263,33 @@ reduce_partial(const __grid_constant__ ReduceArgs a) {
     }
     __syncthreads();
 
-#pragma unroll 2
-    for (int rr = 0; rr < kRows; ++rr) {
-      const float4 k0 = *reinterpret_cast<const float4*>(&st[cur].k[rr][4 * ty]);
-      const float4 k1 = *reinterpret_cast<const float4*>(&st[cur].k[rr][32 + 4 * ty]);
-      const float4 v0 = *reinterpret_cast<const float4*>(&st[cur].v[rr][4 * tx]);
-      const float4 v1 = *reinterpret_cast<const float4*>(&st[cur].v[rr][64 + 4 * tx]);
-      const float kr[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-      const float vr[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    // The Gram tile on the tensor cores, 8 key rows per mma: A = ks^T
+    // (tile row i, key row r) = k[r][i], B = v; 3xTF32, small terms first.
+    const Stage& s = st[cur];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int r = 0; r < kRows; r += 8) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += kr[i] * vr[j];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int i = wm + 16 * mt + g;
+        split_tf32(s.k[r + q][i], ah[mt][0], al[mt][0]);
+        split_tf32(s.k[r + q][i + 8], ah[mt][1], al[mt][1]);
+        split_tf32(s.k[r + q + 4][i], ah[mt][2], al[mt][2]);
+        split_tf32(s.k[r + q + 4][i + 8], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int j = wn + 8 * nt + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(s.v[r + q][j], bh[0], bl[0]);
+        split_tf32(s.v[r + q + 4][j], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], al[mt], bh);
+          mma_tf32(acc[mt][nt], ah[mt], bl);
+          mma_tf32(acc[mt][nt], ah[mt], bh);
+        }
+      }
     }
     if (j0 == 0 && t < kTi) {
 #pragma unroll
@@ -229,15 +301,20 @@ reduce_partial(const __grid_constant__ ReduceArgs a) {
   const size_t per = static_cast<size_t>(a.e) * a.e + a.e;
   float* p = a.partial + (static_cast<size_t>(blockIdx.z) * a.b * a.n_chunks * a.n_split + u) * per;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gi = (i < 4 ? 4 * ty + i : 32 + 4 * ty + i - 4);
-    if (gi >= wi) continue;
-    float* prow = p + static_cast<size_t>(i0 + gi) * a.e + j0;
-    if (4 * tx < wj) {
-      *reinterpret_cast<float4*>(prow + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-    if (64 + 4 * tx < wj) {
-      *reinterpret_cast<float4*>(prow + 64 + 4 * tx) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = wm + 16 * mt + 8 * h + g;
+      if (gi >= wi) continue;
+      float* prow = p + static_cast<size_t>(i0 + gi) * a.e + j0;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int gj = wn + 8 * nt + 2 * q;  // even, and wj is a multiple of D
+        if (gj < wj) {
+          *reinterpret_cast<float2*>(prow + gj) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      }
     }
   }
   if (j0 == 0 && t < wi) p[static_cast<size_t>(a.e) * a.e + i0 + t] = ksum_acc;

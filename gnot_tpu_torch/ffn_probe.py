@@ -116,37 +116,15 @@ PHASE_EDITS = [
 VARIANTS["phases"] = PHASE_EDITS
 
 
-def variant_source(edits: list[tuple[str, str]]) -> str:
-    text = SOURCE.read_text()
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"variant edit not found in {SOURCE.name}: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def build_variants() -> dict[str, ctypes.CDLL]:
-    import subprocess
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        src = OUT_DIR / f"{name}.cu"
-        src.write_text(variant_source(edits))
-        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(OUT_DIR / f"lib{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
     libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
+    for name, (lib, out) in build.build_variants("fused_gated_ffn", VARIANTS, OUT_DIR).items():
         regs = sorted({line.split("Used ")[1].split(",")[0] for line in out.splitlines()
                        if "Used " in line})
         warnings = sorted({line.split("(C")[1].split(")")[0] for line in out.splitlines()
                            if "(C7" in line})
         print(f"[probe] built {name}: {regs}, ptxas notes {warnings}", flush=True)
-        libs[name] = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so"))
+        libs[name] = lib
     return libs
 
 

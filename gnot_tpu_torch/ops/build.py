@@ -103,6 +103,41 @@ def build(name: str) -> str:
     return finish_build(name, start_build(name))
 
 
+def variant_source(name: str, edits: list[tuple[str, str]]) -> str:
+    """``csrc/<name>.cu`` with every ``(old, new)`` edit applied, for a
+    probe's variant; raises when an ``old`` text is not in the source."""
+    source = CSRC / f"{name}.cu"
+    text = source.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"variant edit not found in {source.name}: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(name: str, variants: dict[str, list[tuple[str, str]]],
+                   out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Build each variant of ``csrc/<name>.cu`` (``variant_source`` of its
+    edits) into ``out_dir/lib<variant>.so``, every ``nvcc`` started
+    together; by variant, the loaded library and the compiler's report.
+    Only the probes load variants."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, edits in variants.items():
+        src = out_dir / f"{variant}.cu"
+        src.write_text(variant_source(name, edits))
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{variant}.so"), str(src)]
+        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for variant, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {variant} of csrc/{name}.cu:\n{out}")
+        built[variant] = (ctypes.CDLL(str(out_dir / f"lib{variant}.so")), out)
+    return built
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:

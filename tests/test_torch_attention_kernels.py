@@ -22,6 +22,7 @@ from gnot_tpu.ops import pallas_attention as jpa
 from gnot_tpu_torch import validate_kernels
 from gnot_tpu_torch.ops import attention as att
 from gnot_tpu_torch.ops import fused_attention as fa
+from gnot_tpu_torch.ops import fused_ffn
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -234,6 +235,59 @@ def test_packed_pad_chunks_and_empty_slot_are_zero():
     _close(kv, kv_j)
 
 
+def _emulate_reduce(k, v, mask, n_head, seg=None, n_seg=0, three=True):
+    """Plain torch of ``csrc/nla_reduce.cu``'s arithmetic: ``ks =
+    group_softmax(k) * mask`` in f32, the Gram ``ks^T v`` per slot as
+    ``lo*hi + hi*lo + hi*hi`` of the TF32 splits of ks and v with f32 sums
+    (3xTF32, the kernel's mma.sync form), or one TF32 product (``three=
+    False``); k_sum an f32 sum. ``seg`` gives the segment form, whose pad
+    chunks and empty slots enter no Gram."""
+    f, b, lk, e = k.shape
+    ks = fa.group_softmax(k, n_head) * mask[..., None]
+    if seg is None:
+        rows, vs = ks, v  # [F, B, Lk, E]: slot b owns row b
+    else:
+        tok = torch.repeat_interleave(seg, lk // seg.shape[1], dim=1)  # [B, Lk]
+        oh = fa._one_hot(tok, n_seg).permute(2, 0, 1).reshape(n_seg, b * lk, 1)
+        rows = ks.reshape(f, 1, b * lk, e) * oh  # [F, S, B*Lk, E]
+        vs = v.reshape(f, 1, b * lk, e)
+    if three:
+        k_hi, k_lo = fused_ffn.tf32_split(rows)
+        v_hi, v_lo = fused_ffn.tf32_split(vs.expand_as(rows))
+        kv = k_lo.mT @ v_hi + k_hi.mT @ v_lo + k_hi.mT @ v_hi
+    else:
+        kv = fused_ffn.tf32_round(rows).mT @ fused_ffn.tf32_round(vs.expand_as(rows))
+    return kv, rows.sum(dim=2, keepdim=True)
+
+
+@pytest.mark.parametrize("form", ["dense", "segment"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_reduce_3xtf32_arithmetic_matches_jax(form, d):
+    """The reduce kernel's 3xTF32 Gram (emulated on the CPU with the FFN
+    kernel's split) holds the JAX kernels' bar against ``nla_reduce`` /
+    ``nla_reduce_seg`` in interpret mode, with masked rows and, in the
+    segment form, a pad chunk and an empty slot (exactly 0); one TF32
+    product misses that bar, so the bar tells the two forms apart."""
+    h = 2
+    e = h * d
+    if form == "dense":
+        _, k, v, mask = _dense_case(12, n_funcs=2, lk=40, e=e)
+        want = jpa.nla_reduce(k, v, mask, h)
+        seg, n_seg = None, 0
+    else:
+        _, k, v, mask, seg, n_seg = _packed_case(seed=12, e=e)
+        want = jpa.nla_reduce_seg(k, v, mask, seg, n_seg, h)
+        seg = torch.from_numpy(seg)
+    kt, vt, mt = _t(k, v, mask)
+    got = _emulate_reduce(kt, vt, mt, h, seg, n_seg)
+    for g, w in zip(got, want):
+        _close(g, w)
+    if seg is not None:
+        assert (got[0][:, 4] == 0).all() and (got[1][:, 4] == 0).all()  # the empty slot
+    one = _emulate_reduce(kt, vt, mt, h, seg, n_seg, three=False)[0].numpy()
+    assert not np.allclose(one, np.asarray(want[0]), rtol=RTOL, atol=ATOL)
+
+
 def test_packed_grads_match_jax():
     h = 4
     q, k, v, mask, seg, n_seg = _packed_case(seed=11)
@@ -428,3 +482,16 @@ def test_full_width_cases_have_the_model_shapes():
     used = set(sp["q_seg"].unique().tolist())
     assert 24 in used and len(used - {24}) < 24  # pad chunks and empty slots
     assert (cases["ragged"]["mask"][1, 0] == 0).all()
+
+
+def test_reduce_probe_variants_apply_to_the_kernel_source():
+    """Every variant of gnot_tpu_torch/reduce_probe.py edits lines that the
+    reduce kernel's source still has (the probe builds them only on the
+    card)."""
+    from gnot_tpu_torch import reduce_probe
+    from gnot_tpu_torch.ops import build
+
+    source = (build.CSRC / "nla_reduce.cu").read_text()
+    for name, edits in reduce_probe.VARIANTS.items():
+        text = build.variant_source("nla_reduce", edits)
+        assert (text == source) == (not edits), name

@@ -659,6 +659,34 @@ def test_segment_kernels_match_plain_versions_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("e,n_head,lk", [(48, 3, 77), (256, 8, 1013)])
+def test_reduce_kernels_on_the_tensor_cores_match_plain_versions_on_card(e, n_head, lk):
+    """The 3xTF32 mma.sync reduce against its plain version at D=16 and
+    D=32, F=2: the dense form at a ragged Lk (not a multiple of 8 or 32,
+    so the last 8-row mma step is part padding), the segment form with a
+    pad chunk whose rows would change every Gram they entered and an empty
+    slot, both exactly 0; two launches on the same inputs bitwise equal."""
+    device = _card()
+    _, k, v, mask = _attn_inputs(6, 2, 2, 8, lk, e, device, n_head=n_head)
+    got = fa.nla_reduce_kernel(k, v, mask, n_head)
+    again = fa.nla_reduce_kernel(k, v, mask, n_head)
+    _assert_stage(got, fa.reduce_reference(k, v, mask, n_head), (OUT_TOL, OUT_TOL))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    _, k, v, mask, seg, n_seg = _packed_inputs(7, device, e=e, chunk=40)
+    mask[:, 0, 5 * 40 :] = 1.0  # the pad chunk's rows unmasked: only seg keeps them out
+    got = fa.nla_reduce_seg_kernel(k, v, mask, seg, n_seg, n_head)
+    again = fa.nla_reduce_seg_kernel(k, v, mask, seg, n_seg, n_head)
+    _assert_stage(got, fa.reduce_seg_reference(k, v, mask, seg, n_seg, n_head), (OUT_TOL, OUT_TOL))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (got[0][:, 4] == 0).all() and (got[1][:, 4] == 0).all()  # the empty slot
+    k[:, 0, 5 * 40 :] += 100.0  # the pad chunk's rows moved: its share must be exactly 0
+    v[:, 0, 5 * 40 :] *= -3.0
+    moved = fa.nla_reduce_seg_kernel(k, v, mask, seg, n_seg, n_head)
+    assert all(torch.equal(a, b) for a, b in zip(got, moved))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True])
 def test_attention_gradients_on_card(packed):
     """Gradients wrt q, k and v through the four autograd Functions

@@ -294,8 +294,9 @@ def test_ffn_probe_variants_apply_to_the_kernel_source():
     """Every variant of gnot_tpu_torch/ffn_probe.py edits lines that the
     kernel source still has (the probe builds them only on the card)."""
     from gnot_tpu_torch import ffn_probe
+    from gnot_tpu_torch.ops import build
 
     source = ffn_probe.SOURCE.read_text()
     for name, edits in ffn_probe.VARIANTS.items():
-        text = ffn_probe.variant_source(edits)
+        text = build.variant_source("fused_gated_ffn", edits)
         assert (text == source) == (not edits), name
