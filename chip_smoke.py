@@ -10,10 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. every kernel under ``gnot_tpu_torch/csrc`` built for sm_90a, one
    ``nvcc`` per source started together, with the ``-Xptxas -v``
-   register / shared-memory report, and the count of tensor-core
-   instructions in the SASS (``cuobjdump``) of the FFN library
-   (``HGMMA``) and of the reduce library (``HMMA``), each of which must
-   be above 0;
+   register / shared-memory report and a line per source with each
+   kernel instance's registers and the bytes spilled, and the count of
+   tensor-core instructions in the SASS (``cuobjdump``) of the FFN
+   library (``HGMMA``) and of the reduce library (``HMMA``), each of
+   which must be above 0;
 3. the FFN kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at a ragged row count, for both
    GELUs, with the kernel's device time (``torch.profiler``; CUDA events
@@ -272,31 +273,17 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     """Mean device time of one ``fn()``: the summed duration of every
-    kernel it runs on the card (``torch.profiler``, CUPTI), over
-    ``iters`` calls. Unlike ``cuda_ms`` it leaves out the host's time
-    between launches, which bounds short kernels called from Python.
-    CUPTI now and then hands back a profile without device events; such a
-    profile is taken again, and after ``attempts`` empty ones the time is
-    ``cuda_ms``'s (CUDA events over back-to-back calls, host included),
-    which the log says."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel it runs on the card over ``iters`` calls, over ``iters``
+    (``profiling.kernel_times``, CUPTI). Unlike ``cuda_ms`` it leaves out
+    the host's time between launches, which bounds short kernels called
+    from Python. After ``attempts`` profiles without device events the
+    time is ``cuda_ms``'s (CUDA events over back-to-back calls, host
+    included), which the log says."""
+    from gnot_tpu_torch.profiling import kernel_times
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        for evt in prof.key_averages():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                us = getattr(evt, "self_device_time_total", None)
-                total_us += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
-        if total_us > 0:
-            return total_us / 1e3 / iters
-        log("[profiler] a profile recorded no device time; profiling again")
+    times = kernel_times(fn, iters, warmup, attempts, log=log)
+    if times is not None:
+        return sum(times.values())
     log(f"[profiler] {attempts} profiles recorded no device time: CUDA events over "
         "back-to-back calls instead (host enqueue included)")
     return cuda_ms(torch, fn, iters, warmup)
@@ -1909,6 +1896,9 @@ def main() -> int:
         for line in report.splitlines():
             if "ptxas" in line:
                 log(f"[build]   {line.strip()}")
+        regs, spills = build.ptxas_summary(report)
+        log(f"[build] {name}: registers {regs} a thread over its {len(regs)} kernel instance(s), "
+            f"spill stores + loads {spills} B")
     log(f"[build] {len(procs)} kernel(s) built in {time.monotonic() - t0:.1f} s")
     for name, opcode in (("fused_gated_ffn", "HGMMA"), ("nla_reduce", "HMMA")):
         n_mma = sass_count(build, name, opcode)

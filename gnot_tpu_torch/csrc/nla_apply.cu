@@ -16,17 +16,29 @@
 // H = 8, D = 32) the outputs need 2 * E * D FLOP per row and function,
 // 0.07 GFLOP in all (1.1 us at 67 TFLOP/s f32), against reading q and the
 // head-diagonal blocks of kv and writing out and qs, ~12.7 MB (3.8 us at
-// 3.35 TB/s).
+// 3.35 TB/s). But every full-width grid is one partial wave (256 or 192
+// blocks of 16 rows, 3 resident per SM on 132 SMs), so one block's critical
+// path sets the time: 6.9 us for one block alone, 0.0099 ms at self, 38% of
+// the byte bound (apply_probe.py, H100 80GB HBM3, 700 W). On that path a
+// warp's softmax is 16 chains of 10 dependent shuffles. Run one chain after
+// another, with a branch between chains (no shuffle moves across a branch),
+// they take ~3.5 us of a block's time: the probe's chained_softmax variant
+// reads 9.3 us alone. Next on the path: the Gram's loads after the
+// softmax's barrier (~1.5 us at self, the probe's no_gram_loads).
 //
 // What the design does about it:
+//   * The softmax runs stage by stage over all 16 chains of a warp (a max
+//     butterfly, expf, a sum butterfly, the division), with no branch
+//     between chains: each shuffle stage issues 16 independent shuffles
+//     back to back. Column groups past E run on zeros and are not stored.
+//     Each chain keeps its own butterfly order, so qs does not depend on
+//     how the chains interleave.
 //   * q is read once and qs written once, whatever F is: a block takes 16
 //     query rows (of one chunk, in the seg form), softmaxes them per head in
-//     registers with warp shuffles, writes qs and keeps it in shared memory
-//     for every f. The TPU kernel recomputed the softmax for every f.
+//     registers, writes qs and keeps it in shared memory for every f. The
+//     TPU kernel recomputed the softmax for every f.
 //   * Each warp loads every q value it needs before using any, so a block
-//     waits on device memory once for q and once for each f's Grams; 16-row
-//     blocks (256 at full width, up to 4 per SM) let one block's waits
-//     overlap another's work.
+//     waits on device memory once for q and once for each f's Grams.
 //   * Only the head-diagonal blocks of each Gram are read (E * D floats, 32 KB
 //     at full width, 1/8 of the [E, E] Gram); the TPU kernel multiplied the
 //     full Gram by a block-diagonal mask on the MXU.
@@ -35,8 +47,8 @@
 //     words. Each of 256 threads computes 4 columns of 4 rows.
 //   * Rows past L read as zero and are never stored, so q is not padded.
 //   * A pad chunk's rows are written as zeros without reading any Gram.
-// Plain FFMA in f32; the division by denom is exact IEEE division, as in the
-// plain version.
+// Plain FFMA in f32; the divisions (the softmax's and the one by denom) are
+// exact IEEE division, as in the plain version.
 //
 // Supported: D in {16, 32}, E a multiple of D up to 256, any F, B, L. The
 // launchers refuse anything else.
@@ -70,6 +82,23 @@ constexpr int smem_floats() {
          + D * kMaxE        // head-diagonal kv blocks, [d][h * D + j]
          + kMaxE            // k_sum, [d * H + h]
          + kRows * kMaxE / D;  // denominators, [row][h]
+}
+
+// v = max (kMax) or sum of v over each head's D lanes, for all of a warp's
+// chains at once: each xor-shuffle stage issues one independent shuffle per
+// chain back to back. The butterfly's order is a chain's own, so every
+// lane of a head ends with the same value.
+template <int D, bool kMax>
+__device__ __forceinline__ void head_reduce(float (&v)[kWarpRows][kMaxE / 32]) {
+#pragma unroll
+  for (int o = D / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < kWarpRows; ++j)
+#pragma unroll
+      for (int i = 0; i < kMaxE / 32; ++i) {
+        const float other = __shfl_xor_sync(0xffffffffu, v[j][i], o);
+        v[j][i] = kMax ? fmaxf(v[j][i], other) : v[j][i] + other;
+      }
 }
 
 template <int D>
@@ -112,22 +141,31 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
       x[j][i] = (rr < rows && col < e) ? __ldg(a.q + base + col) : 0.f;
     }
   }
+  // The softmax of the warp's 16 chains (2 rows x 8 column groups) stage
+  // by stage over all of them, with no branch between chains: column
+  // groups past E run on zeros and are not stored.
+  float m[kWarpRows][kMaxE / 32];  // each chain's head max, then its sum
+#pragma unroll
+  for (int j = 0; j < kWarpRows; ++j)
+#pragma unroll
+    for (int i = 0; i < kMaxE / 32; ++i) m[j][i] = x[j][i];
+  head_reduce<D, true>(m);
+#pragma unroll
+  for (int j = 0; j < kWarpRows; ++j)
+#pragma unroll
+    for (int i = 0; i < kMaxE / 32; ++i) {
+      x[j][i] = expf(x[j][i] - m[j][i]);
+      m[j][i] = x[j][i];
+    }
+  head_reduce<D, false>(m);
 #pragma unroll
   for (int j = 0; j < kWarpRows; ++j) {
     const int rr = warp + j * (kThreads / 32);
     const size_t base = (static_cast<size_t>(b) * a.l + r0 + rr) * e;
 #pragma unroll
     for (int i = 0; i < kMaxE / 32; ++i) {
-      if (32 * i >= e) break;
       const int col = lane + 32 * i;
-      float mx = x[j][i];
-#pragma unroll
-      for (int o = D / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float ex = expf(x[j][i] - mx);
-      float sum = ex;
-#pragma unroll
-      for (int o = D / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float y = ex / sum;
+      const float y = x[j][i] / m[j][i];
       if (col < e) {
         qst[rr * kMaxE + (col % D) * H + col / D] = y;
         if (rr < rows) a.qs[base + col] = y;
@@ -215,15 +253,22 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
 }
 
 template <int D>
-cudaError_t launch(const ApplyArgs& a, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * 4;
+cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_floats<D>() * 4);
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch(const ApplyArgs& a, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<D>() * 4;
+  const cudaError_t err = configure<D>();
+  if (err != cudaSuccess) return err;
   if (a.b == 0 || a.l == 0) return cudaSuccess;
   const int tiles = (a.chunk_len + kRows - 1) / kRows;
   const dim3 grid(a.n_chunks * tiles, a.b);
@@ -238,6 +283,18 @@ bool dims_ok(int f, int b, int l, int e, int d) {
 
 cudaError_t run(const ApplyArgs& a, int d, cudaStream_t stream) {
   return d == 16 ? launch<16>(a, stream) : launch<32>(a, stream);
+}
+
+template <int D>
+int occupancy(int* smem_bytes) {
+  *smem_bytes = smem_floats<D>() * 4;
+  int blocks = 0;
+  if (configure<D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, apply_kernel<D>, kThreads,
+                                                    *smem_bytes) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }
 
 }  // namespace
@@ -288,4 +345,11 @@ extern "C" int gnot_nla_apply_seg(const void* q, const void* kv, const void* ksu
   a.chunk_len = l / n_chunks;
   a.n_slots = n_slots;
   return static_cast<int>(run(a, d, static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks per SM of the kernel for head width d (16 or 32), and its
+// shared memory per block in *smem_bytes; -1 on an error. For the probes.
+extern "C" int gnot_nla_apply_occupancy(int d, int* smem_bytes) {
+  if (d != 16 && d != 32) return -1;
+  return d == 16 ? occupancy<16>(smem_bytes) : occupancy<32>(smem_bytes);
 }

@@ -119,11 +119,11 @@ VARIANTS["phases"] = PHASE_EDITS
 def build_variants() -> dict[str, ctypes.CDLL]:
     libs = {}
     for name, (lib, out) in build.build_variants("fused_gated_ffn", VARIANTS, OUT_DIR).items():
-        regs = sorted({line.split("Used ")[1].split(",")[0] for line in out.splitlines()
-                       if "Used " in line})
+        regs, spills = build.ptxas_summary(out)
         warnings = sorted({line.split("(C")[1].split(")")[0] for line in out.splitlines()
                            if "(C7" in line})
-        print(f"[probe] built {name}: {regs}, ptxas notes {warnings}", flush=True)
+        print(f"[probe] built {name}: registers {regs}, spill stores + loads {spills} B, "
+              f"ptxas notes {warnings}", flush=True)
         libs[name] = lib
     return libs
 

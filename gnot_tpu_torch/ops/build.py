@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -101,6 +102,15 @@ def finish_build(name: str, proc: subprocess.Popen | None) -> str:
 def build(name: str) -> str:
     """Build one library (if stale) and return its compiler report."""
     return finish_build(name, start_build(name))
+
+
+def ptxas_summary(report: str) -> tuple[list[int], int]:
+    """From a ``-Xptxas -v`` report: the registers a thread of each kernel
+    instance uses, in the report's order, and the bytes of spill stores
+    and loads over all of them."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
+    return regs, spills
 
 
 def variant_source(name: str, edits: list[tuple[str, str]]) -> str:

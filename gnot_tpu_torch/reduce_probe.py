@@ -45,6 +45,7 @@ from gnot_tpu_torch import validate_kernels as vk
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.ops import build
 from gnot_tpu_torch.ops import fused_attention as fa
+from gnot_tpu_torch.profiling import kernel_times
 
 PEAK_F32_FLOPS = 67e12  # one H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # and TF32 on its tensor cores, dense
@@ -67,37 +68,19 @@ VARIANTS: dict[str, list[tuple[str, str]]] = {
 }
 
 
-def pass_times(fn, iters: int = 20, warmup: int = 3, attempts: int = 3) -> dict[str, float]:
-    """Mean device time in ms of each kernel one ``fn()`` runs, by name.
-    CUPTI now and then hands back a profile without device events; such a
-    profile is taken again, up to ``attempts`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = {}
-        for evt in prof.key_averages():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                name = "reduce_partial" if "reduce_partial" in evt.key else (
-                    "reduce_combine" if "reduce_combine" in evt.key else evt.key[:40])
-                times[name] = evt.self_device_time_total / 1e3 / iters
-        if "reduce_partial" in times:
-            return times
-    raise RuntimeError(f"{attempts} profiles recorded no reduce_partial device time")
+def pass_times(fn) -> dict[str, float]:
+    """Mean device time in ms of each pass one ``fn()`` runs, by name."""
+    times = kernel_times(fn, names=("reduce_partial", "reduce_combine"))
+    if times is None:
+        raise RuntimeError("3 profiles recorded no reduce_partial device time")
+    return times
 
 
 def build_variants() -> dict[str, ctypes.CDLL]:
     libs = {}
     for name, (lib, out) in build.build_variants("nla_reduce", VARIANTS, OUT_DIR).items():
-        regs = sorted({line.split("Used ")[1].split(",")[0] for line in out.splitlines()
-                       if "Used " in line})
-        print(f"[probe] built {name}: {regs}", flush=True)
+        regs, spills = build.ptxas_summary(out)
+        print(f"[probe] built {name}: registers {regs}, spill stores + loads {spills} B", flush=True)
         libs[name] = lib
     return libs
 

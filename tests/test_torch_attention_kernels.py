@@ -495,3 +495,16 @@ def test_reduce_probe_variants_apply_to_the_kernel_source():
     for name, edits in reduce_probe.VARIANTS.items():
         text = build.variant_source("nla_reduce", edits)
         assert (text == source) == (not edits), name
+
+
+def test_apply_probe_variants_apply_to_the_kernel_source():
+    """Every variant of gnot_tpu_torch/apply_probe.py edits lines that the
+    apply kernel's source still has (the probe builds them only on the
+    card)."""
+    from gnot_tpu_torch import apply_probe
+    from gnot_tpu_torch.ops import build
+
+    source = (build.CSRC / "nla_apply.cu").read_text()
+    for name, edits in apply_probe.VARIANTS.items():
+        text = build.variant_source("nla_apply", edits)
+        assert (text == source) == (not edits), name

@@ -624,7 +624,13 @@ def _assert_stage(got, want, tols):
     [(2, 2, 300, 200, 64, 4, 0.0),     # the JAX tool's shapes; ragged L and Lk
      (1, 3, 1000, 333, 256, 8, 0.0),   # full width, Lk not a multiple of 32
      (1, 2, 64, 64, 256, 8, 200.0),    # one head's logits 200 above the others'
-     (2, 1, 40, 17, 48, 3, 0.0)],      # D = 16, E not a multiple of 64
+     (2, 1, 40, 17, 48, 3, 0.0),       # D = 16, E not a multiple of 64
+     # F = 3; the apply's softmax runs every column group of a warp, those
+     # past E on zeros (E = 48: 6 of 8 groups): a ragged last tile, one
+     # whole tile, one row
+     (3, 2, 235, 77, 48, 3, 0.0),
+     (3, 2, 16, 77, 256, 8, 0.0),
+     (3, 1, 1, 77, 256, 8, 0.0)],
 )
 def test_dense_kernels_match_plain_versions_on_card(f, b, l, lk, e, n_head, outlier):
     device = _card()
@@ -641,21 +647,29 @@ def test_dense_kernels_match_plain_versions_on_card(f, b, l, lk, e, n_head, outl
     _assert_stage((kv, ksum), (kv_p, ksum_p), (OUT_TOL, OUT_TOL))
     _assert_stage((out, qs), (out_p, qs_p), (OUT_TOL, TIGHT_TOL))
     assert (out[-1, 0] == 0).all()
+    again = fa.nla_apply(q, kv_p, ksum_p, n_head)  # two launches bitwise equal
+    assert torch.equal(again[0], out) and torch.equal(again[1], qs)
 
 
 @pytest.mark.cuda
-def test_segment_kernels_match_plain_versions_on_card():
+@pytest.mark.parametrize("e,n_head", [(64, 4), (48, 3), (256, 8)])
+def test_segment_kernels_match_plain_versions_on_card(e, n_head):
     device = _card()
-    q, k, v, mask, seg, n_seg = _packed_inputs(2, device)
-    kv, ksum = fa.nla_reduce_seg(k, v, mask, seg, n_seg, 4)
-    kv_p, ksum_p = fa.reduce_seg_reference(k, v, mask, seg, n_seg, 4)
-    out, qs = fa.nla_apply_seg(q, kv_p, ksum_p, seg, 4)
-    out_p, qs_p = fa.apply_seg_reference(q, kv_p, ksum_p, seg, 4)
+    q, k, v, mask, seg, n_seg = _packed_inputs(2, device, e=e)
+    kv, ksum = fa.nla_reduce_seg(k, v, mask, seg, n_seg, n_head)
+    kv_p, ksum_p = fa.reduce_seg_reference(k, v, mask, seg, n_seg, n_head)
+    out, qs = fa.nla_apply_seg(q, kv_p, ksum_p, seg, n_head)
+    out_p, qs_p = fa.apply_seg_reference(q, kv_p, ksum_p, seg, n_head)
     torch.cuda.synchronize()
     _assert_stage((kv, ksum), (kv_p, ksum_p), (OUT_TOL, OUT_TOL))
     _assert_stage((out, qs), (out_p, qs_p), (OUT_TOL, TIGHT_TOL))
     assert (kv[:, 4] == 0).all() and (ksum[:, 4] == 0).all()  # the empty slot
     assert (out[:, 0, 5 * 24 :] == 0).all() and (out[:, 1, 3 * 24 :] == 0).all()  # pad chunks
+    again = fa.nla_apply_seg(q, kv_p, ksum_p, seg, n_head)  # two launches bitwise equal
+    assert torch.equal(again[0], out) and torch.equal(again[1], qs)
+    # The dense form's qs of the same q, bitwise: one softmax in both forms.
+    _, qs_dense = fa.nla_apply(q, *fa.reduce_reference(k, v, mask, n_head), n_head)
+    assert torch.equal(qs_dense, qs)
 
 
 @pytest.mark.cuda
