@@ -121,7 +121,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stale-image control (the kernel against its plain version on the live
    weights after the last step and after one more), host-clock step
    times flat and tree in turns; (d) ``--scan_layers --ffn_impl xla``
-   within rtol 1e-5 of the standard ``xla`` run, 0 kernel launches.
+   within rtol 1e-5 of the standard ``xla`` run, 0 kernel launches;
+11. the observability plane at full width: phase 6's command with
+   ``--telemetry --log_every 1 --metrics_path --trace_path --profile_dir``
+   (under ``build/chip_smoke/obs/``) through the command line's run: every
+   step record with every telemetry key, each ``gate_load/block_i``
+   summing to 1, every record valid under ``obs/events.py``; one
+   ``epoch`` trace per epoch with the train span tree and the "Wrote N
+   spans" line; the profile of epoch 1 holding the FFN kernel's records, 8
+   a step and eval forward; ``run.json`` naming the card; 96 launches
+   (phase 6's count); step losses bitwise phase 6's; the telemetry held
+   against the plain-FFN run of the same flags at phase 6's bars; the
+   synchronizing calls torch reports over the steps between two drains,
+   with and without telemetry, equal; waited-for step times without and
+   with ``--telemetry --log_every 10`` in turns and the device busy share
+   of one step of each; a poisoned sample raising ``FloatingPointError``
+   at epoch 0 with one ``non_finite_loss`` record naming a module; phase
+   4's serving traffic with ``--metrics_path --trace_path``: 16 whole
+   request chains, ``queue_depth`` tokens adding up to the summary's, one
+   valid ``serve_summary``, 2 x ``n_attn_layers`` launches a dispatch.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -139,7 +157,8 @@ over phases 7, 8 (f32, bf16) and 9 (``packed_*``: the packed launch
 shape's time and bound); ``accum_train_launches``,
 ``dispatch_train_launches`` and ``flat_train_launches`` over phase 10's
 ``--grad_accum 2``, ``--steps_per_dispatch 4`` and ``--flat_params``
-runs. Launches
+runs; ``telemetry_train_launches`` and ``telemetry_serve_launches`` over
+phase 11's instrumented training and observed serving runs. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -239,6 +258,18 @@ LOOP_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epoch
              "--batch_size", "4", "--ffn_impl", "pallas", "--device", "cuda"]
 # The stacked layout runs the standard layout's kernels in the same order.
 SCAN_RTOL = 1e-5
+# Phase 11: phase 6's training with the observability plane on (the
+# metrics, trace and profile paths are appended per run, under TRAIN_OUT).
+OBS_FLAGS = ["--telemetry", "--log_every", "1"]
+# The keys of every telemetry step record besides each block's gate stats.
+TELEMETRY_KEYS = ("step", "epoch", "loss", "lr", "grad_norm", "update_norm", "param_norm",
+                  "padding_waste")
+# A gate-load vector is a mean of softmax rows: it sums to 1 but for f32
+# rounding.
+GATE_SUM_ATOL = 1e-5
+# Phase 11's serving run: phase 4's traffic, with a sink and a tracer.
+OBS_SERVE_ARGV = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n_test", "16",
+                  "--serve_max_batch", "4", "--device", "cuda"]
 # Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
 # under the checkout's gitignored build/, emptied first.
 TRAIN_OUT = ROOT / "build" / "chip_smoke"
@@ -599,8 +630,8 @@ def bf16_serving_phase(torch, np, port_main, layers, f32_run, f32_peak_mib, card
     log(f"[serve-bf16] host clock, bf16 vs phase 4's f32 run: dispatch p50 "
         f"{summary['dispatch_ms_p50']:.3f} vs {f32_summary['dispatch_ms_p50']:.3f} ms, max "
         f"{summary['dispatch_ms_max']:.3f} vs {f32_summary['dispatch_ms_max']:.3f} ms; request "
-        f"latency p50 {summary['latency_ms_p50']:.3f} vs {f32_summary['latency_ms_p50']:.3f} ms, "
-        f"p99 {summary['latency_ms_p99']:.3f} vs {f32_summary['latency_ms_p99']:.3f} ms; peak "
+        f"latency p50 {summary['latency_p50_ms']:.3f} vs {f32_summary['latency_p50_ms']:.3f} ms, "
+        f"p99 {summary['latency_p99_ms']:.3f} vs {f32_summary['latency_p99_ms']:.3f} ms; peak "
         f"device memory {peak_mib:.1f} MiB (phase 4: {f32_peak_mib:.1f} MiB)")
     group = run.samples[:4]
     engines = {"bf16": InferenceEngine(run.model, batch_size=4, dtype="bfloat16"),
@@ -1858,6 +1889,352 @@ def training_loop_phase(torch, np, card: str) -> dict[str, int]:
     return counts
 
 
+def run_observed(port_main, argv: list[str]):
+    """``port_main.run`` (the command line's run, with its sink, tracer and
+    manifest) with its console lines captured: (result, lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = port_main.run(argv)
+    return result, out.getvalue().splitlines()
+
+
+def read_jsonl(path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def span_counts(path) -> dict[str, dict[tuple, int]]:
+    """Per trace id of a Chrome trace file: how many spans of each (name,
+    parent's name) it holds."""
+    spans = json.load(open(path))["traceEvents"]
+    by_id = {e["args"]["span_id"]: e for e in spans}
+    out: dict[str, dict[tuple, int]] = {}
+    for e in spans:
+        parent = e["args"].get("parent_id")
+        key = (e["name"], by_id[parent]["name"] if parent else None)
+        counts = out.setdefault(e["args"]["trace_id"], {})
+        counts[key] = counts.get(key, 0) + 1
+    return out
+
+
+def profile_kernel_records(events: list[dict], name: str) -> list[dict]:
+    """The kernel records of ``name`` in a ``torch.profiler`` Chrome trace."""
+    return [e for e in events if "kernel" in str(e.get("cat", "")).lower()
+            and name in str(e.get("name", ""))]
+
+
+def observed_argv(name: str) -> tuple[list[str], Path]:
+    """Phase 6's command with --telemetry --log_every 1 and the metrics,
+    trace and profile paths in ``TRAIN_OUT/obs/<name>``."""
+    d = TRAIN_OUT / "obs" / name
+    return TRAIN_ARGV + OBS_FLAGS + ["--metrics_path", str(d / "m.jsonl"), "--trace_path",
+                                     str(d / "t.json"), "--profile_dir", str(d / "prof")], d
+
+
+def observability_phase(torch, np, card: str, plain_trainer, plain_launches: int) -> dict:
+    """Phase 11: phase 6's training with the observability plane on, through
+    the port's command-line run, the FFN kernel in every instrumented step;
+    then the plane's costs and the NaN watchdog; then phase 4's serving
+    traffic with a sink and a tracer. Returns the FFN kernel's launches over
+    the instrumented training run and the observed serving run."""
+    import shutil
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.models import layers
+    from gnot_tpu_torch.obs import events, tracing
+    from gnot_tpu_torch.obs.telemetry import TelemetryBuffer, adamw_update_norm, global_norm
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.train.trainer import Trainer
+    from gnot_tpu_torch.utils.profiling import trace_path
+
+    shutil.rmtree(TRAIN_OUT / "obs", ignore_errors=True)
+
+    # (1) The instrumented run, the kernel's count set to 0 just before it.
+    argv, out = observed_argv("kernel")
+    fused_gated_ffn_kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer, lines = run_observed(port_main, argv)
+    wall_s = time.perf_counter() - t0
+    launches = fused_gated_ffn_kernel.launches
+    log(f"[obs] python -m gnot_tpu_torch.main {' '.join(argv)}: {wall_s:.2f} s")
+    for line in lines:
+        if line and not line.startswith("USDT"):
+            log(f"[obs]   {line}")
+    check_reference_lines(lines, 2)
+    cfg = trainer.model_cfg
+    n_blocks = cfg.n_attn_layers
+    recs = read_jsonl(out / "m.jsonl")
+    invalid = [(r, p) for r in recs if (p := events.validate_record(r))]
+    steps = [r for r in recs if "grad_norm" in r]
+    keys = set(TELEMETRY_KEYS) | {f"gate_{k}/block_{i}" for k in ("load", "entropy")
+                                  for i in range(n_blocks)}
+    incomplete = [r["step"] for r in steps if not keys <= set(r)]
+    gate_err = max(abs(sum(r[f"gate_load/block_{i}"]) - 1.0)
+                   for r in steps for i in range(n_blocks))
+    kinds = sorted({r.get("event", "step" if "grad_norm" in r else "epoch") for r in recs})
+    log(f"[obs] {len(recs)} records {kinds}: {len(steps)} step records with all "
+        f"{len(keys)} keys ({sorted(keys - set(TELEMETRY_KEYS))[:2]} ...), every record valid "
+        f"{not invalid}; gate_load sums to 1 within {gate_err:.2e} (bar {GATE_SUM_ATOL})")
+    log(f"[obs] step 1 record: {json.dumps({k: v for k, v in steps[0].items() if k != 'ts'})}")
+    if (invalid or incomplete or [r["step"] for r in steps] != list(range(1, trainer.host_step + 1))
+            or gate_err > GATE_SUM_ATOL):
+        raise RuntimeError(f"[obs] bad records: invalid {invalid[:2]}, incomplete {incomplete}, "
+                           f"steps {[r['step'] for r in steps]}, gate sum error {gate_err}")
+    n_steps, n_eval = len(trainer.train_loader), len(trainer.test_loader)
+    want_tree = {("epoch", None): 1, ("data_iter", "epoch"): n_steps, ("step", "epoch"): n_steps,
+                 ("host_to_device", "step"): n_steps, ("step_dispatch", "step"): n_steps,
+                 ("telemetry_drain", "epoch"): 1, ("eval", "epoch"): 1}
+    trees = span_counts(out / "t.json")
+    wrote = [line for line in lines if line.startswith("Wrote ")]
+    n_spans = sum(sum(c.values()) for c in trees.values())
+    log(f"[obs] trace: {len(trees)} epoch traces, each "
+        f"{sorted(f'{n}<{p}:{c}' for (n, p), c in next(iter(trees.values())).items())}; "
+        f"{wrote}")
+    if (len(trees) != 2 or any(t != want_tree for t in trees.values())
+            or wrote != [line for line in wrote if line.startswith(f"Wrote {n_spans} spans to ")]
+            or len(wrote) != 1):
+        raise RuntimeError(f"[obs] the span tree {trees} is not {want_tree}, or {wrote}")
+    prof = json.load(open(trace_path(str(out / "prof"), 1)))["traceEvents"]
+    ffn_records = profile_kernel_records(prof, "fused_gated_ffn")
+    ranges = sum(e.get("name") == "step_dispatch" for e in prof)
+    want_records = 2 * n_blocks * (n_steps + n_eval)
+    log(f"[obs] profile of epoch 1 ({len(prof)} events): {len(ffn_records)} fused_gated_ffn "
+        f"kernel records, expected 2 x {n_blocks} blocks x ({n_steps} steps + {n_eval} eval "
+        f"forwards) = {want_records}; {ranges} step_dispatch ranges from the tracer")
+    if not ffn_records or len(ffn_records) > want_records:
+        raise RuntimeError(f"[obs] the profile holds {len(ffn_records)} FFN kernel records")
+    if len(ffn_records) < want_records:
+        log(f"[profiler] CUPTI kept {len(ffn_records)} records of fused_gated_ffn over "
+            f"{want_records} launches: records lost")
+    manifest = json.load(open(out / "run.json"))
+    log(f"[obs] run.json: kind {manifest['kind']}, devices {manifest['devices']}, versions "
+        f"{manifest['versions']}, compile_cache {manifest['compile_cache']}")
+    if manifest["devices"]["device_kind"] != torch.cuda.get_device_name(0):
+        raise RuntimeError(f"[obs] run.json names {manifest['devices']}")
+
+    # (2) The kernel in every instrumented step: phase 6's count.
+    expect_train_launches(trainer, launches, 2, "obs")
+    if launches != plain_launches:
+        raise RuntimeError(f"[obs] {launches} launches, phase 6 counted {plain_launches}")
+
+    # (3) Telemetry does not change training: phase 6's run, bitwise.
+    got, want = step_losses(np, trainer), step_losses(np, plain_trainer)
+    same = (np.array_equal(got, want) and [r.test_metric for r in trainer.history]
+            == [r.test_metric for r in plain_trainer.history])
+    log(f"[obs] step losses {got.tolist()}: bitwise phase 6's run without the flags {same}")
+    if not same:
+        raise RuntimeError(f"[obs] telemetry changed training: {got} vs {want}")
+
+    # (4) The telemetry values against the same run with every FFN through
+    # the kernel's plain version, at phase 6's bars (an atol for the later
+    # steps' values near 0).
+    plain_argv, plain_out = observed_argv("plain")
+    fused_gated_ffn_kernel.launches = 0
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        run_observed(port_main, plain_argv)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    if fused_gated_ffn_kernel.launches:
+        raise RuntimeError("[obs] the plain-FFN run launched the kernel")
+    plain_steps = [r for r in read_jsonl(plain_out / "m.jsonl") if "grad_norm" in r]
+    worst: dict[str, float] = {}
+    for got_r, want_r in zip(steps, plain_steps, strict=True):
+        rtol, atol = ((MODEL_RTOL, MODEL_ATOL) if got_r["step"] == 1
+                      else (TRAIN_LATER_RTOL, MODEL_ATOL))
+        for key in sorted(keys - {"step", "epoch"}):
+            a, b = np.asarray(got_r[key], np.float64), np.asarray(want_r[key], np.float64)
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                       err_msg=f"[obs] step {got_r['step']} {key}")
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+            base = key.split("/")[0]
+            worst[base] = max(worst.get(base, 0.0), rel)
+    log(f"[obs] telemetry vs the plain-FFN run (0 kernel launches), worst rel per key over "
+        f"{len(steps)} steps: {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} "
+        f"(bars: step 1 rtol {MODEL_RTOL} atol {MODEL_ATOL}; later rtol {TRAIN_LATER_RTOL} "
+        f"atol {MODEL_ATOL})")
+
+    # (5) No host sync added: the synchronizing calls torch reports over the
+    # steps between two drains, with and without telemetry.
+    batches = list(trainer.train_loader)
+
+    def fresh(with_telemetry: bool, log_every: int = 1000):
+        t = fresh_trainer(Trainer, trainer, "pallas")
+        if with_telemetry:
+            t._telemetry = TelemetryBuffer(None, log_every)
+        return t
+
+    def count_syncs(with_telemetry: bool) -> tuple[int, list[str]]:
+        t = fresh(with_telemetry)
+        t._run_single(batches[0], 0, None)  # first use: images, allocator
+        if t._telemetry is not None:
+            t._telemetry.drain()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for b in batches[1:]:
+                    t._run_single(b, 0, None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if t._telemetry is not None and (t._telemetry.drains, len(t._telemetry._entries)) != (
+                1, len(batches) - 1):
+            raise RuntimeError("[obs] the buffer drained between the counted steps")
+        # Torch's own words for a sync it caught (its first use of the mode
+        # also warns that the mode is a prototype: not a sync).
+        msgs = [str(w.message) for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        return len(msgs), msgs[:3]
+
+    syncs = {label: count_syncs(label == "telemetry") for label in ("plain", "telemetry")}
+    log(f"[obs] synchronizing calls over {len(batches) - 1} steps between two drains "
+        f"(torch.cuda.set_sync_debug_mode('warn')): without telemetry {syncs['plain'][0]}, "
+        f"with telemetry {syncs['telemetry'][0]} {syncs['telemetry'][1]}")
+    if syncs["telemetry"][0] != syncs["plain"][0]:
+        raise RuntimeError(f"[obs] telemetry added host syncs: {syncs}")
+
+    # (6) What the plane costs: waited-for steps by the host clock, turns
+    # without / with --telemetry --log_every 10 (no drain inside the 8
+    # steps), and the device busy share of one step of each.
+    def step_ms(with_telemetry: bool) -> float:
+        t = fresh(with_telemetry, log_every=10)
+        times = []
+        for epoch in range(2):
+            t.train_loader.set_epoch(epoch)
+            for b in t.train_loader:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                t._run_single(b, epoch, None)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times[1:])
+
+    times: dict[str, list[float]] = {"plain": [], "telemetry": []}
+    for label in ("plain", "telemetry", "telemetry", "plain"):
+        times[label].append(round(step_ms(label == "telemetry"), 3))
+    busy, host_ops = {}, {}
+    for label in ("plain", "telemetry"):
+        t = fresh(label == "telemetry")
+        t._run_single(batches[0], 0, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            t._run_single(batches[1], 0, None)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        rows = kernel_rows(prof)
+        busy[label] = (sum(r[0] for r in rows), wall_ms, sum(r[1] for r in rows))
+        host_ops[label] = {e.key: (e.self_cpu_time_total / 1e3, e.count)
+                           for e in prof.key_averages()}
+    log(f"[obs] step time, host clock around each waited-for step, median of steps 2..8, "
+        f"turns plain/telemetry/telemetry/plain: without {times['plain']} ms, with --telemetry "
+        f"--log_every 10 {times['telemetry']} ms on {card}")
+    for label, (dev_ms, wall_ms, n) in busy.items():
+        log(f"[obs] one {label} step: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
+            f"({dev_ms / wall_ms:.1%} busy), {n} kernels")
+    plain_ops = host_ops["plain"]
+    grown = sorted(((ms - plain_ops.get(k, (0.0, 0))[0], k, n - plain_ops.get(k, (0.0, 0))[1])
+                    for k, (ms, n) in host_ops["telemetry"].items()), reverse=True)[:8]
+    log(f"[obs] host ops whose self CPU time grew most in the profiled telemetry step (ms, "
+        f"op, calls added): {[(round(d, 3), k[:50], c) for d, k, c in grown]}")
+
+    # Where a telemetry step's extra time goes: each of its reductions
+    # alone on the trainer of a step just taken, host clock around the
+    # waited-for call (median of 20) beside its device time.
+    t = fresh(True)
+    t._run_single(batches[0], 0, None)
+    params = t._opt_params()
+    grads = [p.grad for p in params]
+    scores = torch.softmax(torch.randn(4, 1024, cfg.n_expert, device="cuda"), -1)
+    mask = torch.ones(4, 1024, device="cuda")
+    pieces = {
+        "grad_norm (foreach norm of the gradients)": lambda: global_norm(grads),
+        "update_norm (from AdamW's state)": lambda: adamw_update_norm(t.optimizer),
+        "param_norm": lambda: global_norm(params),
+        "gate_stats (one forward)": lambda: layers.gate_stats(scores, mask),
+    }
+    for name, fn in pieces.items():
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t1) * 1e3)
+        log(f"[obs] {name}: host clock {statistics.median(host):.3f} ms (waited for), device "
+            f"{device_ms(torch, fn, iters=10):.4f} ms, over {len(params)} tensors")
+
+    # (7) The NaN watchdog: one poisoned sample, --telemetry.
+    nan_dir = TRAIN_OUT / "obs" / "nan"
+    nan_argv = TRAIN_ARGV + ["--epochs", "1", "--telemetry", "--metrics_path",
+                             str(nan_dir / "m.jsonl")]
+    load = port_main.datasets.load
+
+    def poisoned(data):
+        train, test = load(data)
+        train[2].coords[0, 0] = float("nan")
+        return train, test
+
+    port_main.datasets.load = poisoned
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            port_main.run(nan_argv)
+    except FloatingPointError as err:
+        message = str(err)
+    else:
+        raise RuntimeError("[obs] the poisoned run did not raise")
+    finally:
+        port_main.datasets.load = load
+    nan_recs = [r for r in read_jsonl(nan_dir / "m.jsonl") if r.get("event") == "non_finite_loss"]
+    log(f"[obs] poisoned run: FloatingPointError({message!r}); records {nan_recs}")
+    if ("epoch 0" not in message or len(nan_recs) != 1 or events.validate_record(nan_recs[0])
+            or not str(nan_recs[0]["detail"]).endswith(": nan")
+            or str(nan_recs[0]["detail"]).startswith("loss")):
+        raise RuntimeError("[obs] the NaN watchdog did not record and name a module")
+
+    # (8) Serving with a sink and a tracer: phase 4's traffic.
+    serve_dir = TRAIN_OUT / "obs" / "serve"
+    serve_argv = OBS_SERVE_ARGV + ["--metrics_path", str(serve_dir / "m.jsonl"),
+                                   "--trace_path", str(serve_dir / "t.json")]
+    fused_gated_ffn_kernel.launches = 0
+    run, serve_lines = run_observed(port_main, serve_argv)
+    serve_launches = fused_gated_ffn_kernel.launches
+    summary = run.summary
+    served = sum(r.ok for r in run.results)
+    serve_recs = read_jsonl(serve_dir / "m.jsonl")
+    invalid = [(r, p) for r in serve_recs if (p := events.validate_record(r))]
+    depth = [r for r in serve_recs if r.get("event") == "queue_depth"]
+    summaries = [r for r in serve_recs if r.get("event") == "serve_summary"]
+    buckets = summary["pad_waste_by_bucket"].values()
+    tokens = [sum(r[k] for r in depth) for k in ("real_tokens", "capacity_tokens")]
+    want_tokens = [sum(b[k] for b in buckets) for k in ("real_tokens", "capacity_tokens")]
+    chains = span_counts(serve_dir / "t.json")
+    full = [t for t, c in chains.items()
+            if sorted(n for n, _ in c) == sorted(tracing.SERVE_SPANS) and sum(c.values()) == 7]
+    dispatches = summary["dispatches"] + summary["warmed_buckets"]
+    log(f"[obs] python -m gnot_tpu_torch.main {' '.join(serve_argv)}: {served}/16 ok, "
+        f"{len(depth)} queue_depth records (tokens {tokens}, summary {want_tokens}), "
+        f"{len(summaries)} serve_summary, every record valid {not invalid}; {len(full)} of "
+        f"{len(chains)} traces hold the whole chain {list(tracing.SERVE_SPANS)}; "
+        f"{[line for line in serve_lines if line.startswith('Wrote ')]}")
+    log(f"[obs] serve_summary: {json.dumps({k: summaries[0][k] for k in events.EVENTS['serve_summary'].fields}) if summaries else None}")
+    log(f"[obs] fused_gated_ffn launches {serve_launches} = 2 x {n_blocks} blocks x {dispatches} "
+        f"dispatches ({summary['dispatches']} served + {summary['warmed_buckets']} warm-up)")
+    if (served != 16 or invalid or len(summaries) != 1 or len(depth) != summary["dispatches"]
+            or tokens != want_tokens or len(full) != 16 or len(chains) != 16
+            or serve_launches != 2 * n_blocks * dispatches):
+        raise RuntimeError("[obs] the observed serving run is not whole")
+    return {"telemetry_train_launches": launches, "telemetry_serve_launches": serve_launches}
+
+
 def main() -> int:
     if not (ROOT / "gnot_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no gnot_tpu_torch package beside {__file__}; "
@@ -2005,8 +2382,8 @@ def main() -> int:
         worst = max(worst, float(np.max(np.abs(r.output - want))))
     log(f"[serve] outputs vs a forward through the kernel's plain version on the card: "
         f"max_abs_err {worst:.3e} (tolerance rtol {MODEL_RTOL} atol {MODEL_ATOL})")
-    log(f"[serve] request latency p50 {summary['latency_ms_p50']:.3f} ms "
-        f"p99 {summary['latency_ms_p99']:.3f} ms; dispatch p50 "
+    log(f"[serve] request latency p50 {summary['latency_p50_ms']:.3f} ms "
+        f"p99 {summary['latency_p99_ms']:.3f} ms; dispatch p50 "
         f"{summary['dispatch_ms_p50']:.3f} ms max {summary['dispatch_ms_max']:.3f} ms "
         f"(host clock); peak device memory {peak_mib:.1f} MiB")
 
@@ -2043,6 +2420,9 @@ def main() -> int:
     # -- phase 10: accumulation, K steps per dispatch, flat and stacked ----
     loop_launches = training_loop_phase(torch, np, card)
 
+    # -- phase 11: telemetry, tracing, the sink and the profile ------------
+    obs_launches = observability_phase(torch, np, card, f32_trainer, train_launches)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -2068,6 +2448,7 @@ def main() -> int:
         "packed_train_launches": packed_train_launches,
         **packed_fields,
         **loop_launches,
+        **obs_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -4,9 +4,9 @@
 field, with the same defaults and the same refusals. ``OptimConfig``
 mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
 keep only the fields ``datasets.load``, the loaders, the single-device
-trainer and the serving path read. ``NotPortedError`` names a part of
-the JAX package the port does not have yet (telemetry, recovery) for
-the code that selects it.
+trainer, its observability plane and the serving path read.
+``NotPortedError`` is the refusal for a value that selects a part of the
+JAX package the port does not have yet.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
-    does not have yet."""
+    does not have yet. ``TelemetryBuffer(metrics=...)`` raises it: the
+    live metrics registry (``obs/metrics.py``) is not ported."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +191,22 @@ class TrainConfig:
     # stacked in pinned memory, one host-to-device copy, the K steps run
     # with no host read between them. Identical to K single steps.
     steps_per_dispatch: int = 1
+    log_every: int = 0  # steps; 0 = per-epoch only
+    metrics_path: str = ""  # JSONL sink; "" = console only
+    # Telemetry and health monitors (obs/): grad / param / update norms,
+    # per-layer gate load and entropy, and padding waste, computed on the
+    # device in each step and fetched once per log_every steps; plus the
+    # slow-step gauge and the NaN watchdog. Off by default: the extra
+    # reductions are extra kernels in every step.
+    telemetry: bool = False
+    profile_dir: str = ""  # torch.profiler trace of one epoch
+    # Host-side span tracing (obs/tracing.py): per-step phase spans when
+    # training, request-lifecycle spans when serving, written as Chrome
+    # trace-event JSON to trace_path. "" = no tracer is built.
+    trace_path: str = ""
+    # Head-sampling rate in [0, 1], decided once per trace (an epoch when
+    # training, a request when serving) by a counter, not an RNG.
+    trace_sample_rate: float = 1.0
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -198,6 +215,11 @@ class TrainConfig:
         if self.steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
+            )
+        if not 0.0 <= self.trace_sample_rate <= 1.0:
+            raise ValueError(
+                f"trace_sample_rate must be in [0, 1], got "
+                f"{self.trace_sample_rate}"
             )
 
 

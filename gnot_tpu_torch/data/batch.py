@@ -63,6 +63,10 @@ class MeshBatch:
     funcs: torch.Tensor | None = None  # [F, B, Lf, df]
     func_mask: torch.Tensor | None = None  # [F, B, Lf]
 
+    @property
+    def n_real_points(self) -> int:
+        return int(self.node_mask.float().sum())
+
     def signature(self) -> tuple:
         """``(shape, dtype)`` of every field: one entry per distinct
         dispatch shape."""

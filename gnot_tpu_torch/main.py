@@ -29,14 +29,31 @@ defaults, so the same command line works in both packages. Two modes:
   ``PackPlan`` derived from that traffic are served packed, the plan
   warmed with one packed dispatch.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Observability (``gnot_tpu/main.py``'s flags, defaults and refusals):
+``--metrics_path`` opens a JSONL ``MetricsSink`` (per-epoch records and
+events; serving's ``shed``, ``queue_depth`` and ``serve_summary``) with a
+``run.json`` manifest beside it, written before the run and again at its
+end; ``--log_every N`` adds a step record every N steps (it needs
+``--metrics_path``); ``--telemetry`` makes those records the device-side
+telemetry (norms, gate load and entropy, padding waste) and turns on the
+slow-step gauge and the NaN watchdog; ``--trace_path`` writes the span
+tracer's Chrome trace at exit (``--trace_sample_rate`` heads-samples
+it); ``--profile_dir`` writes a ``torch.profiler`` trace of one epoch.
+The sink, the trace flush and the manifest sit on one ``ExitStack``, so a
+run that dies (the NaN watchdog raises) still writes its records and
+its trace.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
+pins ``cuda:i``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import sys
 import time
 
 import torch
@@ -55,10 +72,13 @@ from gnot_tpu_torch.data.batch import MeshSample, PackPlan
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
 from gnot_tpu_torch.models.precision import SERVE_DTYPES
+from gnot_tpu_torch.obs import manifest as manifest_lib
+from gnot_tpu_torch.obs.tracing import Tracer
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.server import InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
 from gnot_tpu_torch.train.trainer import Trainer, standard_weights, state_layout
+from gnot_tpu_torch.utils.metrics import MetricsSink
 
 # How long the storm waits for each request, and drain() for stragglers.
 DRAIN_TIMEOUT_S = 30.0
@@ -101,6 +121,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--gelu", type=str, default="", choices=["", "erf", "tanh"],
         help="GELU flavor: erf (torch nn.GELU, the reference op) or tanh "
              "(the standard approximation). Default: tanh (masked mode)",
+    )
+    p.add_argument(
+        "--attention_impl", type=str, default="xla", choices=["xla", "pallas"],
+        help="xla is the only supported impl; the pallas kernel lost the "
+             "honest A/B at every scale and its model dispatch was retired "
+             "(both packages): passing pallas raises",
     )
     p.add_argument(
         "--attention_mode", type=str, default="masked", choices=["masked", "parity"],
@@ -154,6 +180,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", type=str, default="cuda", choices=["cuda", "cpu"],
         help="cuda (default; raises without a card) or cpu",
+    )
+    p.add_argument(
+        "--device_id", type=int, default=-1,
+        help="pin the run to cuda:i (the reference's --gpu_id, main.py:15); "
+             "-1 = the current CUDA device",
+    )
+    p.add_argument("--metrics_path", type=str, default="")
+    p.add_argument(
+        "--log_every", type=int, default=0,
+        help="per-step JSONL metric cadence (0 = per-epoch only; needs --metrics_path)",
+    )
+    p.add_argument(
+        "--telemetry", action="store_true",
+        help="device-side telemetry + health monitors (obs/): grad/param/"
+             "update norms, per-layer gate load/entropy, padding waste "
+             "computed in each step, fetched every --log_every steps "
+             "without per-step host syncs; plus slow-step outliers and the "
+             "NaN watchdog",
+    )
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler Chrome trace of one epoch here")
+    p.add_argument(
+        "--trace_path", type=str, default="",
+        help="host-side structured span tracing (obs/tracing.py): write a "
+             "Chrome trace-event JSON here at exit: request-lifecycle spans "
+             "(admission..resolve) when serving, per-step phase spans "
+             "(data_iter/host_to_device/step_dispatch/...) when training; "
+             "open in chrome://tracing or https://ui.perfetto.dev",
+    )
+    p.add_argument(
+        "--trace_sample_rate", type=float, default=1.0,
+        help="head-based trace sampling rate in [0,1] (decided once per "
+             "request/epoch, deterministically)",
     )
     p.add_argument("--loss", type=str, default="rel_l2", choices=["rel_l2", "mse"])
     p.add_argument("--schedule", type=str, default="parity", choices=["parity", "per_step"],
@@ -251,6 +310,12 @@ def train_config(args) -> Config:
             resume=args.resume,
             checkpoint_every=args.checkpoint_every,
             steps_per_dispatch=args.steps_per_dispatch,
+            log_every=args.log_every,
+            metrics_path=args.metrics_path,
+            telemetry=args.telemetry,
+            profile_dir=args.profile_dir,
+            trace_path=args.trace_path,
+            trace_sample_rate=args.trace_sample_rate,
             seed=args.seed,
         ),
     )
@@ -280,12 +345,53 @@ def model_config(args, samples: list[MeshSample]) -> ModelConfig:
         n_expert=args.n_expert,
         n_head=args.n_head,
         attention_mode=args.attention_mode,
+        attention_impl=args.attention_impl,
         ffn_impl=args.ffn_impl,
         gelu=args.gelu,
         dtype=args.dtype,
         remat=args.remat,
         scan_layers=args.scan_layers,
     )
+
+
+def run_device(args) -> torch.device:
+    """The run's device: ``--device``, or ``cuda:i`` with ``--device_id i``
+    (then also torch's current CUDA device, which the kernels launch on)."""
+    if args.device_id < 0:
+        return resolve_device(args.device)
+    if args.device == "cpu":
+        raise ValueError("--device_id pins a CUDA device; drop --device cpu")
+    device = resolve_device(f"cuda:{args.device_id}")
+    if args.device_id >= torch.cuda.device_count():
+        raise ValueError(
+            f"--device_id {args.device_id} out of range: "
+            f"{torch.cuda.device_count()} device(s) visible"
+        )
+    torch.cuda.set_device(device)
+    return device
+
+
+@dataclasses.dataclass
+class RunManifest:
+    """The run's ``run.json`` beside ``--metrics_path``
+    (``obs/manifest.py``), rewritten whole with what each ``write`` adds:
+    the first write, before the run, fixes its path."""
+
+    args: argparse.Namespace
+    argv: list[str]
+    path: str = ""
+    fields: dict = dataclasses.field(default_factory=dict)
+
+    def write(self, **fields) -> None:
+        self.fields.update(fields)
+        if not self.path:
+            self.path = manifest_lib.manifest_path_for(self.args.metrics_path)
+        extra = {"metrics_path": self.args.metrics_path,
+                 "kind": self.fields.get("kind"), "restore": self.fields.get("restore")}
+        manifest_lib.write_manifest(
+            self.path, argv=self.argv, extra=extra,
+            **{k: self.fields.get(k) for k in ("config", "model_config", "device")},
+        )
 
 
 def param_layout(args) -> str:
@@ -331,19 +437,25 @@ def restore_for_serving(model: GNOT, checkpoint_dir: str, layout: str = "standar
     return ""
 
 
-def run_serve(args) -> ServeRun:
+def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = None) -> ServeRun:
     """``--serve``: build the model on the chosen device with the weights
     of ``--checkpoint_dir`` (else from ``--seed``), start the server with
     one warm-up dispatch per bucket (and, with ``--serve_packed``, one
     packed dispatch of the plan derived from the traffic), submit the test split of
     ``datasets.load`` as requests, wait for every future, drain, and
-    report."""
-    device = resolve_device(args.device)
+    report. The server writes its events to ``sink`` and its request
+    spans to ``tracer`` when given."""
+    device = run_device(args)
     data, sc = configs_from_args(args)
     train_samples, samples = datasets.load(data)
     gen = torch.Generator().manual_seed(args.seed)
-    model = GNOT(model_config(args, train_samples), generator=gen).to(device)
+    mc = model_config(args, train_samples)
+    if manifest is not None:
+        manifest.write(config=train_config(args), model_config=mc, device=device, kind="serve")
+    model = GNOT(mc, generator=gen).to(device)
     restored = restore_for_serving(model, args.checkpoint_dir, param_layout(args))
+    if manifest is not None:
+        manifest.write(restore=restored or None)
     engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
     # itself, the samples about to be served.
@@ -358,6 +470,8 @@ def run_serve(args) -> ServeRun:
         max_wait_ms=sc.max_wait_ms,
         queue_limit=sc.queue_limit,
         pack_plan=pack_plan,
+        sink=sink,
+        tracer=tracer,
     )
     t0 = time.monotonic()
     server.start(warmup=samples)
@@ -374,14 +488,15 @@ def run_serve(args) -> ServeRun:
     return ServeRun(summary, results, samples, model, pack_plan)
 
 
-def run_train(args) -> Trainer:
+def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = None) -> Trainer:
     """Training (no ``--serve``): load the splits, build the trainer on
     the chosen device with weights from ``--seed``, fit (or with
     ``--eval_only`` evaluate the best checkpoint), then export and
     predict as asked (``gnot_tpu/main.py``). Returns the trainer: its
     ``best_metric`` (with ``--eval_only``, the metric just evaluated),
-    ``history`` and model."""
-    device = resolve_device(args.device)
+    ``history`` and model. The trainer writes its records to ``sink``
+    and its spans to ``tracer`` when given."""
+    device = run_device(args)
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
     mc = model_config(args, train_samples)
@@ -389,11 +504,18 @@ def run_train(args) -> Trainer:
         Checkpointer(cfg.train.checkpoint_dir, extra_meta={"flat_params": args.flat_params})
         if cfg.train.checkpoint_dir else None
     )
-    trainer = Trainer(cfg, mc, train_samples, test_samples,
-                      checkpointer=checkpointer, device=device)
+    trainer = Trainer(cfg, mc, train_samples, test_samples, checkpointer=checkpointer,
+                      device=device, metrics_sink=sink, tracer=tracer)
+    if manifest is not None:
+        # Before any step: a run that dies keeps its provenance.
+        manifest.write(config=cfg, model_config=mc, device=device,
+                       kind="eval" if args.eval_only else "train")
     if args.eval_only:
         trainer.best_metric = trainer.evaluate_from_checkpoint()
     else:
+        trainer.initialize()
+        if manifest is not None and trainer.start_epoch:
+            manifest.write(restore={"name": "latest", "epoch": trainer.start_epoch})
         trainer.fit()
     if (args.export_torch or args.predict_out) and not args.eval_only:
         # The artifacts of the reported best metric, not of the last epoch.
@@ -416,16 +538,54 @@ def run_train(args) -> Trainer:
     return trainer
 
 
+def run(argv: list[str] | None = None) -> Trainer | ServeRun:
+    """The command line's run: the trainer of a training (or eval) run,
+    or the ``ServeRun`` of ``--serve`` after printing its summary line.
+    The metrics sink, the tracer's flush and the manifest's last write sit
+    on one ``ExitStack``: a run that raises still leaves its records,
+    trace and provenance (``gnot_tpu/main.py``)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.log_every and not args.metrics_path:
+        parser.error("--log_every needs --metrics_path (step records are JSONL-only)")
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    with contextlib.ExitStack() as stack:
+        sink = stack.enter_context(MetricsSink(args.metrics_path)) if args.metrics_path else None
+        tracer = None
+        if args.trace_path:
+            # annotate under --profile_dir: each span is also a profiler
+            # range, so host phases line up with the kernels.
+            tracer = Tracer(path=args.trace_path, sample_rate=args.trace_sample_rate,
+                            annotate=bool(args.profile_dir))
+
+            # After the sink's enter_context: unwinding flushes the trace
+            # (and writes its trace_flush event) before the sink closes.
+            def flush_trace(t=tracer):
+                path = t.flush(sink=sink)
+                print(f"Wrote {len(t.snapshot())} spans to {path} (open in "
+                      "chrome://tracing / https://ui.perfetto.dev; summarize with "
+                      "tools/trace_report.py)")
+
+            stack.callback(flush_trace)
+        manifest = None
+        if args.metrics_path:
+            manifest = RunManifest(args, argv)
+            stack.callback(lambda: manifest.path and manifest.write())
+        if not args.serve:
+            return run_train(args, sink=sink, tracer=tracer, manifest=manifest)
+        result = run_serve(args, sink=sink, tracer=tracer, manifest=manifest)
+    print(json.dumps({"serve_summary": result.summary}))
+    return result
+
+
 def main(argv: list[str] | None = None) -> float:
     """Trains (or evaluates) and returns the best (or evaluated) test
     metric, or with ``--serve`` serves and returns the share of requests
     answered."""
-    args = build_parser().parse_args(argv)
-    if not args.serve:
-        return run_train(args).best_metric
-    run = run_serve(args)
-    print(json.dumps({"serve_summary": run.summary}))
-    return run.summary["completed"] / max(1, run.summary["requests"])
+    result = run(argv)
+    if isinstance(result, Trainer):
+        return result.best_metric
+    return result.summary["completed"] / max(1, result.summary["requests"])
 
 
 if __name__ == "__main__":

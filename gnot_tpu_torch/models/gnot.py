@@ -55,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gnot_tpu_torch.config import ModelConfig
 from gnot_tpu_torch.data.batch import PackedBatch
-from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp
+from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp, gate_stats
 from gnot_tpu_torch.models.precision import torch_dtype
 from gnot_tpu_torch.ops.attention import segment_one_hot
 
@@ -249,20 +249,34 @@ class GNOT(nn.Module):
         node_seg: torch.Tensor | None = None,
         func_seg: torch.Tensor | None = None,
         n_seg: int = 0,
+        gates: dict[str, torch.Tensor] | None = None,
     ) -> torch.Tensor:
+        """The model's output ``[B, L, out_dim]``. A ``gates`` dict is
+        filled with each block's gate health (``layers.gate_stats`` of the
+        scores under the node mask the blocks see), under
+        ``gate_load/block_{i}`` and ``gate_entropy/block_{i}``, the keys the
+        JAX model sows. The stats are taken here, outside ``run_block``,
+        so a remat block run again in the backward records nothing twice;
+        every block reads the one shared gate, so one computation serves
+        them all."""
         scores, query, funcs, kw = self.embed(
             coords, theta, input_functions, node_mask=node_mask, func_mask=func_mask,
             node_seg=node_seg, func_seg=func_seg, n_seg=n_seg,
         )
+        stats = gate_stats(scores, kw["node_mask"]) if gates is not None else None
         for i in range(self.config.n_attn_layers):
+            if stats is not None:
+                for key, value in stats.items():
+                    gates[f"{key}/block_{i}"] = value
             query = self.run_block(getattr(self, f"block_{i}"), scores, query, funcs, kw)
         return self.head(query)
 
 
-def apply_batch(model: GNOT, batch) -> torch.Tensor:
+def apply_batch(model: GNOT, batch, gates: dict | None = None) -> torch.Tensor:
     """The one forward invocation of training, eval and serving
     (``gnot_tpu/train/trainer.py::apply_batch``): a ``PackedBatch`` takes
-    the packed layout."""
+    the packed layout. ``gates`` (the standard forward of a ``MeshBatch``
+    only) collects the gate stats (``GNOT.forward``)."""
     if isinstance(batch, PackedBatch):
         return model(
             batch.coords,
@@ -280,4 +294,5 @@ def apply_batch(model: GNOT, batch) -> torch.Tensor:
         batch.funcs,
         node_mask=batch.node_mask,
         func_mask=batch.func_mask,
+        **({"gates": gates} if gates is not None else {}),
     )

@@ -53,6 +53,24 @@ def _promoted(dtype: torch.dtype | None, *tensors: torch.Tensor) -> list[torch.T
     return [t.to(dtype) for t in tensors]
 
 
+@torch.no_grad()
+def gate_stats(scores: torch.Tensor, mask: torch.Tensor | None) -> dict[str, torch.Tensor]:
+    """Gate-health scalars of one layer's geometry-gating ``scores``
+    ``[B, L, E]`` (``gnot_tpu/models/layers.py::gate_stats``): the
+    per-expert load fractions ``[E]`` (masked token mean: a collapsed
+    gate shows one expert's load near 1) and the mean per-token gate
+    entropy in nats (uniform gating gives log E, collapse 0). f32
+    reductions; ``mask=None`` (parity mode) averages every token."""
+    s = scores.float()
+    ent = -torch.sum(s * torch.log(torch.clamp(s, min=1e-20)), dim=-1)  # [B, L]
+    if mask is None:
+        return {"gate_load": s.mean(dim=(0, 1)), "gate_entropy": ent.mean()}
+    m = mask.float()
+    denom = torch.clamp(m.sum(), min=1.0)
+    load = torch.einsum("ble,bl->e", s, m) / denom
+    return {"gate_load": load, "gate_entropy": torch.sum(ent * m) / denom}
+
+
 class Dense(nn.Module):
     """``x @ kernel + bias`` with the flax ``Dense`` layout, computed in
     ``dtype``."""

@@ -119,6 +119,21 @@ class InferenceEngine:
         with torch.inference_mode():
             return apply_batch(model, batch).cpu().numpy()
 
+    def _timed(self, timings: dict | None, clock, batch, cut) -> list[np.ndarray]:
+        """Forward ``batch`` and ``cut`` its output per request; with a
+        ``timings`` dict, stamp the ``device`` (forward and copy to the
+        host) and ``unpad`` phases on ``clock`` (the JAX engine's phase
+        stamps, which the server's request spans read)."""
+        if timings is None:
+            return cut(self._forward(self.model, batch))
+        t1 = clock()
+        out = self._forward(self.model, batch)
+        t2 = clock()
+        outs = cut(out)
+        timings["device"] = (t1, t2)
+        timings["unpad"] = (t2, clock())
+        return outs
+
     # -- the serving hot path ----------------------------------------------
 
     def infer(
@@ -128,13 +143,18 @@ class InferenceEngine:
         pad_nodes: int,
         pad_funcs: int,
         rows: int | None = None,
+        timings: dict | None = None,
+        clock=None,
     ) -> list[np.ndarray]:
         """ONE dispatch at the static shape ``(rows, pad_nodes,
         pad_funcs)``; returns per-sample UNPADDED outputs ``[n_i, out]``.
-        Callers (the server) validate and bucket upstream."""
+        Callers (the server) validate and bucket upstream. A ``timings``
+        dict gets the ``batch_assembly``, ``device`` and ``unpad`` phases
+        as ``(start, end)`` on ``clock``."""
         reqs = list(samples)
         if not reqs:
             return []
+        t0 = clock() if timings is not None else None
         rows = rows or self.batch_size
         if len(reqs) > rows:
             raise ValueError(
@@ -149,10 +169,10 @@ class InferenceEngine:
             dtype=self.dtype,
         )
         self._note_shape(batch)
-        out = self._forward(self.model, batch)
-        return unpad_rows_numpy(
-            out, [(i, 0, s.coords.shape[0]) for i, s in enumerate(reqs)]
-        )
+        if timings is not None:
+            timings["batch_assembly"] = (t0, clock())
+        return self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+            out, [(i, 0, s.coords.shape[0]) for i, s in enumerate(reqs)]))
 
     def warmup(
         self, samples: Sequence[MeshSample], *, rows: int | None = None
@@ -175,15 +195,19 @@ class InferenceEngine:
         plan: PackPlan,
         *,
         placements: Sequence[tuple[int, int]] | None = None,
+        timings: dict | None = None,
+        clock=None,
     ) -> list[np.ndarray]:
         """ONE dispatch of ``samples`` packed into ``plan``'s fixed shape
         (first-fit prefix placements unless given), in the serving dtype;
         returns per-request outputs ``[n_i, out]``, each cut from its own
         segment. Every sample must fit: the server's batcher cuts
-        dispatches to the packable prefix."""
+        dispatches to the packable prefix. ``timings`` / ``clock`` as in
+        ``infer``."""
         reqs = list(samples)
         if not reqs:
             return []
+        t0 = clock() if timings is not None else None
         if placements is None:
             placements = pack_prefix([s.coords.shape[0] for s in reqs], plan)
         if len(placements) != len(reqs):
@@ -198,10 +222,10 @@ class InferenceEngine:
             device=self.device, dtype=self.dtype,
         )
         self._note_shape(batch)
-        out = self._forward(self.model, batch)
-        return unpad_rows_numpy(
-            out, [(r, off, s.coords.shape[0]) for s, (r, off) in zip(reqs, placements)]
-        )
+        if timings is not None:
+            timings["batch_assembly"] = (t0, clock())
+        return self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+            out, [(r, off, s.coords.shape[0]) for s, (r, off) in zip(reqs, placements)]))
 
     def warmup_packed(self, samples: Sequence[MeshSample], plan: PackPlan) -> int:
         """One packed dispatch of the first sample that fits ``plan``

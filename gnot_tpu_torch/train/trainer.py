@@ -52,6 +52,23 @@ The rest of the JAX loop's single-device options:
 * ``ModelConfig(scan_layers=True)``: the stacked-layer layout
   (``parallel/pipeline.py::StackedGNOT``).
 
+The observability plane (``gnot_tpu/train/trainer.py``'s hooks), each
+piece off unless asked for:
+
+* ``TrainConfig(telemetry=True)``: every micro-step also fills a dict of
+  device scalars (``obs/telemetry.py``) that a ``TelemetryBuffer`` fetches
+  once per ``log_every`` steps and at epoch end, and writes as step
+  records; the slow-step gauge and the NaN watchdog read each drained
+  window. Off, the step runs exactly the ops it ran before.
+* ``log_every`` without telemetry: a ``{step, epoch, loss, lr}`` record
+  every ``log_every`` steps, one host read of the loss each.
+* a ``metrics_sink``: the per-epoch record, the events.
+* a ``tracer`` (``obs/tracing.py``): one trace per epoch, an ``epoch``
+  root with ``data_iter``, ``step`` (``host_to_device``,
+  ``step_dispatch``), ``telemetry_drain``, ``eval`` and
+  ``checkpoint_save`` spans.
+* ``profile_dir``: a ``torch.profiler`` trace of epoch ``trace_at``.
+
 ``standard_params()`` gives the weights in the standard layout whatever
 the trainer holds; checkpoints keep the trainer's own layout, and
 ``convert_flat_state`` / ``pipeline.convert_state_layout`` move a whole
@@ -60,10 +77,12 @@ training state between layouts.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
 import math
+import time
 from typing import Callable, Iterable, Iterator, Mapping
 
 import numpy as np
@@ -79,6 +98,8 @@ from gnot_tpu_torch.config import (
 from gnot_tpu_torch.data.batch import Loader, MeshBatch, PackedBatch, PackedLoader
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
+from gnot_tpu_torch.obs import events, health
+from gnot_tpu_torch.obs import telemetry as obs_telemetry
 from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES
 from gnot_tpu_torch.parallel.pipeline import (
     StackedGNOT,
@@ -88,6 +109,7 @@ from gnot_tpu_torch.parallel.pipeline import (
 )
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.train.schedule import make_lr_fn
+from gnot_tpu_torch.utils import profiling
 
 
 def make_optimizer(cfg: OptimConfig, params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
@@ -121,12 +143,14 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
 
 
-def batch_loss(model: GNOT, batch: MeshBatch | PackedBatch, loss_name: str) -> torch.Tensor:
+def batch_loss(model: GNOT, batch: MeshBatch | PackedBatch, loss_name: str,
+               gates: dict | None = None) -> torch.Tensor:
     """Forward + per-graph pooled loss, always masked, parity mode
     included: the reference unpads before pooling (main.py:89). A
     ``PackedBatch`` pools per segment, the mean over the samples present
-    in the dispatch (``packed_loss_fn``)."""
-    preds = apply_batch(model, batch)
+    in the dispatch (``packed_loss_fn``). ``gates`` collects the standard
+    forward's gate stats (``GNOT.forward``)."""
+    preds = apply_batch(model, batch, gates)
     if isinstance(batch, PackedBatch):
         return PACKED_LOSSES[loss_name](preds, batch.y, batch.node_mask, batch.node_seg,
                                         batch.n_seg)
@@ -387,12 +411,24 @@ class Trainer:
         *,
         checkpointer=None,
         device: torch.device | str = "cuda",
+        metrics_sink=None,
+        tracer=None,
     ):
         # First, so TF32 stays off before any weight reaches the card.
         self.device = resolve_device(str(device))
         self.config = config
         self.model_cfg = model_cfg
         self.checkpointer = checkpointer
+        # utils.metrics.MetricsSink or None; obs.tracing.Tracer or None.
+        # Every span is host-side, around the step, never inside it.
+        self.metrics_sink = metrics_sink
+        self._tracer = tracer
+        # The TelemetryBuffer of a telemetry run, made by fit().
+        self._telemetry: obs_telemetry.TelemetryBuffer | None = None
+        # JAX's flat, packed and stacked layouts run an overridden forward
+        # whose telemetry has no gate stats; the port gives the same keys.
+        self._gate_telemetry = not (config.optim.flat_params or config.data.packed
+                                    or model_cfg.scan_layers)
         refuse_compositions(config, model_cfg)
         # Batches for the card are page-locked on the prefetch thread, so
         # each step's copy neither blocks the host nor drains the stream.
@@ -528,42 +564,61 @@ class Trainer:
         model.load_state_dict(params, assign=True)
         return model
 
-    def train_step(self, batch: MeshBatch, lr: float) -> torch.Tensor:
+    def train_step(self, batch: MeshBatch, lr: float, telem: dict | None = None) -> torch.Tensor:
         """One micro-step on a host batch at learning rate ``lr``: with
         ``grad_accum`` 1 an AdamW update, else the gradient folded into the
         window's mean and, on the window's last micro-step, one update on
         the mean. Returns the loss as a device scalar; nothing waits for
-        the card."""
-        return self._step(batch.to(self.device, non_blocking=True), lr)
+        the card. A ``telem`` dict gets the step's telemetry."""
+        return self._step(batch.to(self.device, non_blocking=True), lr, telem)
 
-    def multi_train_step(self, batches, lrs: list[float]) -> torch.Tensor:
+    def multi_train_step(self, batches, lrs: list[float], telem: dict | None = None) -> torch.Tensor:
         """``len(lrs)`` micro-steps over a ``stack_batches`` result, the
         i-th on batch i at ``lrs[i]``, after one host-to-device copy and
         with no host read between them. Returns their ``[K]`` losses as one
         device tensor. The same steps, in the same order, as K
-        ``train_step`` calls (``make_multi_train_step``)."""
-        device_batches = batches.to(self.device, non_blocking=True)
-        return torch.stack(
-            [self._step(batch_at(device_batches, i), lr) for i, lr in enumerate(lrs)])
+        ``train_step`` calls (``make_multi_train_step``). A ``telem`` dict
+        gets each telemetry key stacked over the K steps."""
+        return self._multi_step(batches.to(self.device, non_blocking=True), lrs, telem)
 
-    def _step(self, batch, lr: float) -> torch.Tensor:
+    def _multi_step(self, device_batches, lrs: list[float], telem: dict | None) -> torch.Tensor:
+        steps = [{} if telem is not None else None for _ in lrs]
+        losses = torch.stack([self._step(batch_at(device_batches, i), lr, steps[i])
+                              for i, lr in enumerate(lrs)])
+        if telem is not None:
+            telem.update({k: torch.stack([t[k] for t in steps]) for k in steps[0]})
+        return losses
+
+    def _step(self, batch, lr: float, telem: dict | None = None) -> torch.Tensor:
+        """One micro-step on a device batch. A ``telem`` dict is filled
+        with the step's telemetry (``obs/telemetry.py``), device scalars
+        that read what the step holds and change none of it."""
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         if self.flat is not None:
             self.flat.zero_grad()
         else:
             self.optimizer.zero_grad(set_to_none=True)
-        loss = batch_loss(self.model, batch, self.config.train.loss)
+        gates = {} if telem is not None and self._gate_telemetry else None
+        loss = batch_loss(self.model, batch, self.config.train.loss, gates)
         loss.backward()
-        self._update()
+        if telem is None:
+            self._update()
+        else:
+            params = self._opt_params()
+            grad_norm = obs_telemetry.global_norm([p.grad for p in params])
+            update_norm = self._update(measure=True)
+            telem.update(obs_telemetry.instrument(gates, grad_norm, update_norm, params, batch))
         self.host_step += 1
         return loss.detach()
 
     @torch.no_grad()
-    def _update(self) -> None:
+    def _update(self, measure: bool = False) -> torch.Tensor | None:
         """The optimizer transform on this micro-step's gradients:
         ``optax.MultiSteps`` around clipping and AdamW, as the JAX
-        ``make_optimizer`` chains them."""
+        ``make_optimizer`` chains them. With ``measure``, returns the
+        global norm of the update it applied (0 on a micro-step that only
+        accumulates)."""
         optim = self.config.optim
         params = self.optimizer.param_groups[0]["params"]
         grads = [p.grad for p in params]
@@ -573,7 +628,7 @@ class Trainer:
             torch._foreach_add_(self.acc, delta)
             if self.mini_step < optim.grad_accum - 1:
                 self.mini_step += 1
-                return
+                return torch.zeros((), device=self.device) if measure else None
             for g, acc in zip(grads, self.acc):
                 g.copy_(acc)
         if optim.grad_clip_norm > 0:
@@ -583,6 +638,7 @@ class Trainer:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
             self.gradient_step += 1
+        return obs_telemetry.adamw_update_norm(self.optimizer) if measure else None
 
     @torch.no_grad()
     def eval_step(self, batch: MeshBatch) -> torch.Tensor:
@@ -620,43 +676,170 @@ class Trainer:
         ]
         return float(np.mean(torch.cat(metrics).cpu().numpy()))  # the one host sync
 
-    def run_epoch(self, epoch: int) -> EpochRecord:
+    def _tspan(self, trace, name: str, **args):
+        """One train-phase span under the epoch's trace; a null context
+        when tracing is off or the epoch was sampled out."""
+        if self._tracer is None or trace is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, trace=trace, args=args or None)
+
+    def run_epoch(self, epoch: int, trace_at: int = -1) -> EpochRecord:
         """One epoch: the train steps (``steps_per_dispatch`` at a time),
         the reference's console lines, eval, best-metric selection and the
-        checkpoint saves."""
+        checkpoint saves; profiled when ``epoch == trace_at`` and
+        ``profile_dir`` is set. With a tracer the epoch is one trace, head
+        sampled here, under an ``epoch`` root span."""
+        trace = self._tracer.start_trace() if self._tracer is not None else None
+        with self._tspan(trace, "epoch", epoch=epoch):
+            return self._run_epoch(epoch, trace_at, trace)
+
+    def _run_epoch(self, epoch: int, trace_at: int, trace) -> EpochRecord:
         cfg = self.config
         # The shuffle order is a function of (seed, epoch): a resumed run
         # replays the continuous run's batches.
         self.train_loader.set_epoch(epoch)
-        losses = []
-        for kind, item in self._groups(self.train_loader):
-            if kind == "group":
-                lrs = [self.lr_fn(self.host_step + i, epoch) for i in range(len(item))]
-                losses.append(self.multi_train_step(self._stacked(item), lrs))
-            else:
-                losses.append(self.train_step(item, self.lr_fn(self.host_step, epoch)).reshape(1))
-        step_losses = (
-            torch.cat(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
-        )  # the epoch's one host sync for the train losses
-        train_loss = float(np.mean(step_losses)) if losses else float("nan")
-        # The reference's console lines (main.py:105,147-148).
-        print(f"Epoch {epoch}, Loss: {train_loss}")
-        res = self.evaluate()
+        t0 = time.perf_counter()
+        losses, points = [], 0
+        with profiling.trace_epoch(cfg.train.profile_dir, epoch, trace_at=trace_at):
+            with profiling.annotate("train_epoch"):
+                batches = self._groups(self.train_loader)
+                if trace is not None:
+                    # data_iter: the time spent waiting on the loader.
+                    batches = self._tracer.timed_iter(batches, "data_iter", trace=trace)
+                for kind, item in batches:
+                    if kind == "group":
+                        points += sum(b.n_real_points for b in item)
+                        losses.append(self._run_group(item, epoch, trace))
+                    else:
+                        points += item.n_real_points
+                        losses.append(self._run_single(item, epoch, trace))
+                if self._telemetry is not None:
+                    # The partial window, before eval: the NaN watchdog
+                    # must fire before eval spends a pass on a dead run.
+                    with self._tspan(trace, "telemetry_drain"):
+                        self._telemetry.drain()
+            step_losses = (
+                torch.cat(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+            )  # the epoch's one host sync for the train losses
+            train_loss = float(np.mean(step_losses)) if losses else float("nan")
+            dt = time.perf_counter() - t0
+            # The reference's console lines (main.py:105,147-148).
+            print(f"Epoch {epoch}, Loss: {train_loss}")
+            with profiling.annotate("eval_epoch"), self._tspan(trace, "eval"):
+                res = self.evaluate()
         print(f"Epoch {epoch}, Test Metric: {res}")
         print("-----------------------------------")
         record = EpochRecord(epoch, step_losses, train_loss, res)
         self.history.append(record)
+        if self.metrics_sink is not None:
+            self.metrics_sink.log(
+                epoch=epoch,
+                train_loss=train_loss,
+                test_metric=res,  # the sink writes a non-finite value as null
+                lr=self.lr_fn(self.host_step, epoch),
+                points_per_sec=points / dt,
+                epoch_seconds=dt,
+            )
         if res < self.best_metric:
             self.best_metric = res
             if self.checkpointer is not None:
-                self.checkpointer.save_best(self.state_dict(), epoch, self.best_metric)
+                with self._tspan(trace, "checkpoint_save", which="best"):
+                    self.checkpointer.save_best(self.state_dict(), epoch, self.best_metric)
         if (
             self.checkpointer is not None
             and cfg.train.checkpoint_every
             and (epoch + 1) % cfg.train.checkpoint_every == 0
         ):
-            self.checkpointer.save_latest(self.state_dict(), epoch + 1, self.best_metric)
+            with self._tspan(trace, "checkpoint_save", which="latest"):
+                self.checkpointer.save_latest(self.state_dict(), epoch + 1, self.best_metric)
         return record
+
+    def _run_single(self, batch, epoch: int, trace) -> torch.Tensor:
+        """One step on a host batch with its spans, its telemetry or its
+        ``log_every`` record; returns its loss as a ``[1]`` device tensor."""
+        cfg = self.config
+        lr = self.lr_fn(self.host_step, epoch)
+        telem = {} if self._telemetry is not None else None
+        with self._tspan(trace, "step", step=self.host_step + 1) as sp:
+            with self._tspan(trace, "host_to_device"):
+                device_batch = batch.to(self.device, non_blocking=True)
+            with self._tspan(trace, "step_dispatch"):
+                loss = self._step(device_batch, lr, telem)
+        if self._telemetry is not None:
+            # Device tensors only: the buffer reads them at its drains.
+            self._telemetry.append(
+                steps=[self.host_step], epoch=epoch, lrs=[lr], loss=loss,
+                telem=telem, batches=[batch],
+                span_ids=[sp.span_id if sp is not None else None],
+            )
+        elif (
+            self.metrics_sink is not None
+            and cfg.train.log_every
+            and self.host_step % cfg.train.log_every == 0
+        ):
+            # float(loss) waits for the step: step records without
+            # telemetry are meant for coarse cadences.
+            self.metrics_sink.log(step=self.host_step, epoch=epoch, loss=float(loss), lr=lr)
+        return loss.reshape(1)
+
+    def _run_group(self, group: list, epoch: int, trace) -> torch.Tensor:
+        """One dispatch of ``len(group)`` steps (``multi_train_step``) with
+        its spans, telemetry or records; returns the ``[K]`` losses."""
+        cfg = self.config
+        start = self.host_step
+        lrs = [self.lr_fn(start + i, epoch) for i in range(len(group))]
+        telem = {} if self._telemetry is not None else None
+        with self._tspan(trace, "step", step=start + 1, k=len(group)) as sp:
+            with self._tspan(trace, "host_to_device"):
+                device_batches = self._stacked(group).to(self.device, non_blocking=True)
+            with self._tspan(trace, "step_dispatch"):
+                loss_k = self._multi_step(device_batches, lrs, telem)
+        if self._telemetry is not None:
+            # One stacked entry for the K steps; the drain unstacks it.
+            self._telemetry.append(
+                steps=list(range(start + 1, self.host_step + 1)), epoch=epoch,
+                lrs=lrs, loss=loss_k, telem=telem, batches=group,
+                span_ids=[sp.span_id if sp is not None else None] * len(group),
+            )
+        elif self.metrics_sink is not None and cfg.train.log_every:
+            host_lk = None
+            for i in range(len(group)):
+                if (start + i + 1) % cfg.train.log_every == 0:
+                    if host_lk is None:
+                        host_lk = loss_k.cpu().numpy()  # one sync for the group
+                    self.metrics_sink.log(step=start + i + 1, epoch=epoch,
+                                          loss=float(host_lk[i]), lr=lrs[i])
+        return loss_k
+
+    def _abort_nonfinite(self, step: int, epoch: int, loss: float, batch) -> None:
+        """The NaN watchdog (``TelemetryBuffer``'s ``on_nonfinite``): name
+        the first module whose output is non-finite in a re-run of the
+        offending host batch on the current weights, record the event,
+        flush, and stop the run (``gnot_tpu/train/trainer.py::_abort_nonfinite``;
+        no recovery supervisor is ported)."""
+        detail = None
+        if batch is not None:
+            loss_name = self.config.train.loss
+            detail = health.localize_nan(
+                self.model,
+                lambda b: batch_loss(self.model, b.to(self.device), loss_name),
+                batch,
+            )
+        if self.metrics_sink is not None:
+            self.metrics_sink.log(event=events.NON_FINITE_LOSS, step=step, epoch=epoch,
+                                  loss=loss, detail=detail)
+            self.metrics_sink.flush()
+        raise FloatingPointError(
+            f"non-finite train loss at epoch {epoch}, step {step}"
+            + (
+                f" (first non-finite module output: {detail})"
+                if detail
+                else " (the re-run did not reproduce it: the bad value predates "
+                     "this step's forward)"
+                if batch is not None
+                else ""
+            )
+        )
 
     def restore_best(self) -> int | None:
         """Load the best checkpoint's state (weights, AdamW state, step
@@ -697,7 +880,18 @@ class Trainer:
         test metric."""
         if self.optimizer is None:
             self.initialize()
-        for epoch in range(self.start_epoch, self.config.train.epochs):
-            self.run_epoch(epoch)
+        cfg = self.config
+        if cfg.train.telemetry:
+            self._telemetry = obs_telemetry.TelemetryBuffer(
+                self.metrics_sink,
+                cfg.train.log_every,
+                slow_step=health.SlowStepMonitor(),
+                on_nonfinite=self._abort_nonfinite,
+            )
+        # Profile the second epoch this run executes (first-use builds and
+        # allocations stay out), or the only one.
+        trace_at = min(self.start_epoch + 1, cfg.train.epochs - 1)
+        for epoch in range(self.start_epoch, cfg.train.epochs):
+            self.run_epoch(epoch, trace_at)
         print(f"\nBest Test Metric: {self.best_metric}")
         return self.best_metric

@@ -581,6 +581,44 @@ def test_a_train_step_never_waits_for_the_card():
     assert trainer.optimizer.defaults["fused"] is False
 
 
+@pytest.mark.cuda
+def test_a_telemetry_step_never_waits_for_the_card():
+    """The telemetry step (``obs/telemetry.py``) adds no stream
+    synchronisation either: its norms, gate stats and pad waste stay on
+    the card and the buffer's append copies nothing. Then one drain
+    writes the step records from one device-to-host copy; the step's
+    loss is bitwise the plain step's from the same weights."""
+    from gnot_tpu_torch.obs.telemetry import TelemetryBuffer
+
+    _card()
+    plain, observed = _trainer_on_card(64, 4), _trainer_on_card(64, 4)
+    observed.model.load_state_dict(plain.model.state_dict())
+    batch = next(iter(plain.train_loader))
+    for t in (plain, observed):
+        t.train_step(batch, 1e-3)  # first use: library handles, workspaces
+    torch.cuda.synchronize()
+    records = []
+
+    class Sink:
+        def log(self, **record):
+            records.append(record)
+
+    buf = TelemetryBuffer(Sink(), log_every=2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = plain.train_step(batch, 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+        telem = {}
+        got = observed.train_step(batch, 1e-3, telem)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+        buf.append(steps=[1], epoch=0, lrs=[1e-3], loss=got, telem=telem, batches=[None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(v.is_cuda for v in telem.values()) and records == []
+    assert torch.equal(got, want)
+    buf.append(steps=[2], epoch=0, lrs=[1e-3], loss=got, telem=telem, batches=[None])
+    assert [r["step"] for r in records] == [2] and buf.drains == 1
+    assert abs(sum(records[0]["gate_load/block_1"]) - 1.0) < 1e-5
+
+
 # -- the four attention kernels ------------------------------------------
 
 # Kernel outputs vs the plain version: f32 both ways, only the summation

@@ -497,7 +497,7 @@ def test_bf16_server_storm_end_to_end():
         ref = f32.infer([s], pad_nodes=key[0], pad_funcs=key[1], rows=MAX_BATCH)[0]
         assert _rel(r.output, ref) < MODEL_REL_BAR
     buckets = {f32.bucket_key(s) for s in samples}
-    assert summary["dispatch_shapes"] <= len(buckets)
+    assert summary["compiled_shapes"] <= len(buckets)
 
 
 # -- bf16 training ---------------------------------------------------------------

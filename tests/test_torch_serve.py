@@ -129,7 +129,7 @@ def test_server_serves_two_buckets_without_mixing():
         assert all(m == key for m in members)
         assert len(members) <= MAX_BATCH
     assert {k for k, _ in batches} == {(64, 64), (128, 64)}
-    assert summary["dispatch_shapes"] <= 2
+    assert summary["compiled_shapes"] <= 2
     for r, want in zip(results, eng.predict(samples)):
         np.testing.assert_allclose(r.output, want, rtol=1e-5, atol=1e-6)
 
@@ -196,7 +196,7 @@ def test_main_serves_in_process_on_cpu(capsys):
     summary = json.loads(line)["serve_summary"]
     assert summary["requests"] == summary["completed"] == 5
     assert summary["device"] == "cpu"
-    assert summary["dispatch_shapes"] <= summary["warmed_buckets"]
+    assert summary["compiled_shapes"] <= summary["warmed_buckets"]
 
 
 SERVE_SMALL = [
