@@ -139,7 +139,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at epoch 0 with one ``non_finite_loss`` record naming a module; phase
    4's serving traffic with ``--metrics_path --trace_path``: 16 whole
    request chains, ``queue_depth`` tokens adding up to the summary's, one
-   valid ``serve_summary``, 2 x ``n_attn_layers`` launches a dispatch.
+   valid ``serve_summary``, 2 x ``n_attn_layers`` launches a dispatch;
+12. recovery, fault injection, graceful preemption and the checkpointer's
+   fallback chain at phase 6's configuration through the command line's
+   run (under ``build/chip_smoke/resil/``), the FFN kernel in every step
+   and its launches derived from the steps each run dispatches: (a)
+   ``--recovery --snapshot_every 2 --inject_fault nan_grad@3 --telemetry``,
+   one ``rollback`` and one ``batch_quarantined`` event, the step losses
+   bitwise those of a run whose epoch-0 loader drops the quarantined
+   dispatch; (b) ``--max_rollbacks 0 --checkpoint_every 1 --inject_fault
+   nan_grad@6``, a ``recovery_restore`` from ``latest.1.pt`` and a finite
+   best metric; (c) ``stop_epoch@1`` then ``--resume``, both halves
+   bitwise phase 6's epochs; (d) ``sigterm@3`` then ``--resume`` (a
+   resumable ``preempt_save``) and ``corrupt_ckpt@1,stop_epoch@1`` then
+   ``--resume`` (a ``restore_fallback`` naming the skipped file), both
+   finite; (e) ``ckpt_io@2``, two ``io_retry`` events and every save
+   committed; (f) the costs beside the card's name and power limit: one
+   snapshot's device and host time against its byte bound, the async
+   save's copy to page-locked memory, the synchronizing calls over one
+   snapshot window (plain 0, ``--recovery`` 1, ``--debug_checks`` 2), the
+   waited-for step time of each in turns, and the ``checkpoint_save``
+   spans and one save's host time against a synchronous ``torch.save``.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -158,7 +178,11 @@ shape's time and bound); ``accum_train_launches``,
 ``dispatch_train_launches`` and ``flat_train_launches`` over phase 10's
 ``--grad_accum 2``, ``--steps_per_dispatch 4`` and ``--flat_params``
 runs; ``telemetry_train_launches`` and ``telemetry_serve_launches`` over
-phase 11's instrumented training and observed serving runs. Launches
+phase 11's instrumented training and observed serving runs;
+``recovery_train_launches``, ``recovery_restore_train_launches``,
+``stop_resume_train_launches``, ``preempt_resume_train_launches`` and
+``ckpt_io_train_launches`` over phase 12's runs (a), (b), (c), (d) and
+(e). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -172,6 +196,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2235,6 +2260,340 @@ def observability_phase(torch, np, card: str, plain_trainer, plain_launches: int
     return {"telemetry_train_launches": launches, "telemetry_serve_launches": serve_launches}
 
 
+class DroppingLoader:
+    """A train loader that leaves out one dispatch of one epoch: phase 12's
+    reference for a rollback that quarantined that dispatch."""
+
+    def __init__(self, loader, epoch: int, ordinal: int):
+        self.loader, self.drop_epoch, self.drop = loader, epoch, ordinal
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        epoch, self._epoch = self._epoch, self._epoch + 1
+        for i, batch in enumerate(self.loader):
+            if not (epoch == self.drop_epoch and i == self.drop):
+                yield batch
+
+
+def resilience_run(port_main, argv: list[str], tag: str, expect_raise: bool = False):
+    """``port_main.run`` of ``argv`` with its console captured and the FFN
+    kernel's count set to 0 just before it and read just after: (trainer or
+    None, lines, launches, the sink's records)."""
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+
+    metrics = Path(argv[argv.index("--metrics_path") + 1])
+    metrics.unlink(missing_ok=True)
+    fused_gated_ffn_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer, lines = run_observed(port_main, argv)
+    except FloatingPointError as err:
+        if not expect_raise:
+            raise
+        trainer, lines = None, [f"FloatingPointError: {err}"]
+    launches = fused_gated_ffn_kernel.launches
+    log(f"[resil] ({tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.2f} s, fused_gated_ffn launches {launches}")
+    for line in lines:
+        if line and not line.startswith("USDT"):
+            log(f"[resil]   {line}")
+    recs = read_jsonl(metrics)
+    return trainer, lines, launches, recs
+
+
+def events_of(recs: list[dict]) -> list[dict]:
+    return [r for r in recs if "event" in r]
+
+
+def resilience_phase(torch, np, card: str, phase6_trainer) -> dict:
+    """Phase 12: recovery, fault injection, graceful preemption and the
+    checkpointer's fallback chain, each through the port's command-line
+    run at phase 6's configuration with the FFN kernel in every step
+    (replayed and restored steps included); then their costs. Returns the
+    FFN kernel's launches over each run."""
+    import shutil
+    import warnings
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.resilience.supervisor import RecoverySupervisor, _copy_state
+    from gnot_tpu_torch.train.checkpoint import Checkpointer, host_copy
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    root = TRAIN_OUT / "resil"
+    shutil.rmtree(root, ignore_errors=True)
+    n_blocks = phase6_trainer.model_cfg.n_attn_layers
+    per_forward = 2 * n_blocks
+    evals = len(phase6_trainer.test_loader)
+    base_losses = [r.step_losses for r in phase6_trainer.history]
+
+    def argv_for(name: str, *flags: str) -> list[str]:
+        return TRAIN_ARGV + list(flags) + ["--metrics_path", str(root / name / "m.jsonl")]
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    out: dict[str, int] = {}
+
+    # (a) A NaN step rolled back: snapshot every 2 steps, nan_grad at step 3.
+    flags = ["--recovery", "--snapshot_every", "2", "--inject_fault", "nan_grad@3", "--telemetry"]
+    trainer, _, launches, recs = resilience_run(port_main, argv_for("a", *flags), "a")
+    evs = events_of(recs)
+    kinds = [e["event"] for e in evs]
+    # Dispatched: epoch 0's 4 steps (the poisoned step 3 runs the kernel too,
+    # and step 4 runs on its NaN weights before the window's check), the
+    # replay of dispatch 3 after the rollback to step 2, epoch 1's 4 steps.
+    dispatched = 4 + 1 + 4
+    want_launches = per_forward * (dispatched + 2 * evals)
+    cfg_args = port_main.build_parser().parse_args(argv_for("a-ref", "--telemetry"))
+    cfg = port_main.train_config(cfg_args)
+    train_s, test_s = port_main.datasets.load(cfg.data)
+    ref = Trainer(cfg, port_main.model_config(cfg_args, train_s), train_s, test_s,
+                  device=phase6_trainer.device)
+    ref.train_loader = DroppingLoader(ref.train_loader, epoch=0, ordinal=2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref.fit()
+    got_l = [r.step_losses for r in trainer.history]
+    want_l = [r.step_losses for r in ref.history]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(got_l, want_l, strict=True))
+    log(f"[resil] (a) events {[(e['event'], e.get('step'), e.get('to_step'), e.get('ordinal')) for e in evs]}; "
+        f"launches {launches} = {per_forward} x ({dispatched} dispatched steps + {2 * evals} eval "
+        f"forwards); step losses {[l.tolist() for l in got_l]}; the run whose epoch-0 loader drops "
+        f"dispatch 2: {[l.tolist() for l in want_l]}; bitwise {bitwise}")
+    if (kinds != ["rollback", "batch_quarantined"] or evs[0]["to_step"] != 2
+            or evs[1]["ordinal"] != 2 or invalid(recs) or not bitwise
+            or launches != want_launches or [len(l) for l in got_l] != [3, 4]):
+        raise RuntimeError("[resil] (a) the rollback is not whole")
+    out["recovery_train_launches"] = launches
+
+    # (b) No rollback budget: the ladder restores 'latest' and goes on.
+    ck_b = root / "b" / "ck"
+    flags = ["--recovery", "--max_rollbacks", "0", "--checkpoint_every", "1", "--inject_fault",
+             "nan_grad@6", "--checkpoint_dir", str(ck_b)]
+    trainer, _, launches, recs = resilience_run(port_main, argv_for("b", *flags), "b")
+    evs = events_of(recs)
+    restore = [e for e in evs if e["event"] == "recovery_restore"]
+    want_launches = per_forward * (12 + 2 * evals)
+    log(f"[resil] (b) events {[(e['event'], e.get('dir') or e.get('restored_from')) for e in evs]}; "
+        f"launches {launches} = {per_forward} x (12 steps: epoch 1 twice + {2 * evals} eval "
+        f"forwards); best {trainer.best_metric}")
+    if (len(restore) != 1 or restore[0]["restored_from"] != "latest.1.pt"
+            or restore[0]["restored_epoch"] != 1 or not math.isfinite(trainer.best_metric)
+            or invalid(recs) or launches != want_launches):
+        raise RuntimeError("[resil] (b) the escalation to a restore is not whole")
+    out["recovery_restore_train_launches"] = launches
+
+    # (c) stop_epoch@1, then --resume: epoch 1 bitwise the uninterrupted run
+    # (phase 6's, the same flags without checkpoints). The first run is
+    # traced: its checkpoint_save spans are the async save's host time.
+    ck_c = root / "c" / "ck"
+    flags = ["--checkpoint_dir", str(ck_c), "--checkpoint_every", "1"]
+    first, _, l1, recs1 = resilience_run(
+        port_main, argv_for("c", *flags, "--inject_fault", "stop_epoch@1", "--trace_path",
+                            str(root / "c" / "t.json")), "c stop")
+    resumed, _, l2, recs2 = resilience_run(port_main, argv_for("c2", *flags, "--resume"),
+                                           "c resume")
+    stop_bitwise = np.array_equal(first.history[0].step_losses, base_losses[0])
+    res_bitwise = np.array_equal(resumed.history[0].step_losses, base_losses[1])
+    log(f"[resil] (c) stop after epoch {[r.epoch for r in first.history]}, resumed epochs "
+        f"{[r.epoch for r in resumed.history]} from step {first.host_step}; "
+        f"epoch 0 bitwise phase 6's {stop_bitwise}, resumed epoch 1 bitwise phase 6's {res_bitwise}; "
+        f"launches {l1} + {l2}; restore {[e.get('dir') for e in events_of(recs2)]}")
+    if (not (stop_bitwise and res_bitwise) or [r.epoch for r in resumed.history] != [1]
+            or l1 != per_forward * (4 + evals) or l2 != per_forward * (4 + evals)
+            or resumed.best_metric != phase6_trainer.best_metric):
+        raise RuntimeError("[resil] (c) stop and resume are not the uninterrupted run")
+    out["stop_resume_train_launches"] = l1 + l2
+    save_spans = [e for e in json.load(open(root / "c" / "t.json"))["traceEvents"]
+                  if e["name"] == "checkpoint_save"]
+
+    # (d1) SIGTERM before step 3: latest saved at epoch 0, resumable; resume.
+    ck_d = root / "d1" / "ck"
+    flags = ["--checkpoint_dir", str(ck_d)]
+    _, _, l1, recs = resilience_run(port_main, argv_for("d1", *flags, "--inject_fault",
+                                                        "sigterm@3"), "d1 sigterm")
+    pre = [e for e in events_of(recs) if e["event"] == "preempt_save"]
+    resumed, _, l2, recs2 = resilience_run(port_main, argv_for("d1b", *flags, "--resume"),
+                                           "d1 resume")
+    log(f"[resil] (d1) {pre}; resumed at epoch {resumed.history[0].epoch} from step 3, best "
+        f"{resumed.best_metric}; launches {l1} + {l2}")
+    if (len(pre) != 1 or not pre[0]["resumable"] or (pre[0]["epoch"], pre[0]["step"]) != (0, 3)
+            or not math.isfinite(resumed.best_metric) or l1 != per_forward * 3
+            or l2 != per_forward * (8 + 2 * evals)):
+        raise RuntimeError("[resil] (d1) the preemption save or its resume is not whole")
+
+    # (d2) corrupt_ckpt@1 (with a stop after epoch 0): resume falls back.
+    ck_d2 = root / "d2" / "ck"
+    flags = ["--checkpoint_dir", str(ck_d2), "--checkpoint_every", "1"]
+    _, _, l3, _ = resilience_run(port_main, argv_for(
+        "d2", *flags, "--inject_fault", "corrupt_ckpt@1,stop_epoch@1"), "d2 corrupt")
+    resumed, _, l4, recs = resilience_run(port_main, argv_for("d2b", *flags, "--resume"),
+                                          "d2 resume")
+    fb = [e for e in events_of(recs) if e["event"] == "restore_fallback"]
+    log(f"[resil] (d2) {fb}; best {resumed.best_metric}; launches {l3} + {l4}")
+    if (len(fb) != 1 or fb[0]["name"] != "best"
+            or [s.split(" ")[0] for s in fb[0]["requested_skipped"]] != ["latest.1.pt"]
+            or not math.isfinite(resumed.best_metric) or invalid(recs)):
+        raise RuntimeError("[resil] (d2) the fallback past the corrupt file is not whole")
+    out["preempt_resume_train_launches"] = l1 + l2 + l3 + l4
+
+    # (e) Two transient I/O errors: retried, and every save commits.
+    ck_e = root / "e" / "ck"
+    trainer, _, launches, recs = resilience_run(port_main, argv_for(
+        "e", "--checkpoint_dir", str(ck_e), "--checkpoint_every", "1", "--inject_fault",
+        "ckpt_io@2"), "e")
+    retries = [e for e in events_of(recs) if e["event"] == "io_retry"]
+    ck = Checkpointer(str(ck_e))
+    latest, best = ck.restore_latest(), ck.restore_best()
+    files = sorted(re.sub(r"^best\.\d+\.pt$", "best.N.pt", p.name) for p in ck_e.iterdir())
+    log(f"[resil] (e) io_retry {[(e['op'], e['attempt']) for e in retries]}; files {files}; "
+        f"latest epoch {latest and latest[1]}, best epoch {best and best[1]}")
+    if (len(retries) != 2 or latest is None or latest[1] != 2 or best is None
+            or files != ["best.N.pt", "best.json", "latest.2.pt", "latest.json"]):
+        raise RuntimeError("[resil] (e) a save did not commit")
+    out["ckpt_io_train_launches"] = launches
+
+    # (f) What it costs.
+    t = fresh_trainer(Trainer, phase6_trainer, "pallas")
+    batches = list(t.train_loader)
+    t._run_single(batches[0], 0, None)
+    torch.cuda.synchronize()
+    state = t.state_dict()
+    n_tensors = sum(1 for _ in _tensor_leaves(state))
+    n_bytes = sum(x.numel() * x.element_size() for x in _tensor_leaves(state) if x.is_cuda)
+    snap_dev = device_ms(torch, lambda: _copy_state(t.state_dict()), iters=10)
+    snap_events = cuda_ms(torch, lambda: _copy_state(t.state_dict()), iters=10, warmup=2)
+    bound = 2 * n_bytes / PEAK_BYTES_PER_S * 1e3
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _copy_state(t.state_dict())
+        host.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+    log(f"[resil] (f) one snapshot of the train state ({n_tensors} tensors, {n_bytes / 1e6:.1f} MB "
+        f"on the card): device time {snap_dev:.4f} ms (CUDA events, host enqueue included, "
+        f"{snap_events:.4f} ms); host {statistics.median(host):.3f} ms; bound {bound:.4f} ms "
+        f"(bytes: read and write once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+    d2h_dev = device_ms(torch, lambda: host_copy(t.state_dict()), iters=5)
+    log(f"[resil] (f) the async save's copy to page-locked host memory: device time "
+        f"{d2h_dev:.4f} ms ({n_bytes / 1e6:.1f} MB) on {card}")
+
+    def count_syncs(mode: str) -> int:
+        f = fresh_trainer(Trainer, phase6_trainer, "pallas")
+        if mode == "debug_checks":
+            f.config = dataclasses.replace(
+                f.config, train=dataclasses.replace(f.config.train, debug_checks=True))
+        sup = RecoverySupervisor(snapshot_every=2) if mode == "recovery" else None
+        losses = []
+
+        def step(i):
+            start = f.host_step
+            losses.append(f._run_single(batches[i], 0, None))
+            if sup is not None:
+                sup.after_dispatch(f.state_dict, ordinal=i, start_step=start,
+                                   end_step=f.host_step, losses=losses, points=0, epoch=0)
+
+        if sup is not None:
+            sup.begin_epoch(f.state_dict, host_step=0)
+        step(0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(1)
+                step(2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if sup is not None and sup.snapshots != 2:
+            raise RuntimeError(f"[resil] expected one snapshot in the window, took {sup.snapshots - 1}")
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    syncs = {m: count_syncs(m) for m in ("plain", "recovery", "debug_checks")}
+    log(f"[resil] (f) synchronizing calls over one snapshot window (2 steps, snapshot_every 2): "
+        f"plain {syncs['plain']}, --recovery {syncs['recovery']}, --debug_checks "
+        f"{syncs['debug_checks']} on {card}")
+    if syncs != {"plain": 0, "recovery": 1, "debug_checks": 2}:
+        raise RuntimeError(f"[resil] unexpected host syncs {syncs}")
+
+    def step_ms(mode: str) -> float:
+        f = fresh_trainer(Trainer, phase6_trainer, "pallas")
+        if mode == "debug_checks":
+            f.config = dataclasses.replace(
+                f.config, train=dataclasses.replace(f.config.train, debug_checks=True))
+        sup = RecoverySupervisor(snapshot_every=2) if mode == "recovery" else None
+        times = []
+        for epoch in range(2):
+            f.train_loader.set_epoch(epoch)
+            losses = []
+            if sup is not None:
+                sup.begin_epoch(f.state_dict, host_step=f.host_step)
+            for i, b in enumerate(f.train_loader):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                start = f.host_step
+                losses.append(f._run_single(b, epoch, None))
+                if sup is not None:
+                    sup.after_dispatch(f.state_dict, ordinal=i, start_step=start,
+                                       end_step=f.host_step, losses=losses, points=0, epoch=epoch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times[1:])
+
+    turns: dict[str, list[float]] = {"plain": [], "recovery": [], "debug_checks": []}
+    for mode in ("plain", "recovery", "debug_checks", "debug_checks", "recovery", "plain"):
+        turns[mode].append(round(step_ms(mode), 3))
+    log(f"[resil] (f) waited-for step time, host clock, median of steps 2..8, turns "
+        f"plain/recovery/debug/debug/recovery/plain: {json.dumps(turns)} ms on {card}")
+
+    # The checkpoint_save span's host time: the checkpointer's async save (the traced
+    # run of (c)) and, on the same state, a synchronous torch.save of the
+    # live state (the checkpointer's former write).
+    spans = [(s["args"].get("which"), round(s["dur"] / 1e3, 3)) for s in save_spans]
+    sync_ms, async_ms, wait_ms = [], [], []
+    sync_dir = root / "sync"
+    sync_dir.mkdir(parents=True, exist_ok=True)
+    ck_f = Checkpointer(str(root / "f" / "ck"))
+    for turn in ("sync", "async", "async", "sync"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if turn == "sync":
+            tmp = sync_dir / ".best.pt.tmp"
+            torch.save({"state": t.state_dict(), "epoch": 0, "best_metric": 1.0}, tmp)
+            os.replace(tmp, sync_dir / "best.pt")
+            sync_ms.append(round((time.perf_counter() - t1) * 1e3, 3))
+        else:
+            ck_f.save_best(t.state_dict(), 0, 1.0)
+            async_ms.append(round((time.perf_counter() - t1) * 1e3, 3))
+            t2 = time.perf_counter()
+            ck_f.wait()
+            wait_ms.append(round((time.perf_counter() - t2) * 1e3, 3))
+    log(f"[resil] (f) checkpoint_save spans of (c)'s traced run (which, host ms): {spans}; "
+        f"one save of the full state, turns sync/async/async/sync: a synchronous "
+        f"torch.save {sync_ms} ms, the checkpointer's save_best {async_ms} ms (then "
+        f"wait() {wait_ms} ms for the write and the publish, off the training path) on {card}")
+    return out
+
+
+def _tensor_leaves(tree):
+    if hasattr(tree, "is_cuda"):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
 def main() -> int:
     if not (ROOT / "gnot_tpu_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no gnot_tpu_torch package beside {__file__}; "
@@ -2423,6 +2782,9 @@ def main() -> int:
     # -- phase 11: telemetry, tracing, the sink and the profile ------------
     obs_launches = observability_phase(torch, np, card, f32_trainer, train_launches)
 
+    # -- phase 12: recovery, faults, preemption, the checkpointer's chain ---
+    resil_launches = resilience_phase(torch, np, card, f32_trainer)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -2449,6 +2811,7 @@ def main() -> int:
         **packed_fields,
         **loop_launches,
         **obs_launches,
+        **resil_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

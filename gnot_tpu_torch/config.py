@@ -18,8 +18,10 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
-    does not have yet. ``TelemetryBuffer(metrics=...)`` raises it: the
-    live metrics registry (``obs/metrics.py``) is not ported."""
+    does not have yet. ``TelemetryBuffer(metrics=...)`` raises it (the
+    live metrics registry, ``obs/metrics.py``, is not ported), and so does
+    ``PreemptionHandler.should_stop(multiprocess=True)`` (the multi-host
+    stop agreement waits for multi-process training)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,7 +182,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The single-device training loop's fields (``gnot_tpu`` TrainConfig)."""
+    """The single-device training loop's fields (``gnot_tpu`` TrainConfig),
+    with its resilience fields and their checks."""
 
     epochs: int = 100  # reference main.py:23
     loss: str = "rel_l2"  # the reference trains AND evals on rel-L2
@@ -207,6 +210,34 @@ class TrainConfig:
     # Head-sampling rate in [0, 1], decided once per trace (an epoch when
     # training, a request when serving) by a counter, not an RNG.
     trace_sample_rate: float = 1.0
+    # Debug guard: every step's loss is read on the host, and the first
+    # non-finite one raises NonFiniteLossError (a FloatingPointError) at
+    # that step; with recovery on, the ladder takes it. One sync a step.
+    debug_checks: bool = False
+    # Fault injection: stop cleanly after this many epochs (0 = off), as
+    # if preempted; the schedule stays sized by `epochs`, so a resumed run
+    # continues the same regime. An alias of ``stop_epoch@N``.
+    stop_after_epoch: int = 0
+    # Deterministic fault injection (resilience/faults.py): comma-separated
+    # ``kind@N`` entries (nan_grad@step, bad_sample@step, sigterm@step,
+    # ckpt_io@count, corrupt_ckpt@epoch, stop_epoch@epochs). "" = none.
+    inject_fault: str = ""
+    # Automatic NaN recovery (resilience/supervisor.py): a rolling
+    # last-good snapshot of the train state on the device every
+    # `snapshot_every` steps; a non-finite loss rolls back to it,
+    # quarantines the dispatch and goes on, escalating to a checkpoint
+    # restore after `max_rollbacks`, then to the hard abort. Off by
+    # default: recovery changes the trajectory (skipped batches).
+    recovery: bool = False
+    snapshot_every: int = 50  # steps between last-good snapshots
+    max_rollbacks: int = 3  # rollback budget before escalating
+    # Graceful preemption (resilience/preemption.py): SIGTERM / SIGINT stop
+    # the run at the next step boundary, save `latest` (with a
+    # checkpointer), flush the sink and exit resume-ready.
+    # `preempt_sync_every` is the multi-host agreement's cadence; one
+    # process reads its own flag at every boundary.
+    graceful_preempt: bool = True
+    preempt_sync_every: int = 1
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -215,6 +246,18 @@ class TrainConfig:
         if self.steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
+            )
+        if self.snapshot_every < 1:
+            raise ValueError(
+                f"snapshot_every must be >= 1, got {self.snapshot_every}"
+            )
+        if self.max_rollbacks < 0:
+            raise ValueError(
+                f"max_rollbacks must be >= 0, got {self.max_rollbacks}"
+            )
+        if self.preempt_sync_every < 1:
+            raise ValueError(
+                f"preempt_sync_every must be >= 1, got {self.preempt_sync_every}"
             )
         if not 0.0 <= self.trace_sample_rate <= 1.0:
             raise ValueError(

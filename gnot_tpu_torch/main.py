@@ -43,6 +43,16 @@ The sink, the trace flush and the manifest sit on one ``ExitStack``, so a
 run that dies (the NaN watchdog raises) still writes its records and
 its trace.
 
+Resilience (``gnot_tpu/main.py``'s flags, defaults and refusals):
+``--inject_fault`` arms deterministic faults (``--stop_after_epoch N`` is
+``stop_epoch@N``); ``--recovery`` turns on the rollback ladder
+(``--snapshot_every``, ``--max_rollbacks``); SIGTERM / SIGINT stop a run
+at the next step boundary and save ``latest`` unless ``--no_preempt``;
+``--debug_checks`` reads every step's loss. Checkpoints record the
+resolved numerics and the layout (``checkpoint_meta``), and ``run.json``'s
+``restore`` field is the checkpointer's ``last_restore``: which file a
+resume, an eval or a serve restored, fallbacks included.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -214,12 +224,56 @@ def build_parser() -> argparse.ArgumentParser:
         help="head-based trace sampling rate in [0,1] (decided once per "
              "request/epoch, deterministically)",
     )
+    p.add_argument(
+        "--debug_checks", action="store_true",
+        help="deterministic per-step guard: every step's loss is read on the "
+             "host and the first NaN/inf raises at its step (one sync a step; "
+             "with --recovery the ladder takes it). JAX's jax_debug_nans and "
+             "its donation alias guard have no counterpart in eager PyTorch, "
+             "which donates no buffers",
+    )
     p.add_argument("--loss", type=str, default="rel_l2", choices=["rel_l2", "mse"])
     p.add_argument("--schedule", type=str, default="parity", choices=["parity", "per_step"],
                    help="parity: per-epoch OneCycle stepping (the reference bug); per_step: correct")
     p.add_argument("--checkpoint_dir", type=str, default="")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint_every", type=int, default=0)
+    p.add_argument(
+        "--stop_after_epoch", type=int, default=0,
+        help="fault injection: stop cleanly after N epochs as if "
+             "preempted (schedule stays sized by --epochs; resume with "
+             "--resume to continue the same regime); alias for "
+             "--inject_fault stop_epoch@N",
+    )
+    p.add_argument(
+        "--inject_fault", type=str, default="",
+        help="deterministic fault injection: comma-separated kind@N "
+             "entries — nan_grad@step, bad_sample@step, sigterm@step, "
+             "ckpt_io@count, corrupt_ckpt@epoch, stop_epoch@epochs",
+    )
+    p.add_argument(
+        "--recovery", action="store_true",
+        help="automatic NaN recovery: rolling last-good snapshot of the "
+             "train state on the device every --snapshot_every steps; a "
+             "non-finite loss rolls back, quarantines the offending batch, "
+             "and continues — escalating to checkpoint restore after "
+             "--max_rollbacks, then to the hard abort (off by default: "
+             "recovery changes the training trajectory)",
+    )
+    p.add_argument("--snapshot_every", type=int, default=50)
+    p.add_argument("--max_rollbacks", type=int, default=3)
+    p.add_argument(
+        "--no_preempt", action="store_true",
+        help="disable graceful SIGTERM/SIGINT handling (stop at the next "
+             "step boundary + 'latest' save + resume-ready exit; on by "
+             "default)",
+    )
+    p.add_argument(
+        "--preempt_sync_every", type=int, default=1,
+        help="multi-host graceful preemption: agree on the stop flag every "
+             "N dispatches (validated; a single-process run reads its own "
+             "flag at every step boundary)",
+    )
     p.add_argument(
         "--eval_only", action="store_true",
         help="restore the best checkpoint and evaluate (no training)",
@@ -316,6 +370,14 @@ def train_config(args) -> Config:
             profile_dir=args.profile_dir,
             trace_path=args.trace_path,
             trace_sample_rate=args.trace_sample_rate,
+            debug_checks=args.debug_checks,
+            stop_after_epoch=args.stop_after_epoch,
+            inject_fault=args.inject_fault,
+            recovery=args.recovery,
+            snapshot_every=args.snapshot_every,
+            max_rollbacks=args.max_rollbacks,
+            graceful_preempt=not args.no_preempt,
+            preempt_sync_every=args.preempt_sync_every,
             seed=args.seed,
         ),
     )
@@ -411,30 +473,40 @@ class ServeRun:
     pack_plan: PackPlan | None = None
 
 
-def restore_for_serving(model: GNOT, checkpoint_dir: str, layout: str = "standard") -> str:
+def checkpoint_meta(args, mc: ModelConfig) -> dict:
+    """The provenance every sidecar records (``gnot_tpu/main.py``): the
+    resolved numerics, which a restore under other flags warns about, and
+    the state layout."""
+    return {"gelu": mc.gelu, "attention_mode": mc.attention_mode, "dtype": mc.dtype,
+            "flat_params": args.flat_params}
+
+
+def restore_for_serving(model: GNOT, checkpointer: Checkpointer | None,
+                        layout: str = "standard") -> str:
     """Load the ``best`` checkpoint's weights into ``model``, else the
-    ``latest`` one's (``gnot_tpu/main.py``'s serve restore), converted from
-    the checkpoint's parameter layout, which must be ``layout``, to the
-    standard one; returns which was loaded, or "" when none was: with a
-    ``checkpoint_dir`` that holds neither, after printing the reference's
-    note."""
-    if checkpoint_dir:
-        ck = Checkpointer(checkpoint_dir, extra_meta={"flat_params": layout == "flat"})
-        for name, restore in (("best", ck.restore_best), ("latest", ck.restore_latest)):
-            restored = restore()
-            if restored is not None:
-                state = restored[0]
-                if state_layout(state) != layout:
-                    raise ValueError(
-                        f"the '{name}' checkpoint holds the {state_layout(state)} parameter "
-                        f"layout but this run uses the {layout} layout; pass the layout "
-                        "flag it was trained with (--flat_params, --scan_layers)"
-                    )
-                model.load_state_dict(standard_weights(
-                    state["model"], model.state_dict(), model.config.n_attn_layers))
-                return name
+    ``latest`` one's (``gnot_tpu/main.py``'s serve restore: each walks its
+    fallback chain, and ``restore_latest`` walks on to ``best``),
+    converted from the checkpoint's parameter layout, which must be
+    ``layout``, to the standard one. Returns the name of the checkpoint
+    that was loaded (``checkpointer.last_restore`` says which file), or ""
+    when none was: with a checkpointer that restores nothing, after
+    printing the JAX package's note."""
+    if checkpointer is None:
+        return ""
+    restored = checkpointer.restore_best() or checkpointer.restore_latest()
+    if restored is None:
         print("note: no restorable checkpoint — serving fresh weights")
-    return ""
+        return ""
+    state, name = restored[0], checkpointer.last_restore["name"]
+    if state_layout(state) != layout:
+        raise ValueError(
+            f"the '{name}' checkpoint holds the {state_layout(state)} parameter "
+            f"layout but this run uses the {layout} layout; pass the layout "
+            "flag it was trained with (--flat_params, --scan_layers)"
+        )
+    model.load_state_dict(standard_weights(
+        state["model"], model.state_dict(), model.config.n_attn_layers))
+    return name
 
 
 def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = None) -> ServeRun:
@@ -453,9 +525,15 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     if manifest is not None:
         manifest.write(config=train_config(args), model_config=mc, device=device, kind="serve")
     model = GNOT(mc, generator=gen).to(device)
-    restored = restore_for_serving(model, args.checkpoint_dir, param_layout(args))
-    if manifest is not None:
-        manifest.write(restore=restored or None)
+    checkpointer = (
+        Checkpointer(args.checkpoint_dir, extra_meta=checkpoint_meta(args, mc),
+                     on_event=sink.log if sink is not None else None)
+        if args.checkpoint_dir else None
+    )
+    restored = restore_for_serving(model, checkpointer, param_layout(args))
+    if manifest is not None and checkpointer is not None:
+        # Which checkpoint serving restored, any fallback walk included.
+        manifest.write(restore=checkpointer.last_restore)
     engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
     # itself, the samples about to be served.
@@ -500,8 +578,9 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
     mc = model_config(args, train_samples)
+    # The trainer gives the checkpointer its fault injector and the sink.
     checkpointer = (
-        Checkpointer(cfg.train.checkpoint_dir, extra_meta={"flat_params": args.flat_params})
+        Checkpointer(cfg.train.checkpoint_dir, extra_meta=checkpoint_meta(args, mc))
         if cfg.train.checkpoint_dir else None
     )
     trainer = Trainer(cfg, mc, train_samples, test_samples, checkpointer=checkpointer,
@@ -512,10 +591,14 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
                        kind="eval" if args.eval_only else "train")
     if args.eval_only:
         trainer.best_metric = trainer.evaluate_from_checkpoint()
+        if manifest is not None and checkpointer is not None:
+            # Which 'best' the eval restored, any fallback walk included.
+            manifest.write(restore=checkpointer.last_restore)
     else:
         trainer.initialize()
-        if manifest is not None and trainer.start_epoch:
-            manifest.write(restore={"name": "latest", "epoch": trainer.start_epoch})
+        if manifest is not None and checkpointer is not None:
+            # A resume that fell back from 'latest' to 'best' shows here.
+            manifest.write(restore=checkpointer.last_restore)
         trainer.fit()
     if (args.export_torch or args.predict_out) and not args.eval_only:
         # The artifacts of the reported best metric, not of the last epoch.

@@ -20,6 +20,13 @@ import dataclasses
 
 SLOW_STEP = "slow_step"
 NON_FINITE_LOSS = "non_finite_loss"
+ROLLBACK = "rollback"
+BATCH_QUARANTINED = "batch_quarantined"
+RECOVERY_RESTORE = "recovery_restore"
+PREEMPT_SAVE = "preempt_save"
+RESTORE = "restore"
+RESTORE_FALLBACK = "restore_fallback"
+IO_RETRY = "io_retry"
 QUEUE_DEPTH = "queue_depth"
 SHED = "shed"
 SERVE_SUMMARY = "serve_summary"
@@ -52,6 +59,47 @@ EVENTS: dict[str, EventSpec] = {
         module="gnot_tpu_torch/train/trainer.py",
         doc="NaN watchdog abort; `detail` names the first module whose "
         "output was non-finite in a re-run of the batch",
+    ),
+    "rollback": EventSpec(
+        fields=("epoch", "step", "to_step", "rollbacks_used"),
+        module="gnot_tpu_torch/train/trainer.py",
+        doc="recovery rolled back to the last-good snapshot",
+    ),
+    "batch_quarantined": EventSpec(
+        fields=("epoch", "step", "ordinal"),
+        module="gnot_tpu_torch/train/trainer.py",
+        doc="the offending dispatch is skipped on replay",
+    ),
+    "recovery_restore": EventSpec(
+        fields=("epoch", "step", "restored_epoch", "restored_from"),
+        module="gnot_tpu_torch/train/trainer.py",
+        doc="rollback budget exhausted; restored from checkpoint",
+    ),
+    "preempt_save": EventSpec(
+        fields=("epoch", "step", "resumable"),
+        module="gnot_tpu_torch/train/trainer.py",
+        doc="graceful SIGTERM/SIGINT stop saved `latest`",
+    ),
+    "restore": EventSpec(
+        fields=(
+            "requested", "name", "dir", "epoch", "best_metric", "fallback",
+            "skipped",
+        ),
+        module="gnot_tpu_torch/train/checkpoint.py",
+        doc="clean (sidecar-named) checkpoint restore",
+    ),
+    "restore_fallback": EventSpec(
+        fields=(
+            "requested", "name", "dir", "epoch", "best_metric", "fallback",
+            "skipped",
+        ),
+        module="gnot_tpu_torch/train/checkpoint.py",
+        doc="restore walked past corrupt/missing candidates",
+    ),
+    "io_retry": EventSpec(
+        fields=("op", "attempt", "error"),
+        module="gnot_tpu_torch/train/checkpoint.py",
+        doc="transient checkpoint-I/O failure retried with backoff",
     ),
     "queue_depth": EventSpec(
         fields=("depth", "batched", "dispatch", "bucket_nodes",

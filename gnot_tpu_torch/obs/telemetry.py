@@ -171,6 +171,14 @@ class TelemetryBuffer:
             out.append((values[0], dict(zip(e["telem"], values[1:]))))
         return out
 
+    def discard(self) -> None:
+        """Drop the buffered window without draining it (a recovery
+        rollback): the rolled-back steps' records would be bogus, and the
+        non-finite loss among them must not fire the watchdog again."""
+        self._entries.clear()
+        self._pending_steps = 0
+        self._last_t = None
+
     def drain(self) -> None:
         if not self._entries:
             return

@@ -69,6 +69,26 @@ piece off unless asked for:
   ``checkpoint_save`` spans.
 * ``profile_dir``: a ``torch.profiler`` trace of epoch ``trace_at``.
 
+Resilience (``gnot_tpu/train/trainer.py``'s harness, ``resilience/``):
+
+* ``TrainConfig(inject_fault=...)``: the fault injector's hooks before
+  each step (``sigterm``, ``nan_grad``, ``bad_sample``), in the
+  checkpointer (``ckpt_io``, ``corrupt_ckpt``) and at epoch end
+  (``stop_epoch``).
+* ``TrainConfig(recovery=True)``: the ``RecoverySupervisor`` snapshots the
+  whole train state on the device at each epoch's start and every
+  ``snapshot_every`` steps, after checking the window's losses with one
+  host read; a non-finite loss (found there, at epoch end, by the
+  telemetry watchdog or by ``debug_checks``) rolls the state back,
+  quarantines the dispatch and replays the epoch's order from the
+  snapshot, within ``max_rollbacks``; then restores ``latest`` (else
+  ``best``) and re-enters the epoch loop there; then aborts.
+* ``TrainConfig(graceful_preempt=True)`` (the default): SIGTERM / SIGINT
+  stop the run at the next step boundary, save ``latest`` at the current
+  epoch (a resumed run replays the partial epoch), flush the sink.
+* ``TrainConfig(debug_checks=True)``: every step's loss is read, and the
+  first non-finite one raises at its step.
+
 ``standard_params()`` gives the weights in the standard layout whatever
 the trainer holds; checkpoints keep the trainer's own layout, and
 ``convert_flat_state`` / ``pipeline.convert_state_layout`` move a whole
@@ -106,6 +126,14 @@ from gnot_tpu_torch.parallel.pipeline import (
     is_stacked,
     stack_params,
     unstack_params,
+)
+from gnot_tpu_torch.resilience.faults import FaultInjector
+from gnot_tpu_torch.resilience.preemption import PreemptionHandler
+from gnot_tpu_torch.resilience.supervisor import (
+    NonFiniteLossError,
+    PreemptionRequested,
+    RecoverySupervisor,
+    RestoreEscalation,
 )
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.train.schedule import make_lr_fn
@@ -425,6 +453,17 @@ class Trainer:
         self._tracer = tracer
         # The TelemetryBuffer of a telemetry run, made by fit().
         self._telemetry: obs_telemetry.TelemetryBuffer | None = None
+        # The fault plan, parsed here so a bad spec fails at construction;
+        # the recovery supervisor is made by fit() with recovery on.
+        self._faults = FaultInjector.from_config(config.train)
+        self._supervisor: RecoverySupervisor | None = None
+        if checkpointer is not None:
+            # One injector end to end (the ckpt_io budget is shared), and
+            # the restore / retry events in the run's sink.
+            if self._faults is not None and checkpointer.fault_injector is None:
+                checkpointer.fault_injector = self._faults
+            if checkpointer.on_event is None and metrics_sink is not None:
+                checkpointer.on_event = metrics_sink.log
         # JAX's flat, packed and stacked layouts run an overridden forward
         # whose telemetry has no gate stats; the port gives the same keys.
         self._gate_telemetry = not (config.optim.flat_params or config.data.packed
@@ -474,7 +513,8 @@ class Trainer:
     def initialize(self) -> None:
         """The optimizer over the model's weights (the flat buffer with
         ``flat_params``), the accumulation state, and on ``resume`` the
-        latest checkpoint's state."""
+        latest checkpoint's state (else the best one's, walking each
+        chain), ``host_step`` from its step count."""
         params = self._opt_params()
         self.optimizer = make_optimizer(self.config.optim, params)
         if self.config.optim.grad_accum > 1:
@@ -683,41 +723,106 @@ class Trainer:
             return contextlib.nullcontext()
         return self._tracer.span(name, trace=trace, args=args or None)
 
-    def run_epoch(self, epoch: int, trace_at: int = -1) -> EpochRecord:
-        """One epoch: the train steps (``steps_per_dispatch`` at a time),
-        the reference's console lines, eval, best-metric selection and the
-        checkpoint saves; profiled when ``epoch == trace_at`` and
-        ``profile_dir`` is set. With a tracer the epoch is one trace, head
-        sampled here, under an ``epoch`` root span."""
+    def run_epoch(self, epoch: int, trace_at: int = -1, preempt=None) -> EpochRecord:
+        """One epoch: the train steps (``steps_per_dispatch`` at a time)
+        under the recovery harness, the reference's console lines, eval,
+        best-metric selection and the checkpoint saves; profiled when
+        ``epoch == trace_at`` and ``profile_dir`` is set. With a tracer the
+        epoch is one trace, head sampled here, under an ``epoch`` root
+        span. ``preempt`` (a ``PreemptionHandler``) is read after every
+        dispatch."""
         trace = self._tracer.start_trace() if self._tracer is not None else None
         with self._tspan(trace, "epoch", epoch=epoch):
-            return self._run_epoch(epoch, trace_at, trace)
+            return self._run_epoch(epoch, trace_at, preempt, trace)
 
-    def _run_epoch(self, epoch: int, trace_at: int, trace) -> EpochRecord:
+    def _run_epoch(self, epoch: int, trace_at: int, preempt, trace) -> EpochRecord:
         cfg = self.config
-        # The shuffle order is a function of (seed, epoch): a resumed run
-        # replays the continuous run's batches.
-        self.train_loader.set_epoch(epoch)
         t0 = time.perf_counter()
         losses, points = [], 0
+        sup = self._supervisor
+        quarantine: set[int] = set()
+        resume_at = 0
         with profiling.trace_epoch(cfg.train.profile_dir, epoch, trace_at=trace_at):
             with profiling.annotate("train_epoch"):
-                batches = self._groups(self.train_loader)
-                if trace is not None:
-                    # data_iter: the time spent waiting on the loader.
-                    batches = self._tracer.timed_iter(batches, "data_iter", trace=trace)
-                for kind, item in batches:
-                    if kind == "group":
-                        points += sum(b.n_real_points for b in item)
-                        losses.append(self._run_group(item, epoch, trace))
-                    else:
-                        points += item.n_real_points
-                        losses.append(self._run_single(item, epoch, trace))
-                if self._telemetry is not None:
-                    # The partial window, before eval: the NaN watchdog
-                    # must fire before eval spends a pass on a dead run.
-                    with self._tspan(trace, "telemetry_drain"):
-                        self._telemetry.drain()
+                if sup is not None:
+                    sup.begin_epoch(self.state_dict, host_step=self.host_step)
+                while True:  # recovery attempts; one pass normally
+                    # The shuffle order is a function of (seed, epoch), and
+                    # iterating advances the loader's epoch: pin it on every
+                    # attempt, so a rollback replays this epoch's order and
+                    # the ordinal skips below hit the right dispatches (and a
+                    # resumed run replays the continuous run's batches).
+                    self.train_loader.set_epoch(epoch)
+                    ordinal = -1
+                    try:
+                        batches = self._groups(self.train_loader)
+                        if trace is not None:
+                            # data_iter: the time spent waiting on the loader.
+                            batches = self._tracer.timed_iter(batches, "data_iter", trace=trace)
+                        for ordinal, (kind, item) in enumerate(batches):
+                            if ordinal < resume_at or ordinal in quarantine:
+                                continue
+                            start_step = self.host_step
+                            if kind == "group":
+                                points += sum(b.n_real_points for b in item)
+                                losses.append(self._run_group(item, epoch, trace))
+                            else:
+                                points += item.n_real_points
+                                losses.append(self._run_single(item, epoch, trace))
+                            if sup is not None:
+                                sup.after_dispatch(
+                                    self.state_dict, ordinal=ordinal, start_step=start_step,
+                                    end_step=self.host_step, losses=losses, points=points,
+                                    epoch=epoch,
+                                )
+                            if preempt is not None and preempt.should_stop():
+                                raise PreemptionRequested(epoch, self.host_step)
+                        if self._telemetry is not None:
+                            # The partial window, before eval: the NaN watchdog
+                            # must fire before eval spends a pass on a dead run.
+                            with self._tspan(trace, "telemetry_drain"):
+                                self._telemetry.drain()
+                        if sup is not None:
+                            # A NaN in the last partial snapshot window must
+                            # not reach eval or a checkpoint.
+                            sup.check_losses(losses, epoch=epoch)
+                        break
+                    except NonFiniteLossError as err:
+                        if sup is None:
+                            raise
+                        bad = err.ordinal if err.ordinal is not None else sup.ordinal_for_step(err.step)
+                        if bad is None:
+                            bad = ordinal  # the dispatch in flight
+                        action = sup.plan(err)
+                        if action == "restore":
+                            raise RestoreEscalation(err) from err
+                        if action == "abort":
+                            self._abort_nonfinite(err.step, err.epoch, None, err.batch)
+                        if self._telemetry is not None:
+                            # The rolled-back steps' records are bogus, and
+                            # their NaN must not fire the watchdog again.
+                            self._telemetry.discard()
+                        snap = sup.rollback()
+                        self.load_state_dict(snap.state)
+                        self.host_step = snap.host_step
+                        del losses[snap.n_losses:]
+                        points = snap.points
+                        quarantine.add(bad)
+                        resume_at = snap.ordinal
+                        print(
+                            f"Recovery: non-finite loss at step {err.step} — rolled back to "
+                            f"step {snap.host_step}, quarantined dispatch {bad} "
+                            f"({sup.rollbacks_used}/{sup.max_rollbacks} rollbacks used)"
+                        )
+                        if self.metrics_sink is not None:
+                            self.metrics_sink.log(
+                                event=events.ROLLBACK, epoch=epoch, step=err.step,
+                                to_step=snap.host_step, rollbacks_used=sup.rollbacks_used,
+                            )
+                            self.metrics_sink.log(
+                                event=events.BATCH_QUARANTINED, epoch=epoch, step=err.step,
+                                ordinal=bad,
+                            )
             step_losses = (
                 torch.cat(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
             )  # the epoch's one host sync for the train losses
@@ -756,8 +861,13 @@ class Trainer:
 
     def _run_single(self, batch, epoch: int, trace) -> torch.Tensor:
         """One step on a host batch with its spans, its telemetry or its
-        ``log_every`` record; returns its loss as a ``[1]`` device tensor."""
+        ``log_every`` record; returns its loss as a ``[1]`` device tensor.
+        The fault hooks act first; with ``debug_checks`` a non-finite loss
+        raises ``NonFiniteLossError`` at its step."""
         cfg = self.config
+        if self._faults is not None:
+            self._faults.maybe_sigterm(self.host_step + 1)
+            batch = self._faults.poison_batch(batch, self.host_step + 1)
         lr = self.lr_fn(self.host_step, epoch)
         telem = {} if self._telemetry is not None else None
         with self._tspan(trace, "step", step=self.host_step + 1) as sp:
@@ -772,8 +882,15 @@ class Trainer:
                 telem=telem, batches=[batch],
                 span_ids=[sp.span_id if sp is not None else None],
             )
-        elif (
-            self.metrics_sink is not None
+        if cfg.train.debug_checks and not math.isfinite(float(loss)):
+            # The deterministic guard: one host read a step.
+            raise NonFiniteLossError(
+                f"non-finite train loss at epoch {epoch}, step {self.host_step}",
+                step=self.host_step, epoch=epoch, batch=batch,
+            )
+        if (
+            self._telemetry is None
+            and self.metrics_sink is not None
             and cfg.train.log_every
             and self.host_step % cfg.train.log_every == 0
         ):
@@ -784,8 +901,14 @@ class Trainer:
 
     def _run_group(self, group: list, epoch: int, trace) -> torch.Tensor:
         """One dispatch of ``len(group)`` steps (``multi_train_step``) with
-        its spans, telemetry or records; returns the ``[K]`` losses."""
+        its spans, telemetry or records; returns the ``[K]`` losses. The
+        fault hooks act on each step of the group first."""
         cfg = self.config
+        if self._faults is not None:
+            for i in range(len(group)):
+                self._faults.maybe_sigterm(self.host_step + 1 + i)
+            group = [self._faults.poison_batch(b, self.host_step + 1 + i)
+                     for i, b in enumerate(group)]
         start = self.host_step
         lrs = [self.lr_fn(start + i, epoch) for i in range(len(group))]
         telem = {} if self._telemetry is not None else None
@@ -801,8 +924,14 @@ class Trainer:
                 lrs=lrs, loss=loss_k, telem=telem, batches=group,
                 span_ids=[sp.span_id if sp is not None else None] * len(group),
             )
-        elif self.metrics_sink is not None and cfg.train.log_every:
-            host_lk = None
+        host_lk = loss_k.cpu().numpy() if cfg.train.debug_checks else None  # one sync
+        if host_lk is not None and not np.all(np.isfinite(host_lk)):
+            bad = int(np.argmax(~np.isfinite(host_lk)))
+            raise NonFiniteLossError(
+                f"non-finite train loss at epoch {epoch}, steps {start + 1}..{self.host_step}",
+                step=start + bad + 1, epoch=epoch, batch=group[bad],
+            )
+        if self._telemetry is None and self.metrics_sink is not None and cfg.train.log_every:
             for i in range(len(group)):
                 if (start + i + 1) % cfg.train.log_every == 0:
                     if host_lk is None:
@@ -811,12 +940,23 @@ class Trainer:
                                           loss=float(host_lk[i]), lr=lrs[i])
         return loss_k
 
-    def _abort_nonfinite(self, step: int, epoch: int, loss: float, batch) -> None:
-        """The NaN watchdog (``TelemetryBuffer``'s ``on_nonfinite``): name
-        the first module whose output is non-finite in a re-run of the
-        offending host batch on the current weights, record the event,
-        flush, and stop the run (``gnot_tpu/train/trainer.py::_abort_nonfinite``;
-        no recovery supervisor is ported)."""
+    def _handle_nonfinite_loss(self, step: int, epoch: int, loss: float, batch) -> None:
+        """The NaN watchdog (``TelemetryBuffer``'s ``on_nonfinite``): with the
+        recovery supervisor, a ``NonFiniteLossError`` the epoch harness
+        takes to roll back; otherwise the hard abort."""
+        if self._supervisor is not None:
+            raise NonFiniteLossError(
+                f"non-finite train loss at epoch {epoch}, step {step}",
+                step=step, epoch=epoch, batch=batch,
+            )
+        self._abort_nonfinite(step, epoch, loss, batch)
+
+    def _abort_nonfinite(self, step: int, epoch: int, loss: float | None, batch) -> None:
+        """The hard abort, the recovery ladder's last rung (and its only one
+        with recovery off): name the first module whose output is
+        non-finite in a re-run of the offending host batch on the current
+        weights, record the event, flush, and stop the run
+        (``gnot_tpu/train/trainer.py::_abort_nonfinite``)."""
         detail = None
         if batch is not None:
             loss_name = self.config.train.loss
@@ -876,8 +1016,10 @@ class Trainer:
         return engine.predict(samples)
 
     def fit(self) -> float:
-        """Train from ``start_epoch`` to ``train.epochs``; returns the best
-        test metric."""
+        """Train from ``start_epoch`` to ``train.epochs`` under the
+        preemption handler and the recovery ladder; returns the best test
+        metric. A stop request saves ``latest`` and ends the run
+        resume-ready; ``stop_epoch`` ends it after that epoch."""
         if self.optimizer is None:
             self.initialize()
         cfg = self.config
@@ -886,12 +1028,102 @@ class Trainer:
                 self.metrics_sink,
                 cfg.train.log_every,
                 slow_step=health.SlowStepMonitor(),
-                on_nonfinite=self._abort_nonfinite,
+                on_nonfinite=self._handle_nonfinite_loss,
             )
+        self._supervisor = (
+            RecoverySupervisor(snapshot_every=cfg.train.snapshot_every,
+                               max_rollbacks=cfg.train.max_rollbacks)
+            if cfg.train.recovery else None
+        )
+        preempt_cm = (
+            PreemptionHandler(sync_every=cfg.train.preempt_sync_every)
+            if cfg.train.graceful_preempt else contextlib.nullcontext()
+        )
         # Profile the second epoch this run executes (first-use builds and
         # allocations stay out), or the only one.
         trace_at = min(self.start_epoch + 1, cfg.train.epochs - 1)
-        for epoch in range(self.start_epoch, cfg.train.epochs):
-            self.run_epoch(epoch, trace_at)
+        with preempt_cm as preempt:
+            epoch = self.start_epoch
+            while epoch < cfg.train.epochs:
+                try:
+                    self.run_epoch(epoch, trace_at, preempt)
+                except PreemptionRequested as stop:
+                    self._preempt_save(stop)
+                    break
+                except RestoreEscalation as esc:
+                    epoch = self._escalate_restore(esc)
+                    continue
+                if self._faults is not None and self._faults.stop_after_epoch(epoch):
+                    # An injected clean stop; the wait below commits the
+                    # saves in flight.
+                    print(f"Stopping after epoch {epoch} (--stop_after_epoch)")
+                    break
+                epoch += 1
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         print(f"\nBest Test Metric: {self.best_metric}")
         return self.best_metric
+
+    def _preempt_save(self, stop: PreemptionRequested) -> None:
+        """The graceful-preemption exit: save ``latest`` at the current epoch
+        (a resumed run replays the partial epoch on the saved state), flush
+        the sink, leave the run resume-ready. When the last telemetry drain
+        finds a NaN in the live state, the last-good snapshot is saved
+        instead (recovery on), or nothing."""
+        print(
+            f"Preemption: stopping at epoch {stop.epoch}, step {stop.step}"
+            + (
+                " — saving 'latest' and exiting resume-ready"
+                if self.checkpointer is not None
+                else " (no --checkpoint_dir: exiting without a save)"
+            )
+        )
+        state = self.state_dict()
+        if self._telemetry is not None:
+            try:
+                self._telemetry.drain()
+            except FloatingPointError:
+                state = (self._supervisor.last_good_state()
+                         if self._supervisor is not None else None)
+                print(
+                    "Preemption: non-finite loss in the final telemetry window — "
+                    + (
+                        "saving the last-good recovery snapshot instead of the "
+                        "poisoned live state"
+                        if state is not None
+                        else "NOT saving 'latest' (live state is poisoned and no "
+                             "recovery snapshot exists)"
+                    )
+                )
+        if self.checkpointer is not None and state is not None:
+            self.checkpointer.save_latest(state, stop.epoch, self.best_metric)
+            self.checkpointer.wait()
+        if self.metrics_sink is not None:
+            self.metrics_sink.log(
+                event=events.PREEMPT_SAVE, epoch=stop.epoch, step=stop.step,
+                resumable=self.checkpointer is not None and state is not None,
+            )
+            self.metrics_sink.flush()
+
+    def _escalate_restore(self, esc: RestoreEscalation) -> int:
+        """The ladder's second rung: restore the newest restorable
+        checkpoint (``latest``, else ``best``) and return its epoch to
+        re-enter the loop at; ``host_step`` comes from its step count.
+        Without a checkpointer or anything restorable, the hard abort."""
+        err = esc.cause
+        if self._telemetry is not None:
+            self._telemetry.discard()
+        restored = self.checkpointer.restore_latest() if self.checkpointer is not None else None
+        if restored is None:
+            self._abort_nonfinite(err.step, err.epoch, None, err.batch)
+        state, epoch, self.best_metric = restored
+        self.load_state_dict(state)
+        print(f"Recovery: rollback budget exhausted — restored checkpoint (epoch {epoch}); "
+              "continuing")
+        if self.metrics_sink is not None:
+            self.metrics_sink.log(
+                event=events.RECOVERY_RESTORE, epoch=err.epoch, step=err.step,
+                restored_epoch=epoch,
+                restored_from=(self.checkpointer.last_restore or {}).get("dir"),
+            )
+        return epoch

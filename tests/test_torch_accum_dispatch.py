@@ -202,6 +202,7 @@ def test_checkpoint_mid_window_resumes_bitwise(tmp_path, capsys, stop_after):
     first.initialize()
     for epoch in range(stop_after + 1):
         first.run_epoch(epoch)
+    first.checkpointer.wait()  # a stopped run's exit publishes its last save
     assert first.mini_step == (2 * (stop_after + 1)) % 3 != 0
     resumed = _accum_trainer(tmp_path, "b", resume=True)
     resumed.initialize()

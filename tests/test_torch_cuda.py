@@ -785,3 +785,73 @@ def test_attention_kernels_refuse_on_card(what):
     for call in calls:
         with pytest.raises(ValueError, match=match):
             call()
+
+
+def _state_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _state_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _state_leaves(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["standard", "flat", "stacked"])
+def test_the_recovery_snapshot_round_trips_bitwise_on_card(layout):
+    """The supervisor's snapshot of the train state is taken on the card
+    with no host sync, survives two in-place AdamW steps, and a rollback
+    loads it back bitwise (weights, both moments, the CPU step counts, the
+    accumulation mean and counts); the step after the rollback is the
+    step the snapshot's own run took. Then the async save's host copy:
+    page-locked, bitwise the state once its event has passed."""
+    from gnot_tpu_torch.resilience.supervisor import RecoverySupervisor, _copy_state
+    from gnot_tpu_torch.train.checkpoint import host_copy
+
+    device = _card()
+    samples = datasets.synth_darcy2d(12, seed=4)
+    cfg = Config(data=DataConfig(synthetic="darcy2d", n_train=12),
+                 optim=OptimConfig(grad_accum=2 if layout == "standard" else 1,
+                                   flat_params=layout == "flat"),
+                 train=TrainConfig(epochs=1))
+    mc = ModelConfig(n_attn_layers=2, n_attn_hidden_dim=32, n_mlp_num_layers=2,
+                     n_mlp_hidden_dim=32, n_input_hidden_dim=32, n_expert=2, n_head=4,
+                     ffn_impl="xla" if layout == "stacked" else "pallas",
+                     scan_layers=layout == "stacked", **datasets.infer_model_dims(samples))
+    t = Trainer(cfg, mc, samples, [], device=device)
+    t.initialize()
+    batches = list(t.train_loader)
+    t.train_step(batches[0], 1e-3)
+    sup = RecoverySupervisor(snapshot_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sup.begin_epoch(t.state_dict, host_step=t.host_step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # Copies: AdamW's step counts are CPU tensors it updates in place.
+    want = [x.to("cpu", copy=True) for x in _state_leaves(t.state_dict())]
+    t.train_step(batches[1], 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    t.train_step(batches[2], 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    t.load_state_dict(sup.rollback().state)
+    got = list(_state_leaves(t.state_dict()))
+    assert len(got) == len(want) and any(x.is_cuda for x in got)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert t.host_step == 1
+    replay = float(t.train_step(batches[1], 1e-3))  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    t2 = Trainer(cfg, mc, samples, [], device=device)
+    t2.initialize()
+    t2.train_step(batches[0], 1e-3)  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    assert replay == float(t2.train_step(batches[1], 1e-3))  # graftlint: disable=GL001 — the port's Trainer.train_step donates nothing
+    for a, b in zip(_state_leaves(sup._snap.state), want):
+        assert torch.equal(a.cpu(), b)  # the held snapshot survived
+    owned, ready = host_copy(t.state_dict())
+    ready.synchronize()
+    leaves = list(_state_leaves(owned))
+    assert all(x.device.type == "cpu" for x in leaves)
+    assert all(x.is_pinned() for x, y in zip(leaves, _state_leaves(t.state_dict())) if y.is_cuda)
+    for a, b in zip(leaves, _state_leaves(_copy_state(t.state_dict()))):
+        assert torch.equal(a, b.cpu())

@@ -308,16 +308,23 @@ def test_flat_checkpoint_resumes_and_a_layout_mismatch_warns_with_jax_s_text(tmp
     JaxCheckpointer(str(tmp_path / "jax"), extra_meta={"flat_params": False})._warn_numerics(
         "latest", {"flat_params": True})
     jax_line = capsys.readouterr().out
-    assert port_line == jax_line and "--flat_params" in port_line and "layout" in port_line
+    # The warning, then the line naming the file restored (JAX's restore
+    # prints both).
+    assert port_line == jax_line + "Restored 'latest' checkpoint from latest.2.pt (epoch 2)\n"
+    assert "--flat_params" in jax_line and "layout" in jax_line
     with pytest.raises(Exception):
         tree.load_state_dict(state)
     # A tree checkpoint (no flat_params recorded) restored by a flat run.
-    Checkpointer(str(tmp_path / "tree")).save_latest(tree.state_dict(), 1, 0.5)
+    tree_ck = Checkpointer(str(tmp_path / "tree"))
+    tree_ck.save_latest(tree.state_dict(), 1, 0.5)
+    tree_ck.wait()  # saves are asynchronous: commit and publish
     state = Checkpointer(str(tmp_path / "tree"), extra_meta={"flat_params": True}).restore_latest()[0]
     port_line = capsys.readouterr().out
     JaxCheckpointer(str(tmp_path / "jax"), extra_meta={"flat_params": True})._warn_numerics(
         "latest", {})
-    assert port_line == capsys.readouterr().out and "drop --flat_params" in port_line
+    jax_line = capsys.readouterr().out
+    assert port_line == jax_line + "Restored 'latest' checkpoint from latest.1.pt (epoch 1)\n"
+    assert "drop --flat_params" in jax_line
     with pytest.raises(ValueError):
         t2.load_state_dict(state)
 
@@ -548,7 +555,9 @@ def test_serving_a_flat_or_stacked_checkpoint_answers_as_the_tree_checkpoint(
     tree_state = (convert_flat_state(state, template, "tree") if layout == "flat"
                   else pipeline.convert_state_layout(state, trainer.model_cfg.n_attn_layers,
                                                      "standard"))
-    Checkpointer(str(tree_ck)).save_best(tree_state, epoch, best)
+    tree_writer = Checkpointer(str(tree_ck))
+    tree_writer.save_best(tree_state, epoch, best)
+    tree_writer.wait()  # saves are asynchronous: commit and publish
     capsys.readouterr()
     served = port_main.run_serve(port_main.build_parser().parse_args(
         base + flag + ["--serve", "--checkpoint_dir", str(ck)]))

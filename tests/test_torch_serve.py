@@ -231,7 +231,10 @@ def test_serve_serves_the_trained_checkpoint(data, tmp_path, capsys):
     ck = tmp_path / "ck"
     argv = SERVE_SMALL + data_argv + ["--checkpoint_dir", str(ck)]
     trainer = port_main.run_train(port_main.build_parser().parse_args(argv + ["--epochs", "1"]))
-    assert (ck / "best.pt").is_file()
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    assert Checkpointer(str(ck)).path("best") == ck / "best.0.pt"
+    assert (ck / "best.0.pt").is_file()
     test_samples = trainer.test_loader.samples
     want = InferenceEngine(trainer.model, batch_size=MAX_BATCH).predict(test_samples)
     capsys.readouterr()

@@ -168,6 +168,7 @@ def test_resume_after_epoch_one_reproduces_the_continuous_run(tmp_path, capsys):
     first = _small_trainer(tmp_path, "b")
     first.initialize()
     first.run_epoch(0)  # then stopped: `latest` holds epoch 1's start
+    first.checkpointer.wait()  # the stopped run's exit publishes its last save
     resumed = _small_trainer(tmp_path, "b", resume=True)
     resumed.initialize()
     assert (resumed.start_epoch, resumed.host_step) == (1, 2)
@@ -330,7 +331,9 @@ def test_cli_eval_only_evaluates_the_best_checkpoint(dtype, tmp_path, capsys):
     best_epoch = min(trained.history, key=lambda r: r.test_metric).epoch
     got = port_main.main(argv + ["--eval_only"])
     out = capsys.readouterr().out.splitlines()
-    assert out == [f"Eval (best checkpoint from epoch {best_epoch}): {got}"]
+    # The restore names the file, as JAX's restore names its directory.
+    assert out == [f"Restored 'best' checkpoint from best.{best_epoch}.pt (epoch {best_epoch})",
+                   f"Eval (best checkpoint from epoch {best_epoch}): {got}"]
     assert got == trained.best_metric
 
 
