@@ -160,6 +160,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    snapshot window (plain 0, ``--recovery`` 1, ``--debug_checks`` 2), the
    waited-for step time of each in turns, and the ``checkpoint_save``
    spans and one save's host time against a synchronous ``torch.save``.
+13. the single server's failure handling, hot reload and live metrics at
+   phase 4's configuration, on a checkpoint (``best`` and ``latest``)
+   the phase trains itself with phase 6's configuration plus
+   ``--telemetry --metrics_interval_s 0.05``, whose ``train_step_time_ms``
+   series must hold one record per timed step: (a) ``slow_request@1``
+   under a 150 ms deadline sheds exactly the victim's dispatch (no
+   ``queue_depth`` for it), the other groups served within phase 4's
+   bars; (b) ``nan_output@1,2`` trips the breaker (threshold 2),
+   ``breaker_open``, ``rejected_breaker_open``, then ``breaker_close``
+   after the 0.2 s cooldown, ``breaker_trips`` 1, no launch for the
+   rejected request; (c1) four reloads on a server started on fresh
+   weights, each followed by one group: 40 repacks per reload, on the
+   dispatch after it, outputs bitwise a fresh engine's on the restored
+   weights, the second reload under ``reload_corrupt`` (and the two
+   after it, ``latest`` staying truncated) walking on to ``best``; (c2) ``main --serve_reload_every 4`` with (e) the metrics
+   plane (``--metrics_interval_s 0.05 --slo_p99_ms 1``): 16/16 ok, four
+   ``ok`` reloads, snapshots, the series and exposition files, a
+   ``latency_p99`` fire and ``summary_agrees``; (c3) the same with
+   ``reload_corrupt@2``; (c4) ``--serve_dtype bfloat16`` with one reload,
+   and a bf16 server's reload publishing bf16 weights within phase 4b's
+   bars; (d) SIGTERM sent at the sixth submit through ``main``: the storm
+   stops, the six complete, one ``serve_summary``; (f) the costs: a
+   dispatch's kernel launch calls and synchronizing calls with the
+   deadline, breaker and registry on and off (must be equal), a reload's
+   device and host time and the repack on the dispatch after it, and a
+   64-request storm's dispatch times with and without the publisher.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -182,7 +208,12 @@ phase 11's instrumented training and observed serving runs;
 ``recovery_train_launches``, ``recovery_restore_train_launches``,
 ``stop_resume_train_launches``, ``preempt_resume_train_launches`` and
 ``ckpt_io_train_launches`` over phase 12's runs (a), (b), (c), (d) and
-(e). Launches
+(e); ``metrics_train_launches``, ``deadline_serve_launches``,
+``breaker_serve_launches``, ``reload_serve_launches``,
+``reload_main_serve_launches``, ``reload_corrupt_serve_launches``,
+``reload_bf16_serve_launches`` and ``sigterm_serve_launches`` over
+phase 13's training run and its paths (a), (b), (c1), (c2), (c3), (c4)
+and (d). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -295,6 +326,10 @@ GATE_SUM_ATOL = 1e-5
 # Phase 11's serving run: phase 4's traffic, with a sink and a tracer.
 OBS_SERVE_ARGV = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n_test", "16",
                   "--serve_max_batch", "4", "--device", "cuda"]
+# Phase 13's serving runs: phase 4's traffic (the checkpoint, metrics path
+# and the phase's flags are appended per run).
+SERVE13_ARGV = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n_test", "16",
+                "--serve_max_batch", "4", "--device", "cuda"]
 # Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
 # under the checkout's gitignored build/, emptied first.
 TRAIN_OUT = ROOT / "build" / "chip_smoke"
@@ -2583,6 +2618,475 @@ def resilience_phase(torch, np, card: str, phase6_trainer) -> dict:
     return out
 
 
+# -- phase 13: the single server's failure handling, reload and metrics --------
+
+
+class ListSink:
+    """A sink that keeps its records in memory."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def log(self, **record) -> None:
+        self.records.append(record)
+
+    def flush(self) -> None:
+        pass
+
+
+def served_setup(torch, port_main, ck: Path):
+    """Phase 4's traffic and model config, the model on the card holding
+    ``ck``'s served weights (``main.restore_for_serving``): (model,
+    samples)."""
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    args = port_main.build_parser().parse_args(SERVE13_ARGV + ["--checkpoint_dir", str(ck)])
+    data, _ = port_main.configs_from_args(args)
+    train_s, samples = port_main.datasets.load(data)
+    mc = port_main.model_config(args, train_s)
+    model = port_main.GNOT(mc, generator=torch.Generator().manual_seed(args.seed)).to(
+        port_main.run_device(args))
+    with contextlib.redirect_stdout(io.StringIO()):
+        port_main.restore_for_serving(
+            model, Checkpointer(str(ck), extra_meta=port_main.checkpoint_meta(args, mc)))
+    return model, samples
+
+
+def checkpoint_weights(torch, model, ck: Path, name: str) -> dict:
+    """The standard weights of ``ck``'s ``name`` checkpoint."""
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+    from gnot_tpu_torch.train.trainer import serving_weights
+
+    ckpt = Checkpointer(str(ck))
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = (ckpt.restore_best() if name == "best" else ckpt.restore_latest())[0]
+    return serving_weights(state, model.state_dict(), model.config.n_attn_layers, "standard",
+                           name)
+
+
+def engine_on(torch, model, weights: dict | None, dtype: str = "float32"):
+    """A fresh engine over a copy of ``model`` holding ``weights``."""
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    fresh = copy.deepcopy(model)
+    if weights is not None:
+        fresh.load_state_dict(weights)
+    return InferenceEngine(fresh, batch_size=4, dtype=dtype)
+
+
+def group_outputs(engine, group) -> list:
+    """``group``'s outputs from one 4-row dispatch, as the server cuts them."""
+    key = engine.bucket_key(group[0])
+    return engine.infer(group, pad_nodes=key[0], pad_funcs=key[1], rows=4)
+
+
+def submit_group(server, group, **kw) -> list:
+    """Submit a group, then wait for each of its requests."""
+    futures = [server.submit(s, **kw) for s in group]
+    return [f.result(timeout=120) for f in futures]
+
+
+def plain_outputs(torch, layers, model, samples, dtype: str = "float32") -> list:
+    """A forward of ``model`` with every FFN through the kernel's plain
+    version (phase 4's reference)."""
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, fused_gated_ffn_reference
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        return InferenceEngine(model, batch_size=4, dtype=dtype).predict(samples)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+
+
+def hold_to_plain(np, tag: str, results, plain) -> float:
+    """Each ok result against its plain forward at phase 4's bars; the
+    worst abs difference."""
+    worst = 0.0
+    for r, want in zip(results, plain):
+        if not r.ok or r.output.shape != want.shape:
+            raise RuntimeError(f"[{tag}] request {r.reason} {r.detail}")
+        np.testing.assert_allclose(r.output, want, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        worst = max(worst, float(np.max(np.abs(r.output - want))))
+    return worst
+
+
+def device_busy_ms(torch, fn) -> tuple[float, float, int, int]:
+    """One ``fn()`` under ``torch.profiler``: (device ms over its kernels and
+    copies, host ms, device records, kernel launch calls on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    return sum(r[0] for r in rows), host, sum(r[1] for r in rows), launch_calls
+
+
+def serving_policies_phase(torch, np, card: str, layers) -> dict:
+    """Phase 13: the single server's deadlines, circuit breaker, serve
+    fault injection, hot reload, SIGTERM drain and live metrics plane at
+    phase 4's configuration, on weights phase 13 trains itself with phase
+    6's configuration; then their costs. Returns the FFN kernel's launches
+    over each path."""
+    import shutil
+    import signal
+    import warnings
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.obs.metrics import MetricsRegistry
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel, packed_weights
+    from gnot_tpu_torch.resilience.faults import FaultInjector
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    root = TRAIN_OUT / "serve13"
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict[str, int] = {}
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    # The weights: phase 6's training with best and latest saved each epoch,
+    # run with the training side of the metrics plane (e).
+    ck = root / "ck"
+    argv = TRAIN_ARGV + ["--checkpoint_dir", str(ck), "--checkpoint_every", "1", "--telemetry",
+                         "--metrics_interval_s", "0.05", "--metrics_path",
+                         str(root / "train" / "m.jsonl")]
+    fused_gated_ffn_kernel.launches = 0
+    trainer, _ = run_observed(port_main, argv)
+    launches = fused_gated_ffn_kernel.launches
+    per_forward = 2 * trainer.model_cfg.n_attn_layers
+    steps = sum(len(r.step_losses) for r in trainer.history)
+    evals = len(trainer.test_loader)
+    series = read_jsonl(root / "train" / "m.series.jsonl")
+    timed = series[-1]["series"]["train_step_time_ms"]
+    manifest = json.load(open(root / "train" / "run.json"))
+    names = {p.name for p in ck.iterdir()}
+    log(f"[serve13] python -m gnot_tpu_torch.main {' '.join(argv)}: {steps} steps, "
+        f"fused_gated_ffn launches {launches}; checkpoints {sorted(names)}; "
+        f"train_step_time_ms {timed['count']} records (mean "
+        f"{timed['sum'] / max(1, timed['count']):.3f} ms), {len(series)} snapshots, run.json "
+        f"metrics {manifest.get('metrics')} on {card}")
+    if (launches != per_forward * (steps + 2 * evals) or not {"best.json", "latest.json"} <= names
+            or timed["count"] != steps - len(trainer.history) or not manifest.get("metrics")):
+        raise RuntimeError("[serve13] the training run, its checkpoints or its step-time "
+                           "series are not whole")
+    out["metrics_train_launches"] = launches
+
+    model, samples = served_setup(torch, port_main, ck)
+    groups = [samples[i:i + 4] for i in range(0, 16, 4)]
+    plain = plain_outputs(torch, layers, model, samples)
+
+    # (a) Deadlines: slow_request@1 stalls the first group's dispatch past its
+    # 150 ms deadline; the three later groups are served.
+    sink = ListSink()
+    server = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
+                             max_wait_ms=10_000, default_deadline_ms=150.0, sink=sink,
+                             faults=FaultInjector.from_spec("slow_request@1")).start(warmup=samples)
+    fused_gated_ffn_kernel.launches = 0
+    results = [r for g in groups for r in submit_group(server, g)]
+    summary = server.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    kinds = [r["event"] for r in sink.records]
+    sheds = [r for r in sink.records if r["event"] == "shed"]
+    worst = hold_to_plain(np, "serve13 a", results[4:], plain[4:])
+    log(f"[serve13] (a) reasons {[r.reason for r in results]}; shed ordinals "
+        f"{[s['ordinal'] for s in sheds]}; queue_depth events {kinds.count('queue_depth')}; "
+        f"launches {launches}; served vs plain max_abs_err {worst:.3e}; shed {summary['shed']}")
+    if ([r.reason for r in results[:4]] != ["shed_deadline"] * 4
+            or [s["ordinal"] for s in sheds] != [1, 2, 3, 4] or kinds.count("queue_depth") != 3
+            or launches != per_forward * 3 or invalid(sink.records)):
+        raise RuntimeError("[serve13] (a) the deadline shed is not the victim's dispatch alone")
+    out["deadline_serve_launches"] = launches
+
+    # (b) The breaker: nan_output@1,2 trip it (threshold 2), the next request
+    # is rejected with no dispatch, and after the 0.2 s cooldown a trial
+    # closes it.
+    sink = ListSink()
+    server = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4, max_wait_ms=1.0,
+                             breaker_threshold=2, breaker_cooldown_s=0.2, sink=sink,
+                             faults=FaultInjector.from_spec("nan_output@1,nan_output@2")
+                             ).start(warmup=samples)
+    fused_gated_ffn_kernel.launches = 0
+    results = [server.submit(s).result(timeout=60) for s in samples[:3]]
+    time.sleep(0.25)
+    results.append(server.submit(samples[3]).result(timeout=60))
+    summary = server.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    order = [r["event"] if r["event"] != "shed" else r["reason"] for r in sink.records
+             if r["event"] in ("breaker_open", "breaker_close", "shed")]
+    worst = hold_to_plain(np, "serve13 b", results[3:], plain[3:4])
+    log(f"[serve13] (b) reasons {[r.reason for r in results]}; events {order}; breaker_trips "
+        f"{summary['breaker_trips']}; launches {launches} (the two poisoned dispatches and the "
+        f"trial); served vs plain max_abs_err {worst:.3e}")
+    if ([r.reason for r in results] != ["error_nan_output"] * 2 + ["rejected_breaker_open", "ok"]
+            or order != ["breaker_open", "rejected_breaker_open", "breaker_close"]
+            or summary["breaker_trips"] != 1 or launches != per_forward * 3
+            or invalid(sink.records)):
+        raise RuntimeError("[serve13] (b) the breaker did not trip and recover as JAX's does")
+    out["breaker_serve_launches"] = launches
+
+    # (c1) Four reloads on a server started on fresh weights, each followed
+    # by one group: the dispatch after a reload repacks the 40 images, and
+    # its outputs are bitwise a fresh engine's on the restored weights; the
+    # second reload has reload_corrupt and walks on to 'best'.
+    ck1 = root / "ck_c1"
+    shutil.copytree(ck, ck1)
+    latest_w = checkpoint_weights(torch, model, ck, "latest")
+    best_w = checkpoint_weights(torch, model, ck, "best")
+    same = all(torch.equal(latest_w[k], best_w[k]) for k in latest_w)
+    fresh_model = copy.deepcopy(model)
+    fresh_model.load_state_dict(port_main.GNOT(model.config, generator=torch.Generator(
+        ).manual_seed(0)).state_dict())
+    engine = InferenceEngine(fresh_model, batch_size=4)
+    sink = ListSink()
+    server = InferenceServer(engine, max_batch=4, max_wait_ms=10_000, sink=sink,
+                             reload_fn=CheckpointReloader(Checkpointer(str(ck1)), fresh_model),
+                             faults=FaultInjector.from_spec("reload_corrupt@2")
+                             ).start(warmup=samples)
+    refs = {"latest": engine_on(torch, model, latest_w), "best": engine_on(torch, model, best_w)}
+    # The fresh engines' outputs first: their launches are not the path's.
+    # From the second reload on, latest stays truncated: each walks on to best.
+    wants = [group_outputs(refs["best" if k >= 2 else "latest"], g)
+             for k, g in enumerate(groups, 1)]
+    latest_first = group_outputs(refs["latest"], groups[0])
+    fused_gated_ffn_kernel.launches = 0
+    reload_host, repacks, bitwise = [], [], []
+    before = submit_group(server, groups[0])
+    for k, (group, want) in enumerate(zip(groups, wants), 1):
+        packs = packed_weights.packs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.reload()
+        reload_host.append(round((time.perf_counter() - t0) * 1e3, 3))
+        moved = packed_weights.packs - packs
+        res = submit_group(server, group)
+        repacks.append((moved, packed_weights.packs - packs))
+        bitwise.append(all(r.ok and np.array_equal(r.output, w) for r, w in zip(res, want)))
+    summary = server.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    rels = [r for r in sink.records if r["event"] == "reload"]
+    log(f"[serve13] (c1) reload events {[(r['ok'], r['name'], r['dir'], r['fallback']) for r in rels]}; "
+        f"host ms {reload_host}; packs (after the reload, after its dispatch) {repacks}; outputs "
+        f"bitwise a fresh engine's on the restored weights {bitwise}; best and latest hold the "
+        f"same weights: {same}; launches {launches} on {card}")
+    if (len(rels) != 4 or not all(r["ok"] for r in rels) or rels[0]["fallback"]
+            or any(r["name"] != "best" or not r["fallback"] for r in rels[1:])
+            or repacks != [(0, 40)] * 4 or not all(bitwise) or summary["reloads"] != 4
+            or launches != per_forward * 5 or invalid(sink.records)):
+        raise RuntimeError("[serve13] (c1) a reload did not swap, repack once and serve the "
+                           "restored weights")
+    if all(np.array_equal(b.output, w) for b, w in zip(before, latest_first)):
+        raise RuntimeError("[serve13] (c1) the fresh weights already serve latest's outputs")
+    out["reload_serve_launches"] = launches
+
+    # (c2) + (e) Through main: --serve_reload_every 4 with the metrics plane on.
+    def serve_run(tag: str, *flags: str, corrupts: bool = False):
+        """``main``'s serve run of phase 4's traffic on the checkpoint (a
+        copy of it when the run corrupts it), its counts set to 0 just
+        before and read just after."""
+        d = root / tag
+        d.mkdir(parents=True)
+        run_ck = ck
+        if corrupts:
+            run_ck = d / "ck"
+            shutil.copytree(ck, run_ck)
+        argv = SERVE13_ARGV + ["--checkpoint_dir", str(run_ck), "--metrics_path",
+                               str(d / "m.jsonl"), *flags]
+        fused_gated_ffn_kernel.launches = 0
+        packs = packed_weights.packs
+        t0 = time.perf_counter()
+        run, lines = run_observed(port_main, argv)
+        launches = fused_gated_ffn_kernel.launches
+        recs = read_jsonl(d / "m.jsonl")
+        log(f"[serve13] ({tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: "
+            f"{time.perf_counter() - t0:.2f} s, fused_gated_ffn launches {launches}, packs "
+            f"{packed_weights.packs - packs}")
+        for line in lines:
+            if line.startswith(("Metrics plane", "WARNING")):
+                log(f"[serve13]   {line}")
+        return run, recs, launches, packed_weights.packs - packs, d
+
+    flags = ["--serve_reload_every", "4", "--metrics_interval_s", "0.05", "--slo_p99_ms", "1",
+             "--slo_fast_window_s", "0.1", "--slo_slow_window_s", "0.2"]
+    run, recs, launches, packs, d = serve_run("c2", *flags)
+    rels = [r for r in recs if r.get("event") == "reload"]
+    alerts = [(r["objective"], r["state"]) for r in recs if r.get("event") == "slo_alert"]
+    snaps = [r for r in recs if r.get("event") == "metrics_snapshot"]
+    manifest = json.load(open(d / "run.json"))
+    dispatches = run.summary["dispatches"] + run.summary["warmed_buckets"]
+    plain_ref = {"latest": plain_outputs(torch, layers, refs["latest"].model, samples),
+                 "best": plain_outputs(torch, layers, refs["best"].model, samples)}
+
+    def held(results) -> list[bool]:
+        """Each output at phase 4's bars of the plain forward of best's or
+        latest's weights (which a request met depends on the reloads'
+        timing; (c1) holds them bitwise)."""
+        return [any(np.allclose(r.output, p[i], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+                    for p in plain_ref.values()) for i, r in enumerate(results)]
+
+    match = held(run.results)
+    log(f"[serve13] (c2) reasons {sorted(set(r.reason for r in run.results))}; reload events "
+        f"{[(r['ok'], r['name'], r['fallback']) for r in rels]}; summary reloads "
+        f"{run.summary['reloads']}; packs {packs} (40 per publish a dispatch followed); "
+        f"launches {launches} = {per_forward} x {dispatches}; each output at phase 4's bars of "
+        f"best's or latest's plain forward: {all(match)} (the same weights: {same})")
+    log(f"[serve13] (e) {len(snaps)} metrics_snapshot events; slo_alert edges {alerts}; series "
+        f"rows {len(read_jsonl(d / 'm.series.jsonl'))}; .prom {(d / 'm.prom').stat().st_size} B; "
+        f"run.json metrics {manifest.get('metrics')}; latency p50 "
+        f"{run.summary['latency_p50_ms']:.3f} p99 {run.summary['latency_p99_ms']:.3f} ms on {card}")
+    if (len(run.results) != 16 or not all(r.ok for r in run.results) or len(rels) != 4
+            or not all(r["ok"] and not r["fallback"] for r in rels) or packs % 40
+            or not 40 <= packs <= 200 or launches != per_forward * dispatches or not all(match)
+            or invalid(recs)):
+        raise RuntimeError("[serve13] (c2) serving with reloads is not whole")
+    if (not snaps or ("latency_p99", "fire") not in alerts
+            or not manifest.get("metrics", {}).get("summary_agrees")
+            or not (d / "m.prom").stat().st_size):
+        raise RuntimeError("[serve13] (e) the metrics plane is not whole")
+    out["reload_main_serve_launches"] = launches
+
+    # (c3) reload_corrupt@2 through main: that reload walks on to best.
+    run, recs, launches, packs, _ = serve_run("c3", "--serve_reload_every", "4",
+                                              "--serve_inject_fault", "reload_corrupt@2",
+                                              corrupts=True)
+    rels = [r for r in recs if r.get("event") == "reload"]
+    match = held(run.results)
+    log(f"[serve13] (c3) reasons {sorted(set(r.reason for r in run.results))}; reload events "
+        f"{[(r['ok'], r['name'], r['dir'], r['fallback']) for r in rels]}; outputs at phase "
+        f"4's bars of best's or latest's plain forward: {all(match)}")
+    if (not all(r.ok for r in run.results) or len(run.results) != 16 or len(rels) != 4
+            or not rels[1]["fallback"] or rels[1]["name"] != "best" or not all(match)):
+        raise RuntimeError("[serve13] (c3) the corrupt reload did not fall back to best")
+    out["reload_corrupt_serve_launches"] = launches
+
+    # (c4) bf16: one reload through main, then a bf16 server's reload held to
+    # phase 4b's bars.
+    run, recs, launches, packs, _ = serve_run("c4", "--serve_reload_every", "16",
+                                              "--serve_dtype", "bfloat16")
+    rels = [r for r in recs if r.get("event") == "reload"]
+    bf16_engine = InferenceEngine(fresh_model, batch_size=4, dtype="bfloat16")
+    server = InferenceServer(bf16_engine, max_batch=4, max_wait_ms=10_000,
+                             reload_fn=CheckpointReloader(Checkpointer(str(ck)), fresh_model)
+                             ).start(warmup=samples)
+    server.reload()
+    dtypes = {str(v.dtype) for v in bf16_engine.model.state_dict().values() if v.is_floating_point()}
+    res = [r for g in groups for r in submit_group(server, g)]
+    server.drain(60)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    restored_model = refs["latest"].model
+    plain_bf16 = plain_outputs(torch, layers, restored_model, samples, "bfloat16")
+    plain_rel = rel(np.concatenate([r.output for r in res]), np.concatenate(plain_bf16))
+    f32_ref = refs["latest"].predict(samples)
+    f32_rel = max(rel(r.output, w) for r, w in zip(res, f32_ref))
+    log(f"[serve13] (c4) --serve_dtype bfloat16 --serve_reload_every 16: reasons "
+        f"{sorted(set(r.reason for r in run.results))}, reload events "
+        f"{[(r['ok'], r['name']) for r in rels]}, launches {launches}; a bf16 server's reload "
+        f"publishes {sorted(dtypes)}; its outputs vs the plain bf16 forward of the restored "
+        f"weights: relative norm {plain_rel:.3e} (bar {BF16_PLAIN_REL}); vs the f32 engine: "
+        f"worst request {f32_rel:.3e} (bar {BF16_F32_REL})")
+    if (not all(r.ok for r in run.results) or len(rels) != 1 or not rels[0]["ok"]
+            or dtypes != {"torch.bfloat16"} or not all(r.ok for r in res)
+            or plain_rel > BF16_PLAIN_REL or f32_rel >= BF16_F32_REL):
+        raise RuntimeError("[serve13] (c4) the bf16 reload is off its bars")
+    out["reload_bf16_serve_launches"] = launches
+
+    # (d) SIGTERM while serving through main: the sixth submit sends it.
+    class SignalledServer(InferenceServer):
+        def submit(self, sample, **kw):
+            fut = super().submit(sample, **kw)
+            with self._lock:
+                n = self._submitted
+            if n == 6:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return fut
+
+    port_main.InferenceServer = SignalledServer
+    try:
+        run, recs, launches, _, _ = serve_run("d")
+    finally:
+        port_main.InferenceServer = InferenceServer
+    summaries = [r for r in recs if r.get("event") == "serve_summary"]
+    log(f"[serve13] (d) SIGTERM at the sixth submit: {len(run.results)} submitted, reasons "
+        f"{[r.reason for r in run.results]}; serve_summary {[(s['requests'], s['completed']) for s in summaries]}; "
+        f"launches {launches}")
+    if (len(run.results) != 6 or not all(r.ok for r in run.results) or len(summaries) != 1
+            or summaries[0]["completed"] != 6):
+        raise RuntimeError("[serve13] (d) SIGTERM did not stop the storm and drain the server")
+    hold_to_plain(np, "serve13 d", run.results, plain[:6])
+    out["sigterm_serve_launches"] = launches
+
+    # (f) Costs. Kernels and synchronizing calls of one dispatch with the
+    # deadline, the breaker and the registry on, and with them off.
+    def one_dispatch_counts(on: bool):
+        kw = dict(default_deadline_ms=60_000.0, metrics=MetricsRegistry()) if on else {}
+        server = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
+                                 max_wait_ms=10_000, **kw).start(warmup=samples)
+        submit_group(server, groups[0])
+        busy, host, records, launch_calls = device_busy_ms(
+            torch, lambda: submit_group(server, groups[1]))
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                submit_group(server, groups[2])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        server.drain(60)
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+        return launch_calls, syncs, records, round(busy, 3), round(host, 3)
+
+    turns = [(label, one_dispatch_counts(label == "on")) for label in ("off", "on", "on", "off")]
+    log(f"[serve13] (f) one dispatch (4 requests), policies off / on (deadline, breaker, "
+        f"registry), turns of (kernel launch calls, synchronizing calls, device records, device "
+        f"busy ms, host ms): {turns} on {card}")
+    if len({t[1][:2] for t in turns}) != 1:
+        raise RuntimeError(f"[serve13] (f) the policies changed a dispatch's launches or syncs: "
+                           f"{turns}")
+
+    # A reload's device and host time, and the repack on the dispatch after it.
+    engine = InferenceEngine(copy.deepcopy(model), batch_size=4)
+    server = InferenceServer(engine, max_batch=4, max_wait_ms=10_000,
+                             reload_fn=CheckpointReloader(Checkpointer(str(ck)), engine.model)
+                             ).start(warmup=samples)
+    submit_group(server, groups[0])
+    n_bytes = sum(v.numel() * v.element_size() for v in engine.model.state_dict().values())
+    costs = []
+    for _ in range(3):
+        rl_dev, rl_host, rl_n, _ = device_busy_ms(torch, server.reload)
+        first_dev, first_host, _, _ = device_busy_ms(torch, lambda: submit_group(server, groups[1]))
+        next_dev, next_host, _, _ = device_busy_ms(torch, lambda: submit_group(server, groups[1]))
+        costs.append((round(rl_dev, 3), round(rl_host, 3), rl_n, round(first_dev - next_dev, 3),
+                      round(first_host - next_host, 3)))
+    server.drain(60)
+    log(f"[serve13] (f) a reload ({n_bytes / 1e6:.1f} MB of weights to the card), turns of "
+        f"(device ms, host ms, device records, repack device ms = first dispatch after it minus "
+        f"the next, the same for host ms): {costs}; bound of the copy to the card "
+        f"{n_bytes / 25e9 * 1e3:.3f} ms at 25 GB/s (PCIe) on {card}")
+
+    # A storm's dispatch times with and without the publisher thread, in turns.
+    turns = {"without": [], "with": []}
+    for label in ("without", "with", "with", "without"):
+        extra = ["--metrics_interval_s", "0.05"] if label == "with" else []
+        run, _, _, _, _ = serve_run(f"f-{label}-{len(turns[label])}", "--n_test", "64", *extra)
+        s = run.summary
+        turns[label].append((round(s["dispatch_ms_p50"], 3), round(s["dispatch_ms_max"], 3),
+                             round(s["latency_p50_ms"], 3), round(s["latency_p99_ms"], 3)))
+    log(f"[serve13] (f) 64 requests, 16 dispatches: (dispatch p50, dispatch max = p99 of 16, "
+        f"latency p50, latency p99) host ms without / with the publisher thread at 0.05 s, "
+        f"turns: {json.dumps(turns)} on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -2785,6 +3289,9 @@ def main() -> int:
     # -- phase 12: recovery, faults, preemption, the checkpointer's chain ---
     resil_launches = resilience_phase(torch, np, card, f32_trainer)
 
+    # -- phase 13: deadlines, the breaker, reload, SIGTERM, live metrics ---
+    serve13_launches = serving_policies_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -2812,6 +3319,7 @@ def main() -> int:
         **loop_launches,
         **obs_launches,
         **resil_launches,
+        **serve13_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -309,6 +309,20 @@ class ServeConfig:
     # At most queue_limit requests in the system; beyond it submissions
     # fast-fail ("shed_queue_full").
     queue_limit: int = 64
+    # Default per-request deadline (ms; 0 = none): an expired request is
+    # shed before dispatch, and the budget clamps a reload's retries.
+    deadline_ms: float = 0.0
+    # Circuit breaker: open after breaker_threshold consecutive failed
+    # dispatches (non-finite outputs, device errors); while open, requests
+    # are rejected at once; after breaker_cooldown_s one half-open trial.
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 1.0
+    # How long drain() (and the storm, per request) waits for in-flight
+    # requests.
+    drain_timeout_s: float = 30.0
+    # Serve-side fault injection (resilience/faults.py): slow_request@N,
+    # nan_output@N, reload_corrupt@N. "" = none.
+    inject_fault: str = ""
     # Serving compute dtype (models/precision.py): "float32", or
     # "bfloat16" (the block stack in bf16 with f32 accumulation, an f32
     # attention normalizer and an f32 output head; the engine publishes
@@ -321,6 +335,19 @@ class ServeConfig:
     # padded path. pack_chunk is the segment alignment, a multiple of 8.
     packed: bool = False
     pack_chunk: int = 64
+    # The live metrics plane (obs/metrics.py): with metrics_interval_s > 0
+    # a MetricsPublisher snapshots the registry every interval
+    # (metrics_snapshot events, <stem>.series.jsonl, <stem>.prom) and an
+    # SLOEvaluator turns the history into slo_alert fire / clear edges.
+    # 0 = off.
+    metrics_interval_s: float = 0.0
+    # The SLO objectives, over a fast and a slow burn-rate window (both
+    # must burn to fire; the fast window clearing clears). slo_p99_ms 0
+    # turns the latency objective off, slo_shed_frac 0 the shed one.
+    slo_p99_ms: float = 0.0
+    slo_shed_frac: float = 0.05
+    slo_fast_window_s: float = 5.0
+    slo_slow_window_s: float = 30.0
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -338,4 +365,26 @@ class ServeConfig:
         if self.pack_chunk < 8 or self.pack_chunk % 8:
             raise ValueError(
                 f"pack_chunk must be a positive multiple of 8, got {self.pack_chunk}"
+            )
+        if self.breaker_threshold < 1:
+            raise ValueError(
+                f"breaker_threshold must be >= 1, got {self.breaker_threshold}"
+            )
+        if self.metrics_interval_s < 0:
+            raise ValueError(
+                f"metrics_interval_s must be >= 0, got "
+                f"{self.metrics_interval_s}"
+            )
+        if self.slo_p99_ms < 0:
+            raise ValueError(
+                f"slo_p99_ms must be >= 0, got {self.slo_p99_ms}"
+            )
+        if not 0.0 <= self.slo_shed_frac <= 1.0:
+            raise ValueError(
+                f"slo_shed_frac must be in [0, 1], got {self.slo_shed_frac}"
+            )
+        if not 0 < self.slo_fast_window_s <= self.slo_slow_window_s:
+            raise ValueError(
+                "need 0 < slo_fast_window_s <= slo_slow_window_s, got "
+                f"{self.slo_fast_window_s}/{self.slo_slow_window_s}"
             )

@@ -53,6 +53,19 @@ resolved numerics and the layout (``checkpoint_meta``), and ``run.json``'s
 ``restore`` field is the checkpointer's ``last_restore``: which file a
 resume, an eval or a serve restored, fallbacks included.
 
+Serving's failure handling and live metrics (``gnot_tpu/main.py``'s
+flags, defaults and refusals): ``--serve_deadline_ms`` sheds requests
+past their deadline before dispatch; ``--serve_breaker_threshold`` and
+``--serve_breaker_cooldown_s`` set the circuit breaker; ``--drain_timeout_s``
+bounds each wait of the storm and the drain; ``--serve_inject_fault``
+arms ``slow_request@N``, ``nan_output@N`` and ``reload_corrupt@N``;
+``--serve_reload_every N`` hot-reloads ``--checkpoint_dir`` every N
+requests; SIGTERM stops the storm and drains the server;
+``--metrics_interval_s`` streams the live registry (``metrics_snapshot``
+events, ``<metrics-stem>.series.jsonl``, ``<metrics-stem>.prom``) with
+``slo_alert`` edges on the ``--slo_*`` objectives when serving, and the
+telemetry drain's step times when training.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -63,7 +76,9 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -83,15 +98,15 @@ from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
 from gnot_tpu_torch.models.precision import SERVE_DTYPES
 from gnot_tpu_torch.obs import manifest as manifest_lib
+from gnot_tpu_torch.obs import metrics as metrics_lib
 from gnot_tpu_torch.obs.tracing import Tracer
+from gnot_tpu_torch.resilience.faults import FaultInjector
+from gnot_tpu_torch.resilience.preemption import PreemptionHandler
 from gnot_tpu_torch.serve.engine import InferenceEngine
-from gnot_tpu_torch.serve.server import InferenceServer, ServeResult
+from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
-from gnot_tpu_torch.train.trainer import Trainer, standard_weights, state_layout
+from gnot_tpu_torch.train.trainer import Trainer, serving_weights
 from gnot_tpu_torch.utils.metrics import MetricsSink
-
-# How long the storm waits for each request, and drain() for stragglers.
-DRAIN_TIMEOUT_S = 30.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -309,6 +324,68 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_queue_limit", type=int, default=64,
                    help="serving: bounded-queue admission limit")
     p.add_argument(
+        "--serve_deadline_ms", type=float, default=0.0,
+        help="serving: default per-request deadline (0 = none); expired "
+             "requests are shed before dispatch",
+    )
+    p.add_argument(
+        "--serve_breaker_threshold", type=int, default=3,
+        help="serving: consecutive dispatch failures (NaN outputs / "
+             "device errors) that trip the circuit breaker open",
+    )
+    p.add_argument(
+        "--serve_breaker_cooldown_s", type=float, default=1.0,
+        help="serving: seconds the tripped breaker rejects before one "
+             "half-open trial dispatch decides recovery",
+    )
+    p.add_argument(
+        "--drain_timeout_s", type=float, default=30.0,
+        help="serving: graceful-drain budget — how long drain() waits "
+             "for in-flight requests before force-resolving the "
+             "stragglers",
+    )
+    p.add_argument(
+        "--serve_inject_fault", type=str, default="",
+        help="serving-side deterministic fault injection: comma-separated "
+             "kind@N — slow_request@admission, nan_output@dispatch, "
+             "reload_corrupt@reload",
+    )
+    p.add_argument(
+        "--serve_reload_every", type=int, default=0,
+        help="serving demo traffic: hot-reload the checkpoint after "
+             "every N requests (0 = never) — exercises the atomic "
+             "weight swap under load",
+    )
+    p.add_argument(
+        "--metrics_interval_s", type=float, default=0.0,
+        help="live metrics plane (obs/metrics.py): publish a registry "
+             "snapshot every N seconds: metrics_snapshot events, a JSONL "
+             "time series (<metrics-stem>.series.jsonl), a Prometheus "
+             "exposition file (<metrics-stem>.prom), and slo_alert "
+             "burn-rate fire/clear edges when serving; 0 = off",
+    )
+    p.add_argument(
+        "--slo_p99_ms", type=float, default=0.0,
+        help="serving SLO: windowed p99 latency objective (ms) the live "
+             "metrics plane alerts on; 0 = no latency objective",
+    )
+    p.add_argument(
+        "--slo_shed_frac", type=float, default=0.05,
+        help="serving SLO: tolerated windowed shed fraction before the "
+             "live metrics plane fires an slo_alert; 0 = off",
+    )
+    p.add_argument(
+        "--slo_fast_window_s", type=float, default=5.0,
+        help="serving SLO: fast burn-rate window (seconds) — both "
+             "windows must burn > 1.0 to FIRE; the fast window "
+             "clearing CLEARS (edge-triggered alerts)",
+    )
+    p.add_argument(
+        "--slo_slow_window_s", type=float, default=30.0,
+        help="serving SLO: slow burn-rate window (seconds) — the "
+             "sustained-violation half of the two-window burn gate",
+    )
+    p.add_argument(
         "--serve_dtype", type=str, default="float32", choices=list(SERVE_DTYPES),
         help="serving compute dtype (models/precision.py): bfloat16 runs the "
              "block stack in bf16 with f32 attention accumulation, an f32 "
@@ -389,9 +466,19 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         max_batch=args.serve_max_batch,
         max_wait_ms=args.serve_max_wait_ms,
         queue_limit=args.serve_queue_limit,
+        deadline_ms=args.serve_deadline_ms,
+        breaker_threshold=args.serve_breaker_threshold,
+        breaker_cooldown_s=args.serve_breaker_cooldown_s,
+        drain_timeout_s=args.drain_timeout_s,
+        inject_fault=args.serve_inject_fault,
         dtype=args.serve_dtype,
         packed=args.serve_packed,
         pack_chunk=args.serve_pack_chunk,
+        metrics_interval_s=args.metrics_interval_s,
+        slo_p99_ms=args.slo_p99_ms,
+        slo_shed_frac=args.slo_shed_frac,
+        slo_fast_window_s=args.slo_fast_window_s,
+        slo_slow_window_s=args.slo_slow_window_s,
     )
     return data, serve
 
@@ -450,6 +537,9 @@ class RunManifest:
             self.path = manifest_lib.manifest_path_for(self.args.metrics_path)
         extra = {"metrics_path": self.args.metrics_path,
                  "kind": self.fields.get("kind"), "restore": self.fields.get("restore")}
+        if self.fields.get("metrics") is not None:
+            # The live metrics plane's stats (MetricsPublisher.stats()).
+            extra["metrics"] = self.fields["metrics"]
         manifest_lib.write_manifest(
             self.path, argv=self.argv, extra=extra,
             **{k: self.fields.get(k) for k in ("config", "model_config", "device")},
@@ -471,6 +561,9 @@ class ServeRun:
     samples: list[MeshSample]
     model: GNOT
     pack_plan: PackPlan | None = None
+    # The live metrics plane's stats with ``summary_agrees`` (run.json's
+    # ``metrics``), when --metrics_interval_s is on.
+    metrics: dict | None = None
 
 
 def checkpoint_meta(args, mc: ModelConfig) -> dict:
@@ -497,28 +590,30 @@ def restore_for_serving(model: GNOT, checkpointer: Checkpointer | None,
     if restored is None:
         print("note: no restorable checkpoint — serving fresh weights")
         return ""
-    state, name = restored[0], checkpointer.last_restore["name"]
-    if state_layout(state) != layout:
-        raise ValueError(
-            f"the '{name}' checkpoint holds the {state_layout(state)} parameter "
-            f"layout but this run uses the {layout} layout; pass the layout "
-            "flag it was trained with (--flat_params, --scan_layers)"
-        )
-    model.load_state_dict(standard_weights(
-        state["model"], model.state_dict(), model.config.n_attn_layers))
+    name = checkpointer.last_restore["name"]
+    model.load_state_dict(serving_weights(
+        restored[0], model.state_dict(), model.config.n_attn_layers, layout, name))
     return name
 
 
-def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = None) -> ServeRun:
+def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = None,
+              registry=None) -> ServeRun:
     """``--serve``: build the model on the chosen device with the weights
     of ``--checkpoint_dir`` (else from ``--seed``), start the server with
     one warm-up dispatch per bucket (and, with ``--serve_packed``, one
-    packed dispatch of the plan derived from the traffic), submit the test split of
-    ``datasets.load`` as requests, wait for every future, drain, and
-    report. The server writes its events to ``sink`` and its request
-    spans to ``tracer`` when given."""
+    packed dispatch of the plan derived from the traffic) inside a
+    ``PreemptionHandler`` (SIGTERM drains it), submit the test split of
+    ``datasets.load`` as requests (``_serve_storm``), drain, and report.
+    With a ``--checkpoint_dir`` the server can hot-reload it
+    (``CheckpointReloader``; ``--serve_reload_every``); with
+    ``--metrics_interval_s`` it records into ``registry`` (a fresh one
+    when None), which a ``MetricsPublisher`` with the config's SLO
+    objectives streams until after the drain, and the final snapshot is
+    held to the summary (``summary_agrees``). The server writes its
+    events to ``sink`` and its request spans to ``tracer`` when given."""
     device = run_device(args)
     data, sc = configs_from_args(args)
+    faults = FaultInjector.from_spec(sc.inject_fault)
     train_samples, samples = datasets.load(data)
     gen = torch.Generator().manual_seed(args.seed)
     mc = model_config(args, train_samples)
@@ -542,38 +637,104 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
                             per_devices=1)
         if sc.packed else None
     )
-    server = InferenceServer(
-        engine,
-        max_batch=sc.max_batch,
-        max_wait_ms=sc.max_wait_ms,
-        queue_limit=sc.queue_limit,
-        pack_plan=pack_plan,
-        sink=sink,
-        tracer=tracer,
-    )
-    t0 = time.monotonic()
-    server.start(warmup=samples)
-    warm_s = time.monotonic() - t0
-    try:
-        futures = [server.submit(s) for s in samples]
-        results = [f.result(timeout=DRAIN_TIMEOUT_S) for f in futures]
-    finally:
-        summary = server.drain(DRAIN_TIMEOUT_S)
+    reload_fn = (CheckpointReloader(checkpointer, model, layout=param_layout(args))
+                 if checkpointer is not None else None)
+    publisher = None
+    if sc.metrics_interval_s > 0:
+        if registry is None:
+            registry = metrics_lib.MetricsRegistry()
+        stem = (os.path.splitext(args.metrics_path)[0] if args.metrics_path
+                else os.path.join(tempfile.mkdtemp(prefix="gnot_metrics_"), "serve"))
+        publisher = metrics_lib.MetricsPublisher(
+            registry, interval_s=sc.metrics_interval_s, sink=sink,
+            series_path=f"{stem}.series.jsonl", exposition_path=f"{stem}.prom",
+            evaluator=metrics_lib.SLOEvaluator(metrics_lib.default_objectives(sc)),
+        )
+    with PreemptionHandler() as preempt:
+        server = InferenceServer(
+            engine,
+            max_batch=sc.max_batch,
+            max_wait_ms=sc.max_wait_ms,
+            queue_limit=sc.queue_limit,
+            default_deadline_ms=sc.deadline_ms,
+            breaker_threshold=sc.breaker_threshold,
+            breaker_cooldown_s=sc.breaker_cooldown_s,
+            pack_plan=pack_plan,
+            sink=sink,
+            tracer=tracer,
+            reload_fn=reload_fn,
+            faults=faults,
+            preempt=preempt,
+            metrics=registry,
+        )
+        try:
+            t0 = time.monotonic()
+            server.start(warmup=samples)
+            warm_s = time.monotonic() - t0
+            if publisher is not None:
+                publisher.start()
+            summary, results = _serve_storm(args, sc, server, samples, checkpointer, preempt)
+        finally:
+            # The publisher's thread stops before the sink can close, on
+            # every exit path; its final snapshot follows the drain.
+            if publisher is not None:
+                publisher.close()
+    metrics = None
+    if publisher is not None:
+        final = publisher.close()  # already closed: the final row
+        disagreements = metrics_lib.summary_agrees(summary, final)
+        if disagreements:
+            print(f"WARNING: serve_summary and the final metrics_snapshot disagree: "
+                  f"{disagreements}")
+        metrics = {**publisher.stats(), "summary_agrees": not disagreements}
+        if manifest is not None:
+            manifest.write(metrics=metrics)
+        print(f"Metrics plane: {publisher.seq} snapshots every {sc.metrics_interval_s}s, "
+              f"{publisher.alerts} SLO alert edges -> {publisher.series_path} + "
+              f"{publisher.exposition_path}")
     summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device),
                    restored=restored)
     if pack_plan is not None:
         summary["pack_plan"] = dataclasses.asdict(pack_plan)
-    return ServeRun(summary, results, samples, model, pack_plan)
+    return ServeRun(summary, results, samples, model, pack_plan, metrics)
 
 
-def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = None) -> Trainer:
+def _serve_storm(args, sc: ServeConfig, server: InferenceServer, samples, checkpointer,
+                 preempt) -> tuple[dict, list[ServeResult]]:
+    """Drive the in-process request storm through a started server and
+    drain it (``gnot_tpu/main.py::_serve_storm``): submitting stops once a
+    SIGTERM has arrived; every ``--serve_reload_every`` requests the
+    checkpoint is hot-reloaded under the deadline; each admitted request
+    is waited for up to ``drain_timeout_s``, and the drain gets the same
+    budget. Returns ``(summary, results)``; the drain runs on every exit
+    path."""
+    futures = []
+    try:
+        for i, s in enumerate(samples):
+            if preempt.triggered:
+                break
+            futures.append(server.submit(s))
+            if (args.serve_reload_every and checkpointer is not None
+                    and (i + 1) % args.serve_reload_every == 0):
+                server.reload(deadline_ms=sc.deadline_ms)
+        results = [f.result(timeout=sc.drain_timeout_s) for f in futures]
+    finally:
+        summary = server.drain(sc.drain_timeout_s)
+    return summary, results
+
+
+def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = None,
+              registry=None) -> Trainer:
     """Training (no ``--serve``): load the splits, build the trainer on
     the chosen device with weights from ``--seed``, fit (or with
     ``--eval_only`` evaluate the best checkpoint), then export and
     predict as asked (``gnot_tpu/main.py``). Returns the trainer: its
     ``best_metric`` (with ``--eval_only``, the metric just evaluated),
     ``history`` and model. The trainer writes its records to ``sink``
-    and its spans to ``tracer`` when given."""
+    and its spans to ``tracer`` when given, and its telemetry drain's
+    step times into ``registry``, which with ``--metrics_path`` a
+    ``MetricsPublisher`` streams every ``--metrics_interval_s`` while it
+    fits (no SLO evaluator: the objectives are serving ones)."""
     device = run_device(args)
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
@@ -584,7 +745,7 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         if cfg.train.checkpoint_dir else None
     )
     trainer = Trainer(cfg, mc, train_samples, test_samples, checkpointer=checkpointer,
-                      device=device, metrics_sink=sink, tracer=tracer)
+                      device=device, metrics_sink=sink, tracer=tracer, metrics_registry=registry)
     if manifest is not None:
         # Before any step: a run that dies keeps its provenance.
         manifest.write(config=cfg, model_config=mc, device=device,
@@ -599,7 +760,20 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         if manifest is not None and checkpointer is not None:
             # A resume that fell back from 'latest' to 'best' shows here.
             manifest.write(restore=checkpointer.last_restore)
-        trainer.fit()
+        if registry is not None and args.metrics_path:
+            stem = os.path.splitext(args.metrics_path)[0]
+            publisher = metrics_lib.MetricsPublisher(
+                registry, interval_s=args.metrics_interval_s, sink=sink,
+                series_path=f"{stem}.series.jsonl", exposition_path=f"{stem}.prom",
+            ).start()
+            try:
+                trainer.fit()
+            finally:
+                publisher.close()
+            if manifest is not None:
+                manifest.write(metrics=publisher.stats())
+        else:
+            trainer.fit()
     if (args.export_torch or args.predict_out) and not args.eval_only:
         # The artifacts of the reported best metric, not of the last epoch.
         if checkpointer is not None:
@@ -632,6 +806,11 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
     if args.log_every and not args.metrics_path:
         parser.error("--log_every needs --metrics_path (step records are JSONL-only)")
     argv = list(argv) if argv is not None else sys.argv[1:]
+    # The serve section is validated in both modes, as JAX's config is.
+    _, sc = configs_from_args(args)
+    # One registry for the run (the live metrics plane): the server's
+    # series when serving, the telemetry drain's when training.
+    registry = metrics_lib.MetricsRegistry() if sc.metrics_interval_s > 0 else None
     with contextlib.ExitStack() as stack:
         sink = stack.enter_context(MetricsSink(args.metrics_path)) if args.metrics_path else None
         tracer = None
@@ -655,8 +834,10 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
             manifest = RunManifest(args, argv)
             stack.callback(lambda: manifest.path and manifest.write())
         if not args.serve:
-            return run_train(args, sink=sink, tracer=tracer, manifest=manifest)
-        result = run_serve(args, sink=sink, tracer=tracer, manifest=manifest)
+            return run_train(args, sink=sink, tracer=tracer, manifest=manifest,
+                             registry=registry)
+        result = run_serve(args, sink=sink, tracer=tracer, manifest=manifest,
+                           registry=registry)
     print(json.dumps({"serve_summary": result.summary}))
     return result
 

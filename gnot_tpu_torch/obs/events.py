@@ -29,8 +29,14 @@ RESTORE_FALLBACK = "restore_fallback"
 IO_RETRY = "io_retry"
 QUEUE_DEPTH = "queue_depth"
 SHED = "shed"
+BREAKER_OPEN = "breaker_open"
+BREAKER_CLOSE = "breaker_close"
+DRAIN_TIMEOUT = "drain_timeout"
+RELOAD = "reload"
 SERVE_SUMMARY = "serve_summary"
 TRACE_FLUSH = "trace_flush"
+METRICS_SNAPSHOT = "metrics_snapshot"
+SLO_ALERT = "slo_alert"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +127,30 @@ EVENTS: dict[str, EventSpec] = {
             "tenant",
         ),
     ),
+    "breaker_open": EventSpec(
+        fields=("state", "reason", "detail", "trips"),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="circuit breaker tripped open (backend unhealthy)",
+        optional=("trace_id", "replica"),
+    ),
+    "breaker_close": EventSpec(
+        fields=("state",),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="half-open trial succeeded; breaker closed",
+        optional=("replica",),
+    ),
+    "drain_timeout": EventSpec(
+        fields=("timeout_s",),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="graceful drain exceeded its budget (wedged dispatch)",
+        optional=("replica",),
+    ),
+    "reload": EventSpec(
+        fields=("ok", "reload", "duration_ms"),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="hot weight reload (+ restore provenance when ok)",
+        optional=("trace_id", "replica"),
+    ),
     "serve_summary": EventSpec(
         fields=(
             "requests", "admitted", "completed", "shed", "dispatches",
@@ -140,6 +170,27 @@ EVENTS: dict[str, EventSpec] = {
         fields=("path", "spans", "dropped"),
         module="gnot_tpu_torch/obs/tracing.py",
         doc="the span tracer wrote its Chrome trace-event JSON file",
+    ),
+    "metrics_snapshot": EventSpec(
+        fields=("seq", "interval_s", "series", "pool"),
+        module="gnot_tpu_torch/obs/metrics.py",
+        doc="one live metrics-plane publish cycle (cadence "
+        "`--metrics_interval_s`): `pool` is the serving rollup "
+        "(requests/completed/shed, histogram p50/p99, queue depth); the "
+        "full per-series state goes to the JSONL time series and the "
+        "Prometheus exposition file",
+        optional=("series_path",),
+    ),
+    "slo_alert": EventSpec(
+        fields=(
+            "objective", "kind", "state", "threshold", "burn_fast",
+            "burn_slow",
+        ),
+        module="gnot_tpu_torch/obs/metrics.py",
+        doc="an SLO objective crossed a burn-rate edge: `state` is 'fire' "
+        "(burn >= 1 in both the fast and slow windows) or 'clear' (the "
+        "fast window recovered); `value` carries the observed quantity",
+        optional=("value", "fast_window_s", "slow_window_s", "tenant"),
     ),
 }
 
@@ -195,6 +246,11 @@ SPANS: dict[str, SpanSpec] = {
         module="gnot_tpu_torch/serve/server.py",
         doc="result resolution (`reason`, `latency_ms`): the chain's "
         "terminal span",
+    ),
+    "reload": SpanSpec(
+        module="gnot_tpu_torch/serve/server.py",
+        doc="hot weight reload lifecycle (aux stream `r`: never consumes "
+        "a request sampling slot)",
     ),
     "epoch": SpanSpec(
         module="gnot_tpu_torch/train/trainer.py",

@@ -30,7 +30,6 @@ import time
 import numpy as np
 import torch
 
-from gnot_tpu_torch.config import NotPortedError
 from gnot_tpu_torch.obs import events
 
 
@@ -106,8 +105,10 @@ class TelemetryBuffer:
 
     ``on_nonfinite(step, epoch, loss, batch)`` fires on the first
     non-finite loss of a drained window (the watchdog: it raises).
-    ``metrics`` (JAX's live metrics registry tap) is not ported and
-    raises ``NotPortedError``."""
+    ``metrics`` (an ``obs.metrics.MetricsRegistry``) is the live metrics
+    plane's train-side tap: every drained dispatch interval lands in the
+    ``train_step_time_ms`` histogram and every slow-step outlier adds one
+    to ``train_slow_steps_total``, at drain cadence (no host sync)."""
 
     #: drain cadence when log_every is 0 (telemetry on, records off: the
     #: health monitors still need to see the losses).
@@ -116,12 +117,6 @@ class TelemetryBuffer:
     def __init__(
         self, sink, log_every: int, *, slow_step=None, on_nonfinite=None, metrics=None,
     ):
-        if metrics is not None:
-            raise NotPortedError(
-                "the live metrics registry (gnot_tpu/obs/metrics.py, "
-                "--metrics_interval_s) is not ported; TelemetryBuffer takes "
-                "metrics=None"
-            )
         self.sink = sink
         self.record_every = max(0, int(log_every))
         self.drain_every = self.record_every or self.DEFAULT_DRAIN
@@ -131,6 +126,10 @@ class TelemetryBuffer:
         self._on_nonfinite = on_nonfinite
         self._last_t: float | None = None
         self.drains = 0
+        self._step_hist = metrics.histogram("train_step_time_ms") if metrics is not None else None
+        self._slow_counter = (
+            metrics.counter("train_slow_steps_total") if metrics is not None else None
+        )
 
     def append(
         self, *, steps, epoch, lrs, loss, telem, batches, span_ids=None
@@ -192,8 +191,12 @@ class TelemetryBuffer:
         self.drains += 1
         for e, (loss, telem) in zip(entries, self._fetch(entries)):
             k = len(e["steps"])
+            if self._step_hist is not None and e["dt"] is not None:
+                self._step_hist.record(e["dt"] * 1e3)
             if self._slow is not None and e["dt"] is not None:
                 outlier = self._slow.observe(e["dt"])
+                if outlier is not None and self._slow_counter is not None:
+                    self._slow_counter.inc()
                 if outlier is not None and self.sink is not None:
                     span_id = next((s for s in e["span_ids"] or [] if s is not None), None)
                     self.sink.log(

@@ -20,12 +20,20 @@ checkpoint files:
 * ``stop_epoch@N``: stop cleanly after N epochs (``--stop_after_epoch N``
   is an alias).
 
-The serve-side kinds (``slow_request``, ``nan_output``,
-``reload_corrupt``), the rollout kinds (``replica_kill``,
-``stale_session``, ``rollout_nan``) and the federation kinds
-(``host_kill``, ``net_partition``, ``msg_drop``, ``msg_delay``) parse
-here as they do in the JAX package; their hooks wait for the port's
-replicated server, rollout serving and federation (``ROADMAP.md``).
+The serving hooks, consulted by ``serve/server.py``:
+
+* ``slow_request@N``: the dispatch of the N-th admitted request stalls
+  past its deadline (deterministic deadline shedding).
+* ``nan_output@N``: the N-th serving dispatch's outputs become NaN (the
+  circuit breaker's trip condition).
+* ``reload_corrupt@N``: before the N-th hot reload restores, the
+  published ``latest`` checkpoint is truncated, so the reload must take
+  the restore's fallback walk.
+
+The rollout kinds (``replica_kill``, ``stale_session``, ``rollout_nan``)
+and the federation kinds (``host_kill``, ``net_partition``, ``msg_drop``,
+``msg_delay``) parse here as they do in the JAX package; their hooks wait
+for the port's rollout serving and federation (``ROADMAP.md``).
 
 Steps are 1-indexed global micro-step counts (the trainer's
 ``host_step`` after the dispatch), the step numbers of the metrics
@@ -170,6 +178,38 @@ class FaultInjector:
         return any(
             s.kind == "stop_epoch" and epoch + 1 >= s.at for s in self.specs
         )
+
+    # -- serving hooks -----------------------------------------------------
+
+    def maybe_slow_request(self, ordinal: int) -> bool:
+        """True once when the ``ordinal``-th admitted request has a
+        ``slow_request`` armed: the server stalls its dispatch past its
+        deadline."""
+        if self._take("slow_request", ordinal):
+            logger.warning("fault injection: slow request at admission #%d", ordinal)
+            return True
+        return False
+
+    def maybe_nan_output(self, dispatch: int) -> bool:
+        """True once when the ``dispatch``-th serving forward has a
+        ``nan_output`` armed: the server poisons its outputs with NaN."""
+        if self._take("nan_output", dispatch):
+            logger.warning("fault injection: NaN outputs on serving dispatch #%d", dispatch)
+            return True
+        return False
+
+    def maybe_reload_corrupt(self, reload_ordinal: int, directory: str) -> bool:
+        """``reload_corrupt@N``: before the N-th hot reload restores,
+        truncate the file ``latest.json`` names under ``directory`` (a
+        torn write racing the reload)."""
+        if not self._take("reload_corrupt", reload_ordinal):
+            return False
+        logger.warning(
+            "fault injection: corrupting published 'latest' under %s before reload #%d",
+            directory, reload_ordinal,
+        )
+        corrupt_published(directory, "latest")
+        return True
 
     # -- checkpoint hooks --------------------------------------------------
 

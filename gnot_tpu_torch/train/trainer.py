@@ -63,6 +63,9 @@ piece off unless asked for:
 * ``log_every`` without telemetry: a ``{step, epoch, loss, lr}`` record
   every ``log_every`` steps, one host read of the loss each.
 * a ``metrics_sink``: the per-epoch record, the events.
+* a ``metrics_registry`` (``obs/metrics.py``) with telemetry on: the
+  drain records each dispatch interval in ``train_step_time_ms`` and
+  counts slow-step outliers in ``train_slow_steps_total``.
 * a ``tracer`` (``obs/tracing.py``): one trace per epoch, an ``epoch``
   root with ``data_iter``, ``step`` (``host_to_device``,
   ``step_dispatch``), ``telemetry_drain``, ``eval`` and
@@ -417,6 +420,23 @@ def standard_weights(
     return unstack_params(weights, n_layers) if is_stacked(weights) else dict(weights)
 
 
+def serving_weights(
+    state: dict, template: Mapping[str, torch.Tensor], n_layers: int, layout: str, name: str
+) -> dict[str, torch.Tensor]:
+    """A restored trainer state's weights in the standard layout, for a
+    served model: the checkpoint's layout must be ``layout`` (the run's
+    flags), else ValueError naming the flag to pass. ``name`` is the
+    checkpoint the state came from; ``template`` and ``n_layers`` as in
+    ``standard_weights``."""
+    if state_layout(state) != layout:
+        raise ValueError(
+            f"the '{name}' checkpoint holds the {state_layout(state)} parameter "
+            f"layout but this run uses the {layout} layout; pass the layout "
+            "flag it was trained with (--flat_params, --scan_layers)"
+        )
+    return standard_weights(state["model"], template, n_layers)
+
+
 @dataclasses.dataclass
 class EpochRecord:
     """What one epoch produced, on the host."""
@@ -441,6 +461,7 @@ class Trainer:
         device: torch.device | str = "cuda",
         metrics_sink=None,
         tracer=None,
+        metrics_registry=None,
     ):
         # First, so TF32 stays off before any weight reaches the card.
         self.device = resolve_device(str(device))
@@ -451,6 +472,9 @@ class Trainer:
         # Every span is host-side, around the step, never inside it.
         self.metrics_sink = metrics_sink
         self._tracer = tracer
+        # obs.metrics.MetricsRegistry or None: the telemetry drain's
+        # train_step_time_ms and train_slow_steps_total series.
+        self._metrics_registry = metrics_registry
         # The TelemetryBuffer of a telemetry run, made by fit().
         self._telemetry: obs_telemetry.TelemetryBuffer | None = None
         # The fault plan, parsed here so a bad spec fails at construction;
@@ -1029,6 +1053,7 @@ class Trainer:
                 cfg.train.log_every,
                 slow_step=health.SlowStepMonitor(),
                 on_nonfinite=self._handle_nonfinite_loss,
+                metrics=self._metrics_registry,
             )
         self._supervisor = (
             RecoverySupervisor(snapshot_every=cfg.train.snapshot_every,

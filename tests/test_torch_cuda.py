@@ -855,3 +855,50 @@ def test_the_recovery_snapshot_round_trips_bitwise_on_card(layout):
     assert all(x.is_pinned() for x, y in zip(leaves, _state_leaves(t.state_dict())) if y.is_cuda)
     for a, b in zip(leaves, _state_leaves(_copy_state(t.state_dict()))):
         assert torch.equal(a, b.cpu())
+
+
+# -- hot reload on the card -----------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_reload_repacks_once_and_serves_a_fresh_engine_s_outputs_on_card(dtype, tmp_path):
+    """At the reference width (4 blocks, 5 Linears a expert: 40 weight
+    images) a hot reload publishes the restored weights in the serving
+    dtype; the first dispatch after it repacks the 40 images and no later
+    one does; each served output is bitwise a fresh engine's on the
+    restored weights."""
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    device = _card()
+    samples = datasets.synth_ns2d(4, seed=3, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    restored = GNOT(cfg, generator=torch.Generator().manual_seed(1))
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save_latest({"model": restored.state_dict()}, 2, 0.5)
+    ck.wait()
+    engine = InferenceEngine(model, batch_size=4, dtype=dtype)
+    server = InferenceServer(engine, max_batch=4, max_wait_ms=1.0,
+                             reload_fn=CheckpointReloader(ck, model)).start(warmup=samples)
+    n_images = 2 * cfg.n_attn_layers * (cfg.n_mlp_num_layers + 1)
+    assert n_images == 40
+    assert server.submit(samples[0]).result(timeout=60).ok
+    packs = fused_ffn.packed_weights.packs
+    assert server.reload()
+    assert fused_ffn.packed_weights.packs == packs  # the repack waits for a dispatch
+    want_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    published = engine.model.state_dict()
+    assert {v.dtype for k, v in published.items() if v.is_floating_point()} == {want_dtype}
+    assert all(v.is_cuda for v in published.values())
+    got = [server.submit(s).result(timeout=60) for s in samples]
+    server.drain(timeout_s=60)
+    assert fused_ffn.packed_weights.packs - packs == n_images
+    fresh = InferenceEngine(restored.to(device), batch_size=4, dtype=dtype)
+    key = fresh.bucket_key(samples[0])
+    for r, s in zip(got, samples):
+        assert r.ok, r.detail
+        want = fresh.infer([s], pad_nodes=key[0], pad_funcs=key[1], rows=4)[0]
+        assert np.array_equal(r.output, want)

@@ -17,7 +17,6 @@ from gnot_tpu.obs import manifest as jax_manifest
 from gnot_tpu.obs import tracing as jax_tracing
 from gnot_tpu.obs.health import SlowStepMonitor as JaxSlowStepMonitor
 from gnot_tpu.obs.telemetry import TelemetryBuffer as JaxTelemetryBuffer
-from gnot_tpu_torch.config import NotPortedError
 from gnot_tpu_torch.models.layers import gate_stats
 from gnot_tpu_torch.obs import events, health, manifest, tracing
 from gnot_tpu_torch.obs.telemetry import TelemetryBuffer, adamw_update_norm, global_norm
@@ -57,7 +56,9 @@ def test_event_specs_are_jax_s():
     assert set(events.SPANS) <= set(jax_events.SPANS)
     assert tracing.SERVE_SPANS == jax_tracing.SERVE_SPANS
     assert tracing.TRAIN_SPANS == jax_tracing.TRAIN_SPANS
-    assert set(events.SPANS) == set(tracing.SERVE_SPANS + tracing.TRAIN_SPANS)
+    # Besides the request and train chains, the server's reload span (on
+    # the tracer's "r" stream, as JAX's).
+    assert set(events.SPANS) == set(tracing.SERVE_SPANS + tracing.TRAIN_SPANS) | {"reload"}
 
 
 @pytest.mark.parametrize("record", [
@@ -358,5 +359,18 @@ def test_telemetry_buffer_unstacks_a_k_step_dispatch_and_fires_the_watchdog(tmp_
 
 
 def test_the_metrics_registry_tap_is_refused_by_name():
-    with pytest.raises(NotPortedError, match="metrics registry"):
-        TelemetryBuffer(None, 1, metrics=object())
+    """The registry tap is ported: a registry gets JAX's two series by
+    name; an object that is no registry is refused, as JAX's buffer
+    refuses it."""
+    from gnot_tpu.obs.metrics import MetricsRegistry as JaxRegistry
+    from gnot_tpu_torch.obs.metrics import MetricsRegistry
+
+    names = {}
+    for buf_cls, reg in ((TelemetryBuffer, MetricsRegistry()),
+                         (JaxTelemetryBuffer, JaxRegistry())):
+        buf_cls(None, 1, metrics=reg)
+        names[buf_cls] = sorted(reg.snapshot())
+        with pytest.raises(AttributeError, match="histogram"):
+            buf_cls(None, 1, metrics=object())
+    assert names[TelemetryBuffer] == names[JaxTelemetryBuffer] == [
+        "train_slow_steps_total", "train_step_time_ms"]
