@@ -186,6 +186,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    deadline, breaker and registry on and off (must be equal), a reload's
    device and host time and the repack on the dispatch after it, and a
    64-request storm's dispatch times with and without the publisher.
+14. rollout sessions and tenants at phase 4's configuration: (a) ``main
+   --serve_rollout_steps 8 --session_snapshot_every 2`` with the metrics
+   plane, 16 sessions x 8 steps all complete, ``rollout_steps_total``
+   128, 8 FFN launches a dispatch, each served trajectory within 1e-5 of
+   ``offline_rollout`` on the same engine with the rows pinned to 4
+   (bitwise or not, printed); (b) the same through ``--ffn_impl xla`` (no
+   launch), step 1 held to the model bar and the worst difference of
+   each step printed; (c) ``--serve_dtype bfloat16`` held to the bf16
+   ``offline_rollout``; (d) ``rollout_nan@3``, ``stale_session@5`` and
+   ``replica_kill@9`` on a standalone server, each with its reasons,
+   lost sessions and launches; (e) SIGTERM mid-rollout under a session
+   store, every session ``drained`` after its snapshot was persisted, then
+   resumed on a fresh engine to the uninterrupted trajectory; (f) a tenant
+   storm (weights 3:1, ``batch`` quota 4, 48 requests, ``batch`` at 3x
+   ``interactive``, 4 ``interactive`` sessions) with no ``interactive``
+   shed, a ``tenant_quota_shed`` per quota shed, the ``tenants`` block,
+   ``summary_agrees`` and ``slo_alert`` edges naming a tenant; (g) the
+   costs: a step's host work, a dispatch's kernel launch calls and
+   synchronizing calls with sessions and with one-shot requests (must be
+   equal), step against one-shot latency, and a rollout storm's device
+   busy share.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -213,7 +234,11 @@ phase 11's instrumented training and observed serving runs;
 ``reload_main_serve_launches``, ``reload_corrupt_serve_launches``,
 ``reload_bf16_serve_launches`` and ``sigterm_serve_launches`` over
 phase 13's training run and its paths (a), (b), (c1), (c2), (c3), (c4)
-and (d). Launches
+and (d); ``rollout_serve_launches``, ``rollout_bf16_serve_launches``,
+``rollout_nan_serve_launches``, ``stale_session_serve_launches``,
+``replica_kill_serve_launches``, ``sigterm_resume_serve_launches`` and
+``tenant_serve_launches`` over phase 14's paths (a), (c), (d), (e) and
+(f). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -330,6 +355,14 @@ OBS_SERVE_ARGV = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n
 # and the phase's flags are appended per run).
 SERVE13_ARGV = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n_test", "16",
                 "--serve_max_batch", "4", "--device", "cuda"]
+# Phase 14's rollout serving: phase 4's traffic through main (the rollout,
+# metrics path and the phase's flags are appended per run), 8 steps a
+# session.
+ROLLOUT_ARGV = SERVE13_ARGV
+ROLLOUT_K = 8
+# A served rollout against offline_rollout on the same engine, per step:
+# the JAX package's bar (gnot_tpu/serve/rollout.py::offline_rollout).
+ROLLOUT_PARITY = 1e-5
 # Where phase 6b keeps its checkpoints and phase 6c writes what it exports:
 # under the checkout's gitignored build/, emptied first.
 TRAIN_OUT = ROOT / "build" / "chip_smoke"
@@ -2634,6 +2667,16 @@ class ListSink:
         pass
 
 
+class HeldClock:
+    """The monotonic clock, or while ``held`` is set, that reading."""
+
+    def __init__(self):
+        self.held: float | None = None
+
+    def __call__(self) -> float:
+        return self.held if self.held is not None else time.monotonic()
+
+
 def served_setup(torch, port_main, ck: Path):
     """Phase 4's traffic and model config, the model on the card holding
     ``ck``'s served weights (``main.restore_for_serving``): (model,
@@ -2786,13 +2829,22 @@ def serving_policies_phase(torch, np, card: str, layers) -> dict:
     plain = plain_outputs(torch, layers, model, samples)
 
     # (a) Deadlines: slow_request@1 stalls the first group's dispatch past its
-    # 150 ms deadline; the three later groups are served.
-    sink = ListSink()
+    # 150 ms deadline; the three later groups are served. The stall ends 1 ms
+    # past the victim's deadline, so its batchmates share that deadline only
+    # when they are admitted at the same clock reading: the first group is
+    # submitted with the server's clock held (another thread taking the
+    # interpreter between two submits would otherwise let a batchmate
+    # outlive the stall).
+    sink, clock = ListSink(), HeldClock()
     server = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
-                             max_wait_ms=10_000, default_deadline_ms=150.0, sink=sink,
+                             max_wait_ms=10_000, default_deadline_ms=150.0, sink=sink, clock=clock,
                              faults=FaultInjector.from_spec("slow_request@1")).start(warmup=samples)
     fused_gated_ffn_kernel.launches = 0
-    results = [r for g in groups for r in submit_group(server, g)]
+    clock.held = time.monotonic()
+    futures = [server.submit(s) for s in groups[0]]
+    clock.held = None
+    results = [f.result(timeout=120) for f in futures]
+    results += [r for g in groups[1:] for r in submit_group(server, g)]
     summary = server.drain(60)
     launches = fused_gated_ffn_kernel.launches
     kinds = [r["event"] for r in sink.records]
@@ -3087,6 +3139,366 @@ def serving_policies_phase(torch, np, card: str, layers) -> dict:
     return out
 
 
+# -- phase 14: rollout sessions and tenants on the single server ---------------
+
+
+def rollout_tenants_phase(torch, np, card: str, layers) -> dict:
+    """Phase 14: rollout sessions and tenants at phase 4's configuration
+    (the reference default, random weights from ``--seed 0``): (a) main's
+    16 sessions x 8 steps through the kernel, held to ``offline_rollout``;
+    (b) the same through the plain FFN path; (c) in bf16; (d) the three
+    rollout faults; (e) SIGTERM mid-rollout and the resume from the
+    session store; (f) a tenant storm; (g) their costs. Returns the FFN
+    kernel's launches over each path."""
+    import shutil
+    import signal
+    import warnings
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.obs import metrics as metrics_lib
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.resilience.faults import FaultInjector
+    from gnot_tpu_torch.resilience.preemption import PreemptionHandler
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.policies import TenantPolicy
+    from gnot_tpu_torch.serve.rollout import (
+        SessionStore,
+        advance_sample,
+        offline_rollout,
+        parity_check,
+    )
+    from gnot_tpu_torch.serve.server import InferenceServer
+
+    root = TRAIN_OUT / "rollout14"
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict[str, int] = {}
+    k_steps = ROLLOUT_K
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    def main_run(tag: str, *flags: str):
+        """``main``'s rollout serve of phase 4's traffic, its count set to 0
+        just before and read just after."""
+        d = root / tag
+        d.mkdir(parents=True)
+        argv = ROLLOUT_ARGV + ["--serve_rollout_steps", str(k_steps), "--session_snapshot_every",
+                               "2", "--metrics_path", str(d / "m.jsonl"), *flags]
+        fused_gated_ffn_kernel.launches = 0
+        t0 = time.perf_counter()
+        run, lines = run_observed(port_main, argv)
+        launches = fused_gated_ffn_kernel.launches
+        log(f"[rollout] ({tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: "
+            f"{time.perf_counter() - t0:.2f} s, fused_gated_ffn launches {launches}")
+        for line in lines:
+            if line.startswith(("Serve:", "Metrics plane", "WARNING")):
+                log(f"[rollout]   {line}")
+        return run, read_jsonl(d / "m.jsonl"), launches, d
+
+    def whole(tag: str, run, launches: int, per_forward: int) -> int:
+        s = run.summary
+        dispatches = s["dispatches"] + s["warmed_buckets"]
+        sess = s["sessions"]
+        if (len(run.results) != 16 or not all(r.ok and len(r.outputs) == k_steps
+                                              for r in run.results)
+                or (sess["started"], sess["completed"], sess["steps"]) != (16, 16, 16 * k_steps)
+                or launches != per_forward * dispatches):
+            raise RuntimeError(f"[rollout] ({tag}) the storm is not whole: "
+                               f"{[(r.reason, r.detail) for r in run.results if not r.ok]}, "
+                               f"sessions {sess}, launches {launches} for {dispatches} dispatches")
+        return dispatches
+
+    # (a) 16 sessions x 8 steps through main, the metrics plane on.
+    run_a, recs, launches, d = main_run("a", "--metrics_interval_s", "0.05")
+    model = run_a.model
+    samples = run_a.samples
+    per_forward = 2 * model.config.n_attn_layers
+    dispatches = whole("a", run_a, launches, per_forward)
+    final = read_jsonl(d / "m.series.jsonl")[-1]["series"]
+    steps_total = final["rollout_steps_total"]["value"]
+    kinds = [r.get("event") for r in recs]
+    engine = InferenceEngine(model, batch_size=4)
+    offline = [offline_rollout(engine, s, k_steps, rows=4) for s in samples]
+    worst = max(parity_check(r.outputs, o) for r, o in zip(run_a.results, offline))
+    bitwise = all(np.array_equal(a, b) for r, o in zip(run_a.results, offline)
+                  for a, b in zip(r.outputs, o))
+    sess = run_a.summary["sessions"]
+    log(f"[rollout] (a) sessions {sess['completed']}/{sess['started']}, steps {sess['steps']}, "
+        f"rollout_steps_total {steps_total}, {kinds.count('rollout_step')} rollout_step and "
+        f"{kinds.count('session_snapshot')} session_snapshot events; launches {launches} = "
+        f"{per_forward} x {dispatches} dispatches ({run_a.summary['dispatches']} served + "
+        f"{run_a.summary['warmed_buckets']} warm-up); served vs offline_rollout (rows 4) on the "
+        f"same engine: worst per-step max abs {worst:.3e} (bar {ROLLOUT_PARITY}), bitwise "
+        f"{bitwise}; step latency p50 {sess['step_latency_p50_ms']:.3f} p99 "
+        f"{sess['step_latency_p99_ms']:.3f} ms on {card}")
+    if (steps_total != 16 * k_steps or kinds.count("rollout_step") != 16 * k_steps
+            or worst > ROLLOUT_PARITY or invalid(recs)):
+        raise RuntimeError("[rollout] (a) the served trajectories are off offline_rollout")
+    out["rollout_serve_launches"] = launches
+
+    # (b) The same sessions through the plain FFN path (ffn_impl=xla).
+    run_b, _, launches_b, _ = main_run("b", "--ffn_impl", "xla")
+    whole("b", run_b, launches_b, 0)
+    per_step = [max(float(np.max(np.abs(a.outputs[i] - b.outputs[i])))
+                    for a, b in zip(run_a.results, run_b.results)) for i in range(k_steps)]
+    for a, b in zip(run_a.results, run_b.results):
+        np.testing.assert_allclose(a.outputs[0], b.outputs[0], rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    log(f"[rollout] (b) ffn_impl=xla: launches {launches_b}; kernel vs plain path, worst max abs "
+        f"per step 1..{k_steps}: {[f'{w:.2e}' for w in per_step]} (step 1 held to rtol "
+        f"{MODEL_RTOL} atol {MODEL_ATOL}; later steps carry the difference through the "
+        f"carry: growth x{per_step[-1] / max(per_step[0], 1e-30):.1f} over {k_steps} steps)")
+    if launches_b:
+        raise RuntimeError("[rollout] (b) the plain path launched the kernel")
+
+    # (c) bf16.
+    run_c, recs_c, launches_c, _ = main_run("c", "--serve_dtype", "bfloat16")
+    whole("c", run_c, launches_c, per_forward)
+    engine_c = InferenceEngine(run_c.model, batch_size=4, dtype="bfloat16")
+    offline_c = [offline_rollout(engine_c, s, k_steps, rows=4) for s in samples]
+    worst_c = max(parity_check(r.outputs, o) for r, o in zip(run_c.results, offline_c))
+    bitwise_c = all(np.array_equal(a, b) for r, o in zip(run_c.results, offline_c)
+                    for a, b in zip(r.outputs, o))
+    log(f"[rollout] (c) --serve_dtype bfloat16: launches {launches_c}; served vs the bf16 "
+        f"offline_rollout of the same engine: worst {worst_c:.3e} (bar {ROLLOUT_PARITY}), "
+        f"bitwise {bitwise_c}")
+    if worst_c > ROLLOUT_PARITY or invalid(recs_c):
+        raise RuntimeError("[rollout] (c) bf16 trajectories are off their offline_rollout")
+    out["rollout_bf16_serve_launches"] = launches_c
+
+    # (d) The rollout faults, each on a standalone server: four 4-step
+    # sessions submitted before the worker starts run in lockstep, one
+    # dispatch a step.
+    def faulted(spec: str):
+        sink, reg = ListSink(), metrics_lib.MetricsRegistry()
+        srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4, max_wait_ms=1.0,
+                              sink=sink, metrics=reg, faults=FaultInjector.from_spec(spec))
+        futs = [srv.submit_rollout(s, 4) for s in samples[:4]]
+        fused_gated_ffn_kernel.launches = 0
+        srv.start(warmup=samples[:1])
+        results = [f.result(timeout=60) for f in futs]
+        if spec.startswith("replica_kill"):
+            srv._worker.join(5)
+        time.sleep(0.2)
+        # The warm-up dispatch's launches left out.
+        launches = fused_gated_ffn_kernel.launches - per_forward * srv.warmed
+        alive = srv._worker.is_alive()
+        summary = srv.drain(60)
+        after = fused_gated_ffn_kernel.launches - launches - per_forward * srv.warmed
+        lost = reg.counter("rollout_sessions_lost_total").value
+        log(f"[rollout] (d) {spec}: reasons {[(r.reason, r.steps_completed) for r in results]}; "
+            f"dispatches {summary['dispatches']}, launches {launches} (+{after} after), "
+            f"rollout_sessions_lost_total {lost}, shed {summary['shed']}, worker alive before "
+            f"the drain {alive}")
+        if invalid(sink.records) or launches != per_forward * summary["dispatches"] or after:
+            raise RuntimeError(f"[rollout] (d) {spec}: launches or records are off")
+        return results, summary, lost, launches, srv, sink
+
+    res, summary, lost, launches, _, _ = faulted("rollout_nan@3")
+    if ([(r.reason, r.steps_completed) for r in res] != [("error_nan_output", 0)] * 4
+            or lost != 4 or launches != per_forward):
+        raise RuntimeError("[rollout] (d) rollout_nan did not poison its whole dispatch")
+    out["rollout_nan_serve_launches"] = launches
+    res, summary, lost, launches, _, sink = faulted("stale_session@5")
+    depths = [r["n"] for r in sink.records if r["event"] == "queue_depth"]
+    if ([(r.reason, r.steps_completed) for r in res]
+            != [("error_stale_session", 1)] + [("ok", 4)] * 3 or lost != 1
+            or depths != [4, 3, 3, 3]):
+        raise RuntimeError(f"[rollout] (d) stale_session: dispatch sizes {depths}")
+    out["stale_session_serve_launches"] = launches
+    res, summary, lost, launches, srv, _ = faulted("replica_kill@9")
+    if ([(r.reason, r.steps_completed) for r in res] != [("error_replica_dead", 2)] * 4
+            or lost != 4 or launches != 2 * per_forward or srv._worker.is_alive()):
+        raise RuntimeError("[rollout] (d) replica_kill did not fail everything and stop")
+    out["replica_kill_serve_launches"] = launches
+
+    # (e) SIGTERM mid-rollout under a session store, then the resume on a
+    # fresh engine of the same weights.
+    store = SessionStore(str(root / "sessions"))
+    names = [f"run-{i}" for i in range(4)]
+    stored_at_resolve: list[bool] = []
+    sink = ListSink()
+    with PreemptionHandler() as preempt:
+        srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4, max_wait_ms=1.0,
+                              sink=sink, preempt=preempt, session_store=store)
+
+        def on_step(sid, k, output):
+            if sid == names[0] and k == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+                deadline = time.monotonic() + 10
+                while not preempt.triggered and time.monotonic() < deadline:
+                    time.sleep(0.001)
+
+        futs = [srv.submit_rollout(s, k_steps, name=n, on_step=on_step)
+                for s, n in zip(samples[:4], names)]
+        for n, f in zip(names, futs):
+            f.add_done_callback(lambda _, n=n: stored_at_resolve.append(store.load(n) is not None))
+        fused_gated_ffn_kernel.launches = 0
+        srv.start(warmup=samples[:1])
+        first = [f.result(timeout=120) for f in futs]
+        summary = srv.drain(60)
+        launches = fused_gated_ffn_kernel.launches - per_forward * srv.warmed
+    persisted = [r for r in sink.records if r["event"] == "session_snapshot" and r.get("persisted")]
+    fresh_model = port_main.GNOT(model.config, generator=torch.Generator().manual_seed(0)).to(
+        next(model.parameters()).device)
+    same = all(torch.equal(a, b) for a, b in zip(fresh_model.state_dict().values(),
+                                                 model.state_dict().values()))
+    srv2 = InferenceServer(InferenceEngine(fresh_model, batch_size=4), max_batch=4,
+                           max_wait_ms=1.0, session_store=store)
+    futs = [srv2.resume_rollout(n) for n in names]
+    fused_gated_ffn_kernel.launches = 0
+    srv2.start()
+    second = [f.result(timeout=120) for f in futs]
+    summary2 = srv2.drain(60)
+    launches2 = fused_gated_ffn_kernel.launches
+    worst_e = max(parity_check(r.outputs, o) for r, o in zip(second, offline))
+    bitwise_e = all(np.array_equal(a, b) for r, o in zip(second, offline)
+                    for a, b in zip(r.outputs, o))
+    log(f"[rollout] (e) SIGTERM at run-0's step 3: {[(r.reason, r.drained_at_step) for r in first]}"
+        f"; persisted snapshots {[(r['session'], r['step']) for r in persisted]}, in the store "
+        f"when each future resolved {stored_at_resolve}; launches {launches} over "
+        f"{summary['dispatches']} dispatches; the fresh engine's weights equal: {same}; resumed "
+        f"{[(r.reason, len(r.outputs)) for r in second]} in {summary2['dispatches']} dispatches, "
+        f"launches {launches2}; prefix + resumed vs the uninterrupted offline rollout: worst "
+        f"{worst_e:.3e} (bar {ROLLOUT_PARITY}), bitwise {bitwise_e}; store left {store.names()}")
+    if (any(r.reason != "drained" or r.drained_at_step is None for r in first)
+            or len(persisted) != 4 or not all(stored_at_resolve) or len(stored_at_resolve) != 4
+            or not same or not all(r.ok and len(r.outputs) == k_steps for r in second)
+            or worst_e > ROLLOUT_PARITY or store.names()
+            or launches != per_forward * summary["dispatches"]
+            or launches2 != per_forward * summary2["dispatches"]):
+        raise RuntimeError("[rollout] (e) the drain and resume are not whole")
+    out["sigterm_resume_serve_launches"] = launches + launches2
+
+    # (f) Tenants on a direct server: interactive 3 : batch 1, batch's
+    # quota 4; 48 one-shot requests, batch offered at 3x interactive, and
+    # 4 interactive sessions; the metrics plane with tenant objectives.
+    pol = TenantPolicy.from_specs(weights="interactive:3,batch:1", quotas="batch:4",
+                                  priorities="interactive:interactive,batch:batch")
+    sc = port_main.ServeConfig(metrics_interval_s=0.05, slo_p99_ms=1.0, slo_fast_window_s=0.1,
+                               slo_slow_window_s=0.2)
+    reg, sink = metrics_lib.MetricsRegistry(), ListSink()
+    d = root / "f"
+    publisher = metrics_lib.MetricsPublisher(
+        reg, interval_s=sc.metrics_interval_s, sink=sink, series_path=str(d / "m.series.jsonl"),
+        exposition_path=str(d / "m.prom"),
+        evaluator=metrics_lib.SLOEvaluator(metrics_lib.default_objectives(sc)
+                                           + metrics_lib.tenant_objectives(sc, pol.tenants)))
+    srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4, max_wait_ms=2.0,
+                          sink=sink, metrics=reg, tenants=pol).start(warmup=samples[:1])
+    publisher.start()
+    fused_gated_ffn_kernel.launches = 0
+    sessions = [srv.submit_rollout(samples[i], 4, tenant="interactive") for i in range(4)]
+    tagged = [("interactive" if i % 4 == 3 else "batch", srv.submit(samples[i % 16],
+               tenant="interactive" if i % 4 == 3 else "batch")) for i in range(48)]
+    results = [(t, f.result(timeout=120)) for t, f in tagged]
+    sres = [f.result(timeout=120) for f in sessions]
+    summary = srv.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    final = publisher.close()
+    disagree = metrics_lib.summary_agrees(summary, final)
+    quota = [r for r in sink.records if r["event"] == "tenant_quota_shed"]
+    alerts = [(r["objective"], r["state"], r.get("tenant")) for r in sink.records
+              if r["event"] == "slo_alert"]
+    shed = {t: sum(not r.ok for tt, r in results if tt == t) for t in ("interactive", "batch")}
+    ten = summary["tenants"]
+    log(f"[rollout] (f) tenants: one-shot ok interactive "
+        f"{sum(r.ok for t, r in results if t == 'interactive')}/12, batch "
+        f"{sum(r.ok for t, r in results if t == 'batch')}/36 ({shed['batch']} shed_tenant_quota, "
+        f"{len(quota)} tenant_quota_shed events); sessions {[r.reason for r in sres]}; tenants "
+        f"{json.dumps({t: {k: v for k, v in st.items()} for t, st in ten.items()})}; slo_alert "
+        f"edges {alerts}; summary_agrees {not disagree}; launches {launches} = {per_forward} x "
+        f"{summary['dispatches']} dispatches on {card}")
+    if (shed["interactive"] or not all(r.ok for r in sres) or len(quota) != shed["batch"]
+            or ten["batch"]["shed"].get("shed_tenant_quota", 0) != shed["batch"]
+            or any(ten[t]["latency_p99_ms"] is None for t in ("interactive", "batch"))
+            or disagree or not any(t for _, _, t in alerts)
+            or launches != per_forward * summary["dispatches"] or invalid(sink.records)):
+        raise RuntimeError("[rollout] (f) the tenant plane is not whole")
+    out["tenant_serve_launches"] = launches
+
+    # (g) Costs. A step's host work: advance_sample, and the carry's round
+    # trip (the next step's arrays to the card, an output back).
+    dev = next(model.parameters()).device
+    sample, output = samples[0], run_a.results[0].outputs[0]
+    host = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        nxt = advance_sample(sample, output)
+        host.append((time.perf_counter() - t0) * 1e6)
+    arrays = [nxt.coords, nxt.theta, *nxt.funcs]
+    n_up = sum(a.nbytes for a in arrays)
+    gpu_out = torch.from_numpy(output).to(dev)
+    trip = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in arrays:
+            torch.from_numpy(a).to(dev)
+        gpu_out.cpu()
+        torch.cuda.synchronize()
+        trip.append((time.perf_counter() - t0) * 1e6)
+    log(f"[rollout] (g) a step's host work: advance_sample median "
+        f"{statistics.median(host):.1f} us; the carry's round trip ({n_up} B up in "
+        f"{len(arrays)} arrays, {output.nbytes} B down) median {statistics.median(trip):.1f} us "
+        f"on {card}")
+
+    # A dispatch's kernel launch calls and synchronizing calls: four
+    # 3-step sessions (3 full dispatches) and three groups of four one-shot
+    # requests (3 full dispatches), in turns.
+    def per_dispatch(mode: str):
+        srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
+                              max_wait_ms=10_000).start(warmup=samples[:1])
+
+        def storm():
+            if mode == "sessions":
+                [f.result(timeout=120) for f in [srv.submit_rollout(s, 3) for s in samples[:4]]]
+            else:
+                for i in range(3):
+                    submit_group(srv, samples[4 * i:4 * i + 4])
+
+        busy, host_ms, records, calls = device_busy_ms(torch, storm)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                storm()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        summary = srv.drain(60)
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+        n = summary["dispatches"] / 2  # two storms
+        return (calls / n, syncs / n, records / n, round(busy / n, 3), round(host_ms / n, 3))
+
+    turns = [(m, per_dispatch(m)) for m in ("one-shot", "sessions", "sessions", "one-shot")]
+    log(f"[rollout] (g) a dispatch (4 rows), one-shot / sessions, turns of (kernel launch calls, "
+        f"synchronizing calls, device records, device busy ms, host ms): {turns} on {card}")
+    if len({t[1][:2] for t in turns}) != 1:
+        raise RuntimeError(f"[rollout] (g) sessions changed a dispatch's launches or syncs: "
+                           f"{turns}")
+
+    # Step latency against one-shot latency, phase 4's traffic through main.
+    one_shot, _ = run_observed(port_main, ROLLOUT_ARGV)
+    log(f"[rollout] (g) latency p50 / p99: rollout steps (a) "
+        f"{sess['step_latency_p50_ms']:.3f} / {sess['step_latency_p99_ms']:.3f} ms, one-shot "
+        f"requests {one_shot.summary['latency_p50_ms']:.3f} / "
+        f"{one_shot.summary['latency_p99_ms']:.3f} ms (host clock) on {card}")
+
+    # The device's busy share during a rollout storm (16 sessions x 8 steps
+    # on a direct server).
+    srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
+                          max_wait_ms=1.0).start(warmup=samples[:1])
+    busy, host_ms, records, calls = device_busy_ms(
+        torch, lambda: [f.result(timeout=120)
+                        for f in [srv.submit_rollout(s, k_steps) for s in samples]])
+    summary = srv.drain(60)
+    log(f"[rollout] (g) a storm of 16 sessions x {k_steps} steps: {summary['dispatches']} "
+        f"dispatches, device busy {busy:.3f} ms of {host_ms:.3f} ms host ({busy / host_ms:.1%} "
+        f"busy), {records} device records, {calls} launch calls on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -3292,6 +3704,9 @@ def main() -> int:
     # -- phase 13: deadlines, the breaker, reload, SIGTERM, live metrics ---
     serve13_launches = serving_policies_phase(torch, np, card, layers)
 
+    # -- phase 14: rollout sessions and tenants ----------------------------
+    rollout_launches = rollout_tenants_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -3320,6 +3735,7 @@ def main() -> int:
         **obs_launches,
         **resil_launches,
         **serve13_launches,
+        **rollout_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -6,7 +6,9 @@ mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
 keep only the fields ``datasets.load``, the loaders, the single-device
 trainer, its observability plane and the serving path read.
 ``NotPortedError`` is the refusal for a value that selects a part of the
-JAX package the port does not have yet.
+JAX package the port does not have yet. ``parse_tenant_spec`` is JAX's
+grammar of the three tenant flags, kept here (as JAX keeps it in its
+config) so ``ServeConfig`` validates them without the serving package.
 """
 
 from __future__ import annotations
@@ -18,10 +20,31 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
-    does not have yet. ``TelemetryBuffer(metrics=...)`` raises it (the
-    live metrics registry, ``obs/metrics.py``, is not ported), and so does
-    ``PreemptionHandler.should_stop(multiprocess=True)`` (the multi-host
-    stop agreement waits for multi-process training)."""
+    does not have yet. ``PreemptionHandler.should_stop(multiprocess=True)``
+    raises it (the multi-host stop agreement waits for multi-process
+    training), and so does ``InferenceServer(persist_snapshots=True)``
+    (rolling session persistence waits for the router)."""
+
+
+def parse_tenant_spec(spec: str, *, what: str = "value") -> dict[str, str]:
+    """Parse a ``tenant:value,tenant:value`` spec (the grammar of
+    ``--tenant_weights`` / ``--tenant_quotas`` / ``--tenant_priorities``)
+    into an ordered ``{tenant: raw value}`` dict. The empty string parses
+    to an empty dict; a malformed entry or a duplicate tenant raises, with
+    ``gnot_tpu/config.py::parse_tenant_spec``'s messages."""
+    out: dict[str, str] = {}
+    for entry in filter(None, (e.strip() for e in spec.split(","))):
+        name, sep, value = entry.partition(":")
+        name, value = name.strip(), value.strip()
+        if not sep or not name or not value:
+            raise ValueError(
+                f"malformed tenant {what} entry {entry!r}; expected "
+                "'tenant:value,tenant:value'"
+            )
+        if name in out:
+            raise ValueError(f"duplicate tenant {name!r} in {what} spec")
+        out[name] = value
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,6 +371,28 @@ class ServeConfig:
     slo_shed_frac: float = 0.05
     slo_fast_window_s: float = 5.0
     slo_slow_window_s: float = 30.0
+    # Rollout serving (serve/rollout.py): with rollout_steps K > 0 the
+    # --serve entry point drives each test sample as one K-step session,
+    # K chained dispatches whose carry stays on the server between steps
+    # (deadline_ms applies per step); 0 = one-shot serving.
+    rollout_steps: int = 0
+    # Steps between a session's host-side carry snapshots (1 = every step).
+    session_snapshot_every: int = 1
+    # With a directory, every named session drained mid-rollout persists
+    # its final snapshot there (rollout.SessionStore), and a restarted
+    # server resumes it from that step (resume_rollout). "" = off.
+    session_dir: str = ""
+    # Tenants (serve/policies.py::TenantPolicy), each a "tenant:value,..."
+    # spec; any non-empty spec turns tenant mode on (per-tenant WFQ
+    # sub-queues, quotas, priority tiers, tenant_* series and SLOs), all
+    # empty is the single-tenant path. Weights are integer deficit-round-
+    # robin shares >= 1 within a tier (unlisted: 1); quotas bound a
+    # tenant's in-system requests (beyond: "shed_tenant_quota"; unlisted:
+    # none); priorities are "interactive" or "batch" (unlisted:
+    # interactive, but for a tenant named "batch").
+    tenant_weights: str = ""
+    tenant_quotas: str = ""
+    tenant_priorities: str = ""
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -370,6 +415,15 @@ class ServeConfig:
             raise ValueError(
                 f"breaker_threshold must be >= 1, got {self.breaker_threshold}"
             )
+        if self.rollout_steps < 0:
+            raise ValueError(
+                f"rollout_steps must be >= 0, got {self.rollout_steps}"
+            )
+        if self.session_snapshot_every < 1:
+            raise ValueError(
+                "session_snapshot_every must be >= 1, got "
+                f"{self.session_snapshot_every}"
+            )
         if self.metrics_interval_s < 0:
             raise ValueError(
                 f"metrics_interval_s must be >= 0, got "
@@ -388,3 +442,19 @@ class ServeConfig:
                 "need 0 < slo_fast_window_s <= slo_slow_window_s, got "
                 f"{self.slo_fast_window_s}/{self.slo_slow_window_s}"
             )
+        for t, w in parse_tenant_spec(self.tenant_weights, what="weight").items():
+            if not w.isdigit() or int(w) < 1:
+                raise ValueError(
+                    f"tenant weight for {t!r} must be an integer >= 1, got {w!r}"
+                )
+        for t, q in parse_tenant_spec(self.tenant_quotas, what="quota").items():
+            if not q.isdigit() or int(q) < 1:
+                raise ValueError(
+                    f"tenant quota for {t!r} must be an integer >= 1, got {q!r}"
+                )
+        for t, p in parse_tenant_spec(self.tenant_priorities, what="priority").items():
+            if p not in ("interactive", "batch"):
+                raise ValueError(
+                    f"tenant priority for {t!r} must be 'interactive' or "
+                    f"'batch', got {p!r}"
+                )

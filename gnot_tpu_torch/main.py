@@ -66,6 +66,18 @@ events, ``<metrics-stem>.series.jsonl``, ``<metrics-stem>.prom``) with
 ``slo_alert`` edges on the ``--slo_*`` objectives when serving, and the
 telemetry drain's step times when training.
 
+Tenants and rollout sessions (``gnot_tpu/main.py``'s flags, defaults and
+refusals): ``--tenant_weights``, ``--tenant_quotas`` and
+``--tenant_priorities`` build one ``TenantPolicy`` (per-tenant WFQ
+weights, quotas, priority classes; with the metrics plane on, a latency
+and a shed objective per tenant beside the pool's);
+``--serve_rollout_steps K`` drives each test sample as one K-step rollout
+session (``submit_rollout``), waiting ``drain_timeout_s * K`` for each,
+snapshotted every ``--session_snapshot_every`` steps; ``--session_dir``
+keeps drained named sessions' snapshots for ``resume_rollout``. The
+``Serve:`` line gains the sessions clause, and ``main`` then returns the
+fraction of sessions completed.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -103,6 +115,8 @@ from gnot_tpu_torch.obs.tracing import Tracer
 from gnot_tpu_torch.resilience.faults import FaultInjector
 from gnot_tpu_torch.resilience.preemption import PreemptionHandler
 from gnot_tpu_torch.serve.engine import InferenceEngine
+from gnot_tpu_torch.serve.policies import TenantPolicy
+from gnot_tpu_torch.serve.rollout import RolloutResult, SessionStore
 from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
 from gnot_tpu_torch.train.trainer import Trainer, serving_weights
@@ -386,6 +400,54 @@ def build_parser() -> argparse.ArgumentParser:
              "sustained-violation half of the two-window burn gate",
     )
     p.add_argument(
+        "--serve_rollout_steps", type=int, default=0,
+        help="serving: autoregressive rollout mode (docs/serving.md "
+             "'Rollout serving') — drive each test sample as ONE "
+             "K-step stateful session (K chained dispatches, carry "
+             "resident on the owning replica, per-step deadlines, "
+             "streamed partial results, migration on replica failure); "
+             "0 = one-shot serving",
+    )
+    p.add_argument(
+        "--session_snapshot_every", type=int, default=1,
+        help="serving: rollout-session snapshot cadence (steps between "
+             "host-side carry snapshots — the state a migration "
+             "replays from; 1 = every step)",
+    )
+    p.add_argument(
+        "--session_dir", type=str, default="",
+        help="serving: persist drained rollout sessions' final carry "
+             "snapshots in this directory (serve/rollout.py::"
+             "SessionStore) — a restarted server resumes a named "
+             "session from its last snapshotted step (resume_rollout)",
+    )
+    p.add_argument(
+        "--tenant_weights", type=str, default="",
+        help="serving multi-tenant isolation (docs/serving.md): "
+             "per-tenant WFQ weights as tenant:weight pairs, e.g. "
+             "'interactive:3,batch:1' — the batcher drains each "
+             "bucket's per-tenant sub-queues deficit-round-robin by "
+             "these shares, so a flooding tenant cannot starve "
+             "siblings; empty (with the other tenant specs empty) = "
+             "tenant mode off, byte-identical single-tenant behavior",
+    )
+    p.add_argument(
+        "--tenant_quotas", type=str, default="",
+        help="serving multi-tenant isolation: per-tenant admission "
+             "quotas as tenant:limit pairs — a tenant at its pool-wide "
+             "in-system limit fast-fails new work in O(1) with reason "
+             "shed_tenant_quota (tenant_quota_shed event); unlisted "
+             "tenants are never quota-limited",
+    )
+    p.add_argument(
+        "--tenant_priorities", type=str, default="",
+        help="serving multi-tenant isolation: per-tenant priority "
+             "classes as tenant:class pairs (class 'interactive' or "
+             "'batch'); under contention batch-class work is deferred "
+             "first — brownout before blackout; unlisted tenants are "
+             "interactive (except one literally named 'batch')",
+    )
+    p.add_argument(
         "--serve_dtype", type=str, default="float32", choices=list(SERVE_DTYPES),
         help="serving compute dtype (models/precision.py): bfloat16 runs the "
              "block stack in bf16 with f32 attention accumulation, an f32 "
@@ -479,6 +541,12 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         slo_shed_frac=args.slo_shed_frac,
         slo_fast_window_s=args.slo_fast_window_s,
         slo_slow_window_s=args.slo_slow_window_s,
+        rollout_steps=args.serve_rollout_steps,
+        session_snapshot_every=args.session_snapshot_every,
+        session_dir=args.session_dir,
+        tenant_weights=args.tenant_weights,
+        tenant_quotas=args.tenant_quotas,
+        tenant_priorities=args.tenant_priorities,
     )
     return data, serve
 
@@ -557,7 +625,9 @@ class ServeRun:
     """Everything one ``--serve`` run produced."""
 
     summary: dict
-    results: list[ServeResult]
+    # One ServeResult per request, or with --serve_rollout_steps one
+    # RolloutResult per session.
+    results: list[ServeResult | RolloutResult]
     samples: list[MeshSample]
     model: GNOT
     pack_plan: PackPlan | None = None
@@ -609,8 +679,11 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     ``--metrics_interval_s`` it records into ``registry`` (a fresh one
     when None), which a ``MetricsPublisher`` with the config's SLO
     objectives streams until after the drain, and the final snapshot is
-    held to the summary (``summary_agrees``). The server writes its
-    events to ``sink`` and its request spans to ``tracer`` when given."""
+    held to the summary (``summary_agrees``). The tenant flags give the
+    server one ``TenantPolicy`` (and the evaluator per-tenant objectives),
+    ``--session_dir`` a ``SessionStore``, and ``--serve_rollout_steps``
+    makes each sample a rollout session. The server writes its events to
+    ``sink`` and its request spans to ``tracer`` when given."""
     device = run_device(args)
     data, sc = configs_from_args(args)
     faults = FaultInjector.from_spec(sc.inject_fault)
@@ -639,6 +712,9 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     )
     reload_fn = (CheckpointReloader(checkpointer, model, layout=param_layout(args))
                  if checkpointer is not None else None)
+    # One policy, or None (all three specs empty): tenant mode off.
+    tenants = TenantPolicy.from_specs(
+        weights=sc.tenant_weights, quotas=sc.tenant_quotas, priorities=sc.tenant_priorities)
     publisher = None
     if sc.metrics_interval_s > 0:
         if registry is None:
@@ -648,8 +724,14 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         publisher = metrics_lib.MetricsPublisher(
             registry, interval_s=sc.metrics_interval_s, sink=sink,
             series_path=f"{stem}.series.jsonl", exposition_path=f"{stem}.prom",
-            evaluator=metrics_lib.SLOEvaluator(metrics_lib.default_objectives(sc)),
+            # Per-tenant latency and shed objectives beside the pool's: their
+            # slo_alert edges carry the tenant.
+            evaluator=metrics_lib.SLOEvaluator(
+                metrics_lib.default_objectives(sc)
+                + (metrics_lib.tenant_objectives(sc, tenants.tenants)
+                   if tenants is not None else [])),
         )
+    session_store = SessionStore(sc.session_dir) if sc.session_dir else None
     with PreemptionHandler() as preempt:
         server = InferenceServer(
             engine,
@@ -666,6 +748,9 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             faults=faults,
             preempt=preempt,
             metrics=registry,
+            session_snapshot_every=sc.session_snapshot_every,
+            session_store=session_store,
+            tenants=tenants,
         )
         try:
             t0 = time.monotonic()
@@ -692,6 +777,15 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         print(f"Metrics plane: {publisher.seq} snapshots every {sc.metrics_interval_s}s, "
               f"{publisher.alerts} SLO alert edges -> {publisher.series_path} + "
               f"{publisher.exposition_path}")
+    sessions = summary.get("sessions")
+    print(f"Serve: {summary['completed']}/{summary['requests']} ok, shed={summary['shed']}, "
+          f"breaker_trips={summary['breaker_trips']}, reloads={summary['reloads']}, "
+          f"p50={summary['latency_p50_ms']}ms p99={summary['latency_p99_ms']}ms, "
+          f"compiled_shapes={summary['compiled_shapes']}"
+          + (f", sessions={sessions['completed']}/{sessions['started']} complete "
+             f"(migrated={sessions.get('migrated', 0)}, "
+             f"lost={sessions.get('lost', sessions.get('failed', 0))}), "
+             f"step_p50={sessions['step_latency_p50_ms']}ms" if sessions else ""))
     summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device),
                    restored=restored)
     if pack_plan is not None:
@@ -700,24 +794,29 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
 
 
 def _serve_storm(args, sc: ServeConfig, server: InferenceServer, samples, checkpointer,
-                 preempt) -> tuple[dict, list[ServeResult]]:
+                 preempt) -> tuple[dict, list[ServeResult | RolloutResult]]:
     """Drive the in-process request storm through a started server and
     drain it (``gnot_tpu/main.py::_serve_storm``): submitting stops once a
-    SIGTERM has arrived; every ``--serve_reload_every`` requests the
-    checkpoint is hot-reloaded under the deadline; each admitted request
-    is waited for up to ``drain_timeout_s``, and the drain gets the same
-    budget. Returns ``(summary, results)``; the drain runs on every exit
-    path."""
+    SIGTERM has arrived; each sample is one request, or with
+    ``--serve_rollout_steps K`` one K-step session; every
+    ``--serve_reload_every`` submissions the checkpoint is hot-reloaded
+    under the deadline; each future is waited for up to
+    ``drain_timeout_s`` (times K for a session), and the drain gets
+    ``drain_timeout_s``. Returns ``(summary, results)``; the drain runs on
+    every exit path."""
     futures = []
+    rollout_k = sc.rollout_steps
     try:
         for i, s in enumerate(samples):
             if preempt.triggered:
                 break
-            futures.append(server.submit(s))
+            futures.append(server.submit_rollout(s, rollout_k) if rollout_k
+                           else server.submit(s))
             if (args.serve_reload_every and checkpointer is not None
                     and (i + 1) % args.serve_reload_every == 0):
                 server.reload(deadline_ms=sc.deadline_ms)
-        results = [f.result(timeout=sc.drain_timeout_s) for f in futures]
+        timeout = sc.drain_timeout_s * max(1, rollout_k)
+        results = [f.result(timeout=timeout) for f in futures]
     finally:
         summary = server.drain(sc.drain_timeout_s)
     return summary, results
@@ -845,10 +944,12 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
 def main(argv: list[str] | None = None) -> float:
     """Trains (or evaluates) and returns the best (or evaluated) test
     metric, or with ``--serve`` serves and returns the share of requests
-    answered."""
+    answered (of sessions completed, with ``--serve_rollout_steps``)."""
     result = run(argv)
     if isinstance(result, Trainer):
         return result.best_metric
+    if result.summary.get("sessions") is not None:
+        return sum(r.ok for r in result.results) / max(1, len(result.results))
     return result.summary["completed"] / max(1, result.summary["requests"])
 
 

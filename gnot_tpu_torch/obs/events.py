@@ -37,6 +37,9 @@ SERVE_SUMMARY = "serve_summary"
 TRACE_FLUSH = "trace_flush"
 METRICS_SNAPSHOT = "metrics_snapshot"
 SLO_ALERT = "slo_alert"
+ROLLOUT_STEP = "rollout_step"
+SESSION_SNAPSHOT = "session_snapshot"
+TENANT_QUOTA_SHED = "tenant_quota_shed"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,12 +123,21 @@ EVENTS: dict[str, EventSpec] = {
     "shed": EventSpec(
         fields=("reason",),
         module="gnot_tpu_torch/serve/server.py",
-        doc="a request was rejected at admission (reason + per-reason "
-        "detail)",
+        doc="a request was shed or rejected (reason + per-reason detail; "
+        "a rollout session's carries its `session`, a tagged request's "
+        "its `tenant`)",
         optional=(
             "trace_id", "trace_ids", "replica", "session", "step",
             "tenant",
         ),
+    ),
+    "tenant_quota_shed": EventSpec(
+        fields=("tenant", "quota", "in_system"),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="a request or rollout step fast-failed at its tenant's "
+        "admission quota (reason `shed_tenant_quota`); a rollout step's "
+        "record carries its `session`, and the session ends",
+        optional=("trace_id", "replica", "session"),
     ),
     "breaker_open": EventSpec(
         fields=("state", "reason", "detail", "trips"),
@@ -165,6 +177,21 @@ EVENTS: dict[str, EventSpec] = {
             "per_replica", "routing", "dtype", "sessions", "tenants",
             "trace",
         ),
+    ),
+    "rollout_step": EventSpec(
+        fields=("session", "step", "steps", "latency_ms"),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="one committed step of a rollout session (1-indexed `step` of "
+        "`steps`; the carry advanced and the step streamed)",
+        optional=("replica", "dispatch"),
+    ),
+    "session_snapshot": EventSpec(
+        fields=("session", "step"),
+        module="gnot_tpu_torch/serve/server.py",
+        doc="a rollout session's carry was snapshotted host-side (every "
+        "`session_snapshot_every` steps, and once more when it ends "
+        "early); `persisted` marks one written to the session store",
+        optional=("replica", "persisted"),
     ),
     "trace_flush": EventSpec(
         fields=("path", "spans", "dropped"),

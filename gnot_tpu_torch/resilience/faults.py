@@ -30,10 +30,20 @@ The serving hooks, consulted by ``serve/server.py``:
   published ``latest`` checkpoint is truncated, so the reload must take
   the restore's fallback walk.
 
-The rollout kinds (``replica_kill``, ``stale_session``, ``rollout_nan``)
-and the federation kinds (``host_kill``, ``net_partition``, ``msg_drop``,
+The rollout hooks, keyed by the server's 1-indexed rollout-step
+admission ordinal (the count of session steps that server accepted):
+
+* ``replica_kill@STEP``: the server dies just before dispatching its
+  STEP-th rollout step: every in-system request fails
+  ``error_replica_dead`` and the worker exits.
+* ``stale_session@STEP``: the carry behind the STEP-th rollout step is
+  lost at dispatch: that step fails ``error_stale_session``.
+* ``rollout_nan@STEP``: the dispatch carrying the STEP-th rollout step
+  gets NaN outputs, the whole dispatch poisoned (the breaker counts it).
+
+The federation kinds (``host_kill``, ``net_partition``, ``msg_drop``,
 ``msg_delay``) parse here as they do in the JAX package; their hooks wait
-for the port's rollout serving and federation (``ROADMAP.md``).
+for the port's federation (``ROADMAP.md``).
 
 Steps are 1-indexed global micro-step counts (the trainer's
 ``host_step`` after the dispatch), the step numbers of the metrics
@@ -195,6 +205,32 @@ class FaultInjector:
         ``nan_output`` armed: the server poisons its outputs with NaN."""
         if self._take("nan_output", dispatch):
             logger.warning("fault injection: NaN outputs on serving dispatch #%d", dispatch)
+            return True
+        return False
+
+    def maybe_replica_kill(self, rollout_step: int) -> bool:
+        """True once when the server's ``rollout_step``-th session step has
+        a ``replica_kill`` armed: the worker dies before the dispatch."""
+        if self._take("replica_kill", rollout_step):
+            logger.warning("fault injection: replica kill at rollout step #%d", rollout_step)
+            return True
+        return False
+
+    def maybe_stale_session(self, rollout_step: int) -> bool:
+        """True once when the ``rollout_step``-th session step has a
+        ``stale_session`` armed: the carry behind it is lost, and the step
+        fails ``error_stale_session``."""
+        if self._take("stale_session", rollout_step):
+            logger.warning("fault injection: stale session carry at rollout step #%d",
+                           rollout_step)
+            return True
+        return False
+
+    def maybe_rollout_nan(self, rollout_step: int) -> bool:
+        """True once when the ``rollout_step``-th session step has a
+        ``rollout_nan`` armed: the dispatch carrying it gets NaN outputs."""
+        if self._take("rollout_nan", rollout_step):
+            logger.warning("fault injection: NaN outputs at rollout step #%d", rollout_step)
             return True
         return False
 

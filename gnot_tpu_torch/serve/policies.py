@@ -2,11 +2,11 @@
 and a circuit breaker.
 
 The port of the single-server part of ``gnot_tpu/serve/policies.py``
-(``Deadline``, ``AdmissionController``, ``CircuitBreaker``), with the same
-semantics. Each is deterministic given an injectable ``clock`` (tests pass
-a fake one; serving uses ``time.monotonic``), holds no thread of its own
-and decides one thing; the server composes them. ``TenantPolicy`` waits
-for the tenant slice, ``ReplicaHealthPolicy`` for the router
+(``Deadline``, ``AdmissionController``, ``CircuitBreaker``,
+``TenantPolicy``), with the same semantics. Each is deterministic given an
+injectable ``clock`` (tests pass a fake one; serving uses
+``time.monotonic``), holds no thread of its own and decides one thing; the
+server composes them. ``ReplicaHealthPolicy`` waits for the router
 (``ROADMAP.md``). Stdlib only.
 """
 
@@ -16,6 +16,8 @@ import dataclasses
 import threading
 import time
 from typing import Callable
+
+from gnot_tpu_torch.config import parse_tenant_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +69,95 @@ class AdmissionController:
             if self._n <= 0:
                 raise RuntimeError("release() without a matching admit")
             self._n -= 1
+
+
+#: The tenant of untagged traffic under an active ``TenantPolicy``: weight
+#: 1, interactive, no quota. With no policy, requests carry no tenant.
+DEFAULT_TENANT = "default"
+
+#: Priority classes, highest first: under contention ``batch`` work waits
+#: behind every ``interactive`` request.
+PRIORITY_CLASSES = ("interactive", "batch")
+
+
+class TenantPolicy:
+    """Per-tenant WFQ weights, admission quotas and priority classes, from
+    the three spec strings (``--tenant_weights interactive:3,batch:1``):
+
+    * ``weight(t)``: the tenant's deficit-round-robin share within its
+      priority tier (unlisted tenants weigh 1);
+    * ``priority(t)``: ``"interactive"`` or ``"batch"``, the strict drain
+      order under contention; unlisted tenants are interactive, but for
+      one named ``batch``;
+    * ``try_admit(t)`` / ``release(t)``: a bounded in-system count per
+      tenant with a quota (one ``AdmissionController`` each, locked
+      inside), an O(1) fast-fail; tenants without a quota are never
+      limited.
+
+    Weights and priorities are fixed at construction."""
+
+    def __init__(self, *, weights=None, quotas=None, priorities=None):
+        self.weights = {t: int(w) for t, w in dict(weights or {}).items()}
+        self.quotas = {t: int(q) for t, q in dict(quotas or {}).items()}
+        self.priorities = dict(priorities or {})
+        for t, w in self.weights.items():
+            if w < 1:
+                raise ValueError(f"tenant weight for {t!r} must be >= 1, got {w}")
+        for t, p in self.priorities.items():
+            if p not in PRIORITY_CLASSES:
+                raise ValueError(
+                    f"tenant priority for {t!r} must be one of "
+                    f"{PRIORITY_CLASSES}, got {p!r}"
+                )
+        # AdmissionController refuses a quota below 1.
+        self._admission = {t: AdmissionController(q) for t, q in self.quotas.items()}
+
+    @classmethod
+    def from_specs(
+        cls, weights: str = "", quotas: str = "", priorities: str = ""
+    ) -> "TenantPolicy | None":
+        """From the ``ServeConfig`` spec strings; None when all three are
+        empty (tenant mode off)."""
+        if not (weights or quotas or priorities):
+            return None
+        return cls(
+            weights=parse_tenant_spec(weights, what="weight"),
+            quotas=parse_tenant_spec(quotas, what="quota"),
+            priorities=parse_tenant_spec(priorities, what="priority"),
+        )
+
+    @property
+    def tenants(self) -> list[str]:
+        """Every tenant a spec names, sorted (the SLO plane's tenants)."""
+        return sorted(set(self.weights) | set(self.quotas) | set(self.priorities))
+
+    def weight(self, tenant: str) -> int:
+        return self.weights.get(tenant, 1)
+
+    def priority(self, tenant: str) -> str:
+        p = self.priorities.get(tenant)
+        if p is None:
+            p = "batch" if tenant == "batch" else "interactive"
+        return p
+
+    def quota(self, tenant: str) -> int | None:
+        a = self._admission.get(tenant)
+        return a.limit if a is not None else None
+
+    def in_system(self, tenant: str) -> int:
+        a = self._admission.get(tenant)
+        return a.depth if a is not None else 0
+
+    def try_admit(self, tenant: str) -> bool:
+        """The per-tenant quota gate; True for a tenant without a quota."""
+        a = self._admission.get(tenant)
+        return True if a is None else a.try_admit()
+
+    def release(self, tenant: str) -> None:
+        """One of this tenant's admitted requests left the system."""
+        a = self._admission.get(tenant)
+        if a is not None:
+            a.release()
 
 
 class CircuitBreaker:

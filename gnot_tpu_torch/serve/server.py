@@ -49,13 +49,41 @@ With ``metrics`` (``obs/metrics.MetricsRegistry``) the server registers
 JAX's single-server series, by name and label: request, completion,
 dispatch and per-reason shed counters, the request and per-bucket
 latency histograms, the per-bucket token counters (which are then the
-summary's ``pad_waste_by_bucket``), the queue-depth and breaker gauges,
-and the rollout and jit-fallback series, which stay at 0 (no rollout
-sessions yet; eager PyTorch has no jit fallback). With or without a
-registry, the summary's latency percentiles are read from one
-``LogHistogram``, as JAX's are.
+summary's ``pad_waste_by_bucket``), the queue-depth, breaker and
+resident-session gauges, the rollout series (``rollout_step_latency_ms``,
+``rollout_steps_total``, ``rollout_sessions_total{outcome=}``,
+``rollout_sessions_lost_total``), the ``tenant_*`` series of tagged
+traffic, and the jit-fallback counter, which stays at 0 (eager PyTorch
+has no jit fallback). With or without a registry, the summary's latency
+percentiles are read from one ``LogHistogram``, as JAX's are.
 
-Not ported yet: tenants, rollout sessions, replicas and the router.
+Tenants (``tenants=`` a ``policies.TenantPolicy``; ``submit(tenant=)``):
+a tenant over its quota fast-fails ``shed_tenant_quota`` at its own door,
+before the global admission gate, with a ``tenant_quota_shed`` event; the
+batcher drains per-tenant sub-queues by weighted fair queueing within
+priority tiers; tagged traffic is counted per tenant (the summary's
+``tenants`` block). With no policy and no tags none of this runs: the
+summary and the events are those of the single-tenant server.
+
+Rollout sessions (``serve/rollout.py``; ``submit_rollout``,
+``resume_rollout``): one request becomes K chained dispatches. Each step
+re-enters admission, the batcher and the dispatch like any request (so
+sessions at different steps batch together, and every policy above
+applies to a step), with the per-step deadline clamped to the whole
+rollout's. A committed step emits ``rollout_step``, streams to the client
+and advances the carry; every ``session_snapshot_every`` steps the carry
+is snapshotted host-side (``session_snapshot``). A step failing on a sick
+server (``MIGRATABLE_REASONS``) ends the session as lost on a standalone
+server (the router's migration is not ported); a deadline or quota shed
+ends it with its reason; a drain ends it ``drained`` with
+``drained_at_step``, after persisting a named session's final snapshot to
+the ``session_store``. The rollout fault hooks (``replica_kill``,
+``stale_session``, ``rollout_nan``) fire at dispatch; ``replica_kill``
+fails every request in the system ``error_replica_dead`` and ends the
+worker. A session future, like a request future, always resolves.
+
+Not ported yet: replicas and the router, and with them session migration,
+eviction and rolling persistence (``persist_snapshots``).
 """
 
 from __future__ import annotations
@@ -70,13 +98,20 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from gnot_tpu_torch.config import NotPortedError
 from gnot_tpu_torch.data.batch import MeshSample, PackPlan, pack_prefix
 from gnot_tpu_torch.obs import events
-from gnot_tpu_torch.obs.metrics import LogHistogram
+from gnot_tpu_torch.obs.metrics import LogHistogram, Reservoir
 from gnot_tpu_torch.obs.tracing import percentiles
 from gnot_tpu_torch.serve.batcher import Batcher
 from gnot_tpu_torch.serve.engine import InferenceEngine
-from gnot_tpu_torch.serve.policies import AdmissionController, CircuitBreaker, Deadline
+from gnot_tpu_torch.serve.policies import (
+    DEFAULT_TENANT,
+    AdmissionController,
+    CircuitBreaker,
+    Deadline,
+)
+from gnot_tpu_torch.serve.rollout import RolloutFuture, RolloutSession
 from gnot_tpu_torch.train.trainer import serving_weights
 
 #: The bucket key every plan-fitting request shares in packed dispatch
@@ -88,12 +123,28 @@ REASONS = (
     "ok",
     "shed_deadline",
     "shed_queue_full",
+    "shed_tenant_quota",
     "rejected_breaker_open",
     "rejected_invalid",
     "rejected_draining",
     "error_nan_output",
     "error_dispatch",
+    # rollout-session step failures
+    "error_replica_dead",
+    "error_stale_session",
 )
+
+#: Step failures that indict the server rather than the request: the
+#: router re-places such a session from its snapshot (``migrate_cb``); on
+#: a standalone server the session ends and counts as lost. Deadline,
+#: queue and quota sheds end a session with their own reason.
+MIGRATABLE_REASONS = frozenset((
+    "rejected_breaker_open",
+    "error_nan_output",
+    "error_dispatch",
+    "error_replica_dead",
+    "error_stale_session",
+))
 
 #: Reasons whose request chain ends at its ``queue_wait`` span (it never
 #: reached a forward), with no ``resolve`` span.
@@ -119,6 +170,17 @@ class _Request:
     submitted: float
     deadline: Deadline | None
     trace: str | None = None  # the tracer's id, None when not sampled
+    # The owning rollout session (None for a one-shot request) and the
+    # server's 1-indexed rollout-step ordinal (the rollout faults' key).
+    session: RolloutSession | None = None
+    rollout_ordinal: int = 0
+    # The submitter's tenant (a session's steps inherit its), None untagged.
+    tenant: str | None = None
+
+
+class _ReplicaKilled(Exception):
+    """The ``replica_kill`` fault fired at the dispatch about to run: the
+    worker fails every request in the system and exits."""
 
 
 def _percentile(values: list[float], q: float) -> float | None:
@@ -134,7 +196,9 @@ class InferenceServer:
     reload source (``CheckpointReloader``); ``faults`` a
     ``resilience.faults.FaultInjector`` with serve kinds armed;
     ``preempt`` a ``PreemptionHandler`` whose flag the worker polls;
-    ``clock`` the monotonic clock of every policy, span and latency."""
+    ``clock`` the monotonic clock of every policy, span and latency;
+    ``tenants`` a ``TenantPolicy`` (None: tenant mode off);
+    ``session_store`` a ``rollout.SessionStore`` for drained sessions."""
 
     def __init__(
         self,
@@ -154,7 +218,18 @@ class InferenceServer:
         preempt=None,
         clock: Callable[[], float] = time.monotonic,
         metrics=None,
+        session_snapshot_every: int = 1,
+        session_store=None,
+        persist_snapshots: bool = False,
+        tenants=None,
     ):
+        if persist_snapshots:
+            raise NotPortedError(
+                "persist_snapshots (every due snapshot written to the session store, "
+                "the federation's migration substrate) waits for the router")
+        if session_snapshot_every < 1:
+            raise ValueError(
+                f"session_snapshot_every must be >= 1, got {session_snapshot_every}")
         self.engine = engine
         self.max_batch = max_batch
         self.pack_plan = pack_plan
@@ -168,6 +243,9 @@ class InferenceServer:
         self.admission = AdmissionController(queue_limit)
         self.breaker = CircuitBreaker(
             threshold=breaker_threshold, cooldown_s=breaker_cooldown_s, clock=clock)
+        # Gates per-tenant quotas at submit, before the global gate, and
+        # drives the batcher's per-tenant WFQ sub-queues. None: off.
+        self.tenants = tenants
 
         def key_fn(r):
             if pack_plan is not None and pack_plan.packable(r.sample):
@@ -185,6 +263,9 @@ class InferenceServer:
             max_wait_ms=max_wait_ms,
             key_fn=key_fn,
             take_fn=take_fn if pack_plan is not None else None,
+            tenants=tenants,
+            # Untagged traffic under a policy rides the default tenant.
+            tenant_fn=lambda r: r.tenant if r.tenant is not None else DEFAULT_TENANT,
         )
         self._inbound: queue.Queue = queue.Queue()
         self._draining = threading.Event()
@@ -210,26 +291,43 @@ class InferenceServer:
         self._metrics = metrics
         if metrics is not None:
             self._lat_hist = metrics.histogram("serve_request_latency_ms")
-            # Registered as JAX registers them; no rollout session records
-            # into them yet.
-            metrics.histogram("rollout_step_latency_ms")
+            self._step_hist = metrics.histogram("rollout_step_latency_ms")
             self._c_requests = metrics.counter("serve_requests_total")
             self._c_completed = metrics.counter("serve_completed_total")
             self._c_dispatches = metrics.counter("serve_dispatches_total")
-            metrics.counter("rollout_steps_total")
+            self._c_steps = metrics.counter("rollout_steps_total")
             metrics.gauge("serve_queue_depth", fn=lambda: self.admission.depth)
             metrics.gauge("serve_breaker_open",
                           fn=lambda: 1.0 if self.breaker.state == "open" else 0.0)
-            metrics.gauge("serve_resident_sessions", fn=lambda: 0)  # no sessions yet
+            metrics.gauge("serve_resident_sessions", fn=self.resident_sessions)
             # Eager PyTorch has no jit fallback: JAX's counter, never moved.
             metrics.counter("serve_jit_fallback_total")
         else:
             self._lat_hist = LogHistogram()
-            self._c_requests = self._c_completed = self._c_dispatches = None
+            self._step_hist = LogHistogram()
+            self._c_requests = self._c_completed = self._c_dispatches = self._c_steps = None
+        self._step_res = Reservoir()
         # Registry series caches (get-or-create off the hot path).
         self._pack_counters: dict[str, dict] = {}
         self._bucket_hists: dict[str, LogHistogram] = {}
         self._shed_counters: dict[str, object] = {}
+        # Per-tenant accounting, of tagged requests only: the summary's
+        # ``tenants`` block and, with a registry, the tenant_* series the
+        # tenant SLOs read. The histograms and counters lock inside.
+        self._tenant_stats: dict[str, dict] = {}  #: guarded_by _lock
+        self._tenant_hists: dict[str, LogHistogram] = {}
+        self._tenant_counters: dict = {}
+        # Rollout sessions: the resident table, the summary's counters and
+        # the rollout-step admission ordinal (the rollout faults' key).
+        self.session_snapshot_every = session_snapshot_every
+        self._session_store = session_store
+        self._sessions: dict[str, RolloutSession] = {}  #: guarded_by _lock
+        self._sessions_started = 0  #: guarded_by _lock
+        self._sessions_completed = 0  #: guarded_by _lock
+        self._sessions_drained = 0  #: guarded_by _lock
+        self._sessions_shed = 0  #: guarded_by _lock
+        self._sessions_failed = 0  #: guarded_by _lock
+        self._rollout_steps = 0  #: guarded_by _lock
 
     # -- client side -------------------------------------------------------
 
@@ -252,12 +350,17 @@ class InferenceServer:
         self.warmed = ready.result()  # re-raises a failed warm-up
         return self
 
-    def submit(self, sample: MeshSample, *, deadline_ms: float | None = None) -> Future:
+    def submit(self, sample: MeshSample, *, deadline_ms: float | None = None,
+               tenant: str | None = None) -> Future:
         """Admit one request. Fast-fails (resolved Future) when draining,
-        on invalid input (non-finite / oversize, named by index) and when
-        ``queue_limit`` requests are already in the system. ``deadline_ms``
-        (default ``default_deadline_ms``; 0 = none) is the budget after
-        which the request is shed before its forward."""
+        on invalid input (non-finite / oversize, named by index), when the
+        tenant is at its quota (``shed_tenant_quota``, checked before the
+        global gate, so a flooding tenant fails at its own door without
+        taking shared admission) and when ``queue_limit`` requests are
+        already in the system. ``deadline_ms`` (default
+        ``default_deadline_ms``; 0 = none) is the budget after which the
+        request is shed before its forward. ``tenant`` names the submitter
+        (None: untagged; without a policy the tag only counts)."""
         fut: Future = Future()
         now = self._clock()
         # Head sampling decides once, at submit; every later span of this
@@ -267,18 +370,30 @@ class InferenceServer:
             self._submitted += 1
         if self._c_requests is not None:
             self._c_requests.inc()
+        self._note_tenant_request(tenant)
         if self._draining.is_set():
-            return self._reject(fut, "rejected_draining", now, trace)
+            return self._reject(fut, "rejected_draining", now, trace, tenant=tenant)
         try:
             self.engine.validate([sample])
         except ValueError as err:
             self._event(events.SHED, reason="rejected_invalid", detail=str(err),
                         **({"trace_id": trace} if trace else {}))
-            return self._reject(fut, "rejected_invalid", now, trace, str(err))
+            return self._reject(fut, "rejected_invalid", now, trace, str(err), tenant=tenant)
+        if self.tenants is not None:
+            tname = tenant if tenant is not None else DEFAULT_TENANT
+            if not self.tenants.try_admit(tname):
+                self._event(events.TENANT_QUOTA_SHED, tenant=tname,
+                            quota=self.tenants.quota(tname),
+                            in_system=self.tenants.in_system(tname),
+                            **({"trace_id": trace} if trace else {}))
+                return self._reject(fut, "shed_tenant_quota", now, trace, tenant=tname)
         if not self.admission.try_admit():
+            self._release_tenant(tenant)
             self._event(events.SHED, reason="shed_queue_full", depth=self.admission.depth,
-                        limit=self.admission.limit, **({"trace_id": trace} if trace else {}))
-            return self._reject(fut, "shed_queue_full", now, trace)
+                        limit=self.admission.limit,
+                        **({"tenant": tenant} if tenant is not None else {}),
+                        **({"trace_id": trace} if trace else {}))
+            return self._reject(fut, "shed_queue_full", now, trace, tenant=tenant)
         # A per-request 0 means no deadline, as the config's does.
         ms = (deadline_ms if deadline_ms is not None else self.default_deadline_ms) or None
         # Enqueue under the same lock drain() sets its flag under: a put
@@ -291,18 +406,22 @@ class InferenceServer:
                 self._inbound.put(_Request(
                     sample, fut, self._admitted, now,
                     Deadline(now + ms / 1e3) if ms is not None else None, trace,
+                    tenant=tenant,
                 ))
         if raced:
             self.admission.release()
-            return self._reject(fut, "rejected_draining", now, trace)
+            self._release_tenant(tenant)
+            return self._reject(fut, "rejected_draining", now, trace, tenant=tenant)
         # Admission closed; queue_wait opens here and is recorded at
         # dispatch, when its end is known.
         self._trace_span(trace, "admission", now, reason="admitted")
         return fut
 
-    def _reject(self, fut: Future, reason: str, now: float, trace, detail: str = "") -> Future:
+    def _reject(self, fut: Future, reason: str, now: float, trace, detail: str = "",
+                *, tenant: str | None = None) -> Future:
         """Resolve a request refused at admission."""
         self._count_shed(reason)
+        self._note_tenant_shed(tenant, reason)
         self._trace_span(trace, "admission", now, reason=reason)
         fut.set_result(
             ServeResult(
@@ -311,6 +430,272 @@ class InferenceServer:
             )
         )
         return fut
+
+    def submit_rollout(
+        self,
+        sample: MeshSample | None = None,
+        steps: int | None = None,
+        *,
+        deadline_ms: float | None = None,
+        rollout_deadline_ms: float | None = None,
+        on_step: Callable | None = None,
+        session: RolloutSession | None = None,
+        name: str | None = None,
+        tenant: str | None = None,
+    ) -> RolloutFuture:
+        """Admit one rollout: ``steps`` chained dispatches whose carry
+        stays with this server between steps. Each step re-enters the
+        ordinary admission, batcher and dispatch. ``deadline_ms`` is the
+        per-step budget (default ``default_deadline_ms``),
+        ``rollout_deadline_ms`` the whole trajectory's; ``on_step(sid,
+        step, output)`` streams committed steps (``iter_steps()`` of the
+        returned future is the pull-style twin). ``session`` places an
+        existing session (a resume) and ignores the other arguments;
+        ``name`` is a client-chosen id, the handle ``resume_rollout``
+        resumes a drained session under. The future always resolves with a
+        ``RolloutResult``."""
+        if session is None:
+            if sample is None or steps is None:
+                raise ValueError("submit_rollout needs (sample, steps) or a session")
+            if name is not None and self.has_session(name):
+                # Two live sessions under one sid would shadow each other.
+                raise ValueError(f"a session named {name!r} is already resident")
+            with self._lock:
+                self._sessions_started += 1
+                n = self._sessions_started
+            self._note_session("started")
+            ms = deadline_ms if deadline_ms is not None else self.default_deadline_ms
+            session = RolloutSession(
+                name or f"s{n:04d}",
+                sample,
+                steps,
+                snapshot_every=self.session_snapshot_every,
+                step_deadline_ms=ms or None,
+                rollout_deadline=(self._clock() + rollout_deadline_ms / 1e3
+                                  if rollout_deadline_ms else None),
+                on_step=on_step,
+                tenant=tenant,
+            )
+            session.named = name is not None
+        else:
+            with self._lock:
+                self._sessions_started += 1
+            self._note_session("started")
+        with self._lock:
+            self._sessions[session.sid] = session
+        self._submit_step(session)
+        return session.future
+
+    def resume_rollout(
+        self,
+        name: str,
+        *,
+        deadline_ms: float | None = None,
+        rollout_deadline_ms: float | None = None,
+        on_step: Callable | None = None,
+    ) -> RolloutFuture:
+        """Resume a session a drain persisted to the session store: load
+        its final snapshot, rebuild the session at that step and run the
+        remaining steps here. Raises ``KeyError`` when there is no
+        snapshot; a session already complete at its snapshot resolves at
+        once. The restored prefix is not streamed again."""
+        if self._session_store is None:
+            raise RuntimeError("no session store configured")
+        if self.has_session(name):
+            raise ValueError(f"a session named {name!r} is already resident")
+        state = self._session_store.load(name)
+        if state is None:
+            raise KeyError(f"no persisted session {name!r}")
+        ms = deadline_ms if deadline_ms is not None else self.default_deadline_ms
+        session = RolloutSession.from_state(
+            state,
+            snapshot_every=self.session_snapshot_every,
+            step_deadline_ms=ms or None,
+            rollout_deadline=(self._clock() + rollout_deadline_ms / 1e3
+                              if rollout_deadline_ms else None),
+            on_step=on_step,
+        )
+        if session.finished:
+            session.resolve(True, "ok")
+            return session.future
+        return self.submit_rollout(session=session)
+
+    # -- rollout-session internals -------------------------------------------
+
+    def _submit_step(self, session: RolloutSession) -> None:
+        """Enqueue the session's next step as a request. A drain, a spent
+        rollout budget, an invalid carry, the tenant's quota or a full
+        queue ends the session now instead: a session never strands
+        between steps."""
+        now = self._clock()
+        if self._draining.is_set():
+            self._end_session(session, reason="drained", kind="drained")
+            return
+        rd = session.rollout_deadline
+        if rd is not None and now >= rd:
+            self._end_session(session, reason="shed_deadline", kind="shed",
+                              detail="whole-rollout deadline exhausted")
+            return
+        try:
+            self.engine.validate([session.sample])
+        except ValueError as err:
+            self._end_session(session, reason="rejected_invalid", kind="shed", detail=str(err))
+            return
+        if self.tenants is not None:
+            # Each step holds one of its tenant's in-system slots; a quota
+            # shed ends the session (it is the tenant's own doing).
+            tname = session.tenant if session.tenant is not None else DEFAULT_TENANT
+            if not self.tenants.try_admit(tname):
+                self._count_shed("shed_tenant_quota")
+                self._note_tenant_shed(tname, "shed_tenant_quota")
+                self._event(events.TENANT_QUOTA_SHED, tenant=tname,
+                            quota=self.tenants.quota(tname),
+                            in_system=self.tenants.in_system(tname), session=session.sid)
+                self._end_session(session, reason="shed_tenant_quota", kind="shed",
+                                  detail=f"tenant quota exhausted at step {session.cursor + 1}")
+                return
+        if not self.admission.try_admit():
+            self._release_tenant(session.tenant)
+            self._end_session(session, reason="shed_queue_full", kind="shed",
+                              detail=f"admission full at step {session.cursor + 1}")
+            return
+        ms = session.step_deadline_ms
+        at = now + ms / 1e3 if ms is not None else None
+        if rd is not None:
+            at = rd if at is None else min(at, rd)
+        with self._lock:
+            raced = self._draining.is_set()
+            if not raced:
+                self._submitted += 1
+                self._admitted += 1
+                self._rollout_steps += 1
+                # Locally placed sessions' steps run untraced, as in JAX.
+                self._inbound.put(_Request(
+                    session.sample, Future(), self._admitted, now,
+                    Deadline(at) if at is not None else None, None,
+                    session=session, rollout_ordinal=self._rollout_steps,
+                    tenant=session.tenant,
+                ))
+        if raced:
+            self.admission.release()
+            self._release_tenant(session.tenant)
+            self._end_session(session, reason="drained", kind="drained")
+            return
+        if self._c_requests is not None:
+            self._c_requests.inc()
+        if self._c_steps is not None:
+            self._c_steps.inc()
+        self._note_tenant_request(session.tenant)
+
+    def _session_step_done(self, req: _Request, result: ServeResult) -> None:
+        """One session step left the system: commit it and chain the next,
+        or end the session by the failure's reason. Runs on the thread
+        that finished the step (the worker's or the drain's)."""
+        session = req.session
+        if result.ok:
+            step = session.record_step(result.output)
+            self._step_hist.record(result.latency_ms)
+            self._step_res.add(result.latency_ms)
+            self._event(events.ROLLOUT_STEP, session=session.sid, step=step,
+                        steps=session.steps, latency_ms=result.latency_ms)
+            session.publish_step(step, result.output)
+            if session.snapshot_due():
+                self._event(events.SESSION_SNAPSHOT, session=session.sid,
+                            step=session.take_snapshot())
+            if session.finished:
+                if session.resolve(True, "ok"):
+                    with self._lock:
+                        self._sessions_completed += 1
+                    self._note_session("completed")
+                self._drop_session(session)
+                # A completed named session's persisted snapshot is stale.
+                if self._session_store is not None and session.named:
+                    self._session_store.delete(session.sid)
+            else:
+                self._submit_step(session)
+            return
+        reason = result.reason
+        if reason == "rejected_draining":
+            self._end_session(session, reason="drained", kind="drained")
+        elif reason in MIGRATABLE_REASONS:
+            # A sick server, not a sick request: the router's hand-over,
+            # or on a standalone server a terminal failure, still resolved.
+            self._drop_session(session)
+            if session.migrate_cb is not None:
+                session.migrate_cb(session, reason, result.detail, None)
+            else:
+                if session.resolve(False, reason, detail=result.detail):
+                    with self._lock:
+                        self._sessions_failed += 1
+                    self._note_session("failed", lost=True)
+                self._event(events.SHED, reason=reason, session=session.sid,
+                            step=session.cursor)
+        else:
+            self._end_session(session, reason=reason, kind="shed", detail=result.detail)
+
+    def _end_session(self, session: RolloutSession, *, reason: str, kind: str,
+                     detail: str = "") -> None:
+        """End a session early on this server: take a final snapshot,
+        persist a drained named session's to the store before the future
+        resolves (once the client sees ``drained``, ``resume_rollout`` can
+        continue from it; a failed write does not block the drain),
+        resolve (idempotent; ``drained`` carries ``drained_at_step``),
+        drop it, and emit ``session_snapshot`` and ``shed``."""
+        step = session.take_snapshot()
+        drained = kind == "drained"
+        persisted = False
+        if drained and session.named and self._session_store is not None:
+            try:
+                self._session_store.save(session)
+                persisted = True
+            except OSError:
+                pass
+        resolved = session.resolve(False, reason, drained_at_step=step if drained else None,
+                                   detail=detail)
+        self._drop_session(session)
+        if not resolved:
+            return
+        with self._lock:
+            if drained:
+                self._sessions_drained += 1
+            else:
+                self._sessions_shed += 1
+        self._note_session("drained" if drained else "shed")
+        self._event(events.SESSION_SNAPSHOT, session=session.sid, step=step,
+                    **({"persisted": True} if persisted else {}))
+        self._event(events.SHED, reason=reason, session=session.sid, step=step)
+
+    def _drop_session(self, session: RolloutSession) -> None:
+        with self._lock:
+            self._sessions.pop(session.sid, None)
+
+    def _open_sessions(self) -> list[RolloutSession]:
+        with self._lock:
+            return list(self._sessions.values())
+
+    def _die(self, pending: list[_Request]) -> None:
+        """The ``replica_kill`` fault fired: every request still in the
+        system (the popped batches, the inbound queue, the batcher)
+        resolves ``error_replica_dead`` now, their sessions with it, and
+        the worker then exits."""
+        def dead() -> ServeResult:
+            return ServeResult(ok=False, reason="error_replica_dead",
+                               detail="replica killed (injected replica_kill)")
+
+        for r in pending:
+            self._finish(r, dead())
+        try:
+            while True:
+                item = self._inbound.get_nowait()
+                if item is not None:
+                    self._finish(item, dead())
+        except queue.Empty:
+            pass
+        # pop_ready(flush_all) removes what it returns, so a later drain
+        # cannot finish these twice.
+        for _, rs in self.batcher.pop_ready(self._clock(), flush_all=True):
+            for r in rs:
+                self._finish(r, dead())
 
     def reload(self, *, deadline_ms: float = 0.0) -> bool:
         """Swap in the weights of the reload source, on the caller's
@@ -363,6 +748,11 @@ class InferenceServer:
                 # The worker still owns the batcher and the queue:
                 # sweeping them from here would race it.
                 self._event(events.DRAIN_TIMEOUT, timeout_s=timeout_s)
+                # Open sessions still resolve (the wedged worker may never
+                # chain them); if it comes back, its own ending is a no-op.
+                for session in self._open_sessions():
+                    self._end_session(session, reason="drained", kind="drained",
+                                      detail="drain timed out behind a wedged dispatch")
                 return self._summary(emit=not self._drained.is_set())
         # The worker has exited (or never ran): resolve anything left.
         left = []
@@ -377,6 +767,10 @@ class InferenceServer:
             self._finish(r, ServeResult(ok=False, reason="rejected_draining"))
             # The chain ends at its shed point, with the reason.
             self._trace_span(r.trace, "queue_wait", r.submitted, reason="rejected_draining")
+        # Sessions still resident (their step was swept above, or they
+        # raced the drain flag) end drained, their snapshots persisted.
+        for session in self._open_sessions():
+            self._end_session(session, reason="drained", kind="drained")
         if not self._drained.is_set():
             self._drained.set()
             return self._summary(emit=True)
@@ -408,11 +802,41 @@ class InferenceServer:
             dispatch_ms = list(self._dispatch_ms)
             bucket_stats = {k: {kk: list(vv) for kk, vv in v.items()}
                             for k, v in self._bucket_stats.items()}
+            tenant_stats = {t: {"requests": v["requests"], "completed": v["completed"],
+                                "shed": dict(v["shed"])}
+                            for t, v in self._tenant_stats.items()}
+            if self._sessions_started:
+                # The sessions accepted here, how each ended, and the step
+                # latency percentiles.
+                summary["sessions"] = {
+                    "started": self._sessions_started,
+                    "completed": self._sessions_completed,
+                    "drained": self._sessions_drained,
+                    "shed": self._sessions_shed,
+                    "failed": self._sessions_failed,
+                    "resident": len(self._sessions),
+                    "steps": self._step_hist.count,
+                    "step_latency_p50_ms": self._step_hist.percentile(0.50),
+                    "step_latency_p99_ms": self._step_hist.percentile(0.99),
+                }
         if self._metrics is not None:
             # With a registry its per-bucket counters are the ledger: the
             # summary reads them back, so the two cannot drift.
             pack_stats = {k: {kk: c.value for kk, c in cs.items()}
                           for k, cs in dict(self._pack_counters).items()}
+        if tenant_stats:
+            # How each tenant's tagged traffic fared; absent when no
+            # request carried a tag.
+            summary["tenants"] = {
+                t: {
+                    **st,
+                    "latency_p50_ms": (self._tenant_hists[t].percentile(0.50)
+                                       if t in self._tenant_hists else None),
+                    "latency_p99_ms": (self._tenant_hists[t].percentile(0.99)
+                                       if t in self._tenant_hists else None),
+                }
+                for t, st in sorted(tenant_stats.items())
+            }
         summary["pad_waste_by_bucket"] = {
             key: {
                 **st,
@@ -486,8 +910,15 @@ class InferenceServer:
             except queue.Empty:
                 pass
             draining = self._draining.is_set()
-            for key, reqs in self.batcher.pop_ready(self._clock(), flush_all=draining):
-                self._dispatch(key, reqs)
+            batches = self.batcher.pop_ready(self._clock(), flush_all=draining)
+            for i, (key, reqs) in enumerate(batches):
+                try:
+                    self._dispatch(key, reqs)
+                except _ReplicaKilled:
+                    # It fires before any request of the batch resolves:
+                    # this batch and every later one popped are whole.
+                    self._die([r for _, rs in batches[i:] for r in rs])
+                    return
             if draining and len(self.batcher) == 0 and self._inbound.empty():
                 return
 
@@ -502,6 +933,28 @@ class InferenceServer:
         else:
             plan, bucket = None, f"{key[0]}x{key[1]}"
         if self.faults is not None:
+            # The rollout faults, keyed by the rollout-step ordinal:
+            # replica_kill first (a dying server fails everything, before
+            # any request resolves), then stale carries, whose victims
+            # leave the batch.
+            for r in reqs:
+                if r.session is not None and self.faults.maybe_replica_kill(r.rollout_ordinal):
+                    raise _ReplicaKilled()
+            fresh = []
+            for r in reqs:
+                if r.session is not None and self.faults.maybe_stale_session(r.rollout_ordinal):
+                    self._event(events.SHED, reason="error_stale_session", ordinal=r.ordinal,
+                                session=r.session.sid)
+                    # JAX counts no tenant shed here.
+                    self._finish(r, ServeResult(
+                        ok=False, reason="error_stale_session",
+                        detail="resident carry lost (injected stale_session)"),
+                        tenant_shed=False)
+                else:
+                    fresh.append(r)
+            reqs = fresh
+            if not reqs:
+                return
             for r in reqs:
                 if self.faults.maybe_slow_request(r.ordinal):
                     # An injected straggler: stall until the victim's
@@ -521,6 +974,7 @@ class InferenceServer:
                 self._note_bucket(bucket, queue_ms=[(now - r.submitted) * 1e3])
             self._event(events.SHED, reason="shed_deadline", ordinal=r.ordinal,
                         waited_ms=(now - r.submitted) * 1e3,
+                        **({"tenant": r.tenant} if r.tenant is not None else {}),
                         **({"trace_id": r.trace} if r.trace else {}))
         if not live:
             return
@@ -571,7 +1025,8 @@ class InferenceServer:
             self._trace_span(r.trace, "queue_wait", r.submitted, now, bucket=bucket,
                              waited_ms=(now - r.submitted) * 1e3,
                              **({"remaining_ms": r.deadline.remaining_ms(now)}
-                                if r.deadline is not None else {}))
+                                if r.deadline is not None else {}),
+                             **({"tenant": r.tenant} if r.tenant is not None else {}))
         self._event(
             events.QUEUE_DEPTH, depth=self.admission.depth, batched=len(self.batcher),
             dispatch=dispatch, bucket_nodes=bucket_nodes, bucket_funcs=bucket_funcs,
@@ -604,6 +1059,12 @@ class InferenceServer:
         # The dispatch ran: its pad waste is real whatever its outputs hold.
         self._note_pack(bucket, real, capacity)
         if self.faults is not None and self.faults.maybe_nan_output(dispatch):
+            outs = [np.full_like(o, np.nan) for o in outs]
+        if self.faults is not None and [
+                r for r in live
+                if r.session is not None and self.faults.maybe_rollout_nan(r.rollout_ordinal)]:
+            # rollout_nan poisons the whole dispatch (a sick chip does not
+            # keep its garbage to one row): every rider fails.
             outs = [np.full_like(o, np.nan) for o in outs]
         bad = [i for i, o in enumerate(outs) if not np.all(np.isfinite(o))]
         if bad:
@@ -648,33 +1109,138 @@ class InferenceServer:
         for r in reqs:
             if r.trace is None:
                 continue
-            self._trace_span(r.trace, "dispatch", start, done, **link)
+            ten = {"tenant": r.tenant} if r.tenant is not None else {}
+            self._trace_span(r.trace, "dispatch", start, done, **link, **ten)
             for phase in ("batch_assembly", "device", "unpad"):
                 if phase in timings:
-                    self._trace_span(r.trace, phase, *timings[phase], **link)
+                    self._trace_span(r.trace, phase, *timings[phase], **link, **ten)
             self._note_bucket(bucket, queue_ms=[(start - r.submitted) * 1e3],
                               device_ms=[(t_dev[1] - t_dev[0]) * 1e3] if t_dev else ())
 
     # -- bookkeeping -------------------------------------------------------
 
     def _finish(self, r: _Request, result: ServeResult, now: float | None = None,
-                bucket: str | None = None) -> None:
+                bucket: str | None = None, *, tenant_shed: bool = True) -> None:
         """Resolve one admitted request at ``now`` (default: the clock):
-        release its admission slot, count it, and record its ``resolve``
-        span when it reached a forward."""
+        release its admission and tenant slots, count it (for its tenant
+        too, unless ``tenant_shed`` is False), record its ``resolve`` span
+        when it reached a forward, and for a session step chain the
+        session on (commit and the next step, or its end)."""
         now = self._clock() if now is None else now
         result.latency_ms = (now - r.submitted) * 1e3
         self.admission.release()
+        self._release_tenant(r.tenant)
         if result.ok:
             with self._lock:
                 self._completed += 1
             self._note_latency(result.latency_ms, bucket)
+            self._note_tenant_done(r.tenant, result.latency_ms)
         else:
             self._count_shed(result.reason)
+            if tenant_shed:
+                self._note_tenant_shed(r.tenant, result.reason)
         r.future.set_result(result)
         if result.reason not in _ENDS_AT_QUEUE_WAIT:
             self._trace_span(r.trace, "resolve", now, reason=result.reason,
-                             **({"latency_ms": result.latency_ms} if result.ok else {}))
+                             **({"latency_ms": result.latency_ms} if result.ok else {}),
+                             **({"tenant": r.tenant} if r.tenant is not None else {}))
+        if r.session is not None:
+            self._session_step_done(r, result)
+
+    # -- per-tenant accounting: each helper is a no-op for untagged
+    # (tenant=None) traffic, so the single-tenant path records nothing. ------
+
+    def _release_tenant(self, tenant: str | None) -> None:
+        """The quota twin of ``admission.release()`` (an untagged request
+        under a policy rides the default tenant)."""
+        if self.tenants is not None:
+            self.tenants.release(tenant if tenant is not None else DEFAULT_TENANT)
+
+    def _tenant_stat(self, tenant: str) -> dict:
+        """The tenant's summary record; the caller holds ``_lock``."""
+        st = self._tenant_stats.get(tenant)
+        if st is None:
+            st = self._tenant_stats[tenant] = {"requests": 0, "completed": 0, "shed": {}}
+        return st
+
+    def _tenant_counter(self, name: str, tenant: str, **labels):
+        key = (name, tenant, tuple(sorted(labels.items())))
+        c = self._tenant_counters.get(key)
+        if c is None:
+            c = self._tenant_counters[key] = self._metrics.counter(name, tenant=tenant, **labels)
+        return c
+
+    def _note_tenant_request(self, tenant: str | None) -> None:
+        if tenant is None:
+            return
+        with self._lock:
+            self._tenant_stat(tenant)["requests"] += 1
+        if self._metrics is not None:
+            self._tenant_counter("tenant_requests_total", tenant).inc()
+
+    def _note_tenant_shed(self, tenant: str | None, reason: str, n: int = 1) -> None:
+        if tenant is None:
+            return
+        with self._lock:
+            shed = self._tenant_stat(tenant)["shed"]
+            shed[reason] = shed.get(reason, 0) + n
+        if self._metrics is not None:
+            self._tenant_counter("tenant_shed_total", tenant, reason=reason).inc(n)
+
+    def _note_tenant_done(self, tenant: str | None, lat_ms: float) -> None:
+        if tenant is None:
+            return
+        with self._lock:
+            self._tenant_stat(tenant)["completed"] += 1
+        h = self._tenant_hists.get(tenant)
+        if h is None:
+            h = self._tenant_hists[tenant] = (
+                self._metrics.histogram("tenant_latency_ms", tenant=tenant)
+                if self._metrics is not None else LogHistogram())
+        h.record(lat_ms)
+        if self._metrics is not None:
+            self._tenant_counter("tenant_completed_total", tenant).inc()
+
+    def _note_session(self, outcome: str, lost: bool = False) -> None:
+        """One session outcome into the registry (``started``,
+        ``completed``, ``drained``, ``shed``, ``failed``); ``lost`` also
+        counts a session that failed on a server signal with nobody to
+        migrate it (the session-loss SLO's counter)."""
+        if self._metrics is None:
+            return
+        self._metrics.counter("rollout_sessions_total", outcome=outcome).inc()
+        if lost:
+            self._metrics.counter("rollout_sessions_lost_total").inc()
+
+    # -- probes ----------------------------------------------------------------
+
+    def tenant_rollup(self) -> dict:
+        """Per-tenant counts and latency-histogram copies (empty dicts
+        when no request carried a tag): the router's merge input."""
+        with self._lock:
+            counts = {t: {"requests": v["requests"], "completed": v["completed"],
+                          "shed": dict(v["shed"])}
+                      for t, v in self._tenant_stats.items()}
+        hists = {t: h.copy() for t, h in dict(self._tenant_hists).items()}
+        return {"counts": counts, "hists": hists}
+
+    def resident_sessions(self) -> int:
+        """Rollout sessions resident on this server now."""
+        with self._lock:
+            return len(self._sessions)
+
+    def has_session(self, sid: str) -> bool:
+        """Is a session with this id resident here?"""
+        with self._lock:
+            return sid in self._sessions
+
+    def step_latencies_ms(self) -> list[float]:
+        """A bounded sample of committed rollout-step latencies (ms)."""
+        return self._step_res.values()
+
+    def step_latency_histogram(self) -> LogHistogram:
+        """A copy of the rollout-step latency histogram."""
+        return self._step_hist.copy()
 
     def _note_latency(self, lat_ms: float, bucket: str) -> None:
         """One completed request: the latency histogram, and with a

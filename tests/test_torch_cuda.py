@@ -902,3 +902,39 @@ def test_a_reload_repacks_once_and_serves_a_fresh_engine_s_outputs_on_card(dtype
         assert r.ok, r.detail
         want = fresh.infer([s], pad_nodes=key[0], pad_funcs=key[1], rows=4)[0]
         assert np.array_equal(r.output, want)
+
+
+# -- rollout sessions on the card ---------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_rollout_on_card_matches_offline_and_launches_the_kernel(dtype):
+    """At the reference width (4 blocks: 8 FFN launches a dispatch) two
+    4-step sessions in lockstep launch the kernel 8 times a step dispatch,
+    none through the plain FFN, and each served step is within 1e-5 of
+    ``offline_rollout`` on the same engine with the rows pinned to the
+    server's ``max_batch``."""
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.rollout import offline_rollout, parity_check
+    from gnot_tpu_torch.serve.server import InferenceServer
+
+    device = _card()
+    samples = datasets.synth_ns2d(2, seed=5, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    engine = InferenceEngine(model, batch_size=4, dtype=dtype)
+    server = InferenceServer(engine, max_batch=4, max_wait_ms=1.0)
+    futures = [server.submit_rollout(s, 4) for s in samples]
+    launches = fused_ffn.fused_gated_ffn_kernel.launches
+    server.start()
+    results = [f.result(timeout=120) for f in futures]
+    summary = server.drain(timeout_s=60)
+    launched = fused_ffn.fused_gated_ffn_kernel.launches - launches
+    assert all(r.ok and len(r.outputs) == 4 for r in results), [r.reason for r in results]
+    assert summary["dispatches"] == 4 and summary["sessions"]["steps"] == 8
+    assert launched == 2 * cfg.n_attn_layers * summary["dispatches"] == 32
+    for r, s in zip(results, samples):
+        want = offline_rollout(engine, s, 4, rows=4)
+        assert parity_check(r.outputs, want) <= 1e-5
+        assert all(np.all(np.isfinite(o)) for o in r.outputs)

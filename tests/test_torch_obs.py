@@ -53,6 +53,8 @@ def test_event_specs_are_jax_s():
         want = jax_events.EVENTS[kind]
         assert (spec.fields, spec.optional) == (want.fields, want.optional), kind
         assert spec.module.startswith("gnot_tpu_torch/")
+    # The server's rollout sessions and tenant quotas emit these three.
+    assert {"rollout_step", "session_snapshot", "tenant_quota_shed"} <= set(events.EVENTS)
     assert set(events.SPANS) <= set(jax_events.SPANS)
     assert tracing.SERVE_SPANS == jax_tracing.SERVE_SPANS
     assert tracing.TRAIN_SPANS == jax_tracing.TRAIN_SPANS
