@@ -207,6 +207,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    synchronizing calls with sessions and with one-shot requests (must be
    equal), step against one-shot latency, and a rollout storm's device
    busy share.
+15. engine replicas and the router at phase 4's configuration, two
+   replicas sharing the card, each on its own CUDA stream: (a) ``main
+   --serve --serve_replicas 2`` in f32 (under ``torch.profiler``) and in
+   bf16, 16/16, one ``route`` event a request, both replicas serving,
+   the FFN kernel launched ``2 x n_attn_layers`` times per dispatch and
+   warm-up summed over both, the outputs held to the plain forward (f32
+   at the model bar, bf16 at phase 4b's), the kernel's records on two
+   stream ids apart from a control launch's on the default stream; (b)
+   one replica against two under the same 64-request storm, in turns
+   (1, 2, 2, 1): wall time, device busy (kernel union) share, p50 / p99,
+   dispatches and a dispatch's host time per replica, kernel launch calls
+   and synchronizing calls a dispatch, and how long the two streams'
+   kernels overlapped (recorded, not a threshold); (c) a rolling reload
+   under four closed-loop clients with ``reload_corrupt`` on replica 1:
+   no shed, one replica warming at a time, replica 1 bitwise its outputs
+   before, replica 0 on the new weights; (d) ``replica_kill`` in the
+   middle of four 8-step sessions: the orphans migrate from their
+   snapshots, none lost, every trajectory bitwise ``offline_rollout`` on
+   the sibling's engine; (e) ``nan_output`` on replica 0 under a
+   threshold-1 breaker: the next requests on replica 1, then the trial
+   closes the breaker; (f) ``remove_replica`` mid-rollout (``scale_in``
+   handovers with no replay) and ``add_replica`` of a warmed replica,
+   which takes traffic.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -238,7 +261,10 @@ and (d); ``rollout_serve_launches``, ``rollout_bf16_serve_launches``,
 ``rollout_nan_serve_launches``, ``stale_session_serve_launches``,
 ``replica_kill_serve_launches``, ``sigterm_resume_serve_launches`` and
 ``tenant_serve_launches`` over phase 14's paths (a), (c), (d), (e) and
-(f). Launches
+(f); ``router_serve_launches``, ``router_bf16_serve_launches``,
+``rolling_reload_serve_launches``, ``router_kill_serve_launches``,
+``router_breaker_serve_launches`` and ``scale_serve_launches`` over phase
+15's paths (a) f32, (a) bf16, (c), (d), (e) and (f). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -3499,6 +3525,429 @@ def rollout_tenants_phase(torch, np, card: str, layers) -> dict:
     return out
 
 
+# -- phase 15: engine replicas and the router ------------------------------------
+
+
+class OffsetClock:
+    """The monotonic clock plus an offset a phase moves instead of sleeping."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self) -> float:
+        return time.monotonic() + self.offset
+
+
+def stream_intervals(trace_path: Path, name: str | None = None) -> dict[int, list]:
+    """Per CUDA stream of a ``torch.profiler`` Chrome trace, the (start,
+    end) microseconds of its kernel records (only ``name``'s when given)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict[int, list] = {}
+    for e in events:
+        if "kernel" not in str(e.get("cat", "")).lower() or "dur" not in e:
+            continue
+        if name is not None and name not in str(e.get("name", "")):
+            continue
+        out.setdefault(int(e.get("args", {}).get("stream", -1)), []).append(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return out
+
+
+def union_us(intervals: list) -> list:
+    """Disjoint, sorted union of (start, end) intervals."""
+    merged: list = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+        else:
+            merged.append((a, b))
+    return merged
+
+
+def overlap_us(xs: list, ys: list) -> float:
+    """Time two disjoint sorted interval lists have in common."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def router_phase(torch, np, card: str, layers) -> dict:
+    """Phase 15: engine replicas and the router on the one card at phase
+    4's configuration: (a) ``main --serve --serve_replicas 2`` in f32 (under
+    a profile: the kernel on two streams) and in bf16; (b) one replica
+    against two under the same 64-request storm; (c) a rolling reload with
+    ``reload_corrupt`` on one replica; (d) ``replica_kill`` mid-rollout;
+    (e) ``nan_output`` on replica 0's breaker; (f) ``remove_replica``
+    mid-rollout and ``add_replica`` of a warmed replica. Returns the FFN
+    kernel's launches over each path."""
+    import shutil
+    import threading
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.resilience.faults import FaultInjector
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.replica import build_replica, build_replicas
+    from gnot_tpu_torch.serve.rollout import offline_rollout, parity_check
+    from gnot_tpu_torch.serve.router import ReplicaRouter
+    from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+
+    root = TRAIN_OUT / "router15"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out: dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    def kinds(recs, kind):
+        return [r for r in recs if r.get("event") == kind]
+
+    # (a) The command line: two replicas on the card, f32 (profiled) and bf16.
+    def main_run(tag: str, *flags: str, trace: Path | None = None):
+        d = root / tag
+        argv = SERVE13_ARGV + ["--serve_replicas", "2", "--metrics_path", str(d / "m.jsonl"),
+                               *flags]
+        args0 = ffn_inputs(torch, np, 1, 64, 256, 3, 5, seed=3)
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if trace is not None else contextlib.nullcontext())
+        with ctx as prof:
+            if trace is not None:
+                # One launch on the default stream: the trace's control.
+                fused_gated_ffn_kernel(*args0, gelu_kind="tanh")
+                torch.cuda.synchronize()
+            fused_gated_ffn_kernel.launches = 0
+            fused_gated_ffn_kernel.launches_by_dtype = {}
+            t0 = time.perf_counter()
+            run, lines = run_observed(port_main, argv)
+            launches = fused_gated_ffn_kernel.launches
+            by_dtype = dict(fused_gated_ffn_kernel.launches_by_dtype)
+            torch.cuda.synchronize()
+        if trace is not None:
+            prof.export_chrome_trace(str(trace))
+        s = run.summary
+        recs = read_jsonl(d / "m.jsonl")
+        per_forward = 2 * run.model.config.n_attn_layers
+        dispatches = s["dispatches"] + s["warmed_buckets"]
+        per = s["per_replica"]
+        log(f"[router] (a {tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: "
+            f"{time.perf_counter() - t0:.2f} s; launches {launches} = {per_forward} x "
+            f"{dispatches} ({s['dispatches']} served + {s['warmed_buckets']} warm-ups over both "
+            f"replicas), by dtype {by_dtype}; per replica (routed, completed, dispatches) "
+            f"{[(p['routed'], p['completed'], p['dispatches']) for p in per.values()]}; "
+            f"{len(kinds(recs, 'route'))} route events")
+        for line in lines:
+            if line.startswith(("Serve:", "WARNING")):
+                log(f"[router]   {line}")
+        if (len(run.results) != 16 or not all(r.ok for r in run.results)
+                or launches != per_forward * dispatches or len(kinds(recs, "route")) != 16
+                or sorted(per) != ["0", "1"] or not all(p["routed"] and p["completed"]
+                                                       for p in per.values())
+                or s["routing"]["replicas"] != 2 or invalid(recs)):
+            raise RuntimeError(f"[router] (a {tag}) the replicated run is not whole: "
+                               f"{[(r.reason, r.detail) for r in run.results if not r.ok]}")
+        return run, launches, recs
+
+    trace_a = root / "a_trace.json"
+    run_a, launches, recs_a = main_run("f32", trace=trace_a)
+    model, samples = run_a.model, run_a.samples
+    per_forward = 2 * model.config.n_attn_layers
+    plain = plain_outputs(torch, layers, model, samples)
+    worst = hold_to_plain(np, "router", run_a.results, plain)
+    by_stream = stream_intervals(trace_a, "fused_gated_ffn")
+    control = min(by_stream, key=lambda k: len(by_stream[k]))  # the one default-stream launch
+    replica_streams = sorted(k for k in by_stream if k != control)
+    log(f"[router] (a f32) outputs vs a forward through the kernel's plain version: max_abs_err "
+        f"{worst:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL}); fused_gated_ffn kernel records by "
+        f"stream id {{{', '.join(f'{k}: {len(v)}' for k, v in sorted(by_stream.items()))}}}, the "
+        f"default stream's control launch on {control}")
+    if (len(replica_streams) != 2 or len(by_stream[control]) != 1
+            or sum(len(by_stream[k]) for k in replica_streams) < launches * 0.9):
+        raise RuntimeError(f"[router] (a) the kernel's records are not on two replica streams: "
+                           f"{ {k: len(v) for k, v in by_stream.items()} }")
+    out["router_serve_launches"] = launches
+
+    run_b, launches_b, _ = main_run("bf16", "--serve_dtype", "bfloat16")
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain_b = InferenceEngine(run_b.model, batch_size=4, dtype="bfloat16").predict(samples)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    rel = float(np.linalg.norm(np.concatenate([r.output for r in run_b.results])
+                               - np.concatenate(plain_b)) / np.linalg.norm(np.concatenate(plain_b)))
+    log(f"[router] (a bf16) outputs vs the same bf16 forward through the kernel's plain version: "
+        f"relative norm {rel:.3e} over all outputs (bar {BF16_PLAIN_REL})")
+    if rel > BF16_PLAIN_REL or run_b.summary["dtype"] != "bfloat16":
+        raise RuntimeError("[router] (a bf16) the replicated bf16 outputs are off their bar")
+    out["router_bf16_serve_launches"] = launches_b
+
+    # (b) One replica against two under one 64-request storm, in turns.
+    storm = [samples[i % 16] for i in range(64)]
+
+    def pool(n: int):
+        if n == 1:
+            srv = InferenceServer(InferenceEngine(model, batch_size=4), max_batch=4,
+                                  max_wait_ms=2.0).start(warmup=samples[:1])
+            return srv, [srv]
+        reps = build_replicas(model, n, batch_size=4)
+        for r in reps:
+            r.warm(samples[:1], rows=4)
+        router = ReplicaRouter(reps, max_batch=4, max_wait_ms=2.0).start()
+        return router, [r.server for r in reps]
+
+    def fire(front):
+        return [f.result(timeout=120) for f in [front.submit(s) for s in storm]]
+
+    def dispatched(servers) -> list[int]:
+        return [s.summary()["dispatches"] for s in servers]
+
+    turns = []
+    for n in (1, 2, 2, 1):
+        front, servers = pool(n)
+        fire(front)  # a warm storm first
+        d = root / f"b{len(turns)}"
+        d.mkdir()
+        d0 = dispatched(servers)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            results = fire(front)
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        per = [b - a for a, b in zip(d0, dispatched(servers))]
+        prof.export_chrome_trace(str(d / "trace.json"))
+        calls = sum(e.count for e in prof.key_averages()
+                    if e.key.startswith(("cudaLaunch", "cuLaunch")))
+        busy_sum = sum(r[0] for r in kernel_rows(prof))
+        streams = stream_intervals(d / "trace.json")
+        unions = {k: union_us(v) for k, v in streams.items()}
+        busy_union = sum(b - a for a, b in union_us([iv for v in streams.values() for iv in v])) / 1e3
+        top2 = sorted(unions, key=lambda k: -sum(b - a for a, b in unions[k]))[:2]
+        overlap = overlap_us(unions[top2[0]], unions[top2[1]]) / 1e3 if len(top2) == 2 else 0.0
+        d1 = dispatched(servers)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fire(front)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n_sync = sum(dispatched(servers)) - sum(d1)
+        front.drain(60)
+        # The host time of a dispatch on each replica, over the three storms.
+        host_ms = [round(s.summary()["dispatch_ms_p50"], 3) for s in servers]
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+        lat = sorted(r.latency_ms for r in results)
+        if not all(r.ok for r in results):
+            raise RuntimeError(f"[router] (b) {n} replica(s): a storm request failed")
+        turns.append(dict(replicas=n, wall_ms=round(wall, 3), busy_sum_ms=round(busy_sum, 3),
+                          busy_union_ms=round(busy_union, 3),
+                          busy_share=round(busy_union / wall, 4),
+                          overlap_ms=round(overlap, 3), p50_ms=round(lat[len(lat) // 2], 3),
+                          p99_ms=round(lat[min(len(lat) - 1, int(0.99 * len(lat)))], 3),
+                          dispatches_per_replica=per, dispatch_host_ms_p50=host_ms,
+                          launch_calls_per_dispatch=round(calls / sum(per), 1),
+                          syncs_per_dispatch=round(syncs / n_sync, 2)))
+        log(f"[router] (b) {n} replica(s), 64 requests at once: {json.dumps(turns[-1])} on {card}")
+
+    # (c) A rolling reload across both replicas under four closed-loop
+    # clients (each sends its next request when its last one resolved, so
+    # a shed can only come from the reload, not from an overfull queue),
+    # reload_corrupt on replica 1: the source holds only 'latest' (a fresh
+    # model from seed 1), so replica 0 takes it and replica 1's truncated
+    # read finds nothing and keeps serving phase 4's weights.
+    ck = root / "ck"
+    latest_model = port_main.GNOT(model.config, generator=torch.Generator().manual_seed(1)).to(
+        next(model.parameters()).device)
+    ckpt = Checkpointer(str(ck))
+    ckpt.save_latest({"model": latest_model.state_dict()}, 1, 0.5)
+    ckpt.wait()
+    latest = InferenceEngine(latest_model.eval(), batch_size=4)
+    reps = build_replicas(model, 2, batch_size=4)
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    sink = ListSink()
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=2.0, sink=sink,
+                           reload_fn=CheckpointReloader(ckpt, model),
+                           faults={1: FaultInjector.from_spec("reload_corrupt@1")}).start()
+    group = samples[:4]
+    before = [group_outputs(r.engine, group) for r in reps]
+    want_latest = group_outputs(latest, group)
+    fused_gated_ffn_kernel.launches = 0
+    stop, results = threading.Event(), []
+
+    def client(c: int):
+        i = c
+        while not stop.is_set():
+            results.append(router.submit(samples[i % 16]).result(timeout=120))
+            i += 4
+
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in clients:
+        t.start()
+    try:
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        ok_n = router.reload()
+        reload_s = time.perf_counter() - t0
+        time.sleep(0.1)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(120)
+    summary = router.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    after = [group_outputs(r.engine, group) for r in reps]
+    edges = [(e["replica"], e["reason"]) for e in kinds(sink.records, "replica_health")]
+    warming_now, warming_max = set(), 0
+    for rid, reason in edges:
+        if reason == "warming":
+            warming_now.add(rid)
+        else:
+            warming_now.discard(rid)
+        warming_max = max(warming_max, len(warming_now))
+    rolling = [(e["replica"], e["ok"]) for e in kinds(sink.records, "rolling_reload")]
+    same_1 = all(np.array_equal(a, b) for a, b in zip(after[1], before[1]))
+    for a, b in zip(after[0], want_latest):
+        np.testing.assert_allclose(a, b, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    worst_0 = max(float(np.max(np.abs(a - b))) for a, b in zip(after[0], want_latest))
+    log(f"[router] (c) rolling reload under {len(results)} requests: ok {ok_n}/2 in "
+        f"{reload_s * 1e3:.1f} ms, rolling_reload {rolling}, health edges {edges}, at most "
+        f"{warming_max} replica warming; shed {summary['shed']}; replica 1 (reload_corrupt, "
+        f"kept its weights) outputs bitwise its own before: {same_1}; replica 0 vs an engine on "
+        f"'latest': max abs {worst_0:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL}); launches "
+        f"{launches} = {per_forward} x {summary['dispatches']} dispatches on {card}")
+    if (summary["shed"] or not all(r.ok for r in results) or ok_n != 1
+            or rolling != [(0, True), (1, False)] or warming_max != 1 or not same_1
+            or launches != per_forward * summary["dispatches"] or invalid(sink.records)):
+        raise RuntimeError("[router] (c) the rolling reload is not whole")
+    out["rolling_reload_serve_launches"] = launches
+
+    # (d) replica_kill mid-rollout: four 8-step sessions, two a replica,
+    # replica 0 killed at its third step's dispatch.
+    reps = build_replicas(model, 2, batch_size=4)
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    sink = ListSink()
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=2.0, sink=sink,
+                           session_snapshot_every=2,
+                           faults={0: FaultInjector.from_spec("replica_kill@5")})
+    futs = [router.submit_rollout(s, ROLLOUT_K) for s in samples[:4]]
+    fused_gated_ffn_kernel.launches = 0
+    router.start()
+    results = [f.result(timeout=120) for f in futs]
+    summary = router.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    offline = [offline_rollout(reps[1].engine, s, ROLLOUT_K, rows=4) for s in samples[:4]]
+    moves = [(e["session"], e["reason"], e["at_step"], e["replay_from"])
+             for e in kinds(sink.records, "session_migrate")]
+    bitwise = all(np.array_equal(a, b) for r, o in zip(results, offline)
+                  for a, b in zip(r.outputs, o))
+    worst_d = max(parity_check(r.outputs, o) for r, o in zip(results, offline))
+    sess = summary["sessions"]
+    log(f"[router] (d) replica_kill@5: {[(r.reason, len(r.outputs), r.migrations) for r in results]}"
+        f"; session_migrate {moves}; sessions {json.dumps({k: v for k, v in sess.items() if 'ms' not in k})}; "
+        f"vs offline_rollout on replica 1's engine: bitwise {bitwise}, worst {worst_d:.3e}; "
+        f"launches {launches} = {per_forward} x {summary['dispatches']} dispatches")
+    if (not all(r.ok and len(r.outputs) == ROLLOUT_K for r in results) or len(moves) != 2
+            or sess["lost"] or not bitwise or launches != per_forward * summary["dispatches"]
+            or invalid(sink.records)):
+        raise RuntimeError("[router] (d) the migrated sessions are not whole")
+    out["router_kill_serve_launches"] = launches
+
+    # (e) nan_output on replica 0 under a threshold-1 breaker: its first
+    # dispatch poisoned, the next requests on replica 1, then past the
+    # cooldown the trial closes the breaker.
+    clock = OffsetClock()
+    reps = build_replicas(model, 2, batch_size=4)
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    sink = ListSink()
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=1.0, sink=sink, breaker_threshold=1,
+                           breaker_cooldown_s=0.5, clock=clock,
+                           faults={0: FaultInjector.from_spec("nan_output@1")}).start()
+    fused_gated_ffn_kernel.launches = 0
+    first = router.submit(samples[0]).result(timeout=120)
+    during = [router.submit(s).result(timeout=120) for s in samples[1:9]]
+    clock.offset += 1.0
+    trial = router.submit(samples[9]).result(timeout=120)
+    summary = router.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    routes = [e["replica"] for e in kinds(sink.records, "route")]
+    edges = [(e["replica"], e["reason"]) for e in kinds(sink.records, "replica_health")]
+    log(f"[router] (e) nan_output@1 on replica 0: first {first.reason}, then "
+        f"{[r.reason for r in during]} routed {routes}; health edges {edges}; trial "
+        f"{trial.reason}, breaker {reps[0].server.breaker.state}, breaker events "
+        f"{[e['event'] for e in sink.records if e['event'].startswith('breaker')]}; shed "
+        f"{summary['shed']}; launches {launches} = {per_forward} x {summary['dispatches']}")
+    if (first.reason != "error_nan_output" or not all(r.ok for r in during) or not trial.ok
+            or routes != [0] + [1] * 8 + [0] or reps[0].server.breaker.state != "closed"
+            or summary["shed"] != {"error_nan_output": 1}
+            or launches != per_forward * summary["dispatches"] or invalid(sink.records)):
+        raise RuntimeError("[router] (e) the breaker's drain and trial are not whole")
+    out["router_breaker_serve_launches"] = launches
+
+    # (f) remove_replica mid-rollout, then add_replica of a warmed replica.
+    reps = build_replicas(model, 2, batch_size=4)
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    sink = ListSink()
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=2.0, sink=sink,
+                           session_snapshot_every=2).start()
+    fused_gated_ffn_kernel.launches = 0
+    futs = [router.submit_rollout(s, ROLLOUT_K) for s in samples[:4]]
+    deadline = time.monotonic() + 60
+    while reps[0].server.step_latency_histogram().count < 2 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    removed = router.remove_replica(0, timeout_s=60)
+    results = [f.result(timeout=120) for f in futs]
+    fresh = build_replica(model, 2, next(model.parameters()).device, batch_size=4)
+    warmed = fresh.warm(samples[:1], rows=4)
+    router.add_replica(fresh)
+    later = [f.result(timeout=120) for f in [router.submit(s) for s in samples[:8]]]
+    summary = router.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    moves = [(e["session"], e["reason"], e["at_step"], e["replay_from"])
+             for e in kinds(sink.records, "session_migrate")]
+    offline = [offline_rollout(reps[1].engine, s, ROLLOUT_K, rows=4) for s in samples[:4]]
+    worst_f = max(parity_check(r.outputs, o) for r, o in zip(results, offline))
+    per = summary["per_replica"]
+    log(f"[router] (f) remove_replica(0) mid-rollout: {[(r.reason, r.migrations) for r in results]}"
+        f"; session_migrate {moves}; replica 0 retired with {removed['completed']} requests; "
+        f"add_replica(2) warmed {warmed}: {kinds(sink.records, 'replica_warm')[0]['source']}; "
+        f"8 requests after it routed {[e['replica'] for e in kinds(sink.records, 'route')][-8:]}; "
+        f"per replica routed {({k: p['routed'] for k, p in per.items()})}; vs offline_rollout: "
+        f"worst {worst_f:.3e}; launches {launches} = {per_forward} x ({summary['dispatches']} "
+        f"dispatches + {warmed} warm-up)")
+    if (not all(r.ok for r in results + later) or summary["sessions"]["lost"]
+            or not moves or any(m[1] != "scale_in" or m[2] != m[3] for m in moves)
+            or not per.get("2", {}).get("routed") or not per["0"].get("retired")
+            or worst_f > ROLLOUT_PARITY
+            or launches != per_forward * (summary["dispatches"] + warmed)
+            or invalid(sink.records)):
+        raise RuntimeError("[router] (f) the scale-in and scale-out are not whole")
+    out["scale_serve_launches"] = launches
+    log(f"[router] phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -3707,6 +4156,9 @@ def main() -> int:
     # -- phase 14: rollout sessions and tenants ----------------------------
     rollout_launches = rollout_tenants_phase(torch, np, card, layers)
 
+    # -- phase 15: engine replicas and the router ---------------------------
+    router_launches = router_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -3736,6 +4188,7 @@ def main() -> int:
         **resil_launches,
         **serve13_launches,
         **rollout_launches,
+        **router_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

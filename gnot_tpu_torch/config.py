@@ -22,8 +22,12 @@ class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
     does not have yet. ``PreemptionHandler.should_stop(multiprocess=True)``
     raises it (the multi-host stop agreement waits for multi-process
-    training), and so does ``InferenceServer(persist_snapshots=True)``
-    (rolling session persistence waits for the router)."""
+    training); ``InferenceServer`` and ``ReplicaRouter`` raise it for
+    ``persist_snapshots=True`` (rolling session persistence waits for the
+    federation), the router for ``catalog=`` (the program catalog waits for
+    the autoscaler's slice), and ``EngineReplica.prewarm_from`` and
+    ``--serve_prewarm`` for snapshot hydration (eager PyTorch has no
+    compiled executable to serialize)."""
 
 
 def parse_tenant_spec(spec: str, *, what: str = "value") -> dict[str, str]:
@@ -393,10 +397,32 @@ class ServeConfig:
     tenant_weights: str = ""
     tenant_quotas: str = ""
     tenant_priorities: str = ""
+    # Replicated serving (serve/router.py, serve/replica.py): N engine
+    # replicas behind the router, each with its own engine, weights copy,
+    # worker, admission, batcher and breaker (and on the card its own CUDA
+    # stream: the replicas share the one card). 1 = the single server.
+    replicas: int = 1
+    # The router's placement policy: "affinity" (prefer the replica that
+    # has served the request's bucket), "least_loaded" or "round_robin".
+    route_policy: str = "affinity"
+    # Seconds of worker-loop silence, with requests in its system, before
+    # the router reads a replica as wedged and routes around it.
+    wedge_after_s: float = 2.0
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {self.replicas}")
+        if self.route_policy not in ("affinity", "least_loaded", "round_robin"):
+            raise ValueError(
+                f"unknown route_policy {self.route_policy!r}; one of "
+                "('affinity', 'least_loaded', 'round_robin')"
+            )
+        if self.wedge_after_s <= 0:
+            raise ValueError(
+                f"wedge_after_s must be > 0, got {self.wedge_after_s}"
+            )
         if self.max_wait_ms < 0:
             raise ValueError(
                 f"max_wait_ms must be >= 0, got {self.max_wait_ms}"

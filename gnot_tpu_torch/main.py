@@ -78,6 +78,16 @@ keeps drained named sessions' snapshots for ``resume_rollout``. The
 ``Serve:`` line gains the sessions clause, and ``main`` then returns the
 fraction of sessions completed.
 
+Replicas and the router (``gnot_tpu/main.py``'s flags, defaults and
+refusals): ``--serve_replicas N`` (N > 1) serves through a
+``ReplicaRouter`` over N replicas of the served weights on the run's one
+card, each warmed by dispatching every bucket and running on its own CUDA
+stream; ``--route_policy`` picks the placement policy and
+``--wedge_after_s`` the router's wedge bound; ``--serve_reload_every``
+rolls each reload across the pool; the ``Serve:`` line gains the routing
+clause. ``--serve_prewarm`` is refused (no executable to serialize), and
+so are ``--scan_layers`` and ``--flat_params`` with replicas, as in JAX.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -100,6 +110,7 @@ from gnot_tpu_torch.config import (
     Config,
     DataConfig,
     ModelConfig,
+    NotPortedError,
     OptimConfig,
     ServeConfig,
     TrainConfig,
@@ -116,7 +127,9 @@ from gnot_tpu_torch.resilience.faults import FaultInjector
 from gnot_tpu_torch.resilience.preemption import PreemptionHandler
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.policies import TenantPolicy
+from gnot_tpu_torch.serve.replica import build_replicas
 from gnot_tpu_torch.serve.rollout import RolloutResult, SessionStore
+from gnot_tpu_torch.serve.router import ReplicaRouter
 from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer, ServeResult
 from gnot_tpu_torch.train.checkpoint import Checkpointer
 from gnot_tpu_torch.train.trainer import Trainer, serving_weights
@@ -359,6 +372,12 @@ def build_parser() -> argparse.ArgumentParser:
              "stragglers",
     )
     p.add_argument(
+        "--wedge_after_s", type=float, default=2.0,
+        help="serving: seconds of worker-loop silence (with requests "
+             "in-system) before the router treats a replica as wedged "
+             "and drains its traffic to siblings",
+    )
+    p.add_argument(
         "--serve_inject_fault", type=str, default="",
         help="serving-side deterministic fault injection: comma-separated "
              "kind@N — slow_request@admission, nan_output@dispatch, "
@@ -456,6 +475,28 @@ def build_parser() -> argparse.ArgumentParser:
              "batches assemble in bf16",
     )
     p.add_argument(
+        "--serve_replicas", type=int, default=1,
+        help="serving: engine replicas behind the compile-affinity "
+             "router (serve/router.py) — each replica owns a disjoint "
+             "device slice (GSPMD NamedSharding placement), its own "
+             "queue/batcher/breaker, and reloads roll across the pool "
+             "one replica at a time; 1 = the single-server tier "
+             "(docs/serving.md 'Replicated serving')",
+    )
+    p.add_argument(
+        "--route_policy", type=str, default="affinity",
+        choices=["affinity", "least_loaded", "round_robin"],
+        help="serving: replica placement policy — affinity (prefer the "
+             "replica that already compiled the request's bucket; cold "
+             "compiles never stall the pool), least_loaded, round_robin",
+    )
+    p.add_argument(
+        "--serve_prewarm", type=str, default="",
+        help="serving: JAX's deploy-time AOT prewarm manifest; refused: "
+             "eager PyTorch has no compiled executable to serialize (each "
+             "replica warms by dispatching every bucket instead)",
+    )
+    p.add_argument(
         "--serve_packed", action="store_true",
         help="serving: first-fit pack the requests as chunk-aligned segments "
              "into one fixed dispatch shape (a PackPlan derived from the "
@@ -547,6 +588,9 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         tenant_weights=args.tenant_weights,
         tenant_quotas=args.tenant_quotas,
         tenant_priorities=args.tenant_priorities,
+        replicas=args.serve_replicas,
+        route_policy=args.route_policy,
+        wedge_after_s=args.wedge_after_s,
     )
     return data, serve
 
@@ -682,10 +726,24 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     held to the summary (``summary_agrees``). The tenant flags give the
     server one ``TenantPolicy`` (and the evaluator per-tenant objectives),
     ``--session_dir`` a ``SessionStore``, and ``--serve_rollout_steps``
-    makes each sample a rollout session. The server writes its events to
-    ``sink`` and its request spans to ``tracer`` when given."""
+    makes each sample a rollout session. With ``--serve_replicas N > 1`` a
+    ``ReplicaRouter`` over N replicas on the same card takes the server's
+    place. The server writes its events to ``sink`` and its request spans
+    to ``tracer`` when given."""
+    if args.serve_prewarm:
+        raise NotPortedError(
+            "--serve_prewarm (AOT executable snapshots, JAX's serve/aot.py) has no "
+            "counterpart: eager PyTorch has no compiled executable to serialize; each "
+            "replica warms by dispatching every bucket")
     device = run_device(args)
     data, sc = configs_from_args(args)
+    if sc.replicas > 1 and (args.scan_layers or args.flat_params):
+        # The replicas serve the standard layout only, as JAX's do.
+        raise ValueError(
+            "--serve_replicas serves the standard param layout only; "
+            "drop --scan_layers/--flat_params for replicated serving "
+            "(single-server --serve supports them)"
+        )
     faults = FaultInjector.from_spec(sc.inject_fault)
     train_samples, samples = datasets.load(data)
     gen = torch.Generator().manual_seed(args.seed)
@@ -702,9 +760,9 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     if manifest is not None and checkpointer is not None:
         # Which checkpoint serving restored, any fallback walk included.
         manifest.write(restore=checkpointer.last_restore)
-    engine = InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
-    # itself, the samples about to be served.
+    # itself, the samples about to be served (per_devices 1: each replica
+    # has the whole card).
     pack_plan = (
         PackPlan.for_slices(samples, chunk=sc.pack_chunk, batch_size=sc.max_batch,
                             per_devices=1)
@@ -733,8 +791,7 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         )
     session_store = SessionStore(sc.session_dir) if sc.session_dir else None
     with PreemptionHandler() as preempt:
-        server = InferenceServer(
-            engine,
+        common = dict(
             max_batch=sc.max_batch,
             max_wait_ms=sc.max_wait_ms,
             queue_limit=sc.queue_limit,
@@ -752,9 +809,25 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             session_store=session_store,
             tenants=tenants,
         )
+        if sc.replicas > 1:
+            # Replicas of the served weights, all on the run's card, each
+            # on its own stream; --serve_reload_every rolls across them.
+            replicas = build_replicas(model, sc.replicas, batch_size=sc.max_batch,
+                                      dtype=sc.dtype)
+            server = ReplicaRouter(replicas, route_policy=sc.route_policy,
+                                   wedge_after_s=sc.wedge_after_s, **common)
+        else:
+            replicas = None
+            server = InferenceServer(
+                InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype), **common)
         try:
             t0 = time.monotonic()
-            server.start(warmup=samples)
+            if replicas is not None:
+                warmed = sum(r.warm(samples, rows=sc.max_batch, pack_plan=pack_plan)
+                             for r in replicas)
+                server.start()
+            else:
+                warmed = server.start(warmup=samples).warmed
             warm_s = time.monotonic() - t0
             if publisher is not None:
                 publisher.start()
@@ -777,25 +850,29 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         print(f"Metrics plane: {publisher.seq} snapshots every {sc.metrics_interval_s}s, "
               f"{publisher.alerts} SLO alert edges -> {publisher.series_path} + "
               f"{publisher.exposition_path}")
+    routing = summary.get("routing")
     sessions = summary.get("sessions")
     print(f"Serve: {summary['completed']}/{summary['requests']} ok, shed={summary['shed']}, "
           f"breaker_trips={summary['breaker_trips']}, reloads={summary['reloads']}, "
           f"p50={summary['latency_p50_ms']}ms p99={summary['latency_p99_ms']}ms, "
           f"compiled_shapes={summary['compiled_shapes']}"
+          + (f", replicas={routing['replicas']} policy={routing['policy']} "
+             f"spills={routing['spills']}" if routing else "")
           + (f", sessions={sessions['completed']}/{sessions['started']} complete "
              f"(migrated={sessions.get('migrated', 0)}, "
              f"lost={sessions.get('lost', sessions.get('failed', 0))}), "
              f"step_p50={sessions['step_latency_p50_ms']}ms" if sessions else ""))
-    summary.update(warmed_buckets=server.warmed, warmup_s=warm_s, device=str(device),
+    summary.update(warmed_buckets=warmed, warmup_s=warm_s, device=str(device),
                    restored=restored)
     if pack_plan is not None:
         summary["pack_plan"] = dataclasses.asdict(pack_plan)
     return ServeRun(summary, results, samples, model, pack_plan, metrics)
 
 
-def _serve_storm(args, sc: ServeConfig, server: InferenceServer, samples, checkpointer,
-                 preempt) -> tuple[dict, list[ServeResult | RolloutResult]]:
-    """Drive the in-process request storm through a started server and
+def _serve_storm(args, sc: ServeConfig, server: InferenceServer | ReplicaRouter, samples,
+                 checkpointer, preempt) -> tuple[dict, list[ServeResult | RolloutResult]]:
+    """Drive the in-process request storm through a started server (or
+    router: its reload rolls across the replicas) and
     drain it (``gnot_tpu/main.py::_serve_storm``): submitting stops once a
     SIGTERM has arrived; each sample is one request, or with
     ``--serve_rollout_steps K`` one K-step session; every

@@ -6,7 +6,9 @@ tuples, and the same span names, so a record or a trace file written by
 the port reads as one the JAX package wrote (its ``validate_record``
 accepts it). ``module=`` names the port's file that emits each kind.
 
-Kinds not here wait for the port modules that emit them (``ROADMAP.md``).
+Kinds not here wait for the port modules that emit them (``ROADMAP.md``);
+``aot_prewarm`` has no emitter (eager PyTorch has no executable to
+serialize).
 ``recompile`` in particular has no meaning without a jit trace cache and
 is never emitted (``obs/health.py``); nor is the serve span ``compile``.
 
@@ -40,6 +42,12 @@ SLO_ALERT = "slo_alert"
 ROLLOUT_STEP = "rollout_step"
 SESSION_SNAPSHOT = "session_snapshot"
 TENANT_QUOTA_SHED = "tenant_quota_shed"
+ROUTE = "route"
+REPLICA_HEALTH = "replica_health"
+ROLLING_RELOAD = "rolling_reload"
+REPLICA_WARM = "replica_warm"
+SESSION_MIGRATE = "session_migrate"
+REPLICA_REMOVE = "replica_remove"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +201,57 @@ EVENTS: dict[str, EventSpec] = {
         "early); `persisted` marks one written to the session store",
         optional=("replica", "persisted"),
     ),
+    "route": EventSpec(
+        fields=("replica", "bucket", "policy", "reason", "depth"),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="one placement decision: which replica got the request and "
+        "why (affinity | cold_assign | spill | least_loaded | "
+        "round_robin | pool_full | no_healthy); `dtype` is the pool's "
+        "serving compute dtype; a rollout session's first-step placement "
+        "carries its `session` id (later steps never re-route)",
+        optional=("dtype", "session"),
+    ),
+    "replica_health": EventSpec(
+        fields=("replica", "healthy", "reason"),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="a replica's routability changed (ok | trial | warming | "
+        "breaker_open | wedged | dead | retiring); unhealthy replicas "
+        "drain to siblings instead of shedding",
+    ),
+    "rolling_reload": EventSpec(
+        fields=("replica", "ok", "step", "n_replicas", "rollout"),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="one step of a rolling hot reload (one replica warming at a "
+        "time; a failed step keeps its old weights serving)",
+    ),
+    "replica_warm": EventSpec(
+        fields=("replica", "source", "programs", "seconds"),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="a replica joined the pool serve-ready: `source` 'compile' "
+        "(its warm-up dispatches, JAX's name for the cold path) or 'none' "
+        "(never warmed); emitted at every add_replica",
+        optional=("hits", "misses", "reason"),
+    ),
+    "session_migrate": EventSpec(
+        fields=(
+            "session", "from_replica", "to_replica", "at_step",
+            "replay_from", "reason",
+        ),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="a rollout session was re-placed on a sibling replica: after "
+        "its owner failed mid-rollout (`reason` names the failure; the "
+        "replay starts at the `replay_from` snapshot cursor) or at a "
+        "scale-in's step boundary (`scale_in`, no replay)",
+    ),
+    "replica_remove": EventSpec(
+        fields=("replica", "reason", "requests", "completed"),
+        module="gnot_tpu_torch/serve/router.py",
+        doc="one replica left the pool after drain-then-remove: no new "
+        "placement ('retiring'), its sessions handed to siblings at a step "
+        "boundary, its queue flushed, its latency histograms kept in the "
+        "pool rollup",
+        optional=("pool", "sessions_migrated", "drain_timeout_s"),
+    ),
     "trace_flush": EventSpec(
         fields=("path", "spans", "dropped"),
         module="gnot_tpu_torch/obs/tracing.py",
@@ -278,6 +337,11 @@ SPANS: dict[str, SpanSpec] = {
         module="gnot_tpu_torch/serve/server.py",
         doc="hot weight reload lifecycle (aux stream `r`: never consumes "
         "a request sampling slot)",
+    ),
+    "replica_warm": SpanSpec(
+        module="gnot_tpu_torch/serve/router.py",
+        doc="one replica's warm-to-serve-ready window (its warm-up "
+        "dispatches; aux stream `r`), recorded when it joins the pool",
     ),
     "epoch": SpanSpec(
         module="gnot_tpu_torch/train/trainer.py",

@@ -328,11 +328,14 @@ def fused_gated_ffn_kernel(
     arguments it does not take and when the launch is refused. The
     weights go in as their cached packed images (``packed_weights``)."""
     out, mix = launch(x, scores, kernels, biases, gelu_kind)
-    fused_gated_ffn_kernel.launches += 1
-    by_mix = fused_gated_ffn_kernel.launches_by_dtype
-    by_mix[mix] = by_mix.get(mix, 0) + 1
-    by_gelu = fused_gated_ffn_kernel.launches_by_gelu
-    by_gelu[gelu_kind] = by_gelu.get(gelu_kind, 0) + 1
+    # Replicas launch from their own worker threads: each count is a
+    # read-modify-write, so all three move under one lock.
+    with _count_lock:
+        fused_gated_ffn_kernel.launches += 1
+        by_mix = fused_gated_ffn_kernel.launches_by_dtype
+        by_mix[mix] = by_mix.get(mix, 0) + 1
+        by_gelu = fused_gated_ffn_kernel.launches_by_gelu
+        by_gelu[gelu_kind] = by_gelu.get(gelu_kind, 0) + 1
     return out
 
 
@@ -373,7 +376,8 @@ def launch(
 
 #: Kernel launches so far: the wrapper adds one where it launches, to the
 #: total, to the count of its dtype mix ("f32", "bf16", "bf16-x/f32-w")
-#: and to the count of its GELU ("tanh", "erf").
+#: and to the count of its GELU ("tanh", "erf"), under ``_count_lock``.
+_count_lock = threading.Lock()
 fused_gated_ffn_kernel.launches = 0
 fused_gated_ffn_kernel.launches_by_dtype = {}
 fused_gated_ffn_kernel.launches_by_gelu = {}

@@ -20,6 +20,13 @@ The weights are swapped atomically under a lock (``swap_params``); a
 dispatch reads the published model once, so in-flight requests always
 see one consistent weight set.
 
+``stream`` (a ``torch.cuda.Stream``, a router replica's own) runs every
+call of the engine on that stream, entered on the calling thread: the
+worker's dispatches, a warm-up on the caller's thread and a reload's
+weight copy. Its output's copy to the host waits for that stream alone,
+so replicas sharing a card never wait for each other. None (the default,
+and on the CPU) runs on the thread's current stream.
+
 ``dtype`` is the serving compute dtype (``models/precision.py``).
 "bfloat16" serves the caller's f32 weights through the precision
 policy: the engine publishes a bf16 copy (``serve_model``, which holds
@@ -33,6 +40,7 @@ weights once, at the first dispatch after a publish.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 from typing import Mapping, Sequence
@@ -58,11 +66,13 @@ class InferenceEngine:
     """Validated, bucketed, statically-shaped batched forward of one
     ``GNOT`` on one device."""
 
-    def __init__(self, model: GNOT, *, batch_size: int, dtype: str = "float32"):
+    def __init__(self, model: GNOT, *, batch_size: int, dtype: str = "float32",
+                 stream: torch.cuda.Stream | None = None):
         self.policy = precision.policy_for(dtype)
         self.dtype = dtype
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
+        self.stream = stream
         self._lock = threading.Lock()
         # The published model (a cast copy below f32); swap_params
         # replaces the reference.
@@ -70,17 +80,25 @@ class InferenceEngine:
         # Distinct dispatch signatures seen so far.
         self._shapes: set[tuple] = set()  #: guarded_by _lock
 
+    def _on_stream(self):
+        """The engine's stream as the calling thread's current one."""
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
     # -- params ------------------------------------------------------------
 
     def swap_params(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Publish a new weight set (hot reload). A copy of the model
         takes the new weights, cast to the serving dtype; in-flight
         dispatches keep the model they already read, the next dispatch
-        sees the new one."""
+        sees the new one. On a replica's stream the copy is ordered after
+        the caller's pending work and before the next dispatch."""
         with self._lock:
             current = self._model
-        fresh = copy.deepcopy(current)
-        fresh.load_state_dict(precision.cast_params(state_dict, self.dtype), strict=True)
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            fresh = copy.deepcopy(current)
+            fresh.load_state_dict(precision.cast_params(state_dict, self.dtype), strict=True)
         fresh.eval()
         with self._lock:
             self._model = fresh
@@ -151,7 +169,10 @@ class InferenceEngine:
         Callers (the server) validate and bucket upstream. A ``timings``
         dict gets the ``batch_assembly``, ``device`` and ``unpad`` phases
         as ``(start, end)`` on ``clock``."""
-        reqs = list(samples)
+        with self._on_stream():
+            return self._infer(list(samples), pad_nodes, pad_funcs, rows, timings, clock)
+
+    def _infer(self, reqs, pad_nodes, pad_funcs, rows, timings, clock) -> list[np.ndarray]:
         if not reqs:
             return []
         t0 = clock() if timings is not None else None
@@ -204,7 +225,10 @@ class InferenceEngine:
         segment. Every sample must fit: the server's batcher cuts
         dispatches to the packable prefix. ``timings`` / ``clock`` as in
         ``infer``."""
-        reqs = list(samples)
+        with self._on_stream():
+            return self._infer_packed(list(samples), plan, placements, timings, clock)
+
+    def _infer_packed(self, reqs, plan, placements, timings, clock) -> list[np.ndarray]:
         if not reqs:
             return []
         t0 = clock() if timings is not None else None
@@ -246,14 +270,15 @@ class InferenceEngine:
         self.validate(samples)
         model = self.model
         outs: list[np.ndarray] = []
-        for start in range(0, len(samples), self.batch_size):
-            chunk = samples[start : start + self.batch_size]
-            batch = collate(chunk, device=self.device, dtype=self.dtype)
-            self._note_shape(batch)
-            out = self._forward(model, batch)
-            outs.extend(
-                unpad_rows_numpy(
-                    out, [(j, 0, s.coords.shape[0]) for j, s in enumerate(chunk)]
+        with self._on_stream():
+            for start in range(0, len(samples), self.batch_size):
+                chunk = samples[start : start + self.batch_size]
+                batch = collate(chunk, device=self.device, dtype=self.dtype)
+                self._note_shape(batch)
+                out = self._forward(model, batch)
+                outs.extend(
+                    unpad_rows_numpy(
+                        out, [(j, 0, s.coords.shape[0]) for j, s in enumerate(chunk)]
+                    )
                 )
-            )
         return outs

@@ -1,13 +1,13 @@
 """Serving robustness policies: request deadlines, bounded-queue admission
 and a circuit breaker.
 
-The port of the single-server part of ``gnot_tpu/serve/policies.py``
-(``Deadline``, ``AdmissionController``, ``CircuitBreaker``,
-``TenantPolicy``), with the same semantics. Each is deterministic given an
-injectable ``clock`` (tests pass a fake one; serving uses
-``time.monotonic``), holds no thread of its own and decides one thing; the
-server composes them. ``ReplicaHealthPolicy`` waits for the router
-(``ROADMAP.md``). Stdlib only.
+The port of ``gnot_tpu/serve/policies.py`` (``Deadline``,
+``AdmissionController``, ``CircuitBreaker``, ``TenantPolicy``, and the
+router's ``ROUTE_POLICIES`` and ``ReplicaHealthPolicy``), with the same
+semantics. Each is deterministic given an injectable ``clock`` (tests pass
+a fake one; serving uses ``time.monotonic``), holds no thread of its own
+and decides one thing; the server and the router compose them. Stdlib
+only.
 """
 
 from __future__ import annotations
@@ -160,6 +160,71 @@ class TenantPolicy:
             a.release()
 
 
+#: The router's placement policies (``serve/router.py``): ``affinity``
+#: (the default) prefers a replica that has already served the request's
+#: bucket; ``least_loaded`` and ``round_robin`` are the yardsticks.
+ROUTE_POLICIES = ("affinity", "least_loaded", "round_robin")
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthVerdict:
+    """One replica's routability: healthy replicas take new traffic,
+    unhealthy ones are drained to their siblings (not shed); ``reason``
+    names the signal ("ok", "trial", "warming", "breaker_open", "wedged",
+    "dead", "retiring")."""
+
+    healthy: bool
+    reason: str
+
+
+class ReplicaHealthPolicy:
+    """A replica's routability from the signals the server already has,
+    checked in this order:
+
+    * ``dead``: the worker thread exited (or ``replica_kill`` fired);
+    * ``retiring``: a scale-in is draining it out of the pool;
+    * ``warming``: the rolling reload is swapping its weights;
+    * ``breaker_open``: its circuit breaker is open; once the cooldown has
+      passed (``breaker_trial_due``) it reads healthy, reason ``trial``, so
+      the half-open trial dispatch can reach it;
+    * ``wedged``: requests are in its system and its worker has not
+      stamped progress for ``wedge_after_s``;
+    * else ``ok``.
+
+    Stateless: the router samples the signals and emits the
+    ``replica_health`` edges."""
+
+    def __init__(self, *, wedge_after_s: float = 2.0):
+        if wedge_after_s <= 0:
+            raise ValueError(f"wedge_after_s must be > 0, got {wedge_after_s}")
+        self.wedge_after_s = wedge_after_s
+
+    def assess(
+        self,
+        *,
+        breaker_state: str,
+        warming: bool,
+        progress_age_s: float,
+        depth: int,
+        worker_alive: bool = True,
+        breaker_trial_due: bool = False,
+        retiring: bool = False,
+    ) -> HealthVerdict:
+        if not worker_alive:
+            return HealthVerdict(False, "dead")
+        if retiring:
+            return HealthVerdict(False, "retiring")
+        if warming:
+            return HealthVerdict(False, "warming")
+        if breaker_state == "open" and not breaker_trial_due:
+            return HealthVerdict(False, "breaker_open")
+        if depth > 0 and progress_age_s >= self.wedge_after_s:
+            return HealthVerdict(False, "wedged")
+        if breaker_state == "open":
+            return HealthVerdict(True, "trial")
+        return HealthVerdict(True, "ok")
+
+
 class CircuitBreaker:
     """Trips open after ``threshold`` consecutive dispatch failures
     (non-finite outputs, device errors); while open, requests are
@@ -192,6 +257,14 @@ class CircuitBreaker:
     @property
     def state(self) -> str:
         return self._state
+
+    def trial_due(self) -> bool:
+        """Would ``allow()`` admit a half-open trial now? The router's
+        health check reads it to route one trial back to an open-breaker
+        replica: a drained replica never dispatches, and ``allow`` is the
+        only way out of ``open``."""
+        with self._lock:
+            return self._state == "open" and self._clock() - self._opened_at >= self.cooldown_s
 
     def allow(self) -> bool:
         """May a dispatch proceed now? Open: False until the cooldown has

@@ -74,16 +74,24 @@ rollout's. A committed step emits ``rollout_step``, streams to the client
 and advances the carry; every ``session_snapshot_every`` steps the carry
 is snapshotted host-side (``session_snapshot``). A step failing on a sick
 server (``MIGRATABLE_REASONS``) ends the session as lost on a standalone
-server (the router's migration is not ported); a deadline or quota shed
-ends it with its reason; a drain ends it ``drained`` with
-``drained_at_step``, after persisting a named session's final snapshot to
-the ``session_store``. The rollout fault hooks (``replica_kill``,
+server, or hands it to ``migrate_cb`` (the router re-places it from its
+snapshot); a deadline or quota shed ends it with its reason; a drain
+ends it ``drained`` with ``drained_at_step``, after persisting a named
+session's final snapshot to the ``session_store``. The rollout fault hooks (``replica_kill``,
 ``stale_session``, ``rollout_nan``) fire at dispatch; ``replica_kill``
 fails every request in the system ``error_replica_dead`` and ends the
 worker. A session future, like a request future, always resolves.
 
-Not ported yet: replicas and the router, and with them session migration,
-eviction and rolling persistence (``persist_snapshots``).
+A server the router owns (``replica=`` its id, ``serve/router.py``) tags
+every event, span and registry series with ``replica`` and prefixes its
+session ids ``s{replica}.``; with ``replica=None`` its output is that of a
+standalone server. For the router's health check and pool rollup it
+exposes ``progress_age_s`` (stamped by the worker loop once a poll and
+once a dispatch), ``depth``, ``worker_alive`` (False from the moment the
+``replica_kill`` fault fires), ``latency_histogram`` and
+``begin_eviction`` (a scale-in hands each resident session to the router
+at its next step boundary). Rolling persistence (``persist_snapshots``,
+the federation's migration substrate) is not ported.
 """
 
 from __future__ import annotations
@@ -222,11 +230,12 @@ class InferenceServer:
         session_store=None,
         persist_snapshots: bool = False,
         tenants=None,
+        replica: int | None = None,
     ):
         if persist_snapshots:
             raise NotPortedError(
                 "persist_snapshots (every due snapshot written to the session store, "
-                "the federation's migration substrate) waits for the router")
+                "the federation's migration substrate) waits for the federation")
         if session_snapshot_every < 1:
             raise ValueError(
                 f"session_snapshot_every must be >= 1, got {session_snapshot_every}")
@@ -234,6 +243,8 @@ class InferenceServer:
         self.max_batch = max_batch
         self.pack_plan = pack_plan
         self.sink = sink
+        # The router's replica id: every event, span and series carries it.
+        self.replica = replica
         self._tracer = tracer
         self.reload_fn = reload_fn
         self.faults = faults
@@ -289,19 +300,21 @@ class InferenceServer:
         # the registry's own series when there is one, so the summary and
         # every snapshot read the same buckets. It locks internally.
         self._metrics = metrics
+        lbl = {"replica": replica} if replica is not None else {}
+        self._metric_labels = lbl
         if metrics is not None:
-            self._lat_hist = metrics.histogram("serve_request_latency_ms")
-            self._step_hist = metrics.histogram("rollout_step_latency_ms")
-            self._c_requests = metrics.counter("serve_requests_total")
-            self._c_completed = metrics.counter("serve_completed_total")
-            self._c_dispatches = metrics.counter("serve_dispatches_total")
-            self._c_steps = metrics.counter("rollout_steps_total")
-            metrics.gauge("serve_queue_depth", fn=lambda: self.admission.depth)
+            self._lat_hist = metrics.histogram("serve_request_latency_ms", **lbl)
+            self._step_hist = metrics.histogram("rollout_step_latency_ms", **lbl)
+            self._c_requests = metrics.counter("serve_requests_total", **lbl)
+            self._c_completed = metrics.counter("serve_completed_total", **lbl)
+            self._c_dispatches = metrics.counter("serve_dispatches_total", **lbl)
+            self._c_steps = metrics.counter("rollout_steps_total", **lbl)
+            metrics.gauge("serve_queue_depth", fn=lambda: self.admission.depth, **lbl)
             metrics.gauge("serve_breaker_open",
-                          fn=lambda: 1.0 if self.breaker.state == "open" else 0.0)
-            metrics.gauge("serve_resident_sessions", fn=self.resident_sessions)
+                          fn=lambda: 1.0 if self.breaker.state == "open" else 0.0, **lbl)
+            metrics.gauge("serve_resident_sessions", fn=self.resident_sessions, **lbl)
             # Eager PyTorch has no jit fallback: JAX's counter, never moved.
-            metrics.counter("serve_jit_fallback_total")
+            metrics.counter("serve_jit_fallback_total", **lbl)
         else:
             self._lat_hist = LogHistogram()
             self._step_hist = LogHistogram()
@@ -328,6 +341,16 @@ class InferenceServer:
         self._sessions_shed = 0  #: guarded_by _lock
         self._sessions_failed = 0  #: guarded_by _lock
         self._rollout_steps = 0  #: guarded_by _lock
+        # The worker's liveness stamp (the router's wedge signal): set once
+        # a loop iteration and once a dispatch, so it ages only while the
+        # worker is stuck inside one dispatch.
+        self._last_progress = clock()  #: guarded_by _lock
+        # Set by _die the moment replica_kill fires: the router reads the
+        # server dead at once (migration callbacks run on the dying thread).
+        self._dead = False  #: guarded_by _lock
+        # Scale-in (the router's remove_replica): when set, a committed step
+        # hands its unfinished session to this callback instead of chaining.
+        self._evict_cb = None  #: guarded_by _lock
 
     # -- client side -------------------------------------------------------
 
@@ -464,9 +487,10 @@ class InferenceServer:
                 self._sessions_started += 1
                 n = self._sessions_started
             self._note_session("started")
+            prefix = "s" if self.replica is None else f"s{self.replica}."
             ms = deadline_ms if deadline_ms is not None else self.default_deadline_ms
             session = RolloutSession(
-                name or f"s{n:04d}",
+                name or f"{prefix}{n:04d}",
                 sample,
                 steps,
                 snapshot_every=self.session_snapshot_every,
@@ -611,8 +635,21 @@ class InferenceServer:
                 # A completed named session's persisted snapshot is stale.
                 if self._session_store is not None and session.named:
                     self._session_store.delete(session.sid)
-            else:
-                self._submit_step(session)
+                return
+            with self._lock:
+                evict = self._evict_cb
+            if evict is not None:
+                # Scale-in: hand the session over at this step boundary,
+                # snapshotted first so the sibling replays nothing; kept
+                # here (and resolved by the drain) when nobody can take it.
+                self._event(events.SESSION_SNAPSHOT, session=session.sid,
+                            step=session.take_snapshot())
+                self._drop_session(session)
+                if evict(session, self.replica):
+                    return
+                with self._lock:
+                    self._sessions[session.sid] = session
+            self._submit_step(session)
             return
         reason = result.reason
         if reason == "rejected_draining":
@@ -622,7 +659,7 @@ class InferenceServer:
             # or on a standalone server a terminal failure, still resolved.
             self._drop_session(session)
             if session.migrate_cb is not None:
-                session.migrate_cb(session, reason, result.detail, None)
+                session.migrate_cb(session, reason, result.detail, self.replica)
             else:
                 if session.resolve(False, reason, detail=result.detail):
                     with self._lock:
@@ -665,6 +702,15 @@ class InferenceServer:
                     **({"persisted": True} if persisted else {}))
         self._event(events.SHED, reason=reason, session=session.sid, step=step)
 
+    def begin_eviction(self, evict_cb: Callable) -> None:
+        """Arm scale-in eviction (the router's ``remove_replica``): from the
+        next committed step on, each unfinished resident session goes to
+        ``evict_cb(session, replica) -> bool`` at its step boundary, its
+        snapshot taken at the cursor (no replay). False keeps the session
+        here, for the removal's drain to resolve."""
+        with self._lock:
+            self._evict_cb = evict_cb
+
     def _drop_session(self, session: RolloutSession) -> None:
         with self._lock:
             self._sessions.pop(session.sid, None)
@@ -678,6 +724,9 @@ class InferenceServer:
         system (the popped batches, the inbound queue, the batcher)
         resolves ``error_replica_dead`` now, their sessions with it, and
         the worker then exits."""
+        with self._lock:
+            self._dead = True
+
         def dead() -> ServeResult:
             return ServeResult(ok=False, reason="error_replica_dead",
                                detail="replica killed (injected replica_kill)")
@@ -777,15 +826,19 @@ class InferenceServer:
         return self._summary(emit=False)
 
     def summary(self) -> dict:
-        """The serving rollup under the names of JAX's ``serve_summary``:
+        """The serving rollup with the keys of JAX's ``serve_summary``:
         requests, admitted, completed, sheds by reason, dispatches,
-        reloads, breaker trips, ``compiled_shapes`` (distinct dispatch shapes), the latency p50 /
-        p99 of completed requests (``LogHistogram`` estimates, within
-        ``obs.metrics.REL_ERROR`` of the nearest rank), and per bucket the
-        real and capacity node tokens of its dispatches (fill = real /
-        capacity, pad waste = 1 - fill); then the serving dtype and the
-        dispatch times. With a tracer, the per-bucket queue / device
-        split of the traced requests and the trace's coverage."""
+        reloads, breaker trips, ``compiled_shapes`` (distinct dispatch
+        shapes), ``jit_fallbacks`` (always 0: no dispatch runs a fallback
+        program), the latency p50 / p99 of completed requests
+        (``LogHistogram`` estimates, within ``obs.metrics.REL_ERROR`` of the
+        nearest rank), the serving dtype and, once a dispatch ran, per
+        bucket the real and capacity node tokens of its dispatches (fill =
+        real / capacity, pad waste = 1 - fill). With a tracer, the
+        per-bucket queue / device split of the traced requests and the
+        trace's coverage; with tenants or sessions, their blocks. Two keys
+        are the port's own, ``dispatch_ms_p50`` and ``dispatch_ms_max`` (the
+        host time of the dispatches): JAX's event spec allows extra keys."""
         return self._summary(emit=False)
 
     def _summary(self, *, emit: bool) -> dict:
@@ -837,16 +890,21 @@ class InferenceServer:
                 }
                 for t, st in sorted(tenant_stats.items())
             }
-        summary["pad_waste_by_bucket"] = {
-            key: {
-                **st,
-                "fill_frac": st["real_tokens"] / st["capacity_tokens"]
-                if st["capacity_tokens"] else None,
-                "pad_waste_frac": 1.0 - st["real_tokens"] / st["capacity_tokens"]
-                if st["capacity_tokens"] else None,
+        # No fallback program ever runs (eager PyTorch has no jit cache):
+        # JAX's key, always 0.
+        summary["jit_fallbacks"] = 0
+        if pack_stats:
+            # Present once a dispatch ran, as in JAX.
+            summary["pad_waste_by_bucket"] = {
+                key: {
+                    **st,
+                    "fill_frac": st["real_tokens"] / st["capacity_tokens"]
+                    if st["capacity_tokens"] else None,
+                    "pad_waste_frac": 1.0 - st["real_tokens"] / st["capacity_tokens"]
+                    if st["capacity_tokens"] else None,
+                }
+                for key, st in sorted(pack_stats.items())
             }
-            for key, st in sorted(pack_stats.items())
-        }
         if self._tracer is not None:
             # The same population and nearest-rank percentiles as
             # tools/trace_report.py's per-bucket breakdown of the file.
@@ -877,6 +935,9 @@ class InferenceServer:
     # -- worker side -------------------------------------------------------
 
     def _run(self, warmup: list[MeshSample], ready: Future) -> None:
+        """The worker loop. A router replica's engine enters the replica's
+        own CUDA stream around each of its calls (``InferenceEngine(stream=)``),
+        so the warm-up and every dispatch made from this thread run on it."""
         try:
             warmed = self.engine.warmup(warmup, rows=self.max_batch)
             if self.pack_plan is not None:
@@ -910,8 +971,16 @@ class InferenceServer:
             except queue.Empty:
                 pass
             draining = self._draining.is_set()
-            batches = self.batcher.pop_ready(self._clock(), flush_all=draining)
+            now = self._clock()
+            # The liveness stamp, once a poll and once a dispatch: a worker
+            # draining a backlog makes progress; one stuck inside a dispatch
+            # stops stamping (the router's wedge signal).
+            with self._lock:
+                self._last_progress = now
+            batches = self.batcher.pop_ready(now, flush_all=draining)
             for i, (key, reqs) in enumerate(batches):
+                with self._lock:
+                    self._last_progress = self._clock()
                 try:
                     self._dispatch(key, reqs)
                 except _ReplicaKilled:
@@ -1167,7 +1236,8 @@ class InferenceServer:
         key = (name, tenant, tuple(sorted(labels.items())))
         c = self._tenant_counters.get(key)
         if c is None:
-            c = self._tenant_counters[key] = self._metrics.counter(name, tenant=tenant, **labels)
+            c = self._tenant_counters[key] = self._metrics.counter(
+                name, tenant=tenant, **labels, **self._metric_labels)
         return c
 
     def _note_tenant_request(self, tenant: str | None) -> None:
@@ -1195,7 +1265,8 @@ class InferenceServer:
         h = self._tenant_hists.get(tenant)
         if h is None:
             h = self._tenant_hists[tenant] = (
-                self._metrics.histogram("tenant_latency_ms", tenant=tenant)
+                self._metrics.histogram("tenant_latency_ms", tenant=tenant,
+                                        **self._metric_labels)
                 if self._metrics is not None else LogHistogram())
         h.record(lat_ms)
         if self._metrics is not None:
@@ -1208,9 +1279,10 @@ class InferenceServer:
         migrate it (the session-loss SLO's counter)."""
         if self._metrics is None:
             return
-        self._metrics.counter("rollout_sessions_total", outcome=outcome).inc()
+        self._metrics.counter("rollout_sessions_total", outcome=outcome,
+                              **self._metric_labels).inc()
         if lost:
-            self._metrics.counter("rollout_sessions_lost_total").inc()
+            self._metrics.counter("rollout_sessions_lost_total", **self._metric_labels).inc()
 
     # -- probes ----------------------------------------------------------------
 
@@ -1223,6 +1295,35 @@ class InferenceServer:
                       for t, v in self._tenant_stats.items()}
         hists = {t: h.copy() for t, h in dict(self._tenant_hists).items()}
         return {"counts": counts, "hists": hists}
+
+    def progress_age_s(self, now: float | None = None) -> float:
+        """Seconds since the worker loop last stamped its progress: large
+        while ``depth() > 0`` means the worker is stuck inside a dispatch
+        (the router's wedge signal)."""
+        now = self._clock() if now is None else now
+        with self._lock:
+            return max(0.0, now - self._last_progress)
+
+    def depth(self) -> int:
+        """Requests in the system (queued, batched or in a dispatch): the
+        router's load signal."""
+        return self.admission.depth
+
+    def latency_histogram(self) -> LogHistogram:
+        """A copy of the request-latency histogram (the router's lossless
+        pool merge input)."""
+        return self._lat_hist.copy()
+
+    def worker_alive(self) -> bool:
+        """False once a started worker has exited or ``replica_kill`` has
+        fired on it; True before its thread starts (the router assesses
+        replicas it is still warming, and ``start`` creates the thread
+        before it runs)."""
+        with self._lock:
+            if self._dead:
+                return False
+        w = self._worker
+        return w is None or w.ident is None or w.is_alive()
 
     def resident_sessions(self) -> int:
         """Rollout sessions resident on this server now."""
@@ -1252,7 +1353,7 @@ class InferenceServer:
         h = self._bucket_hists.get(bucket)
         if h is None:
             h = self._bucket_hists[bucket] = self._metrics.histogram(
-                "serve_bucket_latency_ms", bucket=bucket)
+                "serve_bucket_latency_ms", bucket=bucket, **self._metric_labels)
         h.record(lat_ms)
 
     def _note_pack(self, bucket: str, real_tokens: int, capacity_tokens: int) -> None:
@@ -1263,7 +1364,8 @@ class InferenceServer:
             cs = self._pack_counters.get(bucket)
             if cs is None:
                 cs = self._pack_counters[bucket] = {
-                    field: self._metrics.counter(f"serve_bucket_{field}_total", bucket=bucket)
+                    field: self._metrics.counter(f"serve_bucket_{field}_total", bucket=bucket,
+                                                 **self._metric_labels)
                     for field in ("dispatches", "real_tokens", "capacity_tokens")
                 }
             cs["dispatches"].inc()
@@ -1292,7 +1394,7 @@ class InferenceServer:
             c = self._shed_counters.get(reason)
             if c is None:
                 c = self._shed_counters[reason] = self._metrics.counter(
-                    "serve_shed_total", reason=reason)
+                    "serve_shed_total", reason=reason, **self._metric_labels)
             c.inc(n)
 
     def _trace_span(self, trace, name: str, start: float, end: float | None = None, **args):
@@ -1300,11 +1402,15 @@ class InferenceServer:
         now); a no-op when tracing is off or the request was not sampled."""
         if self._tracer is None or trace is None:
             return None
+        if self.replica is not None:
+            args = {"replica": self.replica, **args}
         return self._tracer.add_span(name, start, end if end is not None else self._clock(),
                                      trace=trace, args=args or None)
 
     def _event(self, event: str, **fields) -> None:
         if self.sink is not None:
+            if self.replica is not None:
+                fields.setdefault("replica", self.replica)
             self.sink.log(event=event, **fields)
 
 

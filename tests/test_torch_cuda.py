@@ -938,3 +938,95 @@ def test_a_rollout_on_card_matches_offline_and_launches_the_kernel(dtype):
         want = offline_rollout(engine, s, 4, rows=4)
         assert parity_check(r.outputs, want) <= 1e-5
         assert all(np.all(np.isfinite(o)) for o in r.outputs)
+
+
+# -- replicas sharing the card ------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_launch_counters_lose_nothing_under_two_threads_on_two_streams():
+    """Two threads, each on its own stream, launch the kernel N times each
+    with the interpreter switching threads every microsecond: the total
+    and the per-mix and per-GELU counts read exactly 2N more, and every
+    launch's output is its plain version's."""
+    import sys
+    import threading
+
+    device = _card()
+    n = 2000
+    kernel = fused_ffn.fused_gated_ffn_kernel
+    args = _ffn_inputs(11, 1, 64)
+    want = fused_ffn.fused_gated_ffn_reference(*args, gelu_kind="tanh")
+    before = (kernel.launches, kernel.launches_by_dtype.get("f32", 0),
+              kernel.launches_by_gelu.get("tanh", 0))
+    outs, errors = [None, None], []
+
+    def launch(i, stream):
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(n):
+                    out = kernel(*args, gelu_kind="tanh")
+                stream.synchronize()
+                outs[i] = out
+        except Exception as err:  # noqa: BLE001 — reported by the test thread
+            errors.append(err)
+
+    streams = [torch.cuda.Stream(device=device) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(device))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch, args=(i, s)) for i, s in enumerate(streams)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads)
+    after = (kernel.launches, kernel.launches_by_dtype.get("f32", 0),
+             kernel.launches_by_gelu.get("tanh", 0))
+    assert [a - b for a, b in zip(after, before)] == [2 * n] * 3
+    for out in outs:
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_two_replicas_share_the_card_each_on_its_own_stream():
+    """``build_replicas`` on the card: each replica its own non-default
+    stream and weights copy; eight requests through the router split four
+    and four, every output the single engine's (1e-5 / 1e-6), the kernel
+    launched 2 x blocks per dispatch and warm-up, summed over both."""
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.replica import build_replicas
+    from gnot_tpu_torch.serve.router import ReplicaRouter
+
+    device = _card()
+    samples = datasets.synth_ns2d(8, seed=3, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    reps = build_replicas(model, 2, batch_size=4)
+    streams = [r.engine.stream for r in reps]
+    default = torch.cuda.default_stream(device)
+    assert all(s is not None and s != default for s in streams) and streams[0] != streams[1]
+    assert all(p.data_ptr() != q.data_ptr() for p, q in zip(
+        reps[0].engine.model.parameters(), reps[1].engine.model.parameters()))
+    launches = fused_ffn.fused_gated_ffn_kernel.launches
+    warmed = sum(r.warm(samples[:1], rows=4) for r in reps)
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=10_000)
+    futures = [router.submit(s) for s in samples]
+    router.start()
+    results = [f.result(timeout=120) for f in futures]
+    summary = router.drain(60)
+    launched = fused_ffn.fused_gated_ffn_kernel.launches - launches
+    assert all(r.ok for r in results), [r.reason for r in results]
+    assert [p["routed"] for p in summary["per_replica"].values()] == [4, 4]
+    assert launched == 2 * cfg.n_attn_layers * (summary["dispatches"] + warmed)
+    engine = InferenceEngine(model, batch_size=4)
+    key = engine.bucket_key(samples[0])
+    for i in range(2):
+        group = samples[i::2]
+        want = engine.infer(group, pad_nodes=key[0], pad_funcs=key[1], rows=4)
+        for r, w in zip(results[i::2], want):
+            np.testing.assert_allclose(r.output, w, rtol=1e-5, atol=1e-6)

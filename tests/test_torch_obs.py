@@ -58,9 +58,11 @@ def test_event_specs_are_jax_s():
     assert set(events.SPANS) <= set(jax_events.SPANS)
     assert tracing.SERVE_SPANS == jax_tracing.SERVE_SPANS
     assert tracing.TRAIN_SPANS == jax_tracing.TRAIN_SPANS
-    # Besides the request and train chains, the server's reload span (on
-    # the tracer's "r" stream, as JAX's).
-    assert set(events.SPANS) == set(tracing.SERVE_SPANS + tracing.TRAIN_SPANS) | {"reload"}
+    # Besides the request and train chains, the server's reload span and
+    # the router's replica_warm span (both on the tracer's "r" stream, as
+    # JAX's).
+    assert set(events.SPANS) == (set(tracing.SERVE_SPANS + tracing.TRAIN_SPANS)
+                                 | {"reload", "replica_warm"})
 
 
 @pytest.mark.parametrize("record", [

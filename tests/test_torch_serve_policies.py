@@ -399,6 +399,26 @@ def test_the_scenario_runs_as_in_jax(name, setup, tmp_path):
         assert kinds == ["queue_depth", "drain_timeout", "serve_summary", "serve_summary"]
 
 
+@pytest.mark.parametrize("n_requests", [0, 3])
+def test_fault8_summary_key_set_is_jax_s(n_requests, setup):
+    """Fault 8: after an empty and after a busy drain the port's summary
+    has JAX's keys (``jit_fallbacks`` always, ``pad_waste_by_bucket`` only
+    once a dispatch ran) and two of its own, the dispatch host times,
+    which JAX's event spec allows."""
+    keys = {}
+    for pkg in ("jax", "port"):
+        srv = _server(setup, pkg, ListSink())
+        srv.start()
+        futs = [srv.submit(x) for x in _samples(setup, pkg)[:n_requests]]
+        assert all(f.result(timeout=30).ok for f in futs)
+        summary = srv.drain(timeout_s=30)
+        keys[pkg] = set(summary)
+        assert summary["jit_fallbacks"] == 0
+    assert keys["port"] - keys["jax"] == {"dispatch_ms_p50", "dispatch_ms_max"}
+    assert keys["jax"] <= keys["port"]
+    assert ("pad_waste_by_bucket" in keys["port"]) == (n_requests > 0)
+
+
 @pytest.mark.parametrize("case", list(RELOADS))
 def test_a_reload_runs_as_in_jax(case, setup, tmp_path):
     want = _reload(setup, "jax", tmp_path, case)
