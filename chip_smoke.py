@@ -230,6 +230,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    closes the breaker; (f) ``remove_replica`` mid-rollout (``scale_in``
    handovers with no replay) and ``add_replica`` of a warmed replica,
    which takes traffic.
+16. the program catalog and the autoscaler at phase 4's configuration:
+   (a) phase 4's 16 requests through a single server and through two
+   replicas, each with a ``ProgramCatalog``, in f32, in bf16 and packed
+   (phase 8's plan derivation over this traffic): one
+   ``program_catalog`` event a program with the costs of
+   ``obs/costs.py::program_costs`` at its shape, one
+   ``capacity_snapshot``, per program the dispatches and the useful-token
+   fraction of the pad-waste rollup, every achieved ``flops_per_s``
+   below the card's peak for the program (bf16: the bf16 dense peak;
+   f32: its FFN Linears at 3xTF32 and its other products at the f32
+   CUDA-core peak, weighted by its flops), printed per program beside
+   ``tokens_per_device_s`` and ``device_us_per_token``; (b) ``main
+   --serve --serve_replicas 1 --autoscale --autoscale_max 3`` with a
+   20 ms tick and a 0.1 s cooldown under a ramp (eight closed-loop
+   clients, 96 requests, then quiet): a ``scale_up`` whose replica warmed
+   before its first route, no shed, a ``scale_down`` back to one replica,
+   96/96 within phase 4's bar, launches 8 x (dispatches + warm-ups) over
+   every replica that served; (c) ``replica_kill@5`` in a two-replica
+   elastic pool under four 8-step sessions and four closed-loop clients:
+   one ``replica_replace`` 0 -> 2 on slot 0 within ``heal_after_s`` plus
+   a tick, no session lost, every trajectory bitwise ``offline_rollout``;
+   (d) (b)'s ramp through a static pool of three replicas, its
+   replica-seconds and p99 beside the controller's (printed, no bar).
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -264,7 +287,10 @@ and (d); ``rollout_serve_launches``, ``rollout_bf16_serve_launches``,
 (f); ``router_serve_launches``, ``router_bf16_serve_launches``,
 ``rolling_reload_serve_launches``, ``router_kill_serve_launches``,
 ``router_breaker_serve_launches`` and ``scale_serve_launches`` over phase
-15's paths (a) f32, (a) bf16, (c), (d), (e) and (f). Launches
+15's paths (a) f32, (a) bf16, (c), (d), (e) and (f);
+``catalog_serve_launches``, ``autoscale_serve_launches`` and
+``heal_serve_launches`` over phase 16's paths (a) (all six runs), (b)
+and (c). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -487,11 +513,14 @@ def ffn_bound_ms(x, scores, kernels, biases, tensor_cores: bool = True) -> tuple
     one bf16 product on Linear 0 and three on the others. Without
     ``tensor_cores`` everything counts once at the f32 CUDA-core rate
     (the bound of the earlier f32 kernel)."""
+    from gnot_tpu_torch.obs.costs import ffn_flops
+
     rows = x.shape[0] * x.shape[1]
     n_expert = scores.shape[-1]
     d_out = kernels[-1].shape[-1]
-    flops = [rows * n_expert * 2 * k.shape[1] * k.shape[2] for k in kernels]
-    elementwise = sum(rows * n_expert * k.shape[2] for k in kernels) + rows * n_expert * 2 * d_out
+    # The products and the gate's weighted sum, as the program catalog counts them.
+    flops, gate = ffn_flops(rows, n_expert, [(k.shape[1], k.shape[2]) for k in kernels])
+    elementwise = sum(rows * n_expert * k.shape[2] for k in kernels) + gate
     nbytes = (
         x.element_size() * (x.numel() + rows * d_out) + scores.element_size() * scores.numel()
         + sum(t.element_size() * t.numel() for t in (*kernels, *biases))
@@ -3948,6 +3977,377 @@ def router_phase(torch, np, card: str, layers) -> dict:
     return out
 
 
+# -- phase 16: the program catalog and the autoscaler ------------------------------
+
+# Phase 16 (b)'s command line: phase 4's traffic from one replica under the
+# controller, a short tick and cooldown (flap window 0.3 s).
+AUTOSCALE_FLAGS = ["--serve_replicas", "1", "--autoscale", "--autoscale_max", "3",
+                   "--autoscale_interval_s", "0.02", "--autoscale_cooldown_s", "0.1",
+                   "--autoscale_up_load", "4", "--autoscale_down_load", "1",
+                   "--autoscale_down_ticks", "3", "--autoscale_heal_after_s", "0.5"]
+# The ramp's burst: eight closed-loop clients, 12 requests each (six
+# passes over the 16 requests): 8 in the system, twice --autoscale_up_load
+# on one replica.
+RAMP_CLIENTS = 8
+RAMP = 96
+
+
+class StampSink(ListSink):
+    """A ``ListSink`` that stamps each record with the monotonic clock."""
+
+    def log(self, **record) -> None:
+        self.records.append({**record, "t": time.monotonic()})
+
+
+def program_shape(key: str, plan) -> dict:
+    """``program_costs``' shape arguments for a catalog program key."""
+    kind, rest = key.split(":", 1)
+    if kind == "packed":
+        return {"plan": plan}
+    dims, rows, _ = rest.split("@")
+    pn, pf = dims.split("x")
+    return {"rows": int(rows), "pad_nodes": int(pn), "pad_funcs": int(pf)}
+
+
+def catalog_autoscale_phase(torch, np, card: str, layers) -> dict:
+    """Phase 16: the program catalog and the autoscaler at phase 4's
+    configuration on the one card: (a) phase 4's 16 requests through a
+    single server and through two replicas, each with a
+    ``ProgramCatalog``, in f32, bf16 and packed; (b) ``main --serve
+    --autoscale`` from one replica under a ramp (a burst, then quiet) that
+    scales out and back in; (c) ``replica_kill`` in a two-replica elastic
+    pool under four closed-loop clients and four sessions, healed by a
+    replacement; (d) (b)'s ramp through a static pool of
+    ``--autoscale_max`` replicas, its replica-seconds and p99 beside the
+    controller's. Returns the FFN kernel's launches over (a), (b) and (c)."""
+    import shutil
+    import threading
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.data.batch import PackPlan
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.obs.costs import block_ffn_flops, program_costs
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.resilience.faults import FaultInjector
+    from gnot_tpu_torch.serve.autoscaler import AutoscaleController
+    from gnot_tpu_torch.serve.catalog import ProgramCatalog
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.replica import build_replica, build_replicas
+    from gnot_tpu_torch.serve.rollout import offline_rollout, parity_check
+    from gnot_tpu_torch.serve.router import ReplicaRouter
+    from gnot_tpu_torch.serve.server import InferenceServer
+
+    root = TRAIN_OUT / "autoscale16"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out: dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    def kinds(recs, kind):
+        return [r for r in recs if r.get("event") == kind]
+
+    args = port_main.build_parser().parse_args(SERVE13_ARGV)
+    data, _ = port_main.configs_from_args(args)
+    train_s, samples = port_main.datasets.load(data)
+    mc = port_main.model_config(args, train_s)
+    device = port_main.run_device(args)
+    model = port_main.GNOT(mc, generator=torch.Generator().manual_seed(args.seed)).to(device)
+    per_forward = 2 * mc.n_attn_layers
+    plain = plain_outputs(torch, layers, model, samples)
+    plain_bf16 = np.concatenate(plain_outputs(torch, layers, model, samples, "bfloat16"))
+    # Phase 8's plan derivation (chunk 64, 4 samples a dispatch) over this
+    # traffic.
+    plan = PackPlan.for_slices(samples, chunk=64, batch_size=4, per_devices=1)
+    # The fastest rate a program's products could reach on the card: in
+    # f32 the FFN kernel's Linears at 3xTF32 on the tensor cores and every
+    # other product (TF32 is off) and the gate's sum at the f32 CUDA-core
+    # peak, weighted by the program's own flops; in bf16 the bf16 dense
+    # peak. An achieved rate above it means the count or the time is wrong.
+    def peak_rate(key: str, dtype: str, flops: int) -> tuple[float, str]:
+        if dtype == "bfloat16":
+            return PEAK_BF16_FLOPS, "bf16 dense"
+        shape = program_shape(key, plan)
+        tokens = (shape["plan"].n_rows * shape["plan"].row_len if "plan" in shape
+                  else shape["rows"] * shape["pad_nodes"])
+        linears, _ = block_ffn_flops(mc, tokens)
+        ffn = mc.n_attn_layers * (2 if mc.n_input_functions else 1) * sum(linears)
+        rate = flops / (ffn / (PEAK_TF32_FLOPS / 3) + (flops - ffn) / PEAK_F32_FLOPS)
+        return rate, f"f32 mix ({ffn / flops:.1%} of flops at 3xTF32, the rest at f32)"
+
+    # (a) The catalog: a single server and two replicas, f32, bf16, packed.
+    def catalog_run(replicas: int, dtype: str, packed: bool) -> int:
+        tag = f"{replicas} replica{'s' if replicas > 1 else ''} {dtype}{' packed' if packed else ''}"
+        sink = ListSink()
+        cat = ProgramCatalog(sink=sink)
+        kw = dict(max_batch=4, max_wait_ms=2.0, sink=sink, catalog=cat,
+                  pack_plan=plan if packed else None)
+        fused_gated_ffn_kernel.launches = 0
+        if replicas == 1:
+            front = InferenceServer(InferenceEngine(model, batch_size=4, dtype=dtype), **kw)
+            warmed = front.start(warmup=samples).warmed
+        else:
+            reps = build_replicas(model, replicas, batch_size=4, dtype=dtype)
+            warmed = sum(r.warm(samples, rows=4, pack_plan=kw["pack_plan"]) for r in reps)
+            front = ReplicaRouter(reps, **kw).start()
+        results = [f.result(timeout=120) for f in [front.submit(s) for s in samples]]
+        summary = front.drain(60)
+        launches = fused_gated_ffn_kernel.launches
+        model_ = summary["capacity_model"]
+        progs = model_["programs"]
+        entries = cat.entries()
+        recorded = [(r["key"], r["costs"]) for r in kinds(sink.records, "program_catalog")]
+        snapshots = kinds(sink.records, "capacity_snapshot")
+        pad = summary["pad_waste_by_bucket"]
+        lines, problems = [], []
+        if sorted(k for k, _ in recorded) != sorted(entries) or len(snapshots) != 1:
+            problems.append(f"events {[k for k, _ in recorded]} vs entries {sorted(entries)}, "
+                            f"{len(snapshots)} capacity_snapshot")
+        for key, costs in recorded:
+            want = program_costs(mc, dtype=dtype, params=model.parameters(),
+                                 **program_shape(key, plan))
+            if costs != want:
+                problems.append(f"{key}: recorded {costs} vs program_costs {want}")
+        for key, p in progs.items():
+            if not p["dispatches"]:
+                continue
+            bucket = key.split("@")[0].removeprefix("bucket:")
+            st = pad.get(bucket, {})
+            rate = p["flops_per_s"]
+            peak, peak_name = peak_rate(key, dtype, p["costs"]["flops"])
+            lines.append(
+                f"{key}: {p['dispatches']} dispatches, {p['requests']} requests, "
+                f"tokens_per_device_s {p['tokens_per_device_s']:.6g}, device_us_per_token "
+                f"{p['device_us_per_token']:.6g}, flops {p['costs']['flops']} at "
+                f"{rate:.6g} flops/s = {rate / peak:.4%} of the {peak:.4g} {peak_name} peak, "
+                f"useful_token_frac {p['useful_token_frac']}")
+            if (p["dispatches"] != st.get("dispatches") or p["useful_token_frac"] != st.get("fill_frac")
+                    or not 0 < rate < peak):
+                problems.append(f"{key}: {p} vs pad waste {st}")
+        pool = model_["pool"]
+        log(f"[catalog] (a {tag}) {len(results)} requests, {summary['dispatches']} dispatches, "
+            f"{len(entries)} programs, launches {launches} = {per_forward} x "
+            f"({summary['dispatches']} dispatches + {warmed} warm-ups); pool {pool['replicas']} "
+            f"replicas, sustainable {pool['sustainable_requests_per_s']:.6g} requests/s, "
+            f"{pool['sustainable_tokens_per_s']:.6g} tokens/s at 100% device duty; {card}")
+        for line in lines:
+            log(f"[catalog]   {line}")
+        if dtype == "float32":
+            hold_to_plain(np, f"catalog a {tag}", results, plain)
+        else:  # phase 4b's bar: the relative norm against the bf16 plain forward
+            got = np.concatenate([r.output for r in results])
+            rel = float(np.linalg.norm(got - plain_bf16) / np.linalg.norm(plain_bf16))
+            if rel > BF16_PLAIN_REL:
+                problems.append(f"bf16 outputs {rel:.3e} from the plain forward")
+        if (problems or not all(r.ok for r in results) or pool["dispatches"] != summary["dispatches"]
+                or not pool["requests"] == summary["completed"] == 16 or pool["replicas"] != replicas
+                or launches != per_forward * (summary["dispatches"] + warmed)
+                or invalid(sink.records)):
+            raise RuntimeError(f"[catalog] (a {tag}) the catalog does not agree: {problems}")
+        return launches
+
+    catalog_launches = 0
+    for replicas in (1, 2):
+        for dtype, packed in (("float32", False), ("bfloat16", False), ("float32", True)):
+            catalog_launches += catalog_run(replicas, dtype, packed)
+    out["catalog_serve_launches"] = catalog_launches
+
+    # (b) Scale out and in through main, under a ramp: main's storm is
+    # replaced by a burst of RAMP requests from RAMP_CLIENTS closed-loop
+    # clients (request i is sample i mod 16), then quiet until the pool is
+    # back at its floor (or 20 s); the controller closes before the drain,
+    # as main's own storm closes it.
+    ramp: dict = {}
+
+    def ramp_storm(quiet_done):
+        def storm(args_, sc, server, samples_, checkpointer, preempt, controller=None):
+            results: list = [None] * RAMP
+
+            def client(c):
+                for i in range(c, RAMP, RAMP_CLIENTS):
+                    results[i] = server.submit(samples_[i % len(samples_)]).result(timeout=120)
+
+            ramp["t0"] = time.monotonic()
+            clients = [threading.Thread(target=client, args=(c,)) for c in range(RAMP_CLIENTS)]
+            for t in clients:
+                t.start()
+            for t in clients:
+                t.join(300)
+            ramp["t_burst"] = time.monotonic()
+            while not quiet_done(controller, server) and time.monotonic() - ramp["t_burst"] < 20:
+                time.sleep(0.005)
+            ramp["t_end"] = time.monotonic()
+            if controller is not None:
+                controller.close()
+            return server.drain(sc.drain_timeout_s), results
+        return storm
+
+    def ramp_run(tag: str, flags: list, quiet_done):
+        d = root / tag
+        storm = port_main._serve_storm
+        port_main._serve_storm = ramp_storm(quiet_done)
+        try:
+            fused_gated_ffn_kernel.launches = 0
+            run, lines = run_observed(port_main, SERVE13_ARGV + flags + [
+                "--metrics_path", str(d / "m.jsonl")])
+            launches = fused_gated_ffn_kernel.launches
+        finally:
+            port_main._serve_storm = storm
+        s = run.summary
+        warm = sum((p.get("warmup_cache") or {}).get("programs", 0)
+                   for p in s["per_replica"].values())
+        recs = read_jsonl(d / "m.jsonl")
+        hold_to_plain(np, f"autoscale {tag}", run.results,
+                      [plain[i % len(samples)] for i in range(RAMP)])
+        if (not all(r is not None and r.ok for r in run.results)
+                or not s["completed"] == s["requests"] == RAMP
+                or s["shed"] or launches != per_forward * (s["dispatches"] + warm)
+                or invalid(recs)):
+            raise RuntimeError(f"[autoscale] ({tag}) the ramp is not whole: shed {s['shed']}, "
+                               f"launches {launches} vs {per_forward} x ({s['dispatches']} + {warm})")
+        return run, lines, recs, launches, warm
+
+    run_b, lines_b, recs_b, launches_b, warm_b = ramp_run(
+        "b", AUTOSCALE_FLAGS, lambda c, srv: c.stats()["scale_downs"] >= 1 and len(srv.pool()) == 1)
+    span_b = ramp["t_end"] - ramp["t0"]
+    quiet_b = ramp["t_end"] - ramp["t_burst"]
+    s = run_b.summary
+    manifest = json.load(open(root / "b" / "run.json"))
+    ast = manifest["autoscale"]
+    ups, downs = kinds(recs_b, "scale_up"), kinds(recs_b, "scale_down")
+    order = []
+    for up in ups:
+        rid = up["replica"]
+        warm_at = next(i for i, r in enumerate(recs_b)
+                       if r.get("event") == "replica_warm" and r["replica"] == rid)
+        route_at = next((i for i, r in enumerate(recs_b)
+                         if r.get("event") == "route" and r["replica"] == rid), None)
+        order.append((rid, up["reason"], warm_at, route_at))
+    decisions = [(r["action"], r["reason"], r["pool"]) for r in kinds(recs_b, "autoscale_decision")]
+    log(f"[autoscale] (b) python -m gnot_tpu_torch.main {' '.join(SERVE13_ARGV + AUTOSCALE_FLAGS)} "
+        f"with a {RAMP}-request burst from {RAMP_CLIENTS} closed-loop clients, then quiet: "
+        f"burst {ramp['t_burst'] - ramp['t0']:.3f} s, "
+        f"quiet {quiet_b:.3f} s; decisions {decisions}; scale_up (replica, reason, replica_warm "
+        f"record, first route record) {order}; scale_down {[(r['replica'], r['pool']) for r in downs]}"
+        f"; shed {s['shed']}; {s['completed']}/{s['requests']} ok; per replica (routed, completed, "
+        f"retired) {[(k, p['routed'], p['completed'], p.get('retired', False))
+                     for k, p in s['per_replica'].items()]}"
+        f"; launches {launches_b} = {per_forward} x ({s['dispatches']} dispatches + {warm_b} warm-ups"
+        f"); run.json autoscale {json.dumps(ast)}")
+    for line in lines_b:
+        if line.startswith(("Serve:", "Autoscale:", "WARNING")):
+            log(f"[autoscale]   {line}")
+    # Every joining replica warmed before its first route; one at least was
+    # routed (a replica joining as the burst ends may take none).
+    if (not ups or not downs or any(r is not None and w > r for _, _, w, r in order)
+            or all(r is None for _, _, _, r in order)
+            or ast["scale_ups"] != len(ups) or ast["scale_downs"] != len(downs) or ast["errors"]):
+        raise RuntimeError("[autoscale] (b) no scale-out warmed before it joined, or no scale-in")
+    out["autoscale_serve_launches"] = launches_b
+
+    # (c) Self-healing: replica_kill on replica 0 of a two-replica elastic
+    # pool, four 8-step sessions (two a replica) and four closed-loop
+    # clients; the controller replaces the dead replica under a fresh id on
+    # its slot.
+    def factory(rid, slot):
+        return build_replica(model, rid, device, batch_size=4)
+
+    reps = [factory(0, 0), factory(1, 1)]
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    sink = StampSink()
+    router = ReplicaRouter(reps, max_batch=4, max_wait_ms=2.0, sink=sink, session_snapshot_every=2,
+                           wedge_after_s=60.0,
+                           faults={0: FaultInjector.from_spec("replica_kill@5")})
+    heal = AutoscaleController(router, replica_factory=factory, min_replicas=1, max_replicas=2,
+                               interval_s=0.02, cooldown_s=0.1, heal_after_s=0.5,
+                               warm_samples=samples[:1], sink=sink)
+    futs = [router.submit_rollout(s_, ROLLOUT_K) for s_ in samples[:4]]
+    fused_gated_ffn_kernel.launches = 0
+    stop = threading.Event()
+    client_results: list = []
+    dead_at: list = []
+
+    def client(i):
+        n = 0
+        while not stop.is_set():
+            client_results.append(router.submit(samples[4 + (i + 4 * n) % 12]).result(timeout=120))
+            n += 1
+
+    def watch():
+        while not stop.is_set() and reps[0].server.worker_alive():
+            time.sleep(0.0005)
+        dead_at.append(time.monotonic())
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(4)]
+    watcher = threading.Thread(target=watch, daemon=True)
+    router.start()
+    heal.start()
+    watcher.start()
+    for t in threads:
+        t.start()
+    results = [f.result(timeout=120) for f in futs]
+    deadline = time.monotonic() + 20
+    while heal.stats()["replaces"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    stop.set()
+    for t in threads + [watcher]:
+        t.join(120)
+    stats = heal.close()
+    summary = router.drain(60)
+    launches = fused_gated_ffn_kernel.launches
+    replaced = kinds(sink.records, "replica_replace")
+    removed = [r for r in kinds(sink.records, "replica_remove") if r["reason"] == "heal_dead"]
+    moves = [(e["session"], e["reason"], e["at_step"], e["replay_from"])
+             for e in kinds(sink.records, "session_migrate")]
+    offline = [offline_rollout(reps[1].engine, s_, ROLLOUT_K, rows=4) for s_ in samples[:4]]
+    bitwise = all(np.array_equal(a, b) for r, o in zip(results, offline)
+                  for a, b in zip(r.outputs, o))
+    worst_c = max(parity_check(r.outputs, o) for r, o in zip(results, offline))
+    reasons: dict = {}
+    for r in client_results:
+        reasons[r.reason] = reasons.get(r.reason, 0) + 1
+    new_warm = (router.pool()[-1].warm_stats or {}).get("programs", 0) if replaced else 0
+    t_dead = dead_at[0] if dead_at else float("nan")
+    after_remove = removed[0]["t"] - t_dead if removed else float("nan")
+    after_replace = replaced[0]["t"] - t_dead if replaced else float("nan")
+    sess = summary["sessions"]
+    log(f"[autoscale] (c) replica_kill@5 on replica 0 under 4 sessions and 4 closed-loop clients: "
+        f"sessions {[(r.reason, len(r.outputs), r.migrations) for r in results]}; session_migrate "
+        f"{moves}; replica_replace {[(e['from_replica'], e['to_replica'], e['reason']) for e in replaced]}"
+        f" on slot {heal._slot_of.get(2)}; heal_dead removal {after_remove * 1e3:.1f} ms and the "
+        f"replacement joined {after_replace * 1e3:.1f} ms after the worker died (heal_after_s 0.5, "
+        f"tick 0.02 s); client requests by reason {reasons}; sessions lost {sess['lost']}; vs "
+        f"offline_rollout on replica 1's engine: bitwise {bitwise}, worst {worst_c:.3e}; controller "
+        f"{json.dumps(stats)}; launches {launches} = {per_forward} x ({summary['dispatches']} "
+        f"dispatches + {new_warm} warm-up)")
+    if (len(replaced) != 1 or (replaced[0]["from_replica"], replaced[0]["to_replica"]) != (0, 2)
+            or heal._slot_of.get(2) != 0 or not after_remove <= 0.5 + 0.02
+            or not after_replace <= 0.5 + 0.02
+            or not all(r.ok and len(r.outputs) == ROLLOUT_K for r in results) or sess["lost"]
+            or not bitwise or set(reasons) - {"ok", "error_replica_dead"}
+            or launches != per_forward * (summary["dispatches"] + new_warm)
+            or invalid(sink.records)):
+        raise RuntimeError("[autoscale] (c) the dead replica was not healed whole")
+    out["heal_serve_launches"] = launches
+
+    # (d) The replica-seconds ledger: (b)'s ramp through a static pool of
+    # autoscale_max replicas, quiet for as long as (b) was.
+    run_d, _, _, _, _ = ramp_run(
+        "d", ["--serve_replicas", "3"],
+        lambda c, srv: time.monotonic() - ramp["t_burst"] >= quiet_b)
+    span_d = ramp["t_end"] - ramp["t0"]
+    log(f"[autoscale] (d) replica-seconds: the controller {ast['replica_seconds']} over its "
+        f"{span_b:.3f} s ramp (p99 {s['latency_p99_ms']:.3f} ms, p50 {s['latency_p50_ms']:.3f} ms) "
+        f"vs a static pool of 3: {3 * span_d:.3f} (3 x {span_d:.3f} s; p99 "
+        f"{run_d.summary['latency_p99_ms']:.3f} ms, p50 {run_d.summary['latency_p50_ms']:.3f} ms); "
+        f"one card and the GIL, so no bar (phase 15); {card}")
+    log(f"[autoscale] phase 16 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -4159,6 +4559,9 @@ def main() -> int:
     # -- phase 15: engine replicas and the router ---------------------------
     router_launches = router_phase(torch, np, card, layers)
 
+    # -- phase 16: the program catalog and the autoscaler ------------------
+    autoscale_launches = catalog_autoscale_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -4189,6 +4592,7 @@ def main() -> int:
         **serve13_launches,
         **rollout_launches,
         **router_launches,
+        **autoscale_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

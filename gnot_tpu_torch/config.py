@@ -24,10 +24,9 @@ class NotPortedError(ValueError):
     raises it (the multi-host stop agreement waits for multi-process
     training); ``InferenceServer`` and ``ReplicaRouter`` raise it for
     ``persist_snapshots=True`` (rolling session persistence waits for the
-    federation), the router for ``catalog=`` (the program catalog waits for
-    the autoscaler's slice), and ``EngineReplica.prewarm_from`` and
-    ``--serve_prewarm`` for snapshot hydration (eager PyTorch has no
-    compiled executable to serialize)."""
+    federation), and ``EngineReplica.prewarm_from`` and ``--serve_prewarm``
+    for snapshot hydration (eager PyTorch has no compiled executable to
+    serialize)."""
 
 
 def parse_tenant_spec(spec: str, *, what: str = "value") -> dict[str, str]:
@@ -408,6 +407,26 @@ class ServeConfig:
     # Seconds of worker-loop silence, with requests in its system, before
     # the router reads a replica as wedged and routes around it.
     wedge_after_s: float = 2.0
+    # Self-healing elastic serving (serve/autoscaler.py): with autoscale
+    # on, an AutoscaleController reads the metrics plane (the registry's
+    # load gauges; the SLO evaluator's alerts when metrics_interval_s > 0)
+    # and scales the router's pool between autoscale_min and
+    # autoscale_max: warm-before-join scale-out on high per-replica load
+    # (in-system requests + resident sessions) or a pressure alert,
+    # drain-then-remove scale-in after autoscale_down_ticks calm ticks,
+    # and replacement of dead, wedged or breaker-stuck replicas. Guards:
+    # per-direction cooldowns, up/down hysteresis (up_load > down_load)
+    # and no scale-in within three cooldowns of a scale-out. Every slot is
+    # the one card.
+    autoscale: bool = False
+    autoscale_min: int = 1
+    autoscale_max: int = 4
+    autoscale_interval_s: float = 0.5
+    autoscale_cooldown_s: float = 2.0
+    autoscale_up_load: float = 8.0
+    autoscale_down_load: float = 1.0
+    autoscale_down_ticks: int = 3
+    autoscale_heal_after_s: float = 5.0
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -467,6 +486,44 @@ class ServeConfig:
             raise ValueError(
                 "need 0 < slo_fast_window_s <= slo_slow_window_s, got "
                 f"{self.slo_fast_window_s}/{self.slo_slow_window_s}"
+            )
+        if not 1 <= self.autoscale_min <= self.autoscale_max:
+            raise ValueError(
+                "need 1 <= autoscale_min <= autoscale_max, got "
+                f"{self.autoscale_min}/{self.autoscale_max}"
+            )
+        if self.autoscale and not (
+            self.autoscale_min <= self.replicas <= self.autoscale_max
+        ):
+            raise ValueError(
+                f"--autoscale needs the founding pool size (replicas="
+                f"{self.replicas}) within [autoscale_min, autoscale_max]"
+                f" = [{self.autoscale_min}, {self.autoscale_max}]"
+            )
+        if self.autoscale_interval_s <= 0:
+            raise ValueError(
+                "autoscale_interval_s must be > 0, got "
+                f"{self.autoscale_interval_s}"
+            )
+        if self.autoscale_cooldown_s < 0:
+            raise ValueError(
+                "autoscale_cooldown_s must be >= 0, got "
+                f"{self.autoscale_cooldown_s}"
+            )
+        if not 0 <= self.autoscale_down_load < self.autoscale_up_load:
+            raise ValueError(
+                "autoscale hysteresis needs 0 <= down_load < up_load, "
+                f"got {self.autoscale_down_load}/{self.autoscale_up_load}"
+            )
+        if self.autoscale_down_ticks < 1:
+            raise ValueError(
+                "autoscale_down_ticks must be >= 1, got "
+                f"{self.autoscale_down_ticks}"
+            )
+        if self.autoscale_heal_after_s <= 0:
+            raise ValueError(
+                "autoscale_heal_after_s must be > 0, got "
+                f"{self.autoscale_heal_after_s}"
             )
         for t, w in parse_tenant_spec(self.tenant_weights, what="weight").items():
             if not w.isdigit() or int(w) < 1:

@@ -88,6 +88,16 @@ rolls each reload across the pool; the ``Serve:`` line gains the routing
 clause. ``--serve_prewarm`` is refused (no executable to serialize), and
 so are ``--scan_layers`` and ``--flat_params`` with replicas, as in JAX.
 
+The elastic pool (``gnot_tpu/main.py``'s nine ``--autoscale*`` flags,
+defaults and checks): ``--autoscale`` routes through a ``ReplicaRouter``
+even from ``--serve_replicas 1`` and runs an ``AutoscaleController``
+(``serve/autoscaler.py``) over it while the storm runs, building each
+founding, scale-out and replacement replica through ``build_replica`` on
+the run's card (every slot is that card, so ``--autoscale_max`` is not
+held to a device count); the controller is closed before the drain, JAX's
+``Autoscale: pool [...]`` line is printed and run.json gains
+``autoscale`` with ``replica_seconds``.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -127,7 +137,8 @@ from gnot_tpu_torch.resilience.faults import FaultInjector
 from gnot_tpu_torch.resilience.preemption import PreemptionHandler
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.policies import TenantPolicy
-from gnot_tpu_torch.serve.replica import build_replicas
+from gnot_tpu_torch.serve.autoscaler import AutoscaleController
+from gnot_tpu_torch.serve.replica import build_replica, build_replicas
 from gnot_tpu_torch.serve.rollout import RolloutResult, SessionStore
 from gnot_tpu_torch.serve.router import ReplicaRouter
 from gnot_tpu_torch.serve.server import CheckpointReloader, InferenceServer, ServeResult
@@ -491,6 +502,58 @@ def build_parser() -> argparse.ArgumentParser:
              "compiles never stall the pool), least_loaded, round_robin",
     )
     p.add_argument(
+        "--autoscale", action="store_true",
+        help="serving: self-healing elastic pool (serve/autoscaler.py) — "
+             "an AutoscaleController scales the replica pool against "
+             "live SLO/load pressure: warm-before-join scale-out (a new "
+             "replica runs its warm-up dispatches before it takes "
+             "traffic), drain-then-remove scale-in (resident sessions "
+             "migrate to siblings), self-healing replacement of "
+             "dead/wedged replicas; guards: min/max bounds, "
+             "per-direction cooldowns, hysteresis, flap suppression"
+    )
+    p.add_argument(
+        "--autoscale_min", type=int, default=1,
+        help="autoscale: pool floor (the controller never shrinks "
+             "below it)"
+    )
+    p.add_argument(
+        "--autoscale_max", type=int, default=4,
+        help="autoscale: pool ceiling; every slot is the run's one "
+             "card, each replica on its own CUDA stream"
+    )
+    p.add_argument(
+        "--autoscale_cooldown_s", type=float, default=2.0,
+        help="autoscale: per-direction cooldown between actions; the "
+             "flap suppressor additionally vetoes any scale-in within "
+             "3 cooldowns of a scale-out"
+    )
+    p.add_argument(
+        "--autoscale_interval_s", type=float, default=0.5,
+        help="autoscale: controller tick cadence (seconds)"
+    )
+    p.add_argument(
+        "--autoscale_up_load", type=float, default=8.0,
+        help="autoscale: per-replica in-system load (requests + "
+             "sessions) above which the controller scales out; must "
+             "exceed --autoscale_down_load (hysteresis)"
+    )
+    p.add_argument(
+        "--autoscale_down_load", type=float, default=1.0,
+        help="autoscale: per-replica load below which a tick counts as "
+             "calm; the hysteresis floor of the up/down load band"
+    )
+    p.add_argument(
+        "--autoscale_down_ticks", type=int, default=3,
+        help="autoscale: consecutive calm ticks required before any "
+             "scale-in (sustained-calm guard)"
+    )
+    p.add_argument(
+        "--autoscale_heal_after_s", type=float, default=5.0,
+        help="autoscale: seconds a replica stays dead/wedged/breaker-"
+             "stuck before the controller replaces it (self-healing)"
+    )
+    p.add_argument(
         "--serve_prewarm", type=str, default="",
         help="serving: JAX's deploy-time AOT prewarm manifest; refused: "
              "eager PyTorch has no compiled executable to serialize (each "
@@ -591,6 +654,15 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         replicas=args.serve_replicas,
         route_policy=args.route_policy,
         wedge_after_s=args.wedge_after_s,
+        autoscale=args.autoscale,
+        autoscale_min=args.autoscale_min,
+        autoscale_max=args.autoscale_max,
+        autoscale_interval_s=args.autoscale_interval_s,
+        autoscale_cooldown_s=args.autoscale_cooldown_s,
+        autoscale_up_load=args.autoscale_up_load,
+        autoscale_down_load=args.autoscale_down_load,
+        autoscale_down_ticks=args.autoscale_down_ticks,
+        autoscale_heal_after_s=args.autoscale_heal_after_s,
     )
     return data, serve
 
@@ -652,6 +724,9 @@ class RunManifest:
         if self.fields.get("metrics") is not None:
             # The live metrics plane's stats (MetricsPublisher.stats()).
             extra["metrics"] = self.fields["metrics"]
+        if self.fields.get("autoscale") is not None:
+            # The controller's stats and replica-seconds (--autoscale).
+            extra["autoscale"] = self.fields["autoscale"]
         manifest_lib.write_manifest(
             self.path, argv=self.argv, extra=extra,
             **{k: self.fields.get(k) for k in ("config", "model_config", "device")},
@@ -728,8 +803,9 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     ``--session_dir`` a ``SessionStore``, and ``--serve_rollout_steps``
     makes each sample a rollout session. With ``--serve_replicas N > 1`` a
     ``ReplicaRouter`` over N replicas on the same card takes the server's
-    place. The server writes its events to ``sink`` and its request spans
-    to ``tracer`` when given."""
+    place, and with ``--autoscale`` one over the founding replicas, which an
+    ``AutoscaleController`` scales. The server writes its events to ``sink``
+    and its request spans to ``tracer`` when given."""
     if args.serve_prewarm:
         raise NotPortedError(
             "--serve_prewarm (AOT executable snapshots, JAX's serve/aot.py) has no "
@@ -737,7 +813,9 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             "replica warms by dispatching every bucket")
     device = run_device(args)
     data, sc = configs_from_args(args)
-    if sc.replicas > 1 and (args.scan_layers or args.flat_params):
+    # An elastic pool routes through the router even from one replica.
+    replicated = sc.replicas > 1 or sc.autoscale
+    if replicated and (args.scan_layers or args.flat_params):
         # The replicas serve the standard layout only, as JAX's do.
         raise ValueError(
             "--serve_replicas serves the standard param layout only; "
@@ -809,7 +887,7 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             session_store=session_store,
             tenants=tenants,
         )
-        if sc.replicas > 1:
+        if replicated:
             # Replicas of the served weights, all on the run's card, each
             # on its own stream; --serve_reload_every rolls across them.
             replicas = build_replicas(model, sc.replicas, batch_size=sc.max_batch,
@@ -820,6 +898,7 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             replicas = None
             server = InferenceServer(
                 InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype), **common)
+        controller = None
         try:
             t0 = time.monotonic()
             if replicas is not None:
@@ -831,12 +910,59 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             warm_s = time.monotonic() - t0
             if publisher is not None:
                 publisher.start()
-            summary, results = _serve_storm(args, sc, server, samples, checkpointer, preempt)
+            if sc.autoscale:
+                # Scale-out replicas come from the factory build_replicas
+                # uses for the founding pool. JAX gives each slot its own
+                # devices and refuses --autoscale_max beyond the device
+                # count; here every replica shares the run's card on its
+                # own stream, so every slot is that card and no count is
+                # refused.
+                def autoscale_factory(rid, slot):
+                    return build_replica(model, rid, device, batch_size=sc.max_batch,
+                                         dtype=sc.dtype)
+
+                # The controller reads the registry and the evaluator the
+                # publisher polls, and scales the founding pool between the
+                # bounds while the storm runs.
+                controller = AutoscaleController(
+                    server,
+                    replica_factory=autoscale_factory,
+                    min_replicas=sc.autoscale_min,
+                    max_replicas=sc.autoscale_max,
+                    interval_s=sc.autoscale_interval_s,
+                    cooldown_s=sc.autoscale_cooldown_s,
+                    up_load=sc.autoscale_up_load,
+                    down_load=sc.autoscale_down_load,
+                    down_ticks=sc.autoscale_down_ticks,
+                    heal_after_s=sc.autoscale_heal_after_s,
+                    drain_timeout_s=sc.drain_timeout_s,
+                    registry=registry,
+                    evaluator=publisher.evaluator if publisher is not None else None,
+                    warm_samples=samples,
+                    pack_plan=pack_plan,
+                    prewarm_manifest=None,
+                    sink=sink,
+                    tenants=tenants,
+                ).start()
+            summary, results = _serve_storm(args, sc, server, samples, checkpointer, preempt,
+                                            controller=controller)
         finally:
-            # The publisher's thread stops before the sink can close, on
-            # every exit path; its final snapshot follows the drain.
+            # The controller's and the publisher's threads stop before the
+            # sink can close, on every exit path; the publisher's final
+            # snapshot follows the drain. close() is idempotent.
+            if controller is not None:
+                controller.close()
             if publisher is not None:
                 publisher.close()
+    if controller is not None:
+        ast_stats = controller.stats()  # closed before the drain
+        if manifest is not None:
+            manifest.write(autoscale={
+                **ast_stats, "replica_seconds": round(controller.replica_seconds(), 3)})
+        print(f"Autoscale: pool [{sc.autoscale_min}, {sc.autoscale_max}], "
+              f"{ast_stats['scale_ups']} up / {ast_stats['scale_downs']} down / "
+              f"{ast_stats['replaces']} replaced over {ast_stats['ticks']} ticks; "
+              f"{controller.replica_seconds():.1f} replica-seconds")
     metrics = None
     if publisher is not None:
         final = publisher.close()  # already closed: the final row
@@ -870,7 +996,8 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
 
 
 def _serve_storm(args, sc: ServeConfig, server: InferenceServer | ReplicaRouter, samples,
-                 checkpointer, preempt) -> tuple[dict, list[ServeResult | RolloutResult]]:
+                 checkpointer, preempt, controller=None
+                 ) -> tuple[dict, list[ServeResult | RolloutResult]]:
     """Drive the in-process request storm through a started server (or
     router: its reload rolls across the replicas) and
     drain it (``gnot_tpu/main.py::_serve_storm``): submitting stops once a
@@ -879,7 +1006,9 @@ def _serve_storm(args, sc: ServeConfig, server: InferenceServer | ReplicaRouter,
     ``--serve_reload_every`` submissions the checkpoint is hot-reloaded
     under the deadline; each future is waited for up to
     ``drain_timeout_s`` (times K for a session), and the drain gets
-    ``drain_timeout_s``. Returns ``(summary, results)``; the drain runs on
+    ``drain_timeout_s``. The autoscale ``controller`` (when elastic) is
+    closed between the last result and the drain, so no scale action races
+    the final rollup. Returns ``(summary, results)``; the drain runs on
     every exit path."""
     futures = []
     rollout_k = sc.rollout_steps
@@ -894,6 +1023,8 @@ def _serve_storm(args, sc: ServeConfig, server: InferenceServer | ReplicaRouter,
                 server.reload(deadline_ms=sc.deadline_ms)
         timeout = sc.drain_timeout_s * max(1, rollout_k)
         results = [f.result(timeout=timeout) for f in futures]
+        if controller is not None:
+            controller.close()
     finally:
         summary = server.drain(sc.drain_timeout_s)
     return summary, results

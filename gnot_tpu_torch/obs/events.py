@@ -48,6 +48,12 @@ ROLLING_RELOAD = "rolling_reload"
 REPLICA_WARM = "replica_warm"
 SESSION_MIGRATE = "session_migrate"
 REPLICA_REMOVE = "replica_remove"
+PROGRAM_CATALOG = "program_catalog"
+CAPACITY_SNAPSHOT = "capacity_snapshot"
+AUTOSCALE_DECISION = "autoscale_decision"
+SCALE_UP = "scale_up"
+SCALE_DOWN = "scale_down"
+REPLICA_REPLACE = "replica_replace"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +257,61 @@ EVENTS: dict[str, EventSpec] = {
         "boundary, its queue flushed, its latency histograms kept in the "
         "pool rollup",
         optional=("pool", "sessions_migrated", "drain_timeout_s"),
+    ),
+    "program_catalog": EventSpec(
+        fields=("key", "source"),
+        module="gnot_tpu_torch/serve/catalog.py",
+        doc="a program entered the catalog: `key` is the dtype-keyed "
+        "program signature (JAX's), `source` its provenance ('compile', "
+        "JAX's name: recorded at the program's first dispatch), `costs` "
+        "the analytic count of obs/costs.py (the fields it does not count "
+        "listed under `unavailable`, never 0)",
+        optional=("costs", "replica"),
+    ),
+    "capacity_snapshot": EventSpec(
+        fields=("programs", "pool"),
+        module="gnot_tpu_torch/serve/catalog.py",
+        doc="drain-time capacity model: per-program cost x traffic rates "
+        "(device time per token, achieved FLOPs/s, useful-token fraction) "
+        "and the pool rollup of sustainable tokens/s and requests/s per "
+        "replica (x / device_s); retired replicas' traffic merged in",
+        optional=("replica",),
+    ),
+    "autoscale_decision": EventSpec(
+        fields=("action", "reason", "pool", "min", "max"),
+        module="gnot_tpu_torch/serve/autoscaler.py",
+        doc="the autoscaling controller acted or a stability guard vetoed "
+        "it: `action` 'scale_up' | 'scale_down' | 'replace' | 'hold'; a "
+        "'hold' names the guard (cooldown_up | cooldown_down | "
+        "cooldown_heal | at_max | flap_suppressed | last_replica | "
+        "batch_deferral) and is emitted on edges only; `load` is the "
+        "per-replica in-system load read, `alerts` the active objectives",
+        optional=("replica", "load", "alerts", "detail"),
+    ),
+    "scale_up": EventSpec(
+        fields=("replica", "pool", "reason", "warm_source", "seconds"),
+        module="gnot_tpu_torch/serve/autoscaler.py",
+        doc="the controller grew the pool: a replica built on the card, "
+        "warmed before it joined (`warm_source` 'compile': its warm-up "
+        "dispatches) and admitted to routing; `seconds` is build + warm "
+        "+ join, `reason` the signal (load | surge | below_min | "
+        "slo:<objective>)",
+        optional=("load",),
+    ),
+    "scale_down": EventSpec(
+        fields=("replica", "pool", "reason"),
+        module="gnot_tpu_torch/serve/autoscaler.py",
+        doc="the controller shrank the pool: the named replica retired by "
+        "drain-then-remove after the calm held for the configured ticks",
+        optional=("load", "sessions_migrated"),
+    ),
+    "replica_replace": EventSpec(
+        fields=("from_replica", "to_replica", "reason"),
+        module="gnot_tpu_torch/serve/autoscaler.py",
+        doc="self-healing: a dead, wedged or breaker-stuck replica was "
+        "removed and a fresh one built and warmed on its slot under a new "
+        "id (`reason` is the verdict that condemned it)",
+        optional=("pool", "seconds"),
     ),
     "trace_flush": EventSpec(
         fields=("path", "spans", "dropped"),

@@ -16,16 +16,24 @@ router):
 * ``replica``: ``EngineReplica``, ``build_replicas``, ``build_replica``
   (replicas sharing one card, each on its own CUDA stream);
 * ``router``: ``ReplicaRouter`` (health, bucket affinity, the rolling
-  reload, session migration, scale-in and scale-out, the pool summary).
+  reload, session migration, scale-in and scale-out, the pool summary);
+* ``catalog``: ``ProgramCatalog``, per-program costs joined with traffic
+  (the capacity model);
+* ``autoscaler``: ``AutoscaleController``, the self-healing elastic pool.
 
-The autoscaler, the program catalog, AOT prewarm and federation are not
-ported (``ROADMAP.md``). The names of ``server``, ``replica`` and
-``router`` load on first use: ``server`` imports the trainer, which
-imports the engine from this package.
+AOT prewarm and federation are not ported (``ROADMAP.md``). The names of
+``server``, ``replica``, ``router`` and ``autoscaler`` load on first use:
+``server`` imports the trainer, which imports the engine from this
+package.
 """
 
 from gnot_tpu_torch.serve import rollout  # noqa: F401
 from gnot_tpu_torch.serve.batcher import Batcher  # noqa: F401
+from gnot_tpu_torch.serve.catalog import (  # noqa: F401
+    ProgramCatalog,
+    bucket_program_key,
+    packed_program_key,
+)
 from gnot_tpu_torch.serve.engine import InferenceEngine  # noqa: F401
 from gnot_tpu_torch.serve.policies import (  # noqa: F401
     DEFAULT_TENANT,
@@ -55,6 +63,9 @@ _LAZY = {
     "build_replica": "replica",
     "build_replicas": "replica",
     "ReplicaRouter": "router",
+    "AutoscaleController": "autoscaler",
+    "HEAL_REASONS": "autoscaler",
+    "PRESSURE_OBJECTIVES": "autoscaler",
 }
 
 

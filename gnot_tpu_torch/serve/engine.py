@@ -1,7 +1,7 @@
 """InferenceEngine: the forward path for inference, offline and serving.
 
 Port of ``gnot_tpu/serve/engine.py::InferenceEngine`` without the AOT
-table, program catalog or sanitizer. Three entry points:
+table or the sanitizer. Three entry points:
 
 * ``predict(samples)`` — the offline, all-at-once path: bucketed
   batches of ``batch_size``, per-sample unpadded outputs.
@@ -15,6 +15,10 @@ table, program catalog or sanitizer. Three entry points:
   rows ("pack, don't pad"); segment Grams keep attention per sample, so
   each output matches its solo padded dispatch to summation order, and
   request i gets exactly its own ``[n_i, out]`` rows.
+
+With a program catalog attached (``attach_catalog``, ``serve/catalog.py``)
+each dispatch stamps its program key into ``timings["program"]`` and a
+program's first dispatch records its costs (``obs/costs.py::program_costs``).
 
 The weights are swapped atomically under a lock (``swap_params``); a
 dispatch reads the published model once, so in-flight requests always
@@ -60,6 +64,8 @@ from gnot_tpu_torch.data.batch import (
 )
 from gnot_tpu_torch.models import precision
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
+from gnot_tpu_torch.obs.costs import program_costs, unavailable_costs
+from gnot_tpu_torch.serve.catalog import bucket_program_key, packed_program_key
 
 
 class InferenceEngine:
@@ -79,6 +85,8 @@ class InferenceEngine:
         self._model = precision.serve_model(model, dtype).eval()  #: guarded_by _lock
         # Distinct dispatch signatures seen so far.
         self._shapes: set[tuple] = set()  #: guarded_by _lock
+        # The shared program catalog (serve/catalog.py), or None.
+        self._catalog = None
 
     def _on_stream(self):
         """The engine's stream as the calling thread's current one."""
@@ -152,6 +160,35 @@ class InferenceEngine:
         timings["unpad"] = (t2, clock())
         return outs
 
+    # -- program catalog (serve/catalog.py) --------------------------------
+
+    def attach_catalog(self, catalog) -> None:
+        """Wire (or detach, with None) the shared program catalog:
+        dispatches then record first-seen program costs and stamp their
+        program key into ``timings`` for the server's attribution."""
+        self._catalog = catalog
+
+    @property
+    def catalog(self):
+        return self._catalog
+
+    def _capture_costs(self, program: str, **shape) -> None:
+        """Record one program's costs into the attached catalog, once per
+        program key, counted at its dispatch ``shape`` (``program_costs``'
+        arguments). ``source`` is JAX's "compile": here it means the
+        program's first dispatch. A failed count records the
+        ``unavailable`` marker and never raises into a dispatch."""
+        cat = self._catalog
+        if cat is None or cat.has(program):
+            return
+        try:
+            model = self.model
+            costs = program_costs(model.config, dtype=self.dtype, params=model.parameters(),
+                                  **shape)
+        except Exception as e:  # a cost count must never fail serving
+            costs = unavailable_costs(f"capture failed: {type(e).__name__}")
+        cat.record(program, costs, source="compile")
+
     # -- the serving hot path ----------------------------------------------
 
     def infer(
@@ -190,10 +227,14 @@ class InferenceEngine:
             dtype=self.dtype,
         )
         self._note_shape(batch)
+        program = bucket_program_key(pad_nodes, pad_funcs, rows, self.dtype)
         if timings is not None:
             timings["batch_assembly"] = (t0, clock())
-        return self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+            timings["program"] = program
+        outs = self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
             out, [(i, 0, s.coords.shape[0]) for i, s in enumerate(reqs)]))
+        self._capture_costs(program, rows=rows, pad_nodes=pad_nodes, pad_funcs=pad_funcs)
+        return outs
 
     def warmup(
         self, samples: Sequence[MeshSample], *, rows: int | None = None
@@ -246,10 +287,14 @@ class InferenceEngine:
             device=self.device, dtype=self.dtype,
         )
         self._note_shape(batch)
+        program = packed_program_key(plan, self.dtype)
         if timings is not None:
             timings["batch_assembly"] = (t0, clock())
-        return self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+            timings["program"] = program
+        outs = self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
             out, [(r, off, s.coords.shape[0]) for s, (r, off) in zip(reqs, placements)]))
+        self._capture_costs(program, plan=plan)
+        return outs
 
     def warmup_packed(self, samples: Sequence[MeshSample], plan: PackPlan) -> int:
         """One packed dispatch of the first sample that fits ``plan``

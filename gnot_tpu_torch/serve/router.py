@@ -46,11 +46,15 @@ adds ``router_routes_total{reason=}``, ``router_migrations_total``, the
 ``pool_replicas`` gauge and a ``serve_wedged{replica=}`` level per replica
 (the metrics plane's ``wedged`` objective).
 
-Not ported: ``catalog=`` (the program catalog) and the autoscaler's
-probes (``pool()``, ``assess()``) come with the autoscaler;
-``persist_snapshots=True`` and ``trace_ctx`` with the federation;
-``prewarm_from`` has no counterpart (AOT snapshots: eager PyTorch has no
-executable).
+One ``catalog=`` (``serve/catalog.py``) is shared by every replica's
+server, scale-outs included: each attributes its dispatches to the one
+catalog, and ``drain()`` puts the pool's ``capacity_model`` in the summary
+(one ``capacity_snapshot`` event). ``pool()`` and ``assess(replica)`` are
+the probes the autoscaler reads (``serve/autoscaler.py``).
+
+Not ported: ``persist_snapshots=True`` and ``trace_ctx`` wait for the
+federation; ``prewarm_from`` has no counterpart (AOT snapshots: eager
+PyTorch has no executable).
 
 Thread-safety: the routing counters, health memory and round-robin cursor
 are shared between submitting threads and the reload and drain threads,
@@ -117,8 +121,6 @@ class ReplicaRouter:
             raise ValueError("ReplicaRouter needs at least one replica")
         if route_policy not in ROUTE_POLICIES:
             raise ValueError(f"unknown route_policy {route_policy!r}; one of {ROUTE_POLICIES}")
-        if catalog is not None:
-            raise NotPortedError("the program catalog (catalog=) comes with the autoscaler")
         if persist_snapshots:
             raise NotPortedError(
                 "persist_snapshots (every due snapshot written to the session store, "
@@ -161,8 +163,12 @@ class ReplicaRouter:
             # One TenantPolicy for every replica: a tenant's quota bounds
             # its in-system requests across the pool.
             tenants=tenants,
+            # One program catalog: program keys are pool-wide, traffic rows
+            # carry the replica id.
+            catalog=catalog,
         )
         self.tenants = tenants
+        self._catalog = catalog
         self._session_store = session_store
         self._metrics = metrics
         # Per-replica wedge gauges, cached off the placement path.
@@ -209,6 +215,16 @@ class ReplicaRouter:
         other threads iterate)."""
         with self._lock:
             return list(self.replicas)
+
+    def pool(self) -> list[EngineReplica]:
+        """The live pool, a snapshot (the autoscaler's read of membership)."""
+        return self._pool()
+
+    def assess(self, replica: EngineReplica):
+        """One pooled replica's health verdict, emitting its
+        ``replica_health`` edge as a placement would (the autoscaler's
+        self-healing scan)."""
+        return self._assess(replica, self._clock())
 
     def add_replica(self, replica: EngineReplica) -> EngineReplica:
         """Scale-out: give an already warmed replica (``build_replica`` and
@@ -718,6 +734,12 @@ class ReplicaRouter:
                 "step_latency_p50_ms": step_hist.percentile(0.50),
                 "step_latency_p99_ms": step_hist.percentile(0.99),
             }
+        if self._catalog is not None:
+            # The pool's capacity model, retired replicas' traffic included;
+            # the capacity_snapshot event once across repeated drains.
+            model = self._catalog.emit_snapshot()
+            summary["capacity_model"] = (
+                model if model is not None else self._catalog.capacity_model())
         if not self._drained.is_set():
             self._drained.set()
             self._event(events.SERVE_SUMMARY, **summary)

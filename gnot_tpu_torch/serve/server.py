@@ -90,7 +90,12 @@ exposes ``progress_age_s`` (stamped by the worker loop once a poll and
 once a dispatch), ``depth``, ``worker_alive`` (False from the moment the
 ``replica_kill`` fault fires), ``latency_histogram`` and
 ``begin_eviction`` (a scale-in hands each resident session to the router
-at its next step boundary). Rolling persistence (``persist_snapshots``,
+at its next step boundary). With a program catalog (``catalog=``,
+``serve/catalog.py``, attached to the engine too when it has none) every
+executed dispatch (padded, packed, rollout step) is attributed to its
+program where the pad-waste rollup is fed, and a standalone server's
+summary carries the ``capacity_model`` (one ``capacity_snapshot`` event).
+Rolling persistence (``persist_snapshots``,
 the federation's migration substrate) is not ported.
 """
 
@@ -206,7 +211,8 @@ class InferenceServer:
     ``preempt`` a ``PreemptionHandler`` whose flag the worker polls;
     ``clock`` the monotonic clock of every policy, span and latency;
     ``tenants`` a ``TenantPolicy`` (None: tenant mode off);
-    ``session_store`` a ``rollout.SessionStore`` for drained sessions."""
+    ``session_store`` a ``rollout.SessionStore`` for drained sessions;
+    ``catalog`` a ``ProgramCatalog`` (one shared by a pool)."""
 
     def __init__(
         self,
@@ -231,6 +237,7 @@ class InferenceServer:
         persist_snapshots: bool = False,
         tenants=None,
         replica: int | None = None,
+        catalog=None,
     ):
         if persist_snapshots:
             raise NotPortedError(
@@ -320,6 +327,12 @@ class InferenceServer:
             self._step_hist = LogHistogram()
             self._c_requests = self._c_completed = self._c_dispatches = self._c_steps = None
         self._step_res = Reservoir()
+        # Program catalog: every executed dispatch is attributed to its
+        # program; one catalog= arms the engine's cost capture too when
+        # nothing else did (the router passes it per replica).
+        self._catalog = catalog
+        if catalog is not None and getattr(engine, "catalog", None) is None:
+            engine.attach_catalog(catalog)
         # Registry series caches (get-or-create off the hot path).
         self._pack_counters: dict[str, dict] = {}
         self._bucket_hists: dict[str, LogHistogram] = {}
@@ -926,6 +939,13 @@ class InferenceServer:
             dispatch_ms_p50=_percentile(dispatch_ms, 50),
             dispatch_ms_max=max(dispatch_ms, default=None),
         )
+        if self._catalog is not None and self.replica is None:
+            # A standalone server (the router's drain builds the pool's):
+            # the catalog's costs joined with this server's traffic, the
+            # capacity_snapshot event once.
+            model = self._catalog.emit_snapshot() if emit else None
+            summary["capacity_model"] = (
+                model if model is not None else self._catalog.capacity_model())
         if emit:
             self._event(events.SERVE_SUMMARY, **summary)
             if self.sink is not None:
@@ -1102,9 +1122,10 @@ class InferenceServer:
             n=len(live), packed=plan is not None, real_tokens=real, capacity_tokens=capacity,
             **({"trace_ids": member_ids} if member_ids else {}),
         )
-        # Phase stamps only when a member is traced.
-        timings = {} if member_ids else None
-        stamps = {"timings": timings, "clock": self._clock} if member_ids else {}
+        # Phase stamps when a member is traced or the catalog attributes
+        # the dispatch (its device time and program key).
+        timings = {} if member_ids or self._catalog is not None else None
+        stamps = {"timings": timings, "clock": self._clock} if timings is not None else {}
         t0 = self._clock()
         try:
             samples = [r.sample for r in live]
@@ -1125,8 +1146,15 @@ class InferenceServer:
             return
         with self._lock:
             self._dispatch_ms.append((self._clock() - t0) * 1e3)
-        # The dispatch ran: its pad waste is real whatever its outputs hold.
+        # The dispatch ran: its pad waste is real whatever its outputs hold,
+        # and the catalog attributes it to its program.
         self._note_pack(bucket, real, capacity)
+        if self._catalog is not None:
+            dev = timings.get("device")
+            self._catalog.note_dispatch(
+                timings.get("program") or bucket, requests=len(live), real_tokens=real,
+                capacity_tokens=capacity, device_s=(dev[1] - dev[0]) if dev else None,
+                replica=self.replica)
         if self.faults is not None and self.faults.maybe_nan_output(dispatch):
             outs = [np.full_like(o, np.nan) for o in outs]
         if self.faults is not None and [

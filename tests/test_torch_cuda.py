@@ -1030,3 +1030,55 @@ def test_two_replicas_share_the_card_each_on_its_own_stream():
         want = engine.infer(group, pad_nodes=key[0], pad_funcs=key[1], rows=4)
         for r, w in zip(results[i::2], want):
             np.testing.assert_allclose(r.output, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_a_replica_the_controller_adds_runs_on_its_own_stream_after_its_copy():
+    """``AutoscaleController`` scaling a one-replica pool out on the card:
+    the factory's replica gets its own non-default stream and weights copy,
+    its warm-up (before it joins) and its dispatches run after the copy on
+    that stream and match the single engine (1e-5 / 1e-6), and the kernel
+    is launched 2 x blocks per dispatch and warm-up, summed over both."""
+    from gnot_tpu_torch.serve.autoscaler import AutoscaleController
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.replica import build_replica
+    from gnot_tpu_torch.serve.router import ReplicaRouter
+
+    device = _card()
+    samples = datasets.synth_ns2d(8, seed=5, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+    def factory(rid, slot):
+        return build_replica(model, rid, device, batch_size=4)
+
+    launches = fused_ffn.fused_gated_ffn_kernel.launches
+    r0 = factory(0, 0)
+    warmed = r0.warm(samples[:1], rows=4)
+    router = ReplicaRouter([r0], max_batch=4, max_wait_ms=10_000, route_policy="round_robin")
+    c = AutoscaleController(router, replica_factory=factory, max_replicas=2, up_load=4.0,
+                            warm_samples=samples[:1], clock=lambda: 0.0)
+    queued = [router.submit(s) for s in samples]  # the worker not started: depth 8
+    decision = c.tick()
+    assert decision["action"] == "scale_up" and decision["warm_source"] == "compile"
+    r1 = router.pool()[1]
+    warmed += r1.warm_stats["programs"]
+    default = torch.cuda.default_stream(device)
+    assert r1.engine.stream not in (None, default, r0.engine.stream)
+    assert all(p.data_ptr() != q.data_ptr() for p, q in zip(
+        r0.engine.model.parameters(), r1.engine.model.parameters()))
+    r0.server.start()  # the router started the joining replica's server already
+    more = [router.submit(s) for s in samples]
+    results = [f.result(timeout=120) for f in queued + more]
+    summary = router.drain(60)
+    c.close()
+    launched = fused_ffn.fused_gated_ffn_kernel.launches - launches
+    assert all(r.ok for r in results), [r.reason for r in results]
+    assert summary["per_replica"]["1"]["completed"] > 0
+    assert launched == 2 * cfg.n_attn_layers * (summary["dispatches"] + warmed)
+    engine = InferenceEngine(model, batch_size=4)
+    key = engine.bucket_key(samples[0])
+    want = [o for i in (0, 4) for o in engine.infer(samples[i:i + 4], pad_nodes=key[0],
+                                                     pad_funcs=key[1], rows=4)]
+    for r, w in zip(results, want + want):
+        np.testing.assert_allclose(r.output, w, rtol=1e-5, atol=1e-6)

@@ -68,6 +68,7 @@ from gnot_tpu_torch.obs.tracing import Tracer
 from gnot_tpu_torch.resilience import faults
 from gnot_tpu_torch.serve import policies, rollout
 from gnot_tpu_torch.serve.policies import TenantPolicy
+from gnot_tpu_torch.serve.catalog import ProgramCatalog
 from gnot_tpu_torch.serve.replica import EngineReplica, build_replica, build_replicas
 from gnot_tpu_torch.serve.rollout import SessionStore
 from gnot_tpu_torch.serve.router import ReplicaRouter
@@ -786,8 +787,8 @@ def test_the_pool_merge_and_events_are_jax_s(setup, tmp_path):
 def test_replicas_share_the_device_and_keep_their_own_weights(setup):
     """``build_replicas`` on the CPU: each replica its own copy of the
     weights (the model itself untouched), no stream, JAX's refusals; a
-    replica's outputs equal the served model's; ``prewarm_from`` and a
-    catalog are refused."""
+    replica's outputs equal the served model's; ``prewarm_from`` and
+    ``persist_snapshots`` are refused, a catalog is taken."""
     model = setup["model"]
     reps = build_replicas(model, 2, batch_size=MAX_BATCH)
     assert [r.replica_id for r in reps] == [0, 1]
@@ -810,8 +811,12 @@ def test_replicas_share_the_device_and_keep_their_own_weights(setup):
         build_replicas(model, 3, batch_size=MAX_BATCH, devices=["cpu", "cpu"])
     with pytest.raises(NotPortedError, match="prewarm"):
         one.prewarm_from({})
-    with pytest.raises(NotPortedError, match="catalog"):
-        ReplicaRouter([one], catalog=object())
+    # A catalog is taken (it came with the autoscaler's slice): the one
+    # catalog reaches the replica's server and, through it, its engine.
+    catalog = ProgramCatalog()
+    shared = ReplicaRouter([one], catalog=catalog)
+    assert one.server._catalog is catalog and one.engine.catalog is catalog
+    assert shared.pool() == [one]
     with pytest.raises(NotPortedError, match="persist_snapshots"):
         ReplicaRouter([one], persist_snapshots=True)
 
