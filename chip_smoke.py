@@ -253,6 +253,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a tick, no session lost, every trajectory bitwise ``offline_rollout``;
    (d) (b)'s ramp through a static pool of three replicas, its
    replica-seconds and p99 beside the controller's (printed, no bar).
+17. the federation at phase 4's configuration, ``main --serve
+   --serve_replicas 2 --hosts 2`` (two loopback hosts of one replica
+   each, a ``ClusterRouter`` over the wire protocol): (a) in-proc links in
+   f32: 16/16 within phase 4's bar of a forward through the kernel's
+   plain version, ``hosts_dead`` and ``protocol_errors`` 0, one
+   ``cluster_summary``, launches 8 x (dispatches + warm-ups) summed over
+   the hosts, all f32; its latency beside one router over two replicas
+   and the largest frames beside ``MAX_FRAME_BYTES``; (b) the same over
+   loopback TCP (``--federation_port``), its wall beside (a)'s; (c) bf16
+   within phase 4b's bar, bf16 launches only, with the merged cluster
+   trace: three sources and one stitched chain a request (``placement``,
+   ``cluster_request``, a host's serve spans); (d) 8-step sessions with a
+   session store and ``host_kill@12`` under 0.1 / 0.2 / 0.4 s leases: one
+   ``host_dead``, a ``session_remigrate`` for each of its sessions, none
+   lost, every trajectory bitwise ``offline_rollout``, and the host time
+   of one ``SessionStore.save``; (e) (d) traced at rate 1 with the flight
+   recorders: the merged trace's sources the controller and the
+   survivor, each re-migrated session's resumed steps in its original
+   trace, one controller ring dumped on ``host_dead``.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -290,7 +309,9 @@ and (d); ``rollout_serve_launches``, ``rollout_bf16_serve_launches``,
 15's paths (a) f32, (a) bf16, (c), (d), (e) and (f);
 ``catalog_serve_launches``, ``autoscale_serve_launches`` and
 ``heal_serve_launches`` over phase 16's paths (a) (all six runs), (b)
-and (c). Launches
+and (c); ``federation_serve_launches``, ``federation_tcp_launches``,
+``federation_bf16_launches`` and ``federation_kill_launches`` over phase
+17's runs (a), (b), (c) and (d) (every host's replicas summed). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -4348,6 +4369,271 @@ def catalog_autoscale_phase(torch, np, card: str, layers) -> dict:
     return out
 
 
+# -- phase 17: the federation and cluster tracing ------------------------------------
+
+# Phase 17's federated runs: phase 4's traffic through main with the pool
+# split into two loopback hosts of one replica each (the phase's flags and
+# a metrics path are appended per run).
+FEDERATION_ARGV = SERVE13_ARGV + ["--serve_replicas", "2", "--hosts", "2"]
+# (d)'s leases: the control loop every 0.1 s, SUSPECT after 0.2 s and DEAD
+# after 0.4 s of silence, above the worst dispatch wall PERF.md section 5
+# records with two worker threads (~45 ms); an in-proc probe of a live
+# host is answered inline, so a slow tick adds no silence. The dead bound
+# must end before the victim's sessions do: its pool runs on after the
+# kill (only the agent falls silent), and a session it completes deletes
+# its persisted snapshot, leaving the survivor a restart from zero.
+FEDERATION_LEASES = ["--heartbeat_interval_s", "0.1", "--suspect_after_s", "0.2",
+                     "--dead_after_s", "0.4"]
+# The first host to take its 12th inbound control message dies: its hello,
+# its eight placements, then three heartbeats (~0.25 s into the storm, a
+# step taking ~0.1 s), so its sessions are mid-rollout, past their first
+# persisted snapshots.
+FEDERATION_KILL = "host_kill@12"
+
+
+def free_port_pair() -> int:
+    """A loopback port p >= 1024 with p and p + 1 both free (host i of a
+    TCP federation listens on p + i)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+        if not 1024 <= p < 65535:
+            continue
+        with socket.socket() as b:
+            try:
+                b.bind(("127.0.0.1", p + 1))
+            except OSError:
+                continue
+        return p
+    raise RuntimeError("no free loopback port pair")
+
+
+def trace_chains(merged: dict) -> tuple[dict, dict]:
+    """A merged cluster trace's spans by trace id, as (source, span name)
+    pairs, and each ``cluster_rollout`` span's session name -> trace id."""
+    source = {e["pid"]: e["args"]["name"] for e in merged["traceEvents"] if e["ph"] == "M"}
+    chains: dict[str, set] = {}
+    sessions: dict[str, str] = {}
+    for e in merged["traceEvents"]:
+        if e["ph"] != "X":
+            continue
+        tid = e["args"]["trace_id"]
+        chains.setdefault(tid, set()).add((source[e["pid"]], e["name"]))
+        if e["name"] == "cluster_rollout":
+            sessions[e["args"]["session"]] = tid
+        if e["name"] == "placement":
+            chains[tid].add(("placement", e["args"]["kind"], e["args"]["host"]))
+    return chains, sessions
+
+
+def federation_phase(torch, np, card: str, layers) -> dict:
+    """Phase 17: the federation at phase 4's configuration, two loopback
+    hosts of one replica each on the one card, through ``main --serve
+    --serve_replicas 2 --hosts 2``: (a) in-proc links in f32, beside one
+    router over two replicas; (b) loopback TCP (``--federation_port``);
+    (c) bf16, with the merged cluster trace; (d) 8-step rollouts with a
+    session store and ``host_kill`` under 0.1 / 0.2 / 0.4 s leases, traced
+    (e) at rate 1 with the flight recorders on. Returns the FFN kernel's
+    launches over (a), (b), (c) and (d)."""
+    import shutil
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.obs import events
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.serve import federation as fed
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.rollout import RolloutSession, SessionStore, offline_rollout
+
+    root = TRAIN_OUT / "federation17"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out: dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    def invalid(recs):
+        return [(r, p) for r in recs if (p := events.validate_record(r))]
+
+    def kinds(recs, kind):
+        return [r for r in recs if r.get("event") == kind]
+
+    def fed_run(tag: str, *flags: str):
+        d = root / tag
+        argv = FEDERATION_ARGV + ["--metrics_path", str(d / "m.jsonl"), *flags]
+        fused_gated_ffn_kernel.launches = 0
+        fused_gated_ffn_kernel.launches_by_dtype = {}
+        t0 = time.perf_counter()
+        run, lines = run_observed(port_main, argv)
+        wall = time.perf_counter() - t0
+        launches = fused_gated_ffn_kernel.launches
+        by_dtype = dict(fused_gated_ffn_kernel.launches_by_dtype)
+        s = run.summary
+        recs = read_jsonl(d / "m.jsonl")
+        per_forward = 2 * run.model.config.n_attn_layers
+        hosts = {**s["per_host"], **s["drained_locally"]}
+        dispatches = sum(h["dispatches"] for h in hosts.values())
+        log(f"[federation] ({tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: {wall:.2f} s; "
+            f"launches {launches} = {per_forward} x ({dispatches} dispatches over hosts "
+            f"{sorted(hosts)} + {s['warmed_buckets']} warm-ups), by dtype {by_dtype}; per host "
+            f"(requests, completed, dispatches, p50, p99 ms) "
+            f"{[(h, x['requests'], x['completed'], x['dispatches'], x['latency_p50_ms'], x['latency_p99_ms']) for h, x in sorted(hosts.items())]}")
+        for line in lines:
+            if line.startswith(("Federated serve:", "Wrote merged", "Flight recorder", "WARNING")):
+                log(f"[federation]   {line}")
+        if (len(run.results) != 16 or not all(r.ok for r in run.results)
+                or launches == 0 or launches != per_forward * (dispatches + s["warmed_buckets"])
+                or s["protocol_errors"] or len(kinds(recs, "cluster_summary")) != 1
+                or invalid(recs)):
+            raise RuntimeError(f"[federation] ({tag}) the federated run is not whole: "
+                               f"{[(r.reason, r.detail) for r in run.results if not r.ok]}, "
+                               f"launches {launches}, summary {json.dumps({k: v for k, v in s.items() if k != 'per_host'})}, "
+                               f"invalid {invalid(recs)[:3]}")
+        return run, recs, launches, by_dtype, wall
+
+    def pct(values, q):
+        return float(np.percentile(np.asarray(values), q))
+
+    # (a) In-proc links, f32, beside one router over two replicas.
+    base, _ = run_observed(port_main, SERVE13_ARGV + ["--serve_replicas", "2"])
+    bs = base.summary
+    run_a, recs_a, launches, by_dtype, wall_a = fed_run("a")
+    s = run_a.summary
+    worst = hold_to_plain(np, "federation a", run_a.results,
+                          plain_outputs(torch, layers, run_a.model, run_a.samples))
+    lat = [r.latency_ms for r in run_a.results]
+    big = max(range(16), key=lambda i: run_a.samples[i].coords.shape[0])
+    submit_b = len(fed.encode_frame(fed.wire(fed.SUBMIT, id="q00001",
+                                             sample=fed.encode_sample(run_a.samples[big]))))
+    result_b = len(fed.encode_frame(fed.wire(
+        fed.RESULT, id="q00001", ok=True, reason="ok", output=fed._enc_arr(run_a.results[big].output),
+        latency_ms=1.0, detail="")))
+    log(f"[federation] (a) 16/16 ok, hosts_dead {s['hosts_dead']}, protocol_errors "
+        f"{s['protocol_errors']}; vs a forward through the kernel's plain version: max abs "
+        f"{worst:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL}); host-server latency over the 16 "
+        f"results p50 {pct(lat, 50):.3f} p99 {pct(lat, 99):.3f} ms, beside one router over two "
+        f"replicas p50 {bs['latency_p50_ms']:.3f} p99 {bs['latency_p99_ms']:.3f} ms; largest "
+        f"frames (full-width sample, base64 JSON) submit {submit_b} B, result {result_b} B of "
+        f"MAX_FRAME_BYTES {fed.MAX_FRAME_BYTES} on {card}")
+    if s["hosts_dead"] or by_dtype != {"f32": launches} or max(submit_b, result_b) > fed.MAX_FRAME_BYTES:
+        raise RuntimeError("[federation] (a) a host died, a non-f32 launch, or a frame too large")
+    out["federation_serve_launches"] = launches
+
+    # (b) The same over loopback TCP.
+    port = free_port_pair()
+    run_b, _, launches, by_dtype, wall_b = fed_run("b", "--federation_port", str(port))
+    worst_b = hold_to_plain(np, "federation b", run_b.results,
+                            plain_outputs(torch, layers, run_b.model, run_b.samples))
+    log(f"[federation] (b) over loopback TCP (ports {port}, {port + 1}): wall {wall_b:.2f} s vs "
+        f"in-proc {wall_a:.2f} s; vs plain max abs {worst_b:.3e}; hosts_dead "
+        f"{run_b.summary['hosts_dead']}")
+    if run_b.summary["hosts_dead"] or by_dtype != {"f32": launches}:
+        raise RuntimeError("[federation] (b) a host died or a non-f32 launch")
+    out["federation_tcp_launches"] = launches
+
+    # (c) bf16, with the merged cluster trace.
+    trace_c = root / "c" / "t.json"
+    run_c, _, launches, by_dtype, _ = fed_run("c", "--serve_dtype", "bfloat16", "--trace_path",
+                                              str(trace_c), "--trace_sample_rate", "1")
+    plain_c = plain_outputs(torch, layers, run_c.model, run_c.samples, dtype="bfloat16")
+    rel = float(np.linalg.norm(np.concatenate([r.output for r in run_c.results])
+                               - np.concatenate(plain_c)) / np.linalg.norm(np.concatenate(plain_c)))
+    merged = json.loads(trace_c.read_text())
+    chains, _ = trace_chains(merged)
+    whole = [t for t, c in chains.items()
+             if {("controller", "placement"), ("controller", "cluster_request")} <= c
+             and any(src.startswith("host") and n == "dispatch" for src, n, *_ in c)]
+    sources = sorted(merged["otherData"]["hosts"])
+    log(f"[federation] (c) bf16: launches by dtype {by_dtype}; vs the bf16 forward through the "
+        f"kernel's plain version: relative norm {rel:.3e} (bar {BF16_PLAIN_REL}); merged trace "
+        f"sources {sources}, {len(chains)} trace ids, {len(whole)} stitched chains "
+        f"(placement -> cluster_request -> a host's serve spans)")
+    if (by_dtype != {"bf16": launches} or rel > BF16_PLAIN_REL
+            or sources != ["controller", "host0", "host1"] or len(whole) != 16
+            or len(chains) != 16 or run_c.summary["hosts_dead"]):
+        raise RuntimeError("[federation] (c) the bf16 run or its merged trace is not whole")
+    out["federation_bf16_launches"] = launches
+
+    # (d) host_kill during rollouts, (e) traced, with the flight recorders.
+    d = root / "d"
+    run_d, recs_d, launches, by_dtype, _ = fed_run(
+        "d", "--serve_rollout_steps", str(ROLLOUT_K), "--session_dir", str(d / "sessions"),
+        "--serve_inject_fault", FEDERATION_KILL, *FEDERATION_LEASES, "--trace_path",
+        str(d / "t.json"), "--trace_sample_rate", "1", "--flight_recorder_s", "5")
+    s = run_d.summary
+    [dead] = kinds(recs_d, "host_dead") or [None]
+    remig = kinds(recs_d, "session_remigrate")
+    victim = dead["host"] if dead else None
+    engine = InferenceEngine(run_d.model, batch_size=4)
+    offline = [offline_rollout(engine, x, ROLLOUT_K, rows=4) for x in run_d.samples]
+    bitwise = all(len(r.outputs) == ROLLOUT_K and all(np.array_equal(a, b) for a, b in zip(
+        r.outputs, o)) for r, o in zip(run_d.results, offline))
+    store = SessionStore(str(d / "persist_probe"))
+    probe = RolloutSession("probe", run_d.samples[0], ROLLOUT_K)
+    for o in run_d.results[0].outputs:
+        probe.record_step(o)
+    probe.take_snapshot()
+    save_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        store.save(probe)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    done_b = len(fed.encode_frame(fed.wire(
+        fed.ROLLOUT_DONE, id="s00001", ok=True, reason="ok", steps_completed=ROLLOUT_K,
+        migrations=1, drained_at_step=None, detail="",
+        outputs=[fed._enc_arr(o) for o in run_d.results[0].outputs])))
+    log(f"[federation] (d) {FEDERATION_KILL}: host_dead {victim} after silent_s "
+        f"{dead['silent_s'] if dead else None} s from its first unanswered probe (its last ack "
+        f"came at most one 0.1 s tick before that probe), its "
+        f"{dead['sessions'] if dead else None} sessions -> {len(remig)} session_remigrate "
+        f"{[(e['session'], e['at_step'], e['replay_from']) for e in remig]}; summary sessions "
+        f"{s['sessions']} completed {s['completed']} remigrated {s['remigrated']} lost {s['lost']}; "
+        f"every trajectory bitwise offline_rollout on the card: {bitwise}; SessionStore.save of "
+        f"a due snapshot (host time, the carry and {ROLLOUT_K} outputs already on the host): "
+        f"median {statistics.median(save_ms):.3f} ms, max {max(save_ms):.3f} ms; the "
+        f"rollout_done frame {done_b} B")
+    if (not dead or s["hosts_dead"] != 1 or len(remig) != dead["sessions"] or not remig
+            or s["remigrated"] != len(remig) or s["lost"] or not bitwise
+            or any(e["from_host"] != victim for e in remig) or by_dtype != {"f32": launches}):
+        raise RuntimeError("[federation] (d) the host death is not survived whole")
+    out["federation_kill_launches"] = launches
+
+    merged = json.loads((d / "t.json").read_text())
+    chains, by_session = trace_chains(merged)
+    survivor = "host1" if victim == "host0" else "host0"
+    sources = sorted(merged["otherData"]["hosts"])
+    moved = {e["session"] for e in remig}
+    joined = [n for n in moved if n in by_session and
+              ("placement", "remigrate", survivor) in chains[by_session[n]]
+              and (survivor, "dispatch") in chains[by_session[n]]]
+    stitched = [n for n, t in by_session.items()
+                if {("controller", "placement"), ("controller", "cluster_rollout")} <= chains[t]
+                and (survivor, "dispatch") in chains[t]]
+    on_victim_only = sorted(set(by_session) - set(stitched))
+    restarted = sorted(n for n in moved if n in by_session and any(
+        c[:2] == ("placement", "restart") for c in chains[by_session[n]]))
+    dumps = sorted(p.name for p in d.glob("flight_*.json"))
+    dump = json.loads((d / dumps[0]).read_text()) if dumps else {}
+    log(f"[federation] (e) merged trace sources {sources} (the killed host answers no "
+        f"trace_pull); {len(by_session)} session traces, {len(stitched)} stitched to "
+        f"{survivor}'s serve spans, {len(on_victim_only)} served whole on {victim} before its "
+        f"death {on_victim_only}; re-migrated sessions whose resumed steps joined their original "
+        f"trace {len(joined)}/{len(moved)}, of them restarted from zero (no snapshot left) "
+        f"{len(restarted)}; flight recorder dumps {dumps} (ring of "
+        f"{dump.get('host')}, trigger {dump.get('trigger', {}).get('kind')} "
+        f"{dump.get('trigger', {}).get('host')}, {len(dump.get('entries', []))} entries)")
+    if (sources != sorted(["controller", survivor]) or len(by_session) != 16
+            or len(joined) != len(moved) or len(stitched) + len(on_victim_only) != 16
+            or not all(n not in moved and ("placement", "place", victim) in chains[by_session[n]]
+                       for n in on_victim_only)
+            or len(dumps) != 1 or dump.get("host") != "controller"
+            or dump["trigger"]["kind"] != "host_dead" or dump["trigger"].get("host") != victim):
+        raise RuntimeError("[federation] (e) the merged trace or the flight recorder is not whole")
+    log(f"[federation] phase 17 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -4562,6 +4848,9 @@ def main() -> int:
     # -- phase 16: the program catalog and the autoscaler ------------------
     autoscale_launches = catalog_autoscale_phase(torch, np, card, layers)
 
+    # -- phase 17: the federation and cluster tracing -----------------------
+    federation_launches = federation_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -4593,6 +4882,7 @@ def main() -> int:
         **rollout_launches,
         **router_launches,
         **autoscale_launches,
+        **federation_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -22,11 +22,11 @@ class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
     does not have yet. ``PreemptionHandler.should_stop(multiprocess=True)``
     raises it (the multi-host stop agreement waits for multi-process
-    training); ``InferenceServer`` and ``ReplicaRouter`` raise it for
-    ``persist_snapshots=True`` (rolling session persistence waits for the
-    federation), and ``EngineReplica.prewarm_from`` and ``--serve_prewarm``
-    for snapshot hydration (eager PyTorch has no compiled executable to
-    serialize)."""
+    training); ``EngineReplica.prewarm_from``, ``--serve_prewarm`` and the
+    federation's ``ClusterRouter(manifests=...)`` /
+    ``build_local_federation(manifests=...)`` raise it for snapshot
+    hydration (eager PyTorch has no compiled executable to serialize; a
+    ``HostAgent`` answers a ``prewarm`` frame with an ``error`` frame)."""
 
 
 def parse_tenant_spec(spec: str, *, what: str = "value") -> dict[str, str]:
@@ -427,6 +427,24 @@ class ServeConfig:
     autoscale_down_load: float = 1.0
     autoscale_down_ticks: int = 3
     autoscale_heal_after_s: float = 5.0
+    # The federation (serve/federation.py): hosts > 1 splits the replica
+    # pool evenly into `hosts` ReplicaRouter pools, each behind a HostAgent,
+    # and serves through a ClusterRouter over the versioned wire protocol
+    # (lease heartbeats, suspicion-then-dead detection, session
+    # re-migration); 1 is the single-host path. federation_port 0 uses
+    # in-proc links, a port >= 1024 real loopback TCP (host i on port + i).
+    # heartbeat_interval_s is the control loop's tick; suspect_after_s and
+    # dead_after_s are the detector's lease ages (the gap is the dwell).
+    hosts: int = 1
+    federation_port: int = 0
+    heartbeat_interval_s: float = 0.5
+    suspect_after_s: float = 2.0
+    dead_after_s: float = 6.0
+    # The flight recorder (obs/dtrace.py): the last N seconds of every span
+    # and event, sampled or not, in a bounded ring per host, dumped on
+    # trigger edges (slo_alert fire, breaker_open, host_dead,
+    # non_finite_loss, a lockguard inversion). 0 = off.
+    flight_recorder_s: float = 0.0
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
@@ -524,6 +542,41 @@ class ServeConfig:
             raise ValueError(
                 "autoscale_heal_after_s must be > 0, got "
                 f"{self.autoscale_heal_after_s}"
+            )
+        if self.hosts < 1:
+            raise ValueError(f"hosts must be >= 1, got {self.hosts}")
+        if self.hosts > 1 and self.replicas % self.hosts:
+            raise ValueError(
+                f"replicas ({self.replicas}) must divide evenly across "
+                f"hosts ({self.hosts}) — every host pool is identically "
+                "sized so the topology key is well-defined"
+            )
+        if self.federation_port and not 1024 <= self.federation_port <= 65535:
+            raise ValueError(
+                "federation_port must be 0 (in-proc) or in [1024, 65535], "
+                f"got {self.federation_port}"
+            )
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(
+                "heartbeat_interval_s must be > 0, got "
+                f"{self.heartbeat_interval_s}"
+            )
+        if not 0 < self.suspect_after_s < self.dead_after_s:
+            raise ValueError(
+                "failure detector needs 0 < suspect_after_s < "
+                "dead_after_s (the suspicion dwell), got "
+                f"{self.suspect_after_s}/{self.dead_after_s}"
+            )
+        if self.flight_recorder_s < 0:
+            raise ValueError(
+                "flight_recorder_s must be >= 0 (0 = off), got "
+                f"{self.flight_recorder_s}"
+            )
+        if self.hosts > 1 and self.autoscale:
+            raise ValueError(
+                "--autoscale is single-host (the pool-level controller); "
+                "with hosts > 1 use the cluster's scale plane "
+                "(ClusterRouter.scale / autoscale_target)"
             )
         for t, w in parse_tenant_spec(self.tenant_weights, what="weight").items():
             if not w.isdigit() or int(w) < 1:

@@ -98,6 +98,18 @@ held to a device count); the controller is closed before the drain, JAX's
 ``Autoscale: pool [...]`` line is printed and run.json gains
 ``autoscale`` with ``replica_seconds``.
 
+The federation (``gnot_tpu/main.py``'s six flags, defaults and checks):
+``--hosts N`` (N > 1) splits the ``--serve_replicas`` replicas on the
+run's card evenly into N loopback hosts, each a ``ReplicaRouter`` behind a
+``HostAgent``, and a ``ClusterRouter`` (``serve/federation.py``) serves
+the storm through the versioned wire protocol over in-proc links or, from
+``--federation_port``, loopback TCP; ``--heartbeat_interval_s``,
+``--suspect_after_s`` and ``--dead_after_s`` set the control loop and the
+failure detector's leases; ``--session_dir`` is the store a dead host's
+sessions re-migrate from; ``--trace_path`` becomes the merged cluster
+trace and ``--flight_recorder_s`` turns on the flight recorders. JAX's
+``Federated serve:`` line is printed and run.json gains ``federation``.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -452,6 +464,53 @@ def build_parser() -> argparse.ArgumentParser:
              "session from its last snapshotted step (resume_rollout)",
     )
     p.add_argument(
+        "--hosts", type=int, default=1,
+        help="serving: federate the replica pool across N loopback "
+             "hosts (serve/federation.py, docs/distributed.md) — each "
+             "host wraps an even share of --serve_replicas behind a "
+             "HostAgent; a ClusterRouter places requests/sessions over "
+             "the versioned wire protocol, detects dead hosts by lease, "
+             "and re-migrates their sessions to survivors; 1 = the "
+             "single-host tier, byte-identical to before"
+    )
+    p.add_argument(
+        "--federation_port", type=int, default=0,
+        help="federation: base loopback-TCP port — host i listens on "
+             "port+i and the controller connects real sockets instead "
+             "of in-proc links (0 = in-proc transport; chaos hooks are "
+             "in-proc-only)"
+    )
+    p.add_argument(
+        "--heartbeat_interval_s", type=float, default=0.5,
+        help="federation: cluster control-loop cadence — each tick "
+             "probes every host's lease, sweeps the failure detector, "
+             "and publishes the merged per-host series"
+    )
+    p.add_argument(
+        "--suspect_after_s", type=float, default=2.0,
+        help="federation failure detector: a host silent this long is "
+             "SUSPECT — new placements avoid it and its pending "
+             "one-shots are hedged onto siblings, but nothing is "
+             "declared dead yet"
+    )
+    p.add_argument(
+        "--dead_after_s", type=float, default=6.0,
+        help="federation failure detector: a host silent this long is "
+             "DEAD — its sessions re-migrate to survivors from "
+             "persisted snapshots; must exceed --suspect_after_s (the "
+             "suspicion dwell absorbs GC pauses and slow heartbeats)"
+    )
+    p.add_argument(
+        "--flight_recorder_s", type=float, default=0.0,
+        help="anomaly flight recorder (obs/dtrace.py, "
+             "docs/observability.md 'Distributed tracing'): keep the "
+             "last N seconds of ALL spans/events — sampled or not — in "
+             "a bounded per-host ring, dumped atomically beside the "
+             "trace/metrics path on trigger edges (slo_alert fire, "
+             "breaker_open, host_dead, non_finite_loss, lockguard "
+             "inversion); 0 = off"
+    )
+    p.add_argument(
         "--tenant_weights", type=str, default="",
         help="serving multi-tenant isolation (docs/serving.md): "
              "per-tenant WFQ weights as tenant:weight pairs, e.g. "
@@ -663,6 +722,12 @@ def configs_from_args(args) -> tuple[DataConfig, ServeConfig]:
         autoscale_down_load=args.autoscale_down_load,
         autoscale_down_ticks=args.autoscale_down_ticks,
         autoscale_heal_after_s=args.autoscale_heal_after_s,
+        hosts=args.hosts,
+        federation_port=args.federation_port,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+        suspect_after_s=args.suspect_after_s,
+        dead_after_s=args.dead_after_s,
+        flight_recorder_s=args.flight_recorder_s,
     )
     return data, serve
 
@@ -727,6 +792,9 @@ class RunManifest:
         if self.fields.get("autoscale") is not None:
             # The controller's stats and replica-seconds (--autoscale).
             extra["autoscale"] = self.fields["autoscale"]
+        if self.fields.get("federation") is not None:
+            # The cluster summary without per_host (--hosts N > 1).
+            extra["federation"] = self.fields["federation"]
         manifest_lib.write_manifest(
             self.path, argv=self.argv, extra=extra,
             **{k: self.fields.get(k) for k in ("config", "model_config", "device")},
@@ -838,6 +906,11 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     if manifest is not None and checkpointer is not None:
         # Which checkpoint serving restored, any fallback walk included.
         manifest.write(restore=checkpointer.last_restore)
+    if sc.hosts > 1:
+        # The federation: its own function, so the path with --hosts 1
+        # stays exactly as it is.
+        return _run_serve_federated(args, sc, model, samples, device, restored, sink=sink,
+                                    manifest=manifest)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
     # itself, the samples about to be served (per_devices 1: each replica
     # has the whole card).
@@ -995,6 +1068,166 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     return ServeRun(summary, results, samples, model, pack_plan, metrics)
 
 
+def _run_serve_federated(args, sc: ServeConfig, model: GNOT, samples: list[MeshSample],
+                         device: torch.device, restored: str, *, sink=None,
+                         manifest: RunManifest | None = None) -> ServeRun:
+    """``--serve --hosts N``: the federation (``serve/federation.py``,
+    ``gnot_tpu/main.py::_run_serve_federated``). The ``--serve_replicas``
+    replicas, all on the run's card, each on its own stream, split evenly
+    into N loopback hosts, each a ``ReplicaRouter`` behind a ``HostAgent``;
+    a ``ClusterRouter`` drives the storm through the wire protocol
+    (in-proc links, or loopback TCP from ``--federation_port``) while a
+    control-loop thread ticks the failure detector every
+    ``--heartbeat_interval_s``. One fault injector serves every hook
+    level (link, agent, local router), so a single-fire fault fires once.
+    ``--session_dir`` is the shared ``SessionStore`` every host persists
+    each due snapshot to (the re-migration substrate); with
+    ``--metrics_path`` each host gets a ``MetricsRegistry`` and the cluster
+    writes the merged per-host series to ``<stem>.series.jsonl``;
+    ``--trace_path`` gets the merged cluster trace (the controller's and
+    every host's spans, rebased by the heartbeat clock offsets) at drain,
+    and ``--flight_recorder_s`` a ring per host and one for the controller
+    (which watches the lock guard), dumped on trigger edges. Every replica
+    is warmed before traffic; the drain, the agents' stop and the links'
+    close run on every exit path. Returns the ``ServeRun`` with the
+    cluster summary."""
+    import threading
+
+    from gnot_tpu_torch.obs import dtrace
+    from gnot_tpu_torch.serve.federation import build_local_federation
+
+    per = sc.replicas // sc.hosts  # divisibility is config-checked
+    replicas = build_replicas(model, sc.replicas, batch_size=sc.max_batch, dtype=sc.dtype)
+    groups = [replicas[i * per:(i + 1) * per] for i in range(sc.hosts)]
+    # The migration substrate: a survivor resumes a dead host's sessions
+    # from snapshots persisted here; without it, restart from zero.
+    session_store = SessionStore(sc.session_dir) if sc.session_dir else None
+    series_path = None
+    if args.metrics_path:
+        series_path = f"{os.path.splitext(args.metrics_path)[0]}.series.jsonl"
+    metrics_factory = (metrics_lib.MetricsRegistry
+                       if sc.metrics_interval_s > 0 or series_path else None)
+    fi = FaultInjector.from_spec(sc.inject_fault)
+    host_ids = [f"host{i}" for i in range(sc.hosts)]
+    chaos = {h: fi for h in host_ids} if fi is not None else None
+    # The sampling decision lives in the cluster's tracer; the hosts' only
+    # adopt it from the wire.
+    cluster_tracer = None
+    tracer_factory = None
+    recorders = None
+    if sc.flight_recorder_s > 0:
+        flight_dir = (os.path.dirname(args.trace_path)
+                      or os.path.dirname(args.metrics_path) or ".")
+        recorders = {h: dtrace.FlightRecorder(flight_dir, window_s=sc.flight_recorder_s, host=h)
+                     for h in ["controller", *host_ids]}
+        # The controller's ring is the cluster's black box: host_dead fires
+        # there, and the lock-guard hook is process-wide.
+        recorders["controller"].watch_lockguard()
+    if args.trace_path or recorders is not None:
+        # Without --trace_path nothing is exported: rate 0, and the rings
+        # still fill with shadow spans.
+        rate = args.trace_sample_rate if args.trace_path else 0.0
+
+        def tracer_factory(host_id):
+            return Tracer(sample_rate=rate, recorder=(recorders or {}).get(host_id))
+
+        cluster_tracer = tracer_factory("controller")
+    cluster, agents = build_local_federation(
+        groups,
+        sink=sink,
+        suspect_after_s=sc.suspect_after_s,
+        dead_after_s=sc.dead_after_s,
+        session_store=session_store,
+        link_faults=None if sc.federation_port else chaos,
+        host_faults=chaos,
+        series_path=series_path,
+        metrics_factory=metrics_factory,
+        tcp_base_port=sc.federation_port,
+        tracer_factory=tracer_factory,
+        cluster_tracer=cluster_tracer,
+        trace_path=args.trace_path or None,
+        recorders=recorders,
+        router_kwargs=dict(
+            max_batch=sc.max_batch,
+            max_wait_ms=sc.max_wait_ms,
+            queue_limit=sc.queue_limit,
+            default_deadline_ms=sc.deadline_ms,
+            breaker_threshold=sc.breaker_threshold,
+            breaker_cooldown_s=sc.breaker_cooldown_s,
+            session_snapshot_every=sc.session_snapshot_every,
+            route_policy=sc.route_policy,
+            faults=fi,
+        ),
+    )
+    rollout_k = sc.rollout_steps
+    futures = []
+    with PreemptionHandler() as preempt:
+        t0 = time.monotonic()
+        # Every bucket dispatched on every replica before traffic.
+        warmed = sum(r.warm(samples, rows=sc.max_batch) for r in replicas)
+        warm_s = time.monotonic() - t0
+        for a in agents.values():
+            a.router.start()
+        stop = threading.Event()
+
+        def _control_loop():
+            while not stop.is_set():
+                cluster.tick()
+                stop.wait(sc.heartbeat_interval_s)
+
+        ticker = threading.Thread(target=_control_loop, name="fed-control", daemon=True)
+        ticker.start()
+        try:
+            for s in samples:
+                if preempt.triggered:
+                    break
+                futures.append(cluster.submit_rollout(s, rollout_k) if rollout_k
+                               else cluster.submit(s))
+            session_timeout = sc.drain_timeout_s * max(1, rollout_k)
+            results = [f.result(timeout=session_timeout) for f in futures]
+        finally:
+            stop.set()
+            ticker.join(timeout=5)
+            summary = cluster.drain(sc.drain_timeout_s)
+            local: dict[str, dict] = {}
+            for host_id, a in agents.items():
+                a.stop()
+                if host_id not in summary["per_host"]:
+                    # A host the cluster could not drain (killed, or dead
+                    # behind a partition) still runs its pool: drained here,
+                    # so none of its workers outlives the run.
+                    local[host_id] = a.drain_local(sc.drain_timeout_s)
+            cluster.close()
+    print(
+        f"Federated serve: {sc.hosts} hosts x {per} replicas "
+        f"({'tcp' if sc.federation_port else 'in-proc'}), "
+        f"{summary['completed']}/{summary['requests']} ok, "
+        f"shed={summary['shed']}, sessions={summary['sessions']} "
+        f"(remigrated={summary['remigrated']}, lost={summary['lost']}), "
+        f"hosts_dead={summary['hosts_dead']}, "
+        f"protocol_errors={summary['protocol_errors']}"
+    )
+    if args.trace_path and cluster.merged_trace is not None:
+        print(
+            f"Wrote merged cluster trace "
+            f"({len(cluster.merged_trace['traceEvents'])} spans, "
+            f"{len(cluster.merged_trace['otherData']['hosts'])} sources) "
+            f"to {args.trace_path} (open in https://ui.perfetto.dev; "
+            "summarize with tools/trace_report.py)"
+        )
+    if recorders is not None:
+        dumps = [p for r in recorders.values() for p in r.dumps]
+        if dumps:
+            print(f"Flight recorder dumped {len(dumps)} ring(s): " + ", ".join(dumps))
+    if manifest is not None:
+        manifest.write(federation={k: v for k, v in summary.items() if k != "per_host"})
+    # Beside the cluster's keys: the warm-up, and the pool summaries of the
+    # hosts drained here rather than over the wire.
+    summary.update(warmed_buckets=warmed, warmup_s=warm_s, device=str(device),
+                   restored=restored, drained_locally=local)
+    return ServeRun(summary, results, samples, model)
+
+
 def _serve_storm(args, sc: ServeConfig, server: InferenceServer | ReplicaRouter, samples,
                  checkpointer, preempt, controller=None
                  ) -> tuple[dict, list[ServeResult | RolloutResult]]:
@@ -1121,7 +1354,8 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
     with contextlib.ExitStack() as stack:
         sink = stack.enter_context(MetricsSink(args.metrics_path)) if args.metrics_path else None
         tracer = None
-        if args.trace_path:
+        # A federated serve writes the merged cluster trace itself.
+        if args.trace_path and not (args.serve and args.hosts > 1):
             # annotate under --profile_dir: each span is also a profiler
             # range, so host phases line up with the kernels.
             tracer = Tracer(path=args.trace_path, sample_rate=args.trace_sample_rate,

@@ -6,11 +6,13 @@ tuples, and the same span names, so a record or a trace file written by
 the port reads as one the JAX package wrote (its ``validate_record``
 accepts it). ``module=`` names the port's file that emits each kind.
 
-Kinds not here wait for the port modules that emit them (``ROADMAP.md``);
-``aot_prewarm`` has no emitter (eager PyTorch has no executable to
-serialize).
-``recompile`` in particular has no meaning without a jit trace cache and
-is never emitted (``obs/health.py``); nor is the serve span ``compile``.
+The registries differ by three kinds: ``aot_prewarm`` has no emitter
+(eager PyTorch has no executable to serialize), ``native_packer`` waits
+for the native packer (``ROADMAP.md``), and ``recompile`` has no meaning
+without a jit trace cache and is never emitted (``obs/health.py``); nor is
+the serve span ``compile``. ``host_skew`` is registered for the
+multi-process trainer, which the port does not have yet (``ROADMAP.md``):
+nothing emits it today.
 
 Emit sites use the module constants (``events.SHED``), never fresh
 string literals. Stdlib only.
@@ -54,6 +56,11 @@ AUTOSCALE_DECISION = "autoscale_decision"
 SCALE_UP = "scale_up"
 SCALE_DOWN = "scale_down"
 REPLICA_REPLACE = "replica_replace"
+HOST_SKEW = "host_skew"
+HOST_HEARTBEAT = "host_heartbeat"
+HOST_DEAD = "host_dead"
+SESSION_REMIGRATE = "session_remigrate"
+CLUSTER_SUMMARY = "cluster_summary"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +89,12 @@ EVENTS: dict[str, EventSpec] = {
         module="gnot_tpu_torch/train/trainer.py",
         doc="NaN watchdog abort; `detail` names the first module whose "
         "output was non-finite in a re-run of the batch",
+    ),
+    "host_skew": EventSpec(
+        fields=("epoch", "step_time_per_host", "skew_s"),
+        module="gnot_tpu_torch/train/trainer.py",
+        doc="per-host epoch step-time gauge of multi-process training "
+        "(registered ahead of the port's multi-process trainer)",
     ),
     "rollback": EventSpec(
         fields=("epoch", "step", "to_step", "rollbacks_used"),
@@ -313,6 +326,55 @@ EVENTS: dict[str, EventSpec] = {
         "id (`reason` is the verdict that condemned it)",
         optional=("pool", "seconds"),
     ),
+    "host_heartbeat": EventSpec(
+        fields=("host", "seq", "state"),
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="one failure-detector verdict per heartbeat round per host: "
+        "`state` is 'alive' | 'suspect' | 'dead' after this round's ack or "
+        "silence; `load` and `pool` the host's in-system load and replica "
+        "count from its last ack, `edge` the transition this round made; "
+        "`clock_offset_s` +/- `clock_err_s` the midpoint clock-alignment "
+        "estimate of obs/dtrace.py (the merged trace's rebase)",
+        optional=(
+            "load", "pool", "rtt_ms", "edge", "clock_offset_s",
+            "clock_err_s",
+        ),
+    ),
+    "host_dead": EventSpec(
+        fields=("host", "silent_s", "sessions"),
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="the failure detector declared a host dead after the full "
+        "suspicion dwell (`silent_s` of lease silence): its pending "
+        "requests are re-placed on survivors and its `sessions` rollout "
+        "sessions re-migrate from their persisted snapshots",
+        optional=("pending", "reason"),
+    ),
+    "session_remigrate": EventSpec(
+        fields=(
+            "session", "from_host", "to_host", "at_step", "replay_from",
+            "reason",
+        ),
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="a rollout session was re-placed on a surviving host after its "
+        "owner died: it resumes from the `replay_from` cursor of its "
+        "persisted snapshot (0: none survived, a full replay); steps the "
+        "cluster already streamed are suppressed",
+    ),
+    "cluster_summary": EventSpec(
+        fields=(
+            "hosts", "requests", "completed", "shed", "sessions",
+            "remigrated", "hosts_dead",
+        ),
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="the federation's rollup, once at cluster drain (beside each "
+        "host's own `serve_summary`): request and session accounting, the "
+        "per-host summaries (`per_host`) and the failure-detector ledger; "
+        "with cluster tracing, `trace_coverage` holds each source's "
+        "sampled/total counters and the clock offset its spans were "
+        "rebased by",
+        optional=("per_host", "lost", "protocol_errors",
+                  "trace_coverage"),
+    ),
     "trace_flush": EventSpec(
         fields=("path", "spans", "dropped"),
         module="gnot_tpu_torch/obs/tracing.py",
@@ -403,6 +465,24 @@ SPANS: dict[str, SpanSpec] = {
         module="gnot_tpu_torch/serve/router.py",
         doc="one replica's warm-to-serve-ready window (its warm-up "
         "dispatches; aux stream `r`), recorded when it joins the pool",
+    ),
+    "placement": SpanSpec(
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="one controller-to-host placement frame of a cluster request "
+        "or session (`host`, `kind` = place | hedge | redeliver | "
+        "remigrate | reconcile | restart; all but the first carry "
+        "`link_to`, the first placement's span id: linked spans of one "
+        "trace, never a second chain)",
+    ),
+    "cluster_request": SpanSpec(
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="one one-shot's whole cluster lifecycle, submit to resolution "
+        "(`reason`; recorded at resolve on the controller)",
+    ),
+    "cluster_rollout": SpanSpec(
+        module="gnot_tpu_torch/serve/federation.py",
+        doc="one rollout session's whole cluster lifecycle, first placement "
+        "to resolution (`reason`, `migrations`)",
     ),
     "epoch": SpanSpec(
         module="gnot_tpu_torch/train/trainer.py",

@@ -24,8 +24,14 @@ epoch, an ``epoch`` root with ``data_iter`` / ``step`` (containing
 ``host_to_device`` and ``step_dispatch``) / ``telemetry_drain`` /
 ``eval`` / ``checkpoint_save`` children.
 
-Not ported yet: ``adopt`` (cross-host trace propagation) and the flight
-recorder, which serve federation and rollout sessions.
+Cluster tracing (``obs/dtrace.py``, ``serve/federation.py``): ``adopt``
+is the receiving side of trace propagation. A host never re-decides
+sampling for work the cluster controller placed: it takes the propagated
+``TraceContext``'s id and decision, and counts the id once in an adoption
+ledger that ``coverage()`` adds in. With a flight recorder attached
+(``recorder=``) every closed span is copied into its ring, and a trace
+sampled out at ``start_trace`` gets a shadow id (``"!"``-prefixed) whose
+spans go to the ring only, never to the export buffer.
 """
 
 from __future__ import annotations
@@ -92,7 +98,8 @@ class Tracer:
     ``clock`` is any monotonic ``() -> float``; ``sample_rate`` in [0, 1]
     keeps that fraction of traces per stream; ``max_spans`` bounds host
     memory; ``annotate`` mirrors each span onto the torch profiler's
-    timeline."""
+    timeline; ``recorder`` an ``obs/dtrace.FlightRecorder`` that sees every
+    closed span, shadow spans of sampled-out traces included."""
 
     def __init__(
         self,
@@ -102,6 +109,7 @@ class Tracer:
         max_spans: int = 100_000,
         clock: Callable[[], float] = time.monotonic,
         annotate: bool = False,
+        recorder=None,
     ):
         if not 0.0 <= sample_rate <= 1.0:
             raise ValueError(
@@ -114,6 +122,7 @@ class Tracer:
         self.max_spans = max_spans
         self._clock = clock
         self._annotate = annotate
+        self._recorder = recorder
         self._t0 = clock()
         self._lock = threading.Lock()
         self._spans: list[Span] = []  #: guarded_by _lock
@@ -121,6 +130,10 @@ class Tracer:
         # Per-stream sampling counters (stream = trace-id prefix).
         self._stream_seen: dict[str, int] = {}  #: guarded_by _lock
         self._stream_kept: dict[str, int] = {}  #: guarded_by _lock
+        # The adoption ledger: unique trace ids this tracer adopted rather
+        # than decided, and how many of them were sampled.
+        self._adopted_ids: set[str] = set()  #: guarded_by _lock
+        self._adopted_kept = 0  #: guarded_by _lock
         self._next_span = 0  #: guarded_by _lock
         self._current: contextvars.ContextVar[Span | None] = (
             contextvars.ContextVar("gnot_torch_trace_span", default=None)
@@ -130,7 +143,9 @@ class Tracer:
         """The head-sampling decision: a fresh ``trace_id`` when this
         trace is kept, ``None`` when it is sampled out (every later span
         call on it is then a no-op). Each ``stream`` (the id prefix)
-        counts and samples on its own."""
+        counts and samples on its own. With a flight recorder attached, a
+        sampled-out trace gets a shadow id (``"!"`` and the stream's seen
+        count) whose spans go to the recorder's ring only."""
         with self._lock:
             n = self._stream_seen.get(stream, 0) + 1
             self._stream_seen[stream] = n
@@ -138,10 +153,35 @@ class Tracer:
                 (n - 1) * self.sample_rate
             )
             if not keep:
+                if self._recorder is not None:
+                    return f"!{stream}{n:06d}"
                 return None
             kept = self._stream_kept.get(stream, 0) + 1
             self._stream_kept[stream] = kept
             return f"{stream}{kept:06d}"
+
+    def adopt(self, ctx) -> str | None:
+        """The local trace id for a propagated ``obs/dtrace.TraceContext``,
+        honouring the sender's sampling decision (this tracer's counters
+        are not consulted): a sampled context keeps its id, an unsampled
+        one shadow-records with a recorder attached (the ``"!"`` prefix
+        kept across hops) and is None otherwise. Each id enters the
+        adoption ledger once, however many steps of a session adopt it."""
+        if ctx is None or not ctx.trace_id:
+            return None
+        tid = ctx.trace_id
+        sampled = ctx.sampled and not tid.startswith("!")
+        bare = tid.lstrip("!")
+        with self._lock:
+            if bare not in self._adopted_ids:
+                self._adopted_ids.add(bare)
+                if sampled:
+                    self._adopted_kept += 1
+        if sampled:
+            return tid
+        if self._recorder is not None:
+            return tid if tid.startswith("!") else f"!{tid}"
+        return None
 
     def _new_span_id(self) -> str:
         with self._lock:
@@ -241,6 +281,10 @@ class Tracer:
             yield item
 
     def _store(self, s: Span) -> None:
+        if self._recorder is not None:
+            self._recorder.record_span(s)
+        if s.trace_id.startswith("!"):
+            return  # a shadow span: the ring only, never the export buffer
         with self._lock:
             if len(self._spans) < self.max_spans:
                 self._spans.append(s)
@@ -257,13 +301,13 @@ class Tracer:
             return self._dropped
 
     def coverage(self) -> dict:
-        """Traces seen and kept (all streams), spans dropped to the
-        buffer bound, and the rate."""
+        """Traces seen and kept (all streams, adopted ids included), the
+        adopted ids, spans dropped to the buffer bound, and the rate."""
         with self._lock:
             return {
-                "seen": sum(self._stream_seen.values()),
-                "kept": sum(self._stream_kept.values()),
-                "adopted": 0,
+                "seen": sum(self._stream_seen.values()) + len(self._adopted_ids),
+                "kept": sum(self._stream_kept.values()) + self._adopted_kept,
+                "adopted": len(self._adopted_ids),
                 "dropped": self._dropped,
                 "sample_rate": self.sample_rate,
             }

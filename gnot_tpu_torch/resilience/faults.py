@@ -41,9 +41,19 @@ admission ordinal (the count of session steps that server accepted):
 * ``rollout_nan@STEP``: the dispatch carrying the STEP-th rollout step
   gets NaN outputs, the whole dispatch poisoned (the breaker counts it).
 
-The federation kinds (``host_kill``, ``net_partition``, ``msg_drop``,
-``msg_delay``) parse here as they do in the JAX package; their hooks wait
-for the port's federation (``ROADMAP.md``).
+The federation hooks, consulted by ``serve/federation.py``; one injector
+is shared by every link, agent and local router of a federation, so a
+single-fire fault fires at one of them, never at all hosts at once:
+
+* ``host_kill@N``: a ``HostAgent`` dies just before handling its N-th
+  inbound control message (no goodbye frame: the controller sees only
+  silence).
+* ``net_partition@N``: an in-proc link's N-th outbound frame partitions
+  the link both ways until it is healed.
+* ``msg_drop@N``: an in-proc link's N-th outbound frame is dropped.
+* ``msg_delay@MS``: the next frame any armed link sends is held MS
+  milliseconds of the link's clock (the argument is the delay, not an
+  ordinal).
 
 Steps are 1-indexed global micro-step counts (the trainer's
 ``host_step`` after the dispatch), the step numbers of the metrics
@@ -246,6 +256,43 @@ class FaultInjector:
         )
         corrupt_published(directory, "latest")
         return True
+
+    # -- federation hooks ---------------------------------------------------
+
+    def maybe_host_kill(self, msg_ordinal: int) -> bool:
+        """True once when a host's ``msg_ordinal``-th inbound control
+        message has a ``host_kill`` armed: the agent dies before handling
+        it, and the controller must notice by lease silence."""
+        if self._take("host_kill", msg_ordinal):
+            logger.warning("fault injection: host kill before inbound message #%d", msg_ordinal)
+            return True
+        return False
+
+    def maybe_net_partition(self, frame_ordinal: int) -> bool:
+        """True once when a link's ``frame_ordinal``-th outbound frame has a
+        ``net_partition`` armed: the link drops frames both ways until
+        healed."""
+        if self._take("net_partition", frame_ordinal):
+            logger.warning("fault injection: network partition at frame #%d", frame_ordinal)
+            return True
+        return False
+
+    def maybe_msg_drop(self, frame_ordinal: int) -> bool:
+        """True once when a link's ``frame_ordinal``-th outbound frame has a
+        ``msg_drop`` armed: that one frame is lost."""
+        if self._take("msg_drop", frame_ordinal):
+            logger.warning("fault injection: dropping frame #%d", frame_ordinal)
+            return True
+        return False
+
+    def maybe_msg_delay(self) -> int:
+        """Milliseconds to hold the next frame (0: none): each armed
+        ``msg_delay@MS`` fires once, at the first consultation."""
+        for s in self.specs:
+            if s.kind == "msg_delay" and self._take("msg_delay", s.at):
+                logger.warning("fault injection: delaying frame by %d ms", s.at)
+                return s.at
+        return 0
 
     # -- checkpoint hooks --------------------------------------------------
 

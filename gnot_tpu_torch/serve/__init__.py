@@ -19,11 +19,15 @@ router):
   reload, session migration, scale-in and scale-out, the pool summary);
 * ``catalog``: ``ProgramCatalog``, per-program costs joined with traffic
   (the capacity model);
-* ``autoscaler``: ``AutoscaleController``, the self-healing elastic pool.
+* ``autoscaler``: ``AutoscaleController``, the self-healing elastic pool;
+* ``federation``: ``HostAgent`` (one host's pool behind the versioned wire
+  protocol), ``ClusterRouter`` (placement across hosts, the lease-based
+  ``FailureDetector``, session re-migration, the merged cluster trace),
+  ``build_local_federation`` and ``topology_key``.
 
-AOT prewarm and federation are not ported (``ROADMAP.md``). The names of
-``server``, ``replica``, ``router`` and ``autoscaler`` load on first use:
-``server`` imports the trainer, which imports the engine from this
+AOT prewarm is not ported (``ROADMAP.md``). The names of ``server``,
+``replica``, ``router``, ``autoscaler`` and ``federation`` load on first
+use: ``server`` imports the trainer, which imports the engine from this
 package.
 """
 
@@ -66,6 +70,11 @@ _LAZY = {
     "AutoscaleController": "autoscaler",
     "HEAL_REASONS": "autoscaler",
     "PRESSURE_OBJECTIVES": "autoscaler",
+    "ClusterRouter": "federation",
+    "FailureDetector": "federation",
+    "HostAgent": "federation",
+    "build_local_federation": "federation",
+    "topology_key": "federation",
 }
 
 

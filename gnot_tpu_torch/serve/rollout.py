@@ -190,6 +190,12 @@ class RolloutSession:
         # automatic id restarts from 1 in every process.
         self.named = False
         self.migrate_cb: Callable | None = None
+        # The propagated cluster trace context (obs/dtrace.TraceContext) a
+        # federated placement installs: every step request adopts the same
+        # decision, so steps resumed after a migration stay spans of the
+        # original trace. None: a locally placed session, whose steps run
+        # untraced.
+        self.trace_ctx = None
         self._lock = threading.Lock()
         self._sample = sample  #: guarded_by _lock
         self._cursor = 0  #: guarded_by _lock

@@ -52,9 +52,14 @@ catalog, and ``drain()`` puts the pool's ``capacity_model`` in the summary
 (one ``capacity_snapshot`` event). ``pool()`` and ``assess(replica)`` are
 the probes the autoscaler reads (``serve/autoscaler.py``).
 
-Not ported: ``persist_snapshots=True`` and ``trace_ctx`` wait for the
-federation; ``prewarm_from`` has no counterpart (AOT snapshots: eager
-PyTorch has no executable).
+Under the federation (``serve/federation.py``) a router is one host's
+pool: ``persist_snapshots`` passes to every replica's server (each due
+snapshot of a named session goes to the shared store, the cross-host
+migration substrate), and ``submit`` / ``submit_rollout`` /
+``resume_rollout`` take the cluster's ``trace_ctx``, which a session
+keeps through every migration, so its steps stay spans of one trace.
+``prewarm_from`` has no counterpart (AOT snapshots: eager PyTorch has no
+executable).
 
 Thread-safety: the routing counters, health memory and round-robin cursor
 are shared between submitting threads and the reload and drain threads,
@@ -69,7 +74,6 @@ import time
 from concurrent.futures import Future
 from typing import Callable, Sequence
 
-from gnot_tpu_torch.config import NotPortedError
 from gnot_tpu_torch.data.batch import MeshSample, PackPlan
 from gnot_tpu_torch.obs import events
 from gnot_tpu_torch.obs.metrics import LogHistogram
@@ -121,10 +125,6 @@ class ReplicaRouter:
             raise ValueError("ReplicaRouter needs at least one replica")
         if route_policy not in ROUTE_POLICIES:
             raise ValueError(f"unknown route_policy {route_policy!r}; one of {ROUTE_POLICIES}")
-        if persist_snapshots:
-            raise NotPortedError(
-                "persist_snapshots (every due snapshot written to the session store, "
-                "the federation's migration substrate) waits for the federation")
         if max_session_migrations < 0:
             raise ValueError(
                 f"max_session_migrations must be >= 0, got {max_session_migrations}")
@@ -160,6 +160,7 @@ class ReplicaRouter:
             session_snapshot_every=session_snapshot_every,
             metrics=metrics,
             session_store=session_store,
+            persist_snapshots=persist_snapshots,
             # One TenantPolicy for every replica: a tenant's quota bounds
             # its in-system requests across the pool.
             tenants=tenants,
@@ -343,14 +344,17 @@ class ReplicaRouter:
     # -- placement ---------------------------------------------------------
 
     def submit(self, sample: MeshSample, *, deadline_ms: float | None = None,
-               tenant: str | None = None) -> Future:
+               tenant: str | None = None, trace_ctx=None) -> Future:
         """Place one request and submit it there. The future resolves as a
         single server's would. ``tenant`` tags it for the placed replica's
-        quota and WFQ; placement itself is tenant-blind."""
+        quota and WFQ; placement itself is tenant-blind. ``trace_ctx`` (an
+        ``obs/dtrace.TraceContext``) is the cluster's sampling decision,
+        which the placed server adopts."""
         key, label = self._bucket_of(sample)
         replica, reason = self._place(key)
         self._note_placed(replica, reason, label)
-        return replica.server.submit(sample, deadline_ms=deadline_ms, tenant=tenant)
+        return replica.server.submit(sample, deadline_ms=deadline_ms, tenant=tenant,
+                                     trace_ctx=trace_ctx)
 
     def _note_placed(self, replica: EngineReplica, reason: str, label: str,
                      **extra) -> None:
@@ -449,13 +453,16 @@ class ReplicaRouter:
     def submit_rollout(self, sample: MeshSample, steps: int, *,
                        deadline_ms: float | None = None,
                        rollout_deadline_ms: float | None = None, on_step=None,
-                       name: str | None = None, tenant: str | None = None) -> RolloutFuture:
+                       name: str | None = None, tenant: str | None = None,
+                       trace_ctx=None) -> RolloutFuture:
         """Place one ``steps``-step rollout session: its first step routes
         like a request (one ``route`` event with the session id), the rest
         stay on the owner. A session whose owner fails mid-rollout is
         re-placed on a sibling from its last snapshot (``session_migrate``),
         unless migration is off or its budget spent, when the future
-        resolves with the failure. The future always resolves."""
+        resolves with the failure. The future always resolves. A
+        ``trace_ctx`` rides the session, so every step it runs here, after
+        a local migration too, adopts the one cluster decision."""
         sc = self._server_kwargs
         ms = deadline_ms if deadline_ms is not None else sc["default_deadline_ms"]
         if name is not None and any(r.server.has_session(name) for r in self._pool()):
@@ -474,15 +481,19 @@ class ReplicaRouter:
         )
         session.named = name is not None
         session.migrate_cb = self._session_failed
+        session.trace_ctx = trace_ctx
         self._place_session(session, sample)
         return session.future
 
     def resume_rollout(self, name: str, *, deadline_ms: float | None = None,
                        rollout_deadline_ms: float | None = None,
-                       on_step=None) -> RolloutFuture:
-        """Resume a session a drain persisted to the session store, placed
-        like a fresh rollout. ``KeyError`` when nothing is stored under
-        ``name``; a session complete at its snapshot resolves at once."""
+                       on_step=None, trace_ctx=None) -> RolloutFuture:
+        """Resume a session persisted to the session store (by a drain, or
+        by a federated host's rolling persistence), placed like a fresh
+        rollout. ``KeyError`` when nothing is stored under ``name``; a
+        session complete at its snapshot resolves at once. A cross-host
+        re-migration arrives here with the session's original
+        ``trace_ctx``, so its resumed steps join that trace."""
         if self._session_store is None:
             raise RuntimeError("no session store configured")
         if any(r.server.has_session(name) for r in self._pool()):
@@ -506,6 +517,7 @@ class ReplicaRouter:
         with self._lock:
             self._sessions_started += 1
         session.migrate_cb = self._session_failed
+        session.trace_ctx = trace_ctx
         self._place_session(session, session.sample)
         return session.future
 

@@ -95,8 +95,18 @@ at its next step boundary). With a program catalog (``catalog=``,
 executed dispatch (padded, packed, rollout step) is attributed to its
 program where the pad-waste rollup is fed, and a standalone server's
 summary carries the ``capacity_model`` (one ``capacity_snapshot`` event).
-Rolling persistence (``persist_snapshots``,
-the federation's migration substrate) is not ported.
+
+Rolling persistence (``persist_snapshots=True``, the federation's
+migration substrate): every due snapshot of a named session is also
+written to the ``session_store``, so a host killed without warning leaves
+its sessions' last snapshots on disk for a survivor to resume
+(``serve/federation.py``); a failed write does not fail the step. Off, a
+store sees only the drain's final snapshots. ``submit(trace_ctx=)`` takes
+a sampling decision made upstream (the cluster controller's
+``obs/dtrace.TraceContext``): the server adopts its trace id instead of
+deciding, and a request without a tenant takes the context's. A session
+carrying a ``trace_ctx`` (a federated placement) has every step adopt it;
+a locally placed session's steps run untraced, as in JAX.
 """
 
 from __future__ import annotations
@@ -111,7 +121,6 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from gnot_tpu_torch.config import NotPortedError
 from gnot_tpu_torch.data.batch import MeshSample, PackPlan, pack_prefix
 from gnot_tpu_torch.obs import events
 from gnot_tpu_torch.obs.metrics import LogHistogram, Reservoir
@@ -211,7 +220,8 @@ class InferenceServer:
     ``preempt`` a ``PreemptionHandler`` whose flag the worker polls;
     ``clock`` the monotonic clock of every policy, span and latency;
     ``tenants`` a ``TenantPolicy`` (None: tenant mode off);
-    ``session_store`` a ``rollout.SessionStore`` for drained sessions;
+    ``session_store`` a ``rollout.SessionStore`` for drained sessions
+    (with ``persist_snapshots``, for every due snapshot of a named one);
     ``catalog`` a ``ProgramCatalog`` (one shared by a pool)."""
 
     def __init__(
@@ -239,10 +249,6 @@ class InferenceServer:
         replica: int | None = None,
         catalog=None,
     ):
-        if persist_snapshots:
-            raise NotPortedError(
-                "persist_snapshots (every due snapshot written to the session store, "
-                "the federation's migration substrate) waits for the federation")
         if session_snapshot_every < 1:
             raise ValueError(
                 f"session_snapshot_every must be >= 1, got {session_snapshot_every}")
@@ -347,6 +353,8 @@ class InferenceServer:
         # the rollout-step admission ordinal (the rollout faults' key).
         self.session_snapshot_every = session_snapshot_every
         self._session_store = session_store
+        # Every due snapshot of a named session also goes to the store.
+        self._persist_snapshots = persist_snapshots
         self._sessions: dict[str, RolloutSession] = {}  #: guarded_by _lock
         self._sessions_started = 0  #: guarded_by _lock
         self._sessions_completed = 0  #: guarded_by _lock
@@ -387,7 +395,7 @@ class InferenceServer:
         return self
 
     def submit(self, sample: MeshSample, *, deadline_ms: float | None = None,
-               tenant: str | None = None) -> Future:
+               tenant: str | None = None, trace_ctx=None) -> Future:
         """Admit one request. Fast-fails (resolved Future) when draining,
         on invalid input (non-finite / oversize, named by index), when the
         tenant is at its quota (``shed_tenant_quota``, checked before the
@@ -396,12 +404,21 @@ class InferenceServer:
         already in the system. ``deadline_ms`` (default
         ``default_deadline_ms``; 0 = none) is the budget after which the
         request is shed before its forward. ``tenant`` names the submitter
-        (None: untagged; without a policy the tag only counts)."""
+        (None: untagged; without a policy the tag only counts).
+        ``trace_ctx`` (an ``obs/dtrace.TraceContext``) is a sampling
+        decision made upstream, which the server adopts; a request
+        without a tenant takes the context's."""
         fut: Future = Future()
         now = self._clock()
-        # Head sampling decides once, at submit; every later span of this
+        # Head sampling decides once, at submit (here, or at the cluster
+        # controller for a propagated context); every later span of this
         # request reuses the id.
-        trace = self._tracer.start_trace() if self._tracer is not None else None
+        trace = None
+        if self._tracer is not None:
+            trace = (self._tracer.adopt(trace_ctx) if trace_ctx is not None
+                     else self._tracer.start_trace())
+        if tenant is None and trace_ctx is not None:
+            tenant = trace_ctx.tenant
         with self._lock:
             self._submitted += 1
         if self._c_requests is not None:
@@ -606,10 +623,15 @@ class InferenceServer:
                 self._submitted += 1
                 self._admitted += 1
                 self._rollout_steps += 1
-                # Locally placed sessions' steps run untraced, as in JAX.
+                # A federated session's steps adopt the cluster's one
+                # decision (its trace_ctx survives migration and resume);
+                # locally placed sessions' steps run untraced, as in JAX.
+                trace = (self._tracer.adopt(session.trace_ctx)
+                         if self._tracer is not None and session.trace_ctx is not None
+                         else None)
                 self._inbound.put(_Request(
                     session.sample, Future(), self._admitted, now,
-                    Deadline(at) if at is not None else None, None,
+                    Deadline(at) if at is not None else None, trace,
                     session=session, rollout_ordinal=self._rollout_steps,
                     tenant=session.tenant,
                 ))
@@ -639,6 +661,15 @@ class InferenceServer:
             if session.snapshot_due():
                 self._event(events.SESSION_SNAPSHOT, session=session.sid,
                             step=session.take_snapshot())
+                if (self._persist_snapshots and session.named
+                        and self._session_store is not None):
+                    # A failed write does not fail the step: the session in
+                    # memory stays authoritative, only its crash-resume
+                    # point goes stale.
+                    try:
+                        self._session_store.save(session)
+                    except OSError:
+                        pass
             if session.finished:
                 if session.resolve(True, "ok"):
                     with self._lock:

@@ -1,1 +1,2 @@
-"""Host utilities of the port: the JSONL metrics sink and profiler hooks."""
+"""Host utilities of the port: the JSONL metrics sink, profiler hooks and
+the runtime lock-order witness (``lockguard``, installed only on request)."""

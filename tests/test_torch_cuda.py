@@ -1082,3 +1082,107 @@ def test_a_replica_the_controller_adds_runs_on_its_own_stream_after_its_copy():
                                                      pad_funcs=key[1], rows=4)]
     for r, w in zip(results, want + want):
         np.testing.assert_allclose(r.output, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_two_hosts_on_the_card_serve_as_one_router_does():
+    """``build_local_federation`` of two hosts of one replica each on the
+    card (in-proc links): eight requests, every output within 1e-5 / 1e-6
+    of one ``ReplicaRouter`` over two replicas on the card, the kernel
+    launched 2 x blocks per dispatch and warm-up, summed over the hosts."""
+    from gnot_tpu_torch.serve.federation import build_local_federation
+    from gnot_tpu_torch.serve.replica import build_replicas
+    from gnot_tpu_torch.serve.router import ReplicaRouter
+
+    device = _card()
+    samples = datasets.synth_ns2d(8, seed=7, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    reps = build_replicas(model, 2, batch_size=4)
+    launches = fused_ffn.fused_gated_ffn_kernel.launches
+    warmed = sum(r.warm(samples[:1], rows=4) for r in reps)
+    cluster, agents = build_local_federation(
+        [[r] for r in reps], router_kwargs=dict(max_batch=4, max_wait_ms=5.0))
+    try:
+        for a in agents.values():
+            a.router.start()
+        cluster.tick()
+        results = [f.result(timeout=120) for f in [cluster.submit(s) for s in samples]]
+        summary = cluster.drain(60)
+    finally:
+        for a in agents.values():
+            a.router.drain(60)
+    launched = fused_ffn.fused_gated_ffn_kernel.launches - launches
+    assert all(r.ok for r in results), [r.reason for r in results]
+    assert (summary["hosts_dead"], summary["protocol_errors"], summary["completed"]) == (0, 0, 8)
+    dispatches = sum(h["dispatches"] for h in summary["per_host"].values())
+    assert launched == 2 * cfg.n_attn_layers * (dispatches + warmed)
+    single = build_replicas(model, 2, batch_size=4)
+    router = ReplicaRouter(single, max_batch=4, max_wait_ms=5.0).start()
+    want = [f.result(timeout=120) for f in [router.submit(s) for s in samples]]
+    router.drain(60)
+    for r, w in zip(results, want):
+        np.testing.assert_allclose(r.output, w.output, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_a_host_killed_mid_rollout_leaves_every_session_bitwise_offline(tmp_path):
+    """Two hosts on the card, four 6-step sessions; host0's first session
+    holds its worker at step 2 while ``host_kill@4`` takes host0 at its
+    first heartbeat (after the hello and its two placements); on a stepped clock host0 goes SUSPECT then DEAD and its
+    sessions re-migrate to host1 from their persisted snapshots: none lost,
+    every trajectory bitwise ``offline_rollout`` on the card."""
+    import threading
+
+    from gnot_tpu_torch.resilience.faults import FaultInjector
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.federation import build_local_federation
+    from gnot_tpu_torch.serve.replica import build_replicas
+    from gnot_tpu_torch.serve.rollout import SessionStore, offline_rollout
+
+    device = _card()
+    samples = datasets.synth_ns2d(4, seed=9, n_points=200)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    reps = build_replicas(model, 2, batch_size=4)
+    for r in reps:
+        r.warm(samples[:1], rows=4)
+    now = [100.0]
+    fi = FaultInjector.from_spec("host_kill@4")
+    reached, gate = threading.Event(), threading.Event()
+
+    def on_step(name, step, out):
+        if name == "k0" and step == 2:
+            reached.set()
+            gate.wait(timeout=60)
+
+    cluster, agents = build_local_federation(
+        [[r] for r in reps], clock=lambda: now[0], suspect_after_s=0.2, dead_after_s=0.5,
+        session_store=SessionStore(str(tmp_path)), host_faults={"host0": fi, "host1": fi},
+        router_kwargs=dict(max_batch=4, max_wait_ms=0.0, wedge_after_s=600.0))
+    try:
+        for a in agents.values():
+            a.router.start()
+        futs = [cluster.submit_rollout(s, 6, name=f"k{i}", on_step=on_step)
+                for i, s in enumerate(samples)]
+        try:
+            assert reached.wait(timeout=60)
+            for _ in range(5):
+                cluster.tick()
+                if cluster.host_state("host0") == "dead":
+                    break
+                now[0] += 0.3
+        finally:
+            gate.set()
+        results = [f.result(timeout=120) for f in futs]
+        summary = cluster.drain(60)
+    finally:
+        for a in agents.values():
+            a.router.drain(60)
+    assert not agents["host0"].alive and summary["hosts_dead"] == 1
+    assert summary["remigrated"] >= 1 and summary["lost"] == 0
+    engine = InferenceEngine(model, batch_size=4)
+    for r, s in zip(results, samples):
+        assert r.ok and len(r.outputs) == 6, (r.reason, r.detail)
+        offline = offline_rollout(engine, s, 6, rows=4)
+        assert all(np.array_equal(a, b) for a, b in zip(r.outputs, offline, strict=True))

@@ -60,9 +60,10 @@ def test_event_specs_are_jax_s():
     assert tracing.TRAIN_SPANS == jax_tracing.TRAIN_SPANS
     # Besides the request and train chains, the server's reload span and
     # the router's replica_warm span (both on the tracer's "r" stream, as
-    # JAX's).
+    # JAX's), and the federation controller's three cluster spans.
     assert set(events.SPANS) == (set(tracing.SERVE_SPANS + tracing.TRAIN_SPANS)
-                                 | {"reload", "replica_warm"})
+                                 | {"reload", "replica_warm", "placement",
+                                    "cluster_request", "cluster_rollout"})
 
 
 @pytest.mark.parametrize("record", [

@@ -43,7 +43,7 @@ from gnot_tpu.serve import policies as jax_policies
 from gnot_tpu.serve import rollout as jax_rollout
 from gnot_tpu.train.trainer import init_params
 from gnot_tpu_torch import main as port_main
-from gnot_tpu_torch.config import ModelConfig, NotPortedError, ServeConfig
+from gnot_tpu_torch.config import ModelConfig, ServeConfig
 from gnot_tpu_torch.data import datasets
 from gnot_tpu_torch.interop import params_from_jax
 from gnot_tpu_torch.models.gnot import GNOT
@@ -520,10 +520,31 @@ def test_a_drained_session_resumes_from_the_store_as_in_jax(setup, tmp_path):
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
 
 
-def test_the_server_refuses_what_waits_for_the_router(setup):
+def _persisted_cursors(server, sample, store) -> list:
+    """Drive one named 3-step session through a started ``server`` with
+    ``persist_snapshots`` and a store, reading the store's cursor at each
+    step's callback (which runs before that step's own snapshot is
+    written); the session must complete and leave no file behind."""
+    seen = []
+    fut = server.submit_rollout(
+        sample, 3, name="kept",
+        on_step=lambda sid, step, out: seen.append((step, (store.load(sid) or {}).get("cursor"))))
+    assert fut.result(timeout=30).ok
+    server.drain(5)
+    assert store.names() == []
+    return seen
+
+
+def test_the_server_refuses_what_waits_for_the_router(setup, tmp_path):
+    """With ``persist_snapshots`` and a store (JAX's rolling persistence,
+    the federation's migration substrate) each due snapshot of a named
+    session is on disk before the session ends; the checks the server
+    still makes, as JAX's."""
     pkg = setup["port"]
-    with pytest.raises(NotPortedError, match="persist_snapshots"):
-        InferenceServer(pkg["engine"], persist_snapshots=True)
+    store = rollout.SessionStore(str(tmp_path / "store"))
+    persisting = InferenceServer(pkg["engine"], max_batch=MAX_BATCH, session_store=store,
+                                 persist_snapshots=True).start()
+    assert _persisted_cursors(persisting, pkg["samples"][0], store) == [(1, None), (2, 1), (3, 2)]
     with pytest.raises(ValueError, match="session_snapshot_every"):
         InferenceServer(pkg["engine"], session_snapshot_every=0)
     srv = InferenceServer(pkg["engine"], max_batch=MAX_BATCH)

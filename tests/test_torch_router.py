@@ -784,11 +784,13 @@ def test_the_pool_merge_and_events_are_jax_s(setup, tmp_path):
     assert all("replica" in r for r in got["records"] if r["event"] == "queue_depth")
 
 
-def test_replicas_share_the_device_and_keep_their_own_weights(setup):
+def test_replicas_share_the_device_and_keep_their_own_weights(setup, tmp_path):
     """``build_replicas`` on the CPU: each replica its own copy of the
     weights (the model itself untouched), no stream, JAX's refusals; a
-    replica's outputs equal the served model's; ``prewarm_from`` and
-    ``persist_snapshots`` are refused, a catalog is taken."""
+    replica's outputs equal the served model's; ``prewarm_from`` is
+    refused, a catalog is taken, and ``persist_snapshots`` reaches the
+    replica's server: a due snapshot of a named session is on disk before
+    the session ends, as in JAX."""
     model = setup["model"]
     reps = build_replicas(model, 2, batch_size=MAX_BATCH)
     assert [r.replica_id for r in reps] == [0, 1]
@@ -817,8 +819,17 @@ def test_replicas_share_the_device_and_keep_their_own_weights(setup):
     shared = ReplicaRouter([one], catalog=catalog)
     assert one.server._catalog is catalog and one.engine.catalog is catalog
     assert shared.pool() == [one]
-    with pytest.raises(NotPortedError, match="persist_snapshots"):
-        ReplicaRouter([one], persist_snapshots=True)
+    store = SessionStore(str(tmp_path / "store"))
+    persisting = ReplicaRouter([one], max_batch=MAX_BATCH, session_store=store,
+                               persist_snapshots=True).start()
+    seen = []
+    fut = persisting.submit_rollout(
+        s[0], 3, name="kept",
+        on_step=lambda sid, step, out: seen.append((step, (store.load(sid) or {}).get("cursor"))))
+    assert fut.result(timeout=30).ok
+    persisting.drain(5)
+    # Each step's callback runs before its own snapshot is written.
+    assert seen == [(1, None), (2, 1), (3, 2)] and store.names() == []
 
 
 # -- the command line -------------------------------------------------------------
