@@ -272,6 +272,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    recorders: the merged trace's sources the controller and the
    survivor, each re-migrated session's resumed steps in its original
    trace, one controller ring dumped on ``host_dead``.
+18. parallel training over ``torch.distributed``, its ranks as processes
+   of this script (``--rank``) or of ``torchrun``, each with its own
+   deadline: (b) ``torchrun --nproc_per_node 1 -m gnot_tpu_torch.main
+   --distributed`` at phase 6's flags with ``--ffn_impl xla`` (a mesh of
+   one on NCCL) against the run without ``--distributed`` (max rel diff at
+   most 1e-5), the two at once beside (d)'s resume, last; (a) ``fused_nla_sp`` at q
+   ``[4,1024,256]``, H=8, cross k/v ``[1,4,512,256]`` and self, on 2 ranks
+   sharing the card (gloo with CUDA tensors), psum and ring, each rank
+   launching the reduce and apply kernels once a forward, the ranks'
+   blocks and gradient parts within 1e-5 / 1e-6 of ``fused_nla`` and of
+   ``reference_impl``, and a world of one bitwise ``fused_nla``; (c) the
+   same flags on 2 ranks with ``--mesh_data 2``, ``--mesh_seq 2`` and
+   ``--mesh_model 2`` and on 3 with ``--mesh_expert 3``, within 1e-5 of
+   (b), with each rank's step time, all-reduce calls and time a step
+   (``torch.profiler``) and peak memory, and the model and expert runs'
+   gathered best checkpoints evaluating on one device to their runs' best
+   metrics; (d) ``--mesh_seq 2`` with SIGTERM to rank 1 alone: both ranks
+   stop after step 3 and rank 0 saves ``latest``; ``--resume`` in a fresh
+   launch ends bitwise where the stopped run carried on in memory ends.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -311,7 +330,9 @@ and (d); ``rollout_serve_launches``, ``rollout_bf16_serve_launches``,
 ``heal_serve_launches`` over phase 16's paths (a) (all six runs), (b)
 and (c); ``federation_serve_launches``, ``federation_tcp_launches``,
 ``federation_bf16_launches`` and ``federation_kill_launches`` over phase
-17's runs (a), (b), (c) and (d) (every host's replicas summed). Launches
+17's runs (a), (b), (c) and (d) (every host's replicas summed). The
+``nla_reduce`` and ``nla_apply`` entries' ``sp_launches`` are their counts
+under ``fused_nla_sp`` in phase 18 (a), summed over the ranks. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -4634,6 +4655,434 @@ def federation_phase(torch, np, card: str, layers) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 18: parallel training over torch.distributed (ranks as processes).
+# --------------------------------------------------------------------------
+
+# The reference-default width of phase 6, with the FFN on the torch path:
+# ffn_impl='pallas' is refused on a mesh, in both packages.
+PAR_ARGV = ["--synthetic", "ns2d", "--n_train", "16", "--n_test", "8", "--epochs", "2",
+            "--batch_size", "4", "--ffn_impl", "xla", "--device", "cuda", "--distributed"]
+# Every mesh's losses against the mesh of one, and the mesh of one against
+# the run without --distributed: another summation order of the same sums.
+PAR_RTOL = 1e-5
+# fused_nla_sp against fused_nla and the plain reference_impl: the JAX
+# package's bar (tests/test_pallas.py:147-215).
+SP_RTOL, SP_ATOL = 1e-5, 1e-6
+# Each rank's own deadline; the group's collectives wait at most
+# GNOT_DIST_TIMEOUT_S.
+RANK_TIMEOUT_S = 240
+PAR_OUT = TRAIN_OUT / "parallel"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(world: int, port: int, rank: int | None = None) -> dict:
+    """``torchrun``'s environment for one rank of a one-node launch (with
+    ``rank`` None, what ``torchrun`` itself is given)."""
+    env = dict(os.environ, GNOT_DIST_TIMEOUT_S="120", OMP_NUM_THREADS="1")
+    if rank is not None:
+        env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), GROUP_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+    return env
+
+
+def wait_all(procs: list, tag: str, timeout_s: float = RANK_TIMEOUT_S) -> list[str]:
+    """Every process's output, each waited for with the one deadline; on a
+    timeout or a failure every process (and its session) is killed and the
+    phase fails."""
+    import signal as signal_lib
+
+    deadline = time.monotonic() + timeout_s
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal_lib.SIGKILL)
+                p.wait()
+    if outs is None:
+        raise RuntimeError(f"[par] {tag}: still running after {timeout_s} s; killed")
+    for p, out in zip(procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"[par] {tag}: a process exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def popen(cmd: list[str], env: dict):
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+
+def launch_ranks(world: int, args: list[str], tag: str) -> list[str]:
+    """``world`` processes of this script's rank mode, one a rank."""
+    port = free_port()
+    return wait_all([popen([sys.executable, str(Path(__file__).resolve()), "--rank", *args],
+                           rank_env(world, port, r)) for r in range(world)], tag)
+
+
+def torchrun(nproc: int, args: list[str], tag: str) -> str:
+    """One ``torchrun --nproc_per_node nproc`` launch of ``args``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_port", str(free_port()), *args]
+    return wait_all([popen(cmd, rank_env(nproc, 0))], tag)[0]
+
+
+def sp_inputs(torch, np, kind: str):
+    """Phase 18 (a)'s inputs on the card: q [4,1024,256], H=8, and the
+    NS2d-1k cross k/v [1,4,512,256] (a random key mask, row 0 kept) or
+    the self k/v from q's own rows."""
+    rng = np.random.default_rng(18)
+    q = rng.standard_normal((4, 1024, 256), dtype=np.float32)
+    lk = 512 if kind == "cross" else 1024
+    k = rng.standard_normal((1, 4, lk, 256), dtype=np.float32)
+    v = rng.standard_normal((1, 4, lk, 256), dtype=np.float32)
+    mask = (rng.uniform(size=(1, 4, lk)) > 0.2).astype(np.float32)
+    mask[:, :, 0] = 1.0
+    return [torch.from_numpy(t).cuda() for t in (q, k, v, mask)]
+
+
+def sp_call(torch, fn, q, k, v, mask):
+    """``fn``'s (out, qs) and the gradients wrt q, k, v of ``sum(out^2) +
+    sum(qs / 2)`` (``tests/test_pallas.py``'s loss)."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, qs = fn(*leaves, mask)
+    (torch.sum(out**2) + torch.sum(qs * 0.5)).backward()
+    return out.detach(), qs.detach(), [t.grad for t in leaves]
+
+
+def sp_cases(out_dir: Path) -> None:
+    """Phase 18 (a) on this rank, in the group it joined: ``fused_nla_sp``
+    over the seq axis of every rank, the CUDA kernels on each, with psum
+    and with the ring; its blocks, its gradient parts, its launches and its
+    time, saved to ``out_dir/sp<rank>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gnot_tpu_torch.config import MeshConfig
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.parallel.mesh import make_mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device()),
+           "cases": {}}
+    mesh = make_mesh(MeshConfig(seq=world))
+    for kind in ("cross", "self"):
+        q, k, v, mask = sp_inputs(torch, np, kind)
+        for coll in ("psum", "ring"):
+            fn = lambda *a, c=coll: fa.fused_nla_sp(*a, 8, mesh, sp_collective=c)  # noqa: E731
+            fa.nla_reduce_kernel.launches = fa.nla_apply_kernel.launches = 0
+            out, qs, grads = sp_call(torch, fn, q, k, v, mask)
+            torch.cuda.synchronize()
+            launches = [fa.nla_reduce_kernel.launches, fa.nla_apply_kernel.launches]
+            with torch.no_grad():
+                for _ in range(3):
+                    fn(q, k, v, mask)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn(q, k, v, mask)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 10 * 1e3
+            res["cases"][f"{kind}/{coll}"] = {
+                "coords": mesh.coords, "shape": mesh.shape, "out": out.cpu(),
+                "qs": qs.cpu(), "grads": [g.cpu() for g in grads],
+                "launches": launches, "ms": ms}
+    torch.save(res, out_dir / f"sp{rank}.pt")
+
+
+def rank_main(plan_path: Path) -> None:
+    """A rank of phase 18, its plan in ``plan_path`` and its results beside
+    it (``<plan>_rank<r>.json``): with ``plan["sp"]`` (a) first
+    (``sp_cases``), then each run of ``plan["runs"]`` (c)/(d) through the port's
+    entry point (``gnot_tpu_torch.main.run``) in this rank's process, in
+    the one process group this rank joins first; per run its losses,
+    metrics, peak device memory, and with ``profile`` its all-reduce time a
+    step from the ``torch.profiler`` trace of epoch 1. ``sigterm_rank``
+    gives that rank alone ``--inject_fault sigterm@3`` (a real SIGTERM to
+    its process before step 3); ``carry_on`` then trains the stopped
+    trainer on from its epoch in memory (no checkpoint in between)."""
+    import numpy as np
+    import torch
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.parallel import multihost
+
+    plan = json.loads(plan_path.read_text())
+    out_dir = plan_path.parent
+    multihost.initialize(torch.device("cuda"))
+    rank = multihost.process_index()
+    results = {}
+    try:
+        if plan.get("sp"):
+            sp_cases(out_dir)
+        for run in plan["runs"]:
+            name, argv = run["name"], list(run["argv"])
+            if rank == 0:
+                argv += ["--metrics_path", str(out_dir / name / "m.jsonl")]
+            if run.get("profile"):
+                argv += ["--profile_dir", str(out_dir / name / f"prof{rank}")]
+            if run.get("sigterm_rank") == rank:
+                argv += ["--inject_fault", "sigterm@3"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = port_main.run(argv)
+            torch.cuda.synchronize()
+            res = {"wall_s": time.perf_counter() - t0,
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                   "mesh": trainer.mesh.shape, "host_step": trainer.host_step,
+                   "losses": [h.step_losses.tolist() for h in trainer.history],
+                   "metrics": [h.test_metric for h in trainer.history]}
+            if run.get("profile"):
+                res["allreduce_ms"] = allreduce_ms(out_dir / name / f"prof{rank}" / "epoch_1.trace.json")
+            if run.get("carry_on"):
+                # run() closed its sink and tracer; no checkpoint in between.
+                trainer.checkpointer = trainer.metrics_sink = trainer._tracer = None
+                trainer.start_epoch = len(trainer.history)
+                trainer.fit()
+                res["carried"] = {"losses": [h.step_losses.tolist() for h in trainer.history],
+                                  "metrics": [h.test_metric for h in trainer.history],
+                                  "host_step": trainer.host_step}
+            params = trainer.standard_params()
+            res["param_sum"] = float(sum(np.float64(p.double().sum().item())
+                                         for p in params.values()))
+            results[name] = res
+    finally:
+        multihost.shutdown()
+    plan_path.with_name(f"{plan_path.stem}_rank{rank}.json").write_text(json.dumps(results))
+
+
+def allreduce_ms(trace: Path) -> dict:
+    """The all-reduces of a ``torch.profiler`` trace of one epoch: the
+    calls through the process group (``c10d::allreduce_``; for gloo, the
+    enqueue) and the wall time covered by gloo's records of the work
+    (``gloo:all_reduce``, two nested records a call: the union of their
+    intervals, so none counts twice)."""
+    events = [e for e in json.load(open(trace))["traceEvents"] if "dur" in e]
+    calls = [e for e in events if e.get("name") == "c10d::allreduce_"]
+    work = union_us([(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("name") == "gloo:all_reduce"])
+    return {"calls": len(calls), "ms": sum(b - a for a, b in work) / 1e3}
+
+
+def rank_entry(argv: list[str]) -> int:
+    """``chip_smoke.py --rank PLAN_JSON``: one rank of phase 18, with
+    ``torchrun``'s environment."""
+    sys.path.insert(0, str(ROOT))
+    rank_main(Path(argv[0]))
+    return 0
+
+
+def epoch_records(path: Path) -> list[dict]:
+    return [r for r in read_jsonl(path) if "train_loss" in r]
+
+
+def rel_diff(np, a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def parallel_phase(torch, np, card: str) -> dict:
+    """Phase 18: parallel training over torch.distributed on the one card.
+    (a) ``fused_nla_sp`` over 2 ranks sharing the card (gloo with CUDA
+    tensors), psum and ring, cross and self, held against ``fused_nla``
+    and ``reference_impl``; a world of one. (b) ``torchrun
+    --nproc_per_node 1 -m gnot_tpu_torch.main --distributed`` (NCCL, a
+    mesh of one) against the run without ``--distributed``. (c) the same
+    flags on 2 ranks with --mesh_data / --mesh_seq / --mesh_model 2 and on
+    3 ranks with --mesh_expert 3, against (b), with each rank's step time,
+    all-reduce time a step and peak memory. (d) SIGTERM to rank 1 alone of
+    a --mesh_seq 2 run: both stop at one step and rank 0 saves; --resume
+    from it ends bitwise where the stopped run carried on in memory ends."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.config import MeshConfig
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.parallel.mesh import make_mesh
+
+    import shutil
+
+    t_phase = time.monotonic()
+    shutil.rmtree(PAR_OUT, ignore_errors=True)
+    PAR_OUT.mkdir(parents=True)
+    out = {}
+
+    # (a), (c) and (d)'s stop on 2 ranks sharing the card; (c) on 3 ranks;
+    # then (d)'s resume in a fresh launch beside (b): the mesh of one on NCCL
+    # (torchrun) and the run without --distributed (in this process). (b)
+    # and the resume time nothing, so they share the card.
+    t0 = time.monotonic()
+    for d in ("b", "data2", "seq2", "model2", "expert3", "stop", "resume"):
+        (PAR_OUT / d).mkdir()
+    ck = PAR_OUT / "ck"
+    # The model and expert runs also save checkpoints: the shards gathered
+    # over gloo with CUDA tensors, rank 0 writing.
+    two = [dict(name=f"{axis}2", argv=PAR_ARGV + [f"--mesh_{axis}", "2"] + (
+        ["--checkpoint_dir", str(PAR_OUT / "ck_model2")] if axis == "model" else []),
+        profile=True) for axis in ("data", "seq", "model")]
+    two.append(dict(name="stop", argv=PAR_ARGV + ["--mesh_seq", "2", "--checkpoint_dir",
+                                                  str(ck)], sigterm_rank=1, carry_on=True))
+    three = [dict(name="expert3", argv=PAR_ARGV + ["--mesh_expert", "3", "--checkpoint_dir",
+                                                   str(PAR_OUT / "ck_expert3")], profile=True)]
+    resume = [dict(name="resume", argv=PAR_ARGV + ["--mesh_seq", "2", "--checkpoint_dir",
+                                                   str(ck), "--resume"])]
+    launches = [(2, dict(sp=True, runs=two)), (3, dict(runs=three)), (2, dict(runs=resume))]
+    for i, (world, plan) in enumerate(launches):
+        (PAR_OUT / f"plan{i}.json").write_text(json.dumps(plan))
+    launch_ranks(2, [str(PAR_OUT / "plan0.json")], "a, c, d")
+    launch_ranks(3, [str(PAR_OUT / "plan1.json")], "c")
+    port = free_port()
+    procs = [popen([sys.executable, str(Path(__file__).resolve()), "--rank",
+                    str(PAR_OUT / "plan2.json")], rank_env(2, port, r)) for r in range(2)]
+    procs.append(popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                        "--master_port", str(free_port()), "-m", "gnot_tpu_torch.main",
+                        *PAR_ARGV, "--metrics_path", str(PAR_OUT / "b" / "m.jsonl")],
+                       rank_env(1, 0)))
+    try:
+        plain_argv = [a for a in PAR_ARGV if a != "--distributed"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            base = port_main.run(plain_argv + ["--metrics_path", str(PAR_OUT / "base.jsonl")])
+    finally:
+        text = wait_all(procs, "d, b")[-1]
+    log(f"[par] four launches (a, c, d, b) {time.monotonic() - t0:.1f} s")
+    results = {}
+    for i, (world, _) in enumerate(launches):
+        for r in range(world):
+            path = PAR_OUT / f"plan{i}_rank{r}.json"
+            for name, res in json.loads(path.read_text()).items():
+                results.setdefault(name, []).append(res)
+
+    # (b) the mesh of one against the run without --distributed.
+    base_recs = epoch_records(PAR_OUT / "base.jsonl")
+    if "Distributed: backend=nccl ranks=1" not in text:
+        raise RuntimeError(f"[par] (b) not a mesh of one on NCCL:\n{text[-2000:]}")
+    one_recs = epoch_records(PAR_OUT / "b" / "m.jsonl")
+    keys = ("train_loss", "test_metric")
+    b_vals = [r[k] for r in one_recs for k in keys]
+    b_diff = rel_diff(np, b_vals, [r[k] for r in base_recs for k in keys])
+    log(f"[par] (b) torchrun --nproc_per_node 1 -m gnot_tpu_torch.main {' '.join(PAR_ARGV)}: "
+        f"train/test {b_vals} vs without --distributed: max rel diff {b_diff:.3e} (bar "
+        f"{PAR_RTOL}); best {base.best_metric}")
+    if b_diff > PAR_RTOL:
+        raise RuntimeError("[par] (b) the mesh of one is not the single-device run")
+
+    # (a) fused_nla_sp: the ranks' blocks against fused_nla and the plain
+    # version on the whole inputs, and a world of one.
+    ranks = [torch.load(PAR_OUT / f"sp{r}.pt", weights_only=False) for r in range(2)]
+    log(f"[par] (a) 2 ranks on cuda:{[r['device'] for r in ranks]} backend "
+        f"{ranks[0]['backend']}; the ring stages each hop through host memory: gloo's TCP "
+        "transport writes a CUDA tensor's device pointer as a host address (EFAULT, 'Bad "
+        "address', on the next collective)")
+    world_one = make_mesh(MeshConfig())
+    sp_launches = [0, 0]
+    worst = {"kernel": 0.0, "plain": 0.0}
+    for kind in ("cross", "self"):
+        q, k, v, mask = sp_inputs(torch, np, kind)
+        fa.nla_reduce_kernel.launches = fa.nla_apply_kernel.launches = 0
+        k_out, k_qs, k_grads = sp_call(torch, lambda *a: fa.fused_nla(*a, 8), q, k, v, mask)
+        one = sp_call(torch, lambda *a: fa.fused_nla_sp(*a, 8, world_one), q, k, v, mask)
+        if fa.nla_reduce_kernel.launches != 2 or fa.nla_apply_kernel.launches != 2:
+            raise RuntimeError("[par] (a) fused_nla / the world of one did not launch the kernels")
+        if not (torch.equal(one[0], k_out) and torch.equal(one[1], k_qs)):
+            raise RuntimeError("[par] (a) fused_nla_sp on a world of one is not fused_nla")
+        p_out, p_qs, p_grads = sp_call(
+            torch, lambda *a: fa.reference_impl(*a, 8), q, k, v, mask)
+        single_ms = cuda_ms(torch, lambda: fa.fused_nla(q, k, v, mask, 8), iters=20)
+        for coll in ("psum", "ring"):
+            got_out = torch.zeros_like(k_out).cpu()
+            got_qs = torch.zeros_like(k_qs).cpu()
+            got_grads = [torch.zeros_like(g).cpu() for g in k_grads]
+            for r in ranks:
+                case = r["cases"][f"{kind}/{coll}"]
+                rows = slice(case["coords"]["seq"] * 512, (case["coords"]["seq"] + 1) * 512)
+                got_out[:, :, rows] = case["out"]
+                got_qs[:, rows] = case["qs"]
+                for acc, g in zip(got_grads, case["grads"]):
+                    acc += g
+                sp_launches[0] += case["launches"][0]
+                sp_launches[1] += case["launches"][1]
+                if case["launches"] != [1, 1]:
+                    raise RuntimeError(f"[par] (a) rank launches {case['launches']}, want [1, 1]")
+            for ref_name, ref in (("kernel", (k_out, k_qs, k_grads)),
+                                  ("plain", (p_out, p_qs, p_grads))):
+                pairs = [(got_out, ref[0]), (got_qs, ref[1])] + list(zip(got_grads, ref[2]))
+                for got, want in pairs:
+                    want = want.cpu()
+                    torch.testing.assert_close(got, want, rtol=SP_RTOL, atol=SP_ATOL)
+                    worst[ref_name] = max(worst[ref_name], (got - want).abs().max().item())
+            log(f"[par] (a) {kind} q [4,1024,256] k/v {list(k.shape)} H=8 {coll}: 2 ranks "
+                f"{[r['cases'][f'{kind}/{coll}']['ms'] for r in ranks]} ms a forward (host "
+                f"clock, synchronised) beside fused_nla alone {single_ms:.4f} ms (CUDA events)")
+    log(f"[par] (a) out, qs and grads wrt q, k, v vs fused_nla: max_abs_err "
+        f"{worst['kernel']:.3e}; vs reference_impl: {worst['plain']:.3e} (tolerance rtol "
+        f"{SP_RTOL} atol {SP_ATOL}); launches under fused_nla_sp over the ranks: "
+        f"reduce {sp_launches[0]} apply {sp_launches[1]}")
+    out["sp_launches"] = {"nla_reduce": sp_launches[0], "nla_apply": sp_launches[1]}
+    out["sp_max_abs_err"] = worst
+
+    want = np.asarray(b_vals)
+    for name in ("data2", "seq2", "model2", "expert3"):
+        per_rank = results[name]
+        recs = epoch_records(PAR_OUT / name / "m.jsonl")
+        got = [r[k] for r in recs for k in keys]
+        diff = rel_diff(np, got, want)
+        ranks_agree = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
+        secs = [r["epoch_seconds"] for r in recs]
+        # Epoch 1's 4 steps, its eval's means over the data ranks included.
+        per_step = [(r["allreduce_ms"]["calls"] / 4, round(r["allreduce_ms"]["ms"] / 4, 3))
+                    for r in per_rank]
+        log(f"[par] (c) {name}: mesh {per_rank[0]['mesh']}; train/test {got}, max rel diff vs "
+            f"(b) {diff:.3e} (bar {PAR_RTOL}); ranks' losses equal {ranks_agree}; step time "
+            f"{[s / 4 * 1e3 for s in secs]} ms (epoch 0, epoch 1 under the profiler); "
+            f"all-reduce a step per rank (calls, ms of gloo's work): {per_step} (epoch 1, "
+            f"eval included); "
+            f"peak memory {[r['peak_mib'] for r in per_rank]} MiB on {card}")
+        if diff > PAR_RTOL or not ranks_agree:
+            raise RuntimeError(f"[par] (c) {name} does not train as the mesh of one")
+
+    # The gathered checkpoints are the single-device layout: each evaluates
+    # on one device to its run's best metric.
+    for name in ("model2", "expert3"):
+        argv = [a for a in PAR_ARGV if a != "--distributed"] + [
+            "--checkpoint_dir", str(PAR_OUT / f"ck_{name}"), "--eval_only"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = port_main.main(argv)
+        want = min(r["test_metric"] for r in epoch_records(PAR_OUT / name / "m.jsonl"))
+        log(f"[par] (c) {name}'s best checkpoint (gathered shards) on one device: "
+            f"{got} against the run's best {want}")
+        if not math.isclose(got, want, rel_tol=PAR_RTOL):
+            raise RuntimeError(f"[par] (c) {name}'s checkpoint is not its run's weights")
+
+    stop, res = results["stop"], results["resume"]
+    stop_steps = [r["host_step"] for r in stop]
+    latest = json.loads((ck / "latest.json").read_text())
+    carried = [r["carried"] for r in stop]
+    bitwise = all(c["losses"][-1] == r["losses"][-1] and c["metrics"][-1] == r["metrics"][-1]
+                  for c, r in zip(carried, res))
+    sums = [r["param_sum"] for r in stop + res]
+    log(f"[par] (d) SIGTERM to rank 1 alone: stop steps {stop_steps}, latest epoch "
+        f"{latest['epoch']} ({latest['dir']}); the resumed run's last epoch bitwise the stopped "
+        f"run carried on in memory: {bitwise}, weight sums {sums}; resumed final losses "
+        f"{[r['losses'][-1] for r in res]}")
+    if set(stop_steps) != {3} or latest["epoch"] != 0 or not bitwise or len(set(sums)) != 1:
+        raise RuntimeError("[par] (d) the stop agreement or the resume is not whole")
+    log(f"[par] phase 18 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -4851,6 +5300,9 @@ def main() -> int:
     # -- phase 17: the federation and cluster tracing -----------------------
     federation_launches = federation_phase(torch, np, card, layers)
 
+    # -- phase 18: parallel training over torch.distributed ----------------
+    par = parallel_phase(torch, np, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -4898,6 +5350,7 @@ def main() -> int:
             "replaces": replaces[name],
             **entry,
             "library_ms": None,
+            **({"sp_launches": par["sp_launches"][name]} if name in par["sp_launches"] else {}),
         })
     log(card)
     print(json.dumps({"kernels": kernels}))
@@ -4913,4 +5366,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_entry(sys.argv[2:]))
     sys.exit(main())

@@ -2,9 +2,10 @@
 
 ``ModelConfig`` mirrors ``gnot_tpu/config.py::ModelConfig`` field for
 field, with the same defaults and the same refusals. ``OptimConfig``
-mirrors its namesake; ``DataConfig``, ``TrainConfig`` and ``ServeConfig``
-keep only the fields ``datasets.load``, the loaders, the single-device
-trainer, its observability plane and the serving path read.
+mirrors its namesake, and so does ``MeshConfig``; ``DataConfig``,
+``TrainConfig`` and ``ServeConfig`` keep only the fields ``datasets.load``,
+the loaders, the trainer (single-device or over the mesh), its
+observability plane and the serving path read.
 ``NotPortedError`` is the refusal for a value that selects a part of the
 JAX package the port does not have yet. ``parse_tenant_spec`` is JAX's
 grammar of the three tenant flags, kept here (as JAX keeps it in its
@@ -20,9 +21,10 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
-    does not have yet. ``PreemptionHandler.should_stop(multiprocess=True)``
-    raises it (the multi-host stop agreement waits for multi-process
-    training); ``EngineReplica.prewarm_from``, ``--serve_prewarm`` and the
+    does not have yet. The distributed trainer raises it for the pipeline
+    mesh (``mesh.pipe > 1``, ``mesh.microbatches``), ``--packed`` on a mesh
+    and ``--scan_layers`` on a mesh (``parallel/mesh.py::refuse_unported``);
+    ``EngineReplica.prewarm_from``, ``--serve_prewarm`` and the
     federation's ``ClusterRouter(manifests=...)`` /
     ``build_local_federation(manifests=...)`` raise it for snapshot
     hydration (eager PyTorch has no compiled executable to serialize; a
@@ -207,12 +209,33 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (``gnot_tpu/config.py::MeshConfig``): one rank a
+    point of the mesh. Axis sizes of 1 collapse that axis."""
+
+    data: int = -1  # -1: all remaining ranks
+    seq: int = 1  # sequence (context) parallelism over mesh points
+    model: int = 1  # tensor parallelism over heads / FFN hidden
+    # Expert parallelism over the stacked soft-MoE expert axis (the
+    # gated combine becomes one all-reduce). n_expert % expert == 0.
+    expert: int = 1
+    # Pipeline parallelism over the attention-block stack. Not ported:
+    # the trainer refuses pipe > 1 (NotPortedError).
+    pipe: int = 1
+    # Microbatches per pipeline round-trip (pipe > 1 only); not ported.
+    microbatches: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The single-device training loop's fields (``gnot_tpu`` TrainConfig),
-    with its resilience fields and their checks."""
+    """The training loop's fields (``gnot_tpu`` TrainConfig), with its
+    resilience fields and their checks."""
 
     epochs: int = 100  # reference main.py:23
     loss: str = "rel_l2"  # the reference trains AND evals on rel-L2
+    # Train over the MeshConfig mesh, one torch.distributed rank a point
+    # (parallel/mesh.py). False = single device.
+    distributed: bool = False
     checkpoint_dir: str = ""
     resume: bool = False
     checkpoint_every: int = 0  # epochs; 0 = best-only (reference behavior)
@@ -294,12 +317,13 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """What one training run reads (``gnot_tpu`` Config without the mesh
-    and serving sections)."""
+    """What one training run reads (``gnot_tpu`` Config without the
+    serving section)."""
 
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def refuse_compositions(config: Config, model_cfg: ModelConfig) -> None:

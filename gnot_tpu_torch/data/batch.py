@@ -160,6 +160,20 @@ def bucket_length(n: int, *, min_size: int = 64) -> int:
     return size
 
 
+def fixed_pad_lengths(
+    samples: Sequence[MeshSample], *, bucket: bool = True
+) -> tuple[int, int]:
+    """Dataset-wide ``(pad_nodes, pad_funcs)`` targets: the maxima over
+    ALL samples (bucketed), so every batch has one shape, as the ranks of
+    a mesh need (``gnot_tpu/data/batch.py::fixed_pad_lengths``)."""
+    pn = max(s.coords.shape[0] for s in samples)
+    pf = max((f.shape[0] for s in samples for f in s.funcs), default=0)
+    if bucket:
+        pn = bucket_length(pn)
+        pf = bucket_length(pf) if pf else 0
+    return pn, pf
+
+
 def validate_samples(
     samples: Sequence[MeshSample],
     *,

@@ -110,6 +110,23 @@ sessions re-migrate from; ``--trace_path`` becomes the merged cluster
 trace and ``--flight_recorder_s`` turns on the flight recorders. JAX's
 ``Federated serve:`` line is printed and run.json gains ``federation``.
 
+Parallel training (``gnot_tpu/main.py``'s seven mesh flags, defaults and
+checks): ``--distributed`` trains over the rank mesh of ``--mesh_data``,
+``--mesh_seq``, ``--mesh_model`` and ``--mesh_expert``
+(``parallel/mesh.py``), one process a rank, launched by ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node N -m
+gnot_tpu_torch.main --distributed ...``) or alone as a mesh of one. Each
+rank joins the group ``torchrun``'s environment describes
+(``parallel/multihost.py::initialize``: gloo on the CPU, NCCL with a card
+a rank, gloo with CUDA tensors when ranks share a card, named on the
+``Distributed:`` line); with several nodes each keeps its node's strided
+shard of the samples (``shard_samples``), padded to the whole dataset's
+lengths. Rank 0 alone writes the metrics, the trace, ``run.json`` (with the
+mesh and ``process_count`` / ``process_index``), the checkpoints, the
+export and the predictions. ``--mesh_pipe`` > 1 and ``--microbatches``
+are refused (``NotPortedError``), as are ``--packed``, ``--scan_layers``
+and ``--serve`` with ``--distributed``, and ``--device_id`` with it.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
 """
@@ -131,6 +148,7 @@ from gnot_tpu_torch import interop
 from gnot_tpu_torch.config import (
     Config,
     DataConfig,
+    MeshConfig,
     ModelConfig,
     NotPortedError,
     OptimConfig,
@@ -145,6 +163,7 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 from gnot_tpu_torch.obs import manifest as manifest_lib
 from gnot_tpu_torch.obs import metrics as metrics_lib
 from gnot_tpu_torch.obs.tracing import Tracer
+from gnot_tpu_torch.parallel import multihost
 from gnot_tpu_torch.resilience.faults import FaultInjector
 from gnot_tpu_torch.resilience.preemption import PreemptionHandler
 from gnot_tpu_torch.serve.engine import InferenceEngine
@@ -630,6 +649,31 @@ def build_parser() -> argparse.ArgumentParser:
         "--serve_pack_chunk", type=int, default=64,
         help="serving: packed-mode segment alignment in tokens (multiple of 8)",
     )
+    # Parallel training (gnot_tpu/main.py:539-560).
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="train over the rank mesh (one torch.distributed process a "
+             "rank; spans hosts when launched by torchrun on several nodes)"
+    )
+    p.add_argument("--mesh_data", type=int, default=-1)
+    p.add_argument("--mesh_seq", type=int, default=1)
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument(
+        "--mesh_expert", type=int, default=1,
+        help="expert parallelism over the stacked soft-MoE experts "
+             "(n_expert must be divisible by it)"
+    )
+    p.add_argument(
+        "--mesh_pipe", type=int, default=1,
+        help="pipeline parallelism over the attention-block stack "
+             "(n_attn_layers must be divisible by it; composes with the "
+             "data axis only); not ported: > 1 is refused"
+    )
+    p.add_argument(
+        "--microbatches", type=int, default=0,
+        help="microbatches per pipeline round (0 = one per stage); the "
+             "pipeline bubble is (pipe-1)/(microbatches+pipe-1); not ported"
+    )
     return p
 
 
@@ -681,6 +725,15 @@ def train_config(args) -> Config:
             graceful_preempt=not args.no_preempt,
             preempt_sync_every=args.preempt_sync_every,
             seed=args.seed,
+            distributed=args.distributed,
+        ),
+        mesh=MeshConfig(
+            data=args.mesh_data,
+            seq=args.mesh_seq,
+            model=args.mesh_model,
+            expert=args.mesh_expert,
+            pipe=args.mesh_pipe,
+            microbatches=args.microbatches,
         ),
     )
 
@@ -754,7 +807,10 @@ def model_config(args, samples: list[MeshSample]) -> ModelConfig:
 
 def run_device(args) -> torch.device:
     """The run's device: ``--device``, or ``cuda:i`` with ``--device_id i``
-    (then also torch's current CUDA device, which the kernels launch on)."""
+    (then also torch's current CUDA device, which the kernels launch on);
+    with ``--distributed``, this rank's card (``multihost.rank_device``)."""
+    if args.distributed:
+        return resolve_device(str(multihost.rank_device(resolve_device(args.device))))
     if args.device_id < 0:
         return resolve_device(args.device)
     if args.device == "cpu":
@@ -797,7 +853,7 @@ class RunManifest:
             extra["federation"] = self.fields["federation"]
         manifest_lib.write_manifest(
             self.path, argv=self.argv, extra=extra,
-            **{k: self.fields.get(k) for k in ("config", "model_config", "device")},
+            **{k: self.fields.get(k) for k in ("config", "model_config", "device", "mesh")},
         )
 
 
@@ -1279,6 +1335,10 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     cfg = train_config(args)
     train_samples, test_samples = datasets.load(cfg.data)
     mc = model_config(args, train_samples)
+    # Predict and export want the whole test split (the same on every rank).
+    full_test_samples = test_samples
+    if args.distributed and multihost.node_count() > 1:
+        cfg, train_samples, test_samples = _node_shard(cfg, train_samples, test_samples)
     # The trainer gives the checkpointer its fault injector and the sink.
     checkpointer = (
         Checkpointer(cfg.train.checkpoint_dir, extra_meta=checkpoint_meta(args, mc))
@@ -1288,7 +1348,7 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
                       device=device, metrics_sink=sink, tracer=tracer, metrics_registry=registry)
     if manifest is not None:
         # Before any step: a run that dies keeps its provenance.
-        manifest.write(config=cfg, model_config=mc, device=device,
+        manifest.write(config=cfg, model_config=mc, device=device, mesh=trainer.mesh,
                        kind="eval" if args.eval_only else "train")
     if args.eval_only:
         trainer.best_metric = trainer.evaluate_from_checkpoint()
@@ -1321,18 +1381,41 @@ def run_train(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         else:
             print("note: no --checkpoint_dir, so export/predict artifacts "
                   "use the FINAL-epoch weights, not the reported best")
+    # On a mesh the gather and the forward are every rank's; rank 0 writes.
+    writer = multihost.process_index() == 0
     if args.export_torch:
-        torch.save(interop.reference_state_dict(trainer.standard_params(), mc),
-                   args.export_torch)
-        print(f"Exported torch state_dict to {args.export_torch}")
+        params = trainer.standard_params()
+        if writer:
+            torch.save(interop.reference_state_dict(params, mc), args.export_torch)
+            print(f"Exported torch state_dict to {args.export_torch}")
     if args.predict_out:
-        preds = trainer.predict(test_samples)
-        datasets.save_pickle(
-            [dataclasses.replace(s, y=p) for s, p in zip(test_samples, preds)],
-            args.predict_out,
-        )
-        print(f"Wrote {len(preds)} predictions to {args.predict_out}")
+        preds = trainer.predict(full_test_samples)
+        if writer:
+            datasets.save_pickle(
+                [dataclasses.replace(s, y=p) for s, p in zip(full_test_samples, preds)],
+                args.predict_out,
+            )
+            print(f"Wrote {len(preds)} predictions to {args.predict_out}")
     return trainer
+
+
+def _node_shard(cfg: Config, train_samples, test_samples):
+    """A multi-node launch: every node keeps its strided shard of each
+    split (``multihost.shard_samples``), padded to the lengths of the whole
+    dataset so every rank's batches have one shape
+    (``gnot_tpu/main.py:828-856``)."""
+    from gnot_tpu_torch.data.batch import fixed_pad_lengths
+
+    p = multihost.node_count()
+    for name, n in (("n_train", len(train_samples)), ("n_test", len(test_samples))):
+        if n % p:
+            raise ValueError(
+                f"{name}={n} must be divisible by the {p} processes "
+                "(every host must run the same number of steps)"
+            )
+    pn, pf = fixed_pad_lengths(list(train_samples) + list(test_samples), bucket=cfg.data.bucket)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, pad_nodes=pn, pad_funcs=pf))
+    return cfg, multihost.shard_samples(train_samples), multihost.shard_samples(test_samples)
 
 
 def run(argv: list[str] | None = None) -> Trainer | ServeRun:
@@ -1348,14 +1431,32 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
     argv = list(argv) if argv is not None else sys.argv[1:]
     # The serve section is validated in both modes, as JAX's config is.
     _, sc = configs_from_args(args)
-    # One registry for the run (the live metrics plane): the server's
-    # series when serving, the telemetry drain's when training.
-    registry = metrics_lib.MetricsRegistry() if sc.metrics_interval_s > 0 else None
     with contextlib.ExitStack() as stack:
-        sink = stack.enter_context(MetricsSink(args.metrics_path)) if args.metrics_path else None
+        if args.distributed:
+            if args.device_id >= 0:
+                parser.error("--device_id pins a single device; drop --distributed")
+            if args.serve:
+                raise NotPortedError(
+                    "--serve with --distributed: serving over a trainer's mesh "
+                    "(gnot_tpu/main.py:1093-1115) is not ported; serve without it"
+                )
+            # Without a card this raises before any rank waits on another.
+            resolve_device(args.device)
+            if not torch.distributed.is_initialized():
+                # A group the caller made is the caller's to end.
+                multihost.initialize(run_device(args))
+                stack.callback(multihost.shutdown)
+        # Rank 0 alone writes the records, the trace and run.json.
+        writer = multihost.process_index() == 0
+        # One registry for the run (the live metrics plane): the server's
+        # series when serving, the telemetry drain's when training.
+        registry = (metrics_lib.MetricsRegistry()
+                    if sc.metrics_interval_s > 0 and writer else None)
+        sink = (stack.enter_context(MetricsSink(args.metrics_path))
+                if args.metrics_path and writer else None)
         tracer = None
         # A federated serve writes the merged cluster trace itself.
-        if args.trace_path and not (args.serve and args.hosts > 1):
+        if args.trace_path and writer and not (args.serve and args.hosts > 1):
             # annotate under --profile_dir: each span is also a profiler
             # range, so host phases line up with the kernels.
             tracer = Tracer(path=args.trace_path, sample_rate=args.trace_sample_rate,
@@ -1371,7 +1472,7 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
 
             stack.callback(flush_trace)
         manifest = None
-        if args.metrics_path:
+        if args.metrics_path and writer:
             manifest = RunManifest(args, argv)
             stack.callback(lambda: manifest.path and manifest.write())
         if not args.serve:

@@ -41,6 +41,11 @@ segment maps are computed once per forward and handed to every block as
 tensors, so they cross a ``remat`` checkpoint like any other input.
 Masked mode only.
 
+On a mesh (``parallel/mesh.py::shard_model`` sets ``mesh`` on the model
+and its layers) the input-function MLPs run with their hidden axis split
+over ``model`` and the gate stats sum over every rank's tokens; the rest
+of the mesh's work is the layers' (``models/layers.py``).
+
 ``GNOT`` builds the standard layout (``block_{i}`` modules) whatever
 ``scan_layers`` says, as the JAX module does; the stacked-layer layout is
 ``parallel/pipeline.py::StackedGNOT``, which shares ``embed``, ``run_block``
@@ -58,6 +63,7 @@ from gnot_tpu_torch.data.batch import PackedBatch
 from gnot_tpu_torch.models.layers import GatedExpertFfn, LinearAttention, Mlp, gate_stats
 from gnot_tpu_torch.models.precision import torch_dtype
 from gnot_tpu_torch.ops.attention import segment_one_hot
+from gnot_tpu_torch.parallel.mesh import enter
 
 
 class HNABlock(nn.Module):
@@ -150,6 +156,7 @@ class GNOT(nn.Module):
     def __init__(self, config: ModelConfig, *, generator: torch.Generator | None = None):
         super().__init__()
         cfg = self.config = config
+        self.mesh = None  # parallel/mesh.py::Mesh on a mesh
         has_funcs = cfg.n_input_functions > 0
         dtype = model_dtype(cfg)
         # Module order fixes the order the generator draws weights in.
@@ -215,7 +222,11 @@ class GNOT(nn.Module):
                     f"the model was built for {cfg.n_input_functions} input "
                     "functions but was called without them"
                 )
-            funcs = self.input_func_mlps(input_functions)  # [F, B, Lf, D]
+            if self.mesh is not None and self.mesh.size("model") > 1:
+                funcs = self.input_func_mlps.forward_tp(
+                    enter(input_functions, self.mesh, "model"), self.mesh)
+            else:
+                funcs = self.input_func_mlps(input_functions)  # [F, B, Lf, D]
         # One-hot segment maps, computed once and handed to every block.
         node_seg_oh = func_seg_oh = None
         if node_seg is not None:
@@ -263,7 +274,10 @@ class GNOT(nn.Module):
             coords, theta, input_functions, node_mask=node_mask, func_mask=func_mask,
             node_seg=node_seg, func_seg=func_seg, n_seg=n_seg,
         )
-        stats = gate_stats(scores, kw["node_mask"]) if gates is not None else None
+        stats = None
+        if gates is not None:
+            group = self.mesh.grad_group if self.mesh is not None else None
+            stats = gate_stats(scores, kw["node_mask"], group)
         for i in range(self.config.n_attn_layers):
             if stats is not None:
                 for key, value in stats.items():

@@ -15,6 +15,14 @@ kernel and bias are cast to it before the product, whatever dtype the
 weights are held in. ``None`` computes in the promoted dtype of the
 three, so a head held in bf16 computes in f32 on f32 input (flax's
 ``dtype=None``).
+
+On a mesh (``set_mesh``, ``parallel/mesh.py``) the layers that hold split
+weights run their part and the collectives GSPMD inserts in JAX: heads
+over ``model`` (``LinearAttention``: column-parallel q/k/v, row-parallel
+``fc_out``), the stacked MLPs' hidden axis over ``model`` (a column layer,
+then row layers, ``Mlp.forward_tp``), the experts over ``expert``
+(``GatedExpertFfn``), and the Gram sums over ``seq``. Off a mesh
+(``mesh`` None) every forward is the single-device one, op for op.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ from gnot_tpu_torch.ops.attention import (
     packed_normalized_linear_attention,
     split_heads,
 )
+from gnot_tpu_torch.ops.collectives import reduce_from
 from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, kernel_takes
+from gnot_tpu_torch.parallel.mesh import close, enter, local_slice
 
 
 def torch_linear_init(
@@ -54,21 +64,26 @@ def _promoted(dtype: torch.dtype | None, *tensors: torch.Tensor) -> list[torch.T
 
 
 @torch.no_grad()
-def gate_stats(scores: torch.Tensor, mask: torch.Tensor | None) -> dict[str, torch.Tensor]:
+def gate_stats(scores: torch.Tensor, mask: torch.Tensor | None,
+               group=None) -> dict[str, torch.Tensor]:
     """Gate-health scalars of one layer's geometry-gating ``scores``
     ``[B, L, E]`` (``gnot_tpu/models/layers.py::gate_stats``): the
     per-expert load fractions ``[E]`` (masked token mean: a collapsed
     gate shows one expert's load near 1) and the mean per-token gate
     entropy in nats (uniform gating gives log E, collapse 0). f32
-    reductions; ``mask=None`` (parity mode) averages every token."""
+    reductions; ``mask=None`` (parity mode) averages every token. With
+    ``group`` (a mesh's data x seq line) the token sums run over every
+    rank's tokens."""
     s = scores.float()
     ent = -torch.sum(s * torch.log(torch.clamp(s, min=1e-20)), dim=-1)  # [B, L]
-    if mask is None:
+    if mask is None and group is None:
         return {"gate_load": s.mean(dim=(0, 1)), "gate_entropy": ent.mean()}
-    m = mask.float()
-    denom = torch.clamp(m.sum(), min=1.0)
-    load = torch.einsum("ble,bl->e", s, m) / denom
-    return {"gate_load": load, "gate_entropy": torch.sum(ent * m) / denom}
+    m = torch.ones(s.shape[:2], device=s.device) if mask is None else mask.float()
+    sums = torch.cat([torch.einsum("ble,bl->e", s, m), torch.sum(ent * m)[None], m.sum()[None]])
+    if group is not None:
+        sums = reduce_from(sums, group)
+    denom = torch.clamp(sums[-1], min=1.0)
+    return {"gate_load": sums[:-2] / denom, "gate_entropy": sums[-2] / denom}
 
 
 class Dense(nn.Module):
@@ -177,6 +192,41 @@ class Mlp(nn.Module):
             x = self.act(layer(x))
         return layers[-1](x)
 
+    def forward_tp(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """The forward with the hidden axis split over the mesh's ``model``
+        axis (``_param_pspec``): ``dense_0`` column-parallel (this rank's
+        hidden block), ``dense_1`` row-parallel on it, closed by an
+        all-reduce; each later layer row-parallel on this rank's block of
+        its replicated input. ``x`` is replicated and already entered
+        (``mesh.enter``) by the caller."""
+        layers = self.layers()
+        x = layers[0](x)
+        for i, layer in enumerate(layers[1:], 1):
+            x = self.act(x)
+            if i > 1:
+                x = local_slice(enter(x, mesh, "model"), mesh, "model")
+            x = _row_parallel(layer, x, mesh)
+        return x
+
+
+def _row_parallel(layer: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A ``Dense`` / ``StackedDense`` whose kernel rows are this rank's
+    block of the ``model`` axis: the partial product closed by an
+    all-reduce over the axis, then the (replicated) bias."""
+    x, kernel, bias = _promoted(layer.dtype, x, layer.kernel, layer.bias)
+    if kernel.dim() == 2:
+        return close(torch.matmul(x, kernel), mesh, "model") + bias
+    flat = x.reshape(kernel.shape[0], -1, x.shape[-1])
+    out = close(torch.bmm(flat, kernel), mesh, "model") + bias[:, None, :]
+    return out.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def set_mesh(model: nn.Module, mesh) -> None:
+    """Give every module of ``model`` that runs a collective the mesh
+    (``None``: the single-device forward)."""
+    for m in model.modules():
+        if hasattr(m, "mesh"):
+            m.mesh = mesh
 
 class LinearAttention(nn.Module):
     """Heterogeneous normalized linear attention (model.py:33-107).
@@ -218,6 +268,7 @@ class LinearAttention(nn.Module):
         self.n_head = n_head
         self.n_input_functions = n_input_functions
         self.parity = parity
+        self.mesh = None  # parallel/mesh.py::Mesh on a mesh
         self.query = Dense(query_dim, n_embed, generator, dtype)
         if n_input_functions > 0:
             self.key = StackedDense(n_input_functions, func_dim, n_embed, generator, dtype)
@@ -246,7 +297,15 @@ class LinearAttention(nn.Module):
         packed = q_seg_oh is not None
         if packed and self.parity:
             raise ValueError("packed attention requires parity=False")
-        h = self.n_head
+        mesh = self.mesh
+        h, seq_group = self.n_head, None
+        if mesh is not None:
+            # This rank's heads; its key rows of the sequence axis.
+            h //= mesh.size("model")
+            seq_group = mesh.group("seq")
+            query = enter(query, mesh, "model")
+            if input_functions is not None:
+                input_functions = enter(input_functions, mesh, "model")
         q = feature_softmax(split_heads(self.query(query), h))  # [B, H, Lq, D]
         if self.n_input_functions > 0:
             if input_functions is None:
@@ -268,7 +327,8 @@ class LinearAttention(nn.Module):
                     for f in range(k.shape[0])
                 ])  # [F, Bq, H, Lq, D]
             else:
-                out = normalized_linear_attention(q, k, v, kv_mask=func_mask)
+                out = normalized_linear_attention(q, k, v, kv_mask=func_mask,
+                                                  seq_group=seq_group)
             res = self._merge(q) + self._merge(out.mean(dim=0))
         else:
             k = feature_softmax(split_heads(self.key(query), h))
@@ -278,8 +338,11 @@ class LinearAttention(nn.Module):
                     q, k, v, q_seg_oh=q_seg_oh, kv_seg_oh=q_seg_oh, kv_mask=query_mask
                 )
             else:
-                out = normalized_linear_attention(q, k, v, kv_mask=query_mask)
+                out = normalized_linear_attention(q, k, v, kv_mask=query_mask,
+                                                  seq_group=seq_group)
             res = self._merge(q) + self._merge(out)
+        if mesh is not None and mesh.size("model") > 1:
+            return _row_parallel(self.fc_out, res, mesh)
         return self.fc_out(res)
 
 
@@ -318,12 +381,15 @@ class GatedExpertFfn(nn.Module):
             raise ValueError(f"unknown ffn_impl {ffn_impl!r}")
         self.ffn_impl = ffn_impl
         self.gelu = gelu
+        self.mesh = None  # parallel/mesh.py::Mesh on a mesh
         self.experts = Mlp(
             in_dim, num_layers, hidden_dim, output_dim, gelu,
             stack=n_expert, generator=generator, dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None and self.mesh.sharded:
+            return self._forward_sharded(x, scores)
         if self.ffn_impl == "pallas":
             layers = self.experts.layers()
             kernels = [l.kernel for l in layers]
@@ -333,3 +399,18 @@ class GatedExpertFfn(nn.Module):
         e = scores.shape[-1]
         out = self.experts(x.unsqueeze(0).expand(e, *x.shape))  # [E, B, L, D]
         return torch.einsum("ebld,ble->bld", out, scores.to(out.dtype))
+
+    def _forward_sharded(self, x: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+        """This rank's experts (the ``expert`` axis) with their hidden axis
+        split over ``model``, on every token; the gate-weighted combine over
+        its experts closed by an all-reduce over ``expert``
+        (``gnot_tpu/models/layers.py::GatedExpertFfn`` under GSPMD)."""
+        mesh = self.mesh
+        x = enter(x, mesh, "model", "expert")
+        local = self.experts.dense_0.kernel.shape[0]
+        h = x.unsqueeze(0).expand(local, *x.shape)
+        out = self.experts.forward_tp(h, mesh) if mesh.size("model") > 1 else self.experts(h)
+        if mesh.size("expert") > 1:
+            scores = local_slice(enter(scores, mesh, "expert"), mesh, "expert")
+        y = torch.einsum("ebld,ble->bld", out, scores.to(out.dtype))
+        return close(y, mesh, "expert")

@@ -54,7 +54,13 @@ def _versions() -> dict:
 
 def _devices(device: torch.device | str | None) -> dict:
     """The run's device: platform "gpu" or "cpu", the card's name, how
-    many cards torch sees."""
+    many cards torch sees, and the ranks of the run and this one's
+    (``process_count`` / ``process_index``, JAX's keys: 1 and 0 outside a
+    ``torch.distributed`` launch)."""
+    from gnot_tpu_torch.parallel import multihost
+
+    procs = {"process_count": multihost.process_count(),
+             "process_index": multihost.process_index()}
     dev = torch.device(device if device is not None else "cpu")
     if dev.type == "cuda":
         index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -63,8 +69,10 @@ def _devices(device: torch.device | str | None) -> dict:
             "device_kind": torch.cuda.get_device_name(index),
             "device_index": index,
             "n_devices": torch.cuda.device_count(),
+            **procs,
         }
-    return {"platform": "cpu", "device_kind": "cpu", "device_index": None, "n_devices": 1}
+    return {"platform": "cpu", "device_kind": "cpu", "device_index": None, "n_devices": 1,
+            **procs}
 
 
 def _compile_cache_stats() -> dict:
@@ -95,6 +103,7 @@ def build_manifest(
     config: Any = None,
     model_config: Any = None,
     device: torch.device | str | None = None,
+    mesh=None,
     argv=None,
     extra: dict | None = None,
 ) -> dict:
@@ -106,7 +115,7 @@ def build_manifest(
         "git": _git_rev(),
         "versions": _versions(),
         "devices": _devices(device),
-        "mesh": None,
+        "mesh": dict(mesh.shape) if mesh is not None else None,
         "compile_cache": _compile_cache_stats(),
     }
     if extra:

@@ -41,7 +41,7 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update_norm(optimizer: torch.optim.AdamW) -> torch.Tensor:
+def adamw_update_norm(optimizer: torch.optim.AdamW, norm=global_norm) -> torch.Tensor:
     """Global norm of the update the foreach AdamW just applied to the
     parameters of its one group, computed the way it applied it rather
     than as ``p_new - p_old``, which in f32 subtracts two close numbers.
@@ -52,7 +52,8 @@ def adamw_update_norm(optimizer: torch.optim.AdamW) -> torch.Tensor:
     is ``-(lr * wd * p_old + a)`` with ``p_old = (p + a) / (1 - lr * wd)``,
     that is ``-((1 + c) * a + c * p)`` with ``c = lr * wd / (1 - lr * wd)``;
     the error of ``p_old`` is scaled by ``lr * wd``, far below the bar.
-    One list of temporaries, written in place."""
+    One list of temporaries, written in place. ``norm`` is the global
+    norm (of every rank's shards, on a mesh that splits the weights)."""
     group = optimizer.param_groups[0]
     params = group["params"]
     lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
@@ -68,23 +69,26 @@ def adamw_update_norm(optimizer: torch.optim.AdamW) -> torch.Tensor:
     torch._foreach_mul_(u, [s["exp_avg"] for s in states])
     torch._foreach_mul_(u, lr / bc1 * (1 + c))
     torch._foreach_add_(u, params, alpha=c)  # minus the update
-    return global_norm(u)
+    return norm(u)
 
 
 @torch.no_grad()
 def instrument(gates: dict | None, grad_norm: torch.Tensor, update_norm: torch.Tensor,
-               params: list[torch.Tensor], batch) -> dict[str, torch.Tensor]:
+               params: list[torch.Tensor], batch, *, norm=global_norm,
+               mean=lambda t: t) -> dict[str, torch.Tensor]:
     """The step's telemetry dict: the norms, the batch's padding waste and
     the gate stats the forward collected (``None`` for the norm-only
-    layouts). ``params`` are the weights after the update."""
+    layouts). ``params`` are the weights after the update. On a mesh
+    ``norm`` sums over every rank's shards and ``mean`` turns a rank's
+    token mean into the whole batch's."""
     telem = {
         "grad_norm": grad_norm,
         "update_norm": update_norm,
-        "param_norm": global_norm(params),
+        "param_norm": norm(params),
     }
     mask = getattr(batch, "node_mask", None)
     if mask is not None:
-        telem["padding_waste"] = 1.0 - mask.float().mean()
+        telem["padding_waste"] = 1.0 - mean(mask.float().mean())
     if gates:
         telem.update(gates)
     return telem

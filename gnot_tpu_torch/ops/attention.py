@@ -9,6 +9,10 @@ to XLA einsums, so it stays plain torch here:
 * the output is ``alpha * q @ (k^T v)``;
 * with ``kv_mask`` (masked mode) padded key rows are zeroed after the
   feature softmax, so they drop out of both reductions;
+* on a mesh's sequence axis (``seq_group``) each rank holds a block of
+  the key rows: ``k_sum`` and ``k^T v`` are sums over them, so each is
+  all-reduced over the axis (``ops/collectives.all_reduce_sum``, whose
+  backward all-reduces too: every rank's queries read the global Gram);
 * operands below float32 (bf16 serving, ``models/precision.py``) take
   the policy branch: the Gram ``k^T v``, ``k_sum`` and the normalizer
   ``1/<q, k_sum>`` are computed in f32 and only the output is cast back
@@ -26,6 +30,8 @@ against.
 from __future__ import annotations
 
 import torch
+
+from gnot_tpu_torch.ops.collectives import all_reduce_sum
 
 
 def feature_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +52,7 @@ def normalized_linear_attention(
     *,
     kv_mask: torch.Tensor | None = None,
     eps: float = 0.0,
+    seq_group=None,
 ) -> torch.Tensor:
     """Core normalized linear attention.
 
@@ -58,6 +65,8 @@ def normalized_linear_attention(
       kv_mask: optional ``[..., B, Lk]`` 0/1 mask; masked rows are
         removed from both ``k_sum`` and ``k^T v``.
       eps: optional denominator guard (0 matches the reference).
+      seq_group: the sequence axis's process group when ``k``/``v`` are
+        this rank's block of the key rows (None: all of them).
 
     Returns:
       ``[..., B, H, Lq, D]`` attention output (pre residual / out-projection),
@@ -69,7 +78,7 @@ def normalized_linear_attention(
     lowp = _reduced_precision(q, k, v)
     if lowp:
         q, k, v = q.float(), k.float(), v.float()
-    k_sum = k.sum(dim=-2)  # [..., B, H, D]
+    k_sum = all_reduce_sum(k.sum(dim=-2), seq_group)  # [..., B, H, D]
     denom = torch.matmul(q, k_sum.unsqueeze(-1)).squeeze(-1)  # [..., B, H, Lq]
     if kv_mask is not None:
         # An all-masked key set (a record with an empty input function)
@@ -79,7 +88,7 @@ def normalized_linear_attention(
         # of inf * 0 = nan.
         denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     alpha = 1.0 / (denom + eps)
-    kv = torch.matmul(k.transpose(-1, -2), v)  # [..., B, H, D, D]
+    kv = all_reduce_sum(torch.matmul(k.transpose(-1, -2), v), seq_group)  # [..., B, H, D, D]
     out = torch.matmul(q, kv)  # [..., B, H, Lq, D]
     out = alpha.unsqueeze(-1) * out
     return out.to(out_dtype) if lowp else out

@@ -1,7 +1,6 @@
 """Fused normalized linear attention: the Hopper kernels and their plain versions.
 
-Port of ``gnot_tpu/ops/pallas_attention.py`` (all but ``fused_nla_sp``,
-which waits for the parallelism slice). The layout is the JAX one: heads
+Port of ``gnot_tpu/ops/pallas_attention.py``. The layout is the JAX one: heads
 merged, ``q [B, L, E]``, ``k``/``v [F, B, Lk, E]``, ``mask [F, B, Lk]``
 (F input functions, 1 for self-attention), E = H * D. Every per-head
 operation is a per-lane-group one:
@@ -18,6 +17,10 @@ operation is a per-lane-group one:
   chunk of L / N rows to its segment slot (pad chunks carry ``n_seg``),
   and a token only ever meets its own segment's Gram.
 
+``fused_nla_sp`` runs the reduce and apply stages on each rank of a mesh
+(``parallel/mesh.py``) with its block of the batch, the sequence and the
+heads, and sums the Gram partials over the sequence axis between them.
+
 Four kernels back the four stages (``csrc/nla_reduce.cu``,
 ``csrc/nla_apply.cu``). Each public stage is a ``torch.autograd.Function``
 whose forward launches the kernel on CUDA tensors (or raises) and runs the
@@ -33,6 +36,7 @@ import ctypes
 import torch
 
 from gnot_tpu_torch.ops import build
+from gnot_tpu_torch.ops.collectives import all_reduce_sum, ring_allreduce
 
 HEAD_WIDTHS = (16, 32)
 MAX_E = 256
@@ -469,3 +473,49 @@ def fused_nla_packed(q, k, v, mask, q_seg, kv_seg, n_seg: int, n_head: int):
     never attend across segment boundaries."""
     kv, ksum = nla_reduce_seg(k, v, mask, kv_seg, n_seg, n_head)
     return nla_apply_seg(q, kv, ksum, q_seg, n_head)
+
+
+def fused_nla_sp(q, k, v, mask, n_head: int, mesh, *, data_axis: str | None = None,
+                 seq_axis: str | None = "seq", model_axis: str | None = None,
+                 sp_collective: str = "psum"):
+    """Distributed fused attention over a DP x SP x TP rank mesh
+    (``gnot_tpu/ops/pallas_attention.py::fused_nla_sp``). Every rank passes
+    the whole ``q``, ``k``, ``v``, ``mask`` (the layout of ``fused_nla``) and
+    gets back ITS blocks of ``(out [F,B,L,E], qs [B,L,E])``: rows of B by
+    ``data_axis``, of L and Lk by ``seq_axis``, lanes of E by ``model_axis``
+    (whole head groups). On each rank: ``nla_reduce`` on its key block, the
+    sum of the Gram partials and ``k_sum`` over ``seq_axis`` (a fixed ``[F,
+    B, E, E]`` payload whatever the sequence length), ``nla_apply`` on its
+    query block: the CUDA kernels on CUDA tensors, their plain versions on
+    CPU ones. ``sp_collective`` is ``"psum"`` (one all-reduce) or ``"ring"``
+    (S-1 neighbour hops, ``ops/collectives.ring_allreduce``); both are
+    differentiable, the all-reduce's backward an all-reduce, the ring's the
+    ring in reverse. The gradients with respect to the whole inputs are this
+    rank's part: their sum over the ranks is the whole gradient."""
+    from gnot_tpu_torch.parallel.mesh import shard_tensor
+
+    if sp_collective not in ("psum", "ring"):
+        raise ValueError(f"unknown sp_collective {sp_collective!r}")
+    model_size = mesh.size(model_axis) if model_axis else 1
+    if n_head % model_size:
+        raise ValueError(
+            f"n_head={n_head} must be divisible by the model axis size "
+            f"{model_size} (TP shards whole head groups)"
+        )
+    local_heads = n_head // model_size
+
+    def block(t, spec):
+        # The kernels read contiguous, 16-byte aligned tensors.
+        t = shard_tensor(t, spec, mesh)
+        return t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t.contiguous()
+
+    q_l = block(q, (data_axis, seq_axis, model_axis))
+    k_l = block(k, (None, data_axis, seq_axis, model_axis))
+    v_l = block(v, (None, data_axis, seq_axis, model_axis))
+    m_l = block(mask, (None, data_axis, seq_axis))
+    kv, ksum = nla_reduce(k_l, v_l, m_l, local_heads)
+    if seq_axis:
+        group = mesh.group(seq_axis)
+        reduce = ring_allreduce if sp_collective == "ring" else all_reduce_sum
+        kv, ksum = reduce(kv, group), reduce(ksum, group)
+    return nla_apply(q_l, kv, ksum, local_heads)

@@ -7,49 +7,60 @@ structure in: the sum over a graph's nodes is the masked sum over its
 padded row. In the packed layout a graph is a segment of a shared row,
 and the sums run per segment through a token -> segment one-hot
 (``PACKED_LOSSES``).
+
+On a mesh's sequence axis each rank holds a block of every graph's
+nodes: the padded losses take ``seq_group`` and sum each graph's pools
+over it before the per-graph ratio (``ops/collectives.reduce_from``:
+every rank then computes the same loss, so the gradient of each rank's
+partial sum is the whole one's).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gnot_tpu_torch.ops.collectives import reduce_from
 
-def masked_segment_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def masked_segment_sum(values: torch.Tensor, mask: torch.Tensor,
+                       seq_group=None) -> torch.Tensor:
     """``[B, L, C]`` values and a ``[B, L]`` 0/1 mask to per-sample sums
-    ``[B, C]`` (DGL ``SumPooling`` over each graph)."""
-    return torch.einsum("blc,bl->bc", values, mask.to(values.dtype))
+    ``[B, C]`` (DGL ``SumPooling`` over each graph), summed over the
+    sequence axis's ranks with ``seq_group``."""
+    return reduce_from(torch.einsum("blc,bl->bc", values, mask.to(values.dtype)), seq_group)
 
 
-def masked_segment_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_segment_mean(values: torch.Tensor, mask: torch.Tensor,
+                        seq_group=None) -> torch.Tensor:
     """Per-sample masked mean over the length axis (DGL ``AvgPooling``)."""
-    n = mask.sum(dim=1).to(values.dtype)
-    return masked_segment_sum(values, mask) / n[:, None]
+    n = reduce_from(mask.sum(dim=1).to(values.dtype), seq_group)
+    return masked_segment_sum(values, mask, seq_group) / n[:, None]
 
 
-def rel_l2_per_sample(predictions, targets, mask) -> torch.Tensor:
+def rel_l2_per_sample(predictions, targets, mask, seq_group=None) -> torch.Tensor:
     """``[B]`` per-graph relative L2, averaged over channels."""
-    num = masked_segment_sum((predictions - targets) ** 2, mask)
-    den = masked_segment_sum(targets**2, mask)
+    num = masked_segment_sum((predictions - targets) ** 2, mask, seq_group)
+    den = masked_segment_sum(targets**2, mask, seq_group)
     return torch.sqrt(num / den).mean(dim=1)
 
 
-def mse_per_sample(predictions, targets, mask) -> torch.Tensor:
+def mse_per_sample(predictions, targets, mask, seq_group=None) -> torch.Tensor:
     """``[B]`` per-graph node-mean squared error, averaged over channels."""
-    return masked_segment_mean((predictions - targets) ** 2, mask).mean(dim=1)
+    return masked_segment_mean((predictions - targets) ** 2, mask, seq_group).mean(dim=1)
 
 
-def rel_l2_loss(predictions, targets, mask) -> torch.Tensor:
+def rel_l2_loss(predictions, targets, mask, seq_group=None) -> torch.Tensor:
     """``mean_{g,c} sqrt(sum_l (p-t)^2 / sum_l t^2)``, the reference's
     ``RelL2Loss`` (loss.py:19-23)."""
-    num = masked_segment_sum((predictions - targets) ** 2, mask)
-    den = masked_segment_sum(targets**2, mask)
+    num = masked_segment_sum((predictions - targets) ** 2, mask, seq_group)
+    den = masked_segment_sum(targets**2, mask, seq_group)
     return torch.sqrt(num / den).mean()
 
 
-def mse_loss(predictions, targets, mask) -> torch.Tensor:
+def mse_loss(predictions, targets, mask, seq_group=None) -> torch.Tensor:
     """Per-graph node-mean of squared error, then the mean over graphs and
     channels: the reference's ``MSELoss`` (loss.py:9-12)."""
-    return masked_segment_mean((predictions - targets) ** 2, mask).mean()
+    return masked_segment_mean((predictions - targets) ** 2, mask, seq_group).mean()
 
 
 LOSSES = {"rel_l2": rel_l2_loss, "mse": mse_loss}

@@ -8,11 +8,10 @@ step boundaries, saves ``latest``, flushes the sink and exits
 resume-ready. A second SIGINT raises KeyboardInterrupt at once: "Ctrl-C
 twice" stays the emergency exit, ahead of any save.
 
-Only single-process runs are ported: the multi-host agreement on the stop
-step (``should_stop(multiprocess=True)``, an allgathered flag every
-``sync_every`` checks) waits for the port's multi-process training
-(``ROADMAP.md``) and raises ``NotPortedError``. Stdlib only, but for that
-error.
+On a multi-rank run (``should_stop(multiprocess=True)``) every
+``sync_every``-th check all-reduces the flag over the ranks
+(``parallel/multihost.py::sync_flag``), so a signal that lands on one rank
+stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -20,8 +19,6 @@ from __future__ import annotations
 import logging
 import signal
 import threading
-
-from gnot_tpu_torch.config import NotPortedError
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +42,7 @@ class PreemptionHandler:
         self._previous: dict[int, object] = {}
         self._installed = False
         self._sigint_count = 0
+        self._checks = 0
 
     # -- signal side -------------------------------------------------------
 
@@ -85,12 +83,17 @@ class PreemptionHandler:
         return self._requested.is_set()
 
     def should_stop(self, *, multiprocess: bool = False) -> bool:
-        """The step-boundary check: the local flag, which is what a
-        single-process JAX run reads whatever ``sync_every`` is."""
-        if multiprocess:
-            raise NotPortedError(
-                "the multi-host stop agreement (gnot_tpu/resilience/"
-                "preemption.py, multihost.sync_flag) is not ported: the "
-                "port trains in one process"
-            )
-        return self.triggered
+        """Step-boundary check. One process: the local flag. Several:
+        every ``sync_every``-th call all-reduces the flag so all ranks
+        agree on the stop step, a COLLECTIVE on those calls (every rank
+        calls with the same cadence, which the SPMD loop guarantees); the
+        other calls return False without communicating, so a local flag
+        waits (bounded) for the next sync point."""
+        if not multiprocess:
+            return self.triggered
+        self._checks += 1
+        if self._checks % self.sync_every:
+            return False
+        from gnot_tpu_torch.parallel import multihost
+
+        return multihost.sync_flag(self.triggered)

@@ -36,6 +36,17 @@ deleted file falls back to an older checkpoint. Which one restored is
 printed, kept in ``last_restore`` (the run manifest's ``restore`` field)
 and emitted as a ``restore`` or ``restore_fallback`` event.
 
+On a multi-rank run (``parallel/multihost.py``) the trainer hands every
+save the whole state, gathered from the ranks' shards; rank 0 writes it
+(the other ranks' saves are no-ops), so the file is the single-device
+layout. Every rank restores the same file and keeps its shards. The
+restore walk agrees across ranks, as JAX's does across hosts: the ranks
+meet before the walk (rank 0's save in flight is then published), agree on
+each candidate (``all_agree``) and on its outcome (``sync_flag``: one
+rank's failed read fails the candidate for all), and on running out; a
+divergence raises on every rank instead of leaving ranks on different
+weights.
+
 A file is read whole under the retry policy, then parsed with
 ``torch.load(weights_only=True)`` onto the CPU (a parse error walks on);
 ``Trainer.load_state_dict`` moves each tensor to its parameter's device.
@@ -55,6 +66,7 @@ from typing import Any, Callable
 import torch
 
 from gnot_tpu_torch.obs import events
+from gnot_tpu_torch.parallel import multihost
 from gnot_tpu_torch.resilience.retry import RetryPolicy, retry_io
 
 logger = logging.getLogger(__name__)
@@ -236,7 +248,10 @@ class Checkpointer:
 
     def _save(self, name: str, state: Any, epoch: int, best_metric: float) -> None:
         """Wait for the previous save (and publish it), copy ``state`` out
-        of the trainer's reach, and write it in the background."""
+        of the trainer's reach, and write it in the background. Rank 0
+        only on a multi-rank run."""
+        if multihost.process_index() != 0:
+            return
         self._join()
         self._flush_pending()
         owned, ready = host_copy(state)
@@ -332,6 +347,10 @@ class Checkpointer:
         best_metric)`` or None, leaving the skips in ``_skipped``."""
         requested = requested or name
         self.wait()
+        multiproc = multihost.process_count() > 1
+        if multiproc:
+            # Every rank past its wait: rank 0's last save is published.
+            multihost.sync_flag(False)
         tried: list[str] = []
         self._skipped = tried
         for path, meta, via in self._candidates(name):
@@ -340,6 +359,16 @@ class Checkpointer:
                 # A sidecar naming a deleted file: on to the scan.
                 tried.append(f"{filename} (missing file)")
                 continue
+            if multiproc and not multihost.all_agree(f"{name}:{filename}"):
+                # Ranks that read different candidates would train on
+                # different weights: agree on the candidate first.
+                raise RuntimeError(
+                    f"checkpoint restore walk diverged across hosts "
+                    f"(this host chose {filename!r} for {name!r}); "
+                    "per-host I/O failures left hosts seeing "
+                    "different candidates — refusing the collective "
+                    "restore that would hang the pod"
+                )
             layout_conflict = via == "sidecar" and self._warn_numerics(name, meta)
             state, failure = None, None
             try:
@@ -354,6 +383,11 @@ class Checkpointer:
                     # corruption: every candidate shares it.
                     raise
                 failure = exc
+            if multiproc and multihost.sync_flag(failure is not None):
+                # Outcome agreement: if ANY rank failed this candidate,
+                # every rank discards it and walks on together.
+                failure = failure or RuntimeError(
+                    "another host failed to restore this candidate")
             if failure is not None:
                 tried.append(f"{filename} ({type(failure).__name__}: {failure})")
                 logger.warning("restore of %s checkpoint %s failed (%s); trying next candidate",
@@ -371,13 +405,22 @@ class Checkpointer:
             }
             if requested != name:
                 self.last_restore["requested_skipped"] = list(requested_skipped or [])
-            print(f"Restored '{name}' checkpoint from {filename} (epoch {int(meta['epoch'])})"
-                  + (f" after skipping: {'; '.join(tried)}" if tried else ""))
+            if multihost.process_index() == 0:
+                print(f"Restored '{name}' checkpoint from {filename} (epoch {int(meta['epoch'])})"
+                      + (f" after skipping: {'; '.join(tried)}" if tried else ""))
             if self.on_event is not None:
                 self.on_event(event=events.RESTORE_FALLBACK if fallback else events.RESTORE,
                               **self.last_restore)
             return state, int(meta["epoch"]), float(meta["best_metric"])
-        if tried:
+        if multiproc and not multihost.all_agree(f"{name}:<exhausted>"):
+            # A rank that ran out of candidates while another still has one.
+            raise RuntimeError(
+                f"checkpoint restore walk diverged across hosts: this "
+                f"host exhausted every '{name}' candidate while others "
+                "still see one — refusing the collective restore that "
+                "would hang the pod"
+            )
+        if tried and multihost.process_index() == 0:
             print(f"warning: no restorable '{name}' checkpoint (tried: {'; '.join(tried)})")
         return None
 

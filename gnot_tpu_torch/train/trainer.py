@@ -92,6 +92,23 @@ Resilience (``gnot_tpu/train/trainer.py``'s harness, ``resilience/``):
 * ``TrainConfig(debug_checks=True)``: every step's loss is read, and the
   first non-finite one raises at its step.
 
+On a mesh (``TrainConfig(distributed=True)`` with ``Config.mesh``,
+``parallel/mesh.py``), one process a rank: every rank builds the whole
+model from the seed and keeps its shards, reads the same global batch and
+keeps its block (``_device_batch``), runs the mesh's forward, sums the
+gradients over the data x seq line (``reduce_grads``) and updates its
+shards; norms (clipping, telemetry) sum over the model/expert shards; the
+losses and eval metrics are means over the data ranks. As in
+``gnot_tpu/train/trainer.py``'s mesh branch: the pad lengths are fixed over
+the whole dataset, ``batch_size`` splits over the node's data ranks, the
+sequence axis needs bucketed padding, a short last train batch is
+dropped, and a short last test batch is filled with repeats of its last
+sample and scored per sample on the real rows only. Checkpoints hold the
+whole state (``checkpoint_state``, gathered; rank 0 writes it) and every
+rank restores it into its shards (``load_checkpoint_state``). The pipeline
+mesh, packed batches and the stacked layout on a mesh are refused
+(``mesh.refuse_unported``).
+
 ``standard_params()`` gives the weights in the standard layout whatever
 the trainer holds; checkpoints keep the trainer's own layout, and
 ``convert_flat_state`` / ``pipeline.convert_state_layout`` move a whole
@@ -103,6 +120,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import logging
 import math
 import time
@@ -118,12 +136,20 @@ from gnot_tpu_torch.config import (
     OptimConfig,
     refuse_compositions,
 )
-from gnot_tpu_torch.data.batch import Loader, MeshBatch, PackedBatch, PackedLoader
+from gnot_tpu_torch.data.batch import (
+    Loader,
+    MeshBatch,
+    PackedBatch,
+    PackedLoader,
+    fixed_pad_lengths,
+)
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.obs import events, health
 from gnot_tpu_torch.obs import telemetry as obs_telemetry
-from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES
+from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES, PER_SAMPLE_LOSSES
+from gnot_tpu_torch.parallel import mesh as mesh_lib
+from gnot_tpu_torch.parallel import multihost
 from gnot_tpu_torch.parallel.pipeline import (
     StackedGNOT,
     is_stacked,
@@ -163,29 +189,38 @@ def make_optimizer(cfg: OptimConfig, params: Iterable[torch.nn.Parameter]) -> to
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, norm=None) -> None:
     """``optax.clip_by_global_norm`` in place: when the global norm ``n``
     of ``grads`` is at least ``max_norm``, each becomes ``(g / n) *
     max_norm``. (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm
-    / (n + 1e-6)``, which gives other numbers.) No host sync."""
-    g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    / (n + 1e-6)``, which gives other numbers.) No host sync. ``norm``
+    computes the global norm of shards on a mesh."""
+    if norm is not None:
+        g_norm = norm(grads)
+    else:
+        g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
 
 
 def batch_loss(model: GNOT, batch: MeshBatch | PackedBatch, loss_name: str,
-               gates: dict | None = None) -> torch.Tensor:
+               gates: dict | None = None, *, per_sample: bool = False) -> torch.Tensor:
     """Forward + per-graph pooled loss, always masked, parity mode
     included: the reference unpads before pooling (main.py:89). A
     ``PackedBatch`` pools per segment, the mean over the samples present
     in the dispatch (``packed_loss_fn``). ``gates`` collects the standard
-    forward's gate stats (``GNOT.forward``)."""
+    forward's gate stats (``GNOT.forward``). ``per_sample`` gives the
+    ``[B]`` per-graph losses. On a mesh's sequence axis the pools sum over
+    the axis's ranks."""
     preds = apply_batch(model, batch, gates)
     if isinstance(batch, PackedBatch):
         return PACKED_LOSSES[loss_name](preds, batch.y, batch.node_mask, batch.node_seg,
                                         batch.n_seg)
-    return LOSSES[loss_name](preds, batch.y, batch.node_mask)
+    mesh = getattr(model, "mesh", None)
+    seq_group = mesh.group("seq") if mesh is not None else None
+    table = PER_SAMPLE_LOSSES if per_sample else LOSSES
+    return table[loss_name](preds, batch.y, batch.node_mask, seq_group)
 
 
 def make_loaders(data: DataConfig, train_samples, test_samples, *, pin_memory: bool):
@@ -492,6 +527,23 @@ class Trainer:
         # whose telemetry has no gate stats; the port gives the same keys.
         self._gate_telemetry = not (config.optim.flat_params or config.data.packed
                                     or model_cfg.scan_layers)
+        # The rank mesh (train.distributed), its checks, and the mesh's
+        # data rules (fixed pads, drop_remainder, the repeat-padded tail).
+        self.mesh: mesh_lib.Mesh | None = None
+        self._eval_tail = 0  # real samples in a repeat-padded tail eval batch
+        if config.train.distributed:
+            mesh_lib.refuse_unported(config.mesh, packed=config.data.packed,
+                                     scan_layers=model_cfg.scan_layers)
+            if config.optim.flat_params and (config.mesh.model > 1 or config.mesh.expert > 1):
+                raise ValueError(
+                    "flat_params keeps the params as one replicated "
+                    "buffer and composes with the data/seq mesh axes "
+                    "only; set mesh model=expert=pipe=1"
+                )
+            self.mesh = multihost.make_hybrid_mesh(config.mesh)
+            mesh_lib._validate_gspmd(model_cfg, self.mesh)
+            config, test_samples = self._mesh_data(config, train_samples, test_samples)
+            self.config = config
         refuse_compositions(config, model_cfg)
         # Batches for the card are page-locked on the prefetch thread, so
         # each step's copy neither blocks the host nor drains the stream.
@@ -518,7 +570,12 @@ class Trainer:
         gen = torch.Generator().manual_seed(config.train.seed)
         model_cls = StackedGNOT if model_cfg.scan_layers else GNOT
         self.model = model_cls(model_cfg, generator=gen).to(self.device)
+        if self.mesh is not None:
+            mesh_lib.shard_model(self.model, self.mesh)
         self.flat = FlatParams(self.model) if config.optim.flat_params else None
+        # The sharding rule of each optimizer tensor (global norms on a mesh).
+        self._specs = ([(None,)] if self.flat is not None
+                       else list(mesh_lib.param_specs(self.model).values()))
         self.optimizer: torch.optim.AdamW | None = None
         # Gradient accumulation (grad_accum > 1): the window's running
         # mean gradient, one per optimizer tensor, and MultiSteps' counts.
@@ -530,6 +587,67 @@ class Trainer:
         # Micro-steps taken so far (the JAX state's step counter).
         self.host_step = 0
         self.history: list[EpochRecord] = []
+
+    def _mesh_data(self, config: Config, train_samples, test_samples):
+        """The mesh's data rules (``gnot_tpu/train/trainer.py``'s mesh
+        branch): fixed pad lengths over the whole dataset (per-batch pads
+        could differ between ranks), ``batch_size`` divisible by the node's
+        data ranks, bucketed lengths under sequence parallelism, a short
+        last train batch dropped, a short last test batch filled with
+        repeats of its last sample. Returns the config and the test
+        samples to use."""
+        data = config.data
+        if not data.pad_nodes:
+            # Multi-node launches fix these from the pre-shard dataset
+            # (main.py); from the local samples covers one node.
+            pn, pf = fixed_pad_lengths(list(train_samples) + list(test_samples),
+                                       bucket=data.bucket)
+            data = dataclasses.replace(data, pad_nodes=pn, pad_funcs=pf)
+        local_data = self.mesh.local_data
+        if data.batch_size % max(1, local_data):
+            raise ValueError(
+                f"batch_size={data.batch_size} must be divisible "
+                f"by the per-host data axis ({local_data})"
+            )
+        if self.mesh.shape["seq"] > 1 and not data.bucket:
+            raise ValueError(
+                "sequence parallelism (mesh seq>1) requires bucketed "
+                "padding (lengths divisible by the seq axis); drop "
+                "--no_bucket"
+            )
+        if len(train_samples) % data.batch_size:
+            data = dataclasses.replace(data, drop_remainder=True)  # partial batches can't shard
+        tail = len(test_samples) % data.batch_size
+        if tail:
+            # The reference evaluates the ragged tail (main.py:113-132); a
+            # short batch cannot split over the mesh, so it is filled with
+            # repeats of its last sample, which evaluate() leaves out.
+            self._eval_tail = tail
+            test_samples = list(test_samples) + [test_samples[-1]] * (data.batch_size - tail)
+        return dataclasses.replace(config, data=data), test_samples
+
+    def _device_batch(self, batch, *, stacked: bool = False):
+        """A host batch (a ``stack_batches`` result with ``stacked``) on the
+        device: on a mesh, this rank's block of it."""
+        if self.mesh is not None:
+            batch = multihost.global_batch(self.mesh, batch, stacked=stacked)
+        return batch.to(self.device, non_blocking=True)
+
+    def _norm(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        """Global norm of tensors aligned with the optimizer's (weights,
+        gradients, updates): on a mesh that splits weights, the sum over
+        every rank's shards."""
+        if self.mesh is None or not self.mesh.sharded:
+            return obs_telemetry.global_norm(tensors)
+        return torch.sqrt(mesh_lib.global_sq_norm(self.mesh, tensors, self._specs))
+
+    def _mean(self, value: torch.Tensor) -> torch.Tensor:
+        """A per-rank mean over equal shares of the batch's tokens, as the
+        mean over every rank's (``padding_waste``)."""
+        if self.mesh is None:
+            return value
+        n = self.mesh.shape["data"] * self.mesh.shape["seq"]
+        return mesh_lib.sum_over_grad_group(self.mesh, value) / n
 
     def _opt_params(self) -> list[torch.nn.Parameter]:
         return [self.flat.param] if self.flat is not None else list(self.model.parameters())
@@ -547,7 +665,7 @@ class Trainer:
             restored = self.checkpointer.restore_latest()
             if restored is not None:
                 state, self.start_epoch, self.best_metric = restored
-                self.load_state_dict(state)
+                self.load_checkpoint_state(state)
 
     def _param_names(self) -> list[str]:
         return ["flat"] if self.flat is not None else [n for n, _ in self.model.named_parameters()]
@@ -567,6 +685,42 @@ class Trainer:
                 "gradient_step": self.gradient_step,
             }
         return state
+
+    def _map_shards(self, state: dict, fn) -> dict:
+        """``state`` (a ``state_dict()``) with ``fn(tensor, spec)`` applied
+        to every tensor shaped like a weight: the weights, both AdamW
+        moments and the accumulation mean."""
+        specs = dict(zip(self._param_names(), self._specs))
+        out = dict(state, model={n: fn(t, specs[n]) for n, t in state["model"].items()})
+        opt = state["optimizer"]
+        per = {}
+        for i, st in opt["state"].items():
+            spec = self._specs[i]
+            per[i] = {k: fn(v, spec) if k in ("exp_avg", "exp_avg_sq") else v
+                      for k, v in st.items()}
+        out["optimizer"] = dict(opt, state=per)
+        if "accum" in state:
+            out["accum"] = dict(state["accum"], acc={
+                n: fn(t, specs[n]) for n, t in state["accum"]["acc"].items()})
+        return out
+
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint holds: ``state_dict()``, with the whole weights
+        and moments on a mesh that splits them (gathered from every rank's
+        shards; COLLECTIVE), so the file is the single-device one."""
+        state = self.state_dict()
+        if self.mesh is not None and self.mesh.sharded:
+            state = self._map_shards(
+                state, lambda t, spec: mesh_lib.gather_tensor(t, spec, self.mesh))
+        return state
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        """Load a ``checkpoint_state()``: on a mesh that splits the weights,
+        this rank's shards of it."""
+        if self.mesh is not None and self.mesh.sharded:
+            state = self._map_shards(
+                state, lambda t, spec: mesh_lib.shard_tensor(t, spec, self.mesh).clone())
+        self.load_state_dict(state)
 
     def load_state_dict(self, state: dict) -> None:
         """Load a ``state_dict()`` of the same layout and accumulation; a
@@ -603,15 +757,20 @@ class Trainer:
 
     def standard_params(self) -> dict[str, torch.Tensor]:
         """The weights in the standard ``block_{i}`` layout, whatever the
-        trainer holds: what predict, export and serving read."""
+        trainer holds: what predict, export and serving read. On a mesh
+        that splits them, gathered (COLLECTIVE)."""
         params = self.model.state_dict()
+        if self.mesh is not None:
+            return mesh_lib.gather_params(params, self.mesh)
         if self.model_cfg.scan_layers:
             return unstack_params(params, self.model_cfg.n_attn_layers)
         return params
 
     def load_standard_params(self, params: Mapping[str, torch.Tensor]) -> None:
         """Load standard-layout weights (a ``GNOT`` state_dict) into the
-        trainer's own layout."""
+        trainer's own layout (on a mesh, this rank's shards of them)."""
+        if self.mesh is not None:
+            params = mesh_lib.shard_params(params, self.mesh)
         if self.model_cfg.scan_layers:
             params = stack_params(params, self.model_cfg.n_attn_layers)
         self.model.load_state_dict(params)
@@ -619,8 +778,9 @@ class Trainer:
     def standard_model(self) -> GNOT:
         """A ``GNOT`` holding the current weights: the trainer's own model
         in the standard and flat layouts, an unstacked copy in the stacked
-        one."""
-        if not self.model_cfg.scan_layers:
+        one, and on a mesh a single-device copy of the whole weights
+        (gathered: COLLECTIVE) that runs no collective."""
+        if not self.model_cfg.scan_layers and self.mesh is None:
             return self.model
         with torch.device("meta"):
             model = GNOT(self.model_cfg)
@@ -634,7 +794,7 @@ class Trainer:
         window's mean and, on the window's last micro-step, one update on
         the mean. Returns the loss as a device scalar; nothing waits for
         the card. A ``telem`` dict gets the step's telemetry."""
-        return self._step(batch.to(self.device, non_blocking=True), lr, telem)
+        return self._step(self._device_batch(batch), lr, telem)
 
     def multi_train_step(self, batches, lrs: list[float], telem: dict | None = None) -> torch.Tensor:
         """``len(lrs)`` micro-steps over a ``stack_batches`` result, the
@@ -643,7 +803,7 @@ class Trainer:
         device tensor. The same steps, in the same order, as K
         ``train_step`` calls (``make_multi_train_step``). A ``telem`` dict
         gets each telemetry key stacked over the K steps."""
-        return self._multi_step(batches.to(self.device, non_blocking=True), lrs, telem)
+        return self._multi_step(self._device_batch(batches, stacked=True), lrs, telem)
 
     def _multi_step(self, device_batches, lrs: list[float], telem: dict | None) -> torch.Tensor:
         steps = [{} if telem is not None else None for _ in lrs]
@@ -666,15 +826,19 @@ class Trainer:
         gates = {} if telem is not None and self._gate_telemetry else None
         loss = batch_loss(self.model, batch, self.config.train.loss, gates)
         loss.backward()
+        if self.mesh is not None:
+            mesh_lib.reduce_grads(self.mesh, [p.grad for p in self._opt_params()])
         if telem is None:
             self._update()
         else:
             params = self._opt_params()
-            grad_norm = obs_telemetry.global_norm([p.grad for p in params])
+            grad_norm = self._norm([p.grad for p in params])
             update_norm = self._update(measure=True)
-            telem.update(obs_telemetry.instrument(gates, grad_norm, update_norm, params, batch))
+            telem.update(obs_telemetry.instrument(gates, grad_norm, update_norm, params, batch,
+                                                  norm=self._norm, mean=self._mean))
         self.host_step += 1
-        return loss.detach()
+        loss = loss.detach()
+        return mesh_lib.mean_over_data(self.mesh, loss) if self.mesh is not None else loss
 
     @torch.no_grad()
     def _update(self, measure: bool = False) -> torch.Tensor | None:
@@ -696,30 +860,41 @@ class Trainer:
             for g, acc in zip(grads, self.acc):
                 g.copy_(acc)
         if optim.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, optim.grad_clip_norm)
+            sharded = self.mesh is not None and self.mesh.sharded
+            clip_by_global_norm_(grads, optim.grad_clip_norm, norm=self._norm if sharded else None)
         self.optimizer.step()
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
             self.gradient_step += 1
-        return obs_telemetry.adamw_update_norm(self.optimizer) if measure else None
+        return obs_telemetry.adamw_update_norm(self.optimizer, norm=self._norm) if measure else None
+
+    def _eval_loss(self, batch) -> torch.Tensor:
+        loss = batch_loss(self.model, batch, self.config.train.loss)
+        return mesh_lib.mean_over_data(self.mesh, loss) if self.mesh is not None else loss
 
     @torch.no_grad()
     def eval_step(self, batch: MeshBatch) -> torch.Tensor:
         """The batch's eval metric as a device scalar."""
-        return batch_loss(
-            self.model, batch.to(self.device, non_blocking=True), self.config.train.loss
-        )
+        return self._eval_loss(self._device_batch(batch))
 
     @torch.no_grad()
     def multi_eval_step(self, batches) -> torch.Tensor:
         """The ``[K]`` eval metrics of a ``stack_batches`` result, after
         one host-to-device copy (``make_multi_eval_step``)."""
-        device_batches = batches.to(self.device, non_blocking=True)
+        device_batches = self._device_batch(batches, stacked=True)
         return torch.stack([
-            batch_loss(self.model, batch_at(device_batches, i), self.config.train.loss)
+            self._eval_loss(batch_at(device_batches, i))
             for i in range(device_batches.coords.shape[0])
         ])
+
+    @torch.no_grad()
+    def _tail_eval_step(self, batch: MeshBatch) -> torch.Tensor:
+        """The ``[B]`` per-sample metrics of a batch, every data rank's rows
+        in data order (the repeat-padded tail's eval)."""
+        per = batch_loss(self.model, self._device_batch(batch), self.config.train.loss,
+                         per_sample=True)
+        return mesh_lib.gather_rows(self.mesh, per) if self.mesh is not None else per
 
     def _groups(self, loader):
         return group_batches(loader, self.config.train.steps_per_dispatch)
@@ -733,11 +908,22 @@ class Trainer:
         batches are grouped as the train loop groups its own."""
         if len(self.test_loader) == 0:
             return float("inf")
+        # A repeat-padded tail (on a mesh) is the loader's last batch: it is
+        # peeled off the grouped stream and scored per sample.
+        it = iter(self.test_loader)
+        stream = itertools.islice(it, len(self.test_loader) - 1) if self._eval_tail else it
         metrics = [
             self.multi_eval_step(self._stacked(item)) if kind == "group"
             else self.eval_step(item).reshape(1)
-            for kind, item in self._groups(self.test_loader)
+            for kind, item in self._groups(stream)
         ]
+        if self._eval_tail:
+            per = self._tail_eval_step(next(it))
+            # Each node's batch holds _eval_tail real samples, then repeats.
+            bs = self.config.data.batch_size
+            real = torch.cat([torch.arange(p * bs, p * bs + self._eval_tail)
+                              for p in range(self.mesh.nodes)]).to(per.device)
+            metrics.append(per[real].mean().reshape(1))
         return float(np.mean(torch.cat(metrics).cpu().numpy()))  # the one host sync
 
     def _tspan(self, trace, name: str, **args):
@@ -799,7 +985,8 @@ class Trainer:
                                     end_step=self.host_step, losses=losses, points=points,
                                     epoch=epoch,
                                 )
-                            if preempt is not None and preempt.should_stop():
+                            if preempt is not None and preempt.should_stop(
+                                    multiprocess=multihost.process_count() > 1):
                                 raise PreemptionRequested(epoch, self.host_step)
                         if self._telemetry is not None:
                             # The partial window, before eval: the NaN watchdog
@@ -852,6 +1039,15 @@ class Trainer:
             )  # the epoch's one host sync for the train losses
             train_loss = float(np.mean(step_losses)) if losses else float("nan")
             dt = time.perf_counter() - t0
+            if self._telemetry is not None and multihost.process_count() > 1:
+                # The straggler gauge: COLLECTIVE, rank 0 (the sink's) logs.
+                per_host = multihost.per_host_gauge(dt / max(1, len(self.train_loader)))
+                if self.metrics_sink is not None:
+                    self.metrics_sink.log(
+                        event=events.HOST_SKEW, epoch=epoch,
+                        step_time_per_host=per_host,
+                        skew_s=float(per_host.max() - per_host.min()),
+                    )
             # The reference's console lines (main.py:105,147-148).
             print(f"Epoch {epoch}, Loss: {train_loss}")
             with profiling.annotate("eval_epoch"), self._tspan(trace, "eval"):
@@ -873,14 +1069,15 @@ class Trainer:
             self.best_metric = res
             if self.checkpointer is not None:
                 with self._tspan(trace, "checkpoint_save", which="best"):
-                    self.checkpointer.save_best(self.state_dict(), epoch, self.best_metric)
+                    self.checkpointer.save_best(self.checkpoint_state(), epoch, self.best_metric)
         if (
             self.checkpointer is not None
             and cfg.train.checkpoint_every
             and (epoch + 1) % cfg.train.checkpoint_every == 0
         ):
             with self._tspan(trace, "checkpoint_save", which="latest"):
-                self.checkpointer.save_latest(self.state_dict(), epoch + 1, self.best_metric)
+                self.checkpointer.save_latest(self.checkpoint_state(), epoch + 1,
+                                              self.best_metric)
         return record
 
     def _run_single(self, batch, epoch: int, trace) -> torch.Tensor:
@@ -896,7 +1093,7 @@ class Trainer:
         telem = {} if self._telemetry is not None else None
         with self._tspan(trace, "step", step=self.host_step + 1) as sp:
             with self._tspan(trace, "host_to_device"):
-                device_batch = batch.to(self.device, non_blocking=True)
+                device_batch = self._device_batch(batch)
             with self._tspan(trace, "step_dispatch"):
                 loss = self._step(device_batch, lr, telem)
         if self._telemetry is not None:
@@ -938,7 +1135,7 @@ class Trainer:
         telem = {} if self._telemetry is not None else None
         with self._tspan(trace, "step", step=start + 1, k=len(group)) as sp:
             with self._tspan(trace, "host_to_device"):
-                device_batches = self._stacked(group).to(self.device, non_blocking=True)
+                device_batches = self._device_batch(self._stacked(group), stacked=True)
             with self._tspan(trace, "step_dispatch"):
                 loss_k = self._multi_step(device_batches, lrs, telem)
         if self._telemetry is not None:
@@ -986,7 +1183,7 @@ class Trainer:
             loss_name = self.config.train.loss
             detail = health.localize_nan(
                 self.model,
-                lambda b: batch_loss(self.model, b.to(self.device), loss_name),
+                lambda b: batch_loss(self.model, self._device_batch(b), loss_name),
                 batch,
             )
         if self.metrics_sink is not None:
@@ -1015,7 +1212,7 @@ class Trainer:
         if restored is None:
             return None
         state, epoch, _ = restored
-        self.load_state_dict(state)
+        self.load_checkpoint_state(state)
         return epoch
 
     def evaluate_from_checkpoint(self) -> float:
@@ -1103,7 +1300,7 @@ class Trainer:
                 else " (no --checkpoint_dir: exiting without a save)"
             )
         )
-        state = self.state_dict()
+        state = self.checkpoint_state()
         if self._telemetry is not None:
             try:
                 self._telemetry.drain()
@@ -1142,7 +1339,7 @@ class Trainer:
         if restored is None:
             self._abort_nonfinite(err.step, err.epoch, None, err.batch)
         state, epoch, self.best_metric = restored
-        self.load_state_dict(state)
+        self.load_checkpoint_state(state)
         print(f"Recovery: rollback budget exhausted — restored checkpoint (epoch {epoch}); "
               "continuing")
         if self.metrics_sink is not None:

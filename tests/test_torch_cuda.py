@@ -1186,3 +1186,44 @@ def test_a_host_killed_mid_rollout_leaves_every_session_bitwise_offline(tmp_path
         assert r.ok and len(r.outputs) == 6, (r.reason, r.detail)
         offline = offline_rollout(engine, s, 6, rows=4)
         assert all(np.array_equal(a, b) for a, b in zip(r.outputs, offline, strict=True))
+
+
+@pytest.mark.cuda
+def test_fused_nla_sp_on_two_ranks_sharing_the_card(tmp_path):
+    """``fused_nla_sp`` over 2 ranks on the one card (gloo with CUDA
+    tensors), psum and ring: each rank launches the reduce and apply
+    kernels once, and the assembled blocks and summed gradient parts match
+    the plain ``reference_impl`` on the whole inputs, at the kernels' bar."""
+    _card()
+    import torch_ranks
+
+    rng = np.random.default_rng(18)
+    h, shapes = 8, dict(q=(2, 256, 256), k=(1, 2, 128, 256), v=(1, 2, 128, 256))
+    inputs = {n: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+              for n, s in shapes.items()}
+    mask = (rng.uniform(size=(1, 2, 128)) > 0.2).astype(np.float32)
+    mask[:, :, 0] = 1.0
+    inputs["mask"] = torch.from_numpy(mask)
+    torch.save(dict(inputs, n_head=h), tmp_path / "payload.pt")
+    launch = torch_ranks.Launch("sp_cuda", 2, tmp_path / "payload.pt", tmp_path / "out")
+    try:
+        ranks = launch.wait(timeout_s=240)
+    finally:
+        launch.kill()
+    leaves = [inputs[n].cuda().requires_grad_(True) for n in ("q", "k", "v")]
+    want_out, want_qs = fa.reference_impl(*leaves, inputs["mask"].cuda(), h)
+    (torch.sum(want_out**2) + torch.sum(want_qs * 0.5)).backward()
+    for coll in ("psum", "ring"):
+        out, qs = torch.zeros_like(want_out).cpu(), torch.zeros_like(want_qs).cpu()
+        grads = [torch.zeros_like(t).cpu() for t in leaves]
+        for r in ranks:
+            case = r["cases"][coll]
+            assert case["launches"] == [1, 1]
+            rows = slice(r["coords"]["seq"] * 128, (r["coords"]["seq"] + 1) * 128)
+            out[:, :, rows], qs[:, rows] = case["out"], case["qs"]
+            for acc, g in zip(grads, case["grads"]):
+                acc += g
+        torch.testing.assert_close(out, want_out.detach().cpu(), rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(qs, want_qs.detach().cpu(), rtol=1e-4, atol=1e-5)
+        for g, t in zip(grads, leaves):
+            torch.testing.assert_close(g, t.grad.cpu(), rtol=1e-4, atol=1e-5)

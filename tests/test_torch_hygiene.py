@@ -12,8 +12,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gnot_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # Files that must run where JAX is not installed: the port, the on-card
-# smoke test, and the card-only tests.
-JAX_FREE_FILES = PORT_FILES + [ROOT / "tests" / "test_torch_cuda.py"]
+# smoke test, the card-only tests and the rank processes they launch.
+JAX_FREE_FILES = PORT_FILES + [ROOT / "tests" / "test_torch_cuda.py",
+                                ROOT / "tests" / "torch_ranks.py"]
 # ml_dtypes is not installed beside the card: the port's bf16 is torch.bfloat16.
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gnot_tpu", "ml_dtypes"}
 
@@ -41,6 +42,9 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "gnot_tpu_torch/ops/fused_ffn.py" in names
+    # Parallel training: the scanner sees its three modules.
+    assert {"gnot_tpu_torch/parallel/multihost.py", "gnot_tpu_torch/parallel/mesh.py",
+            "gnot_tpu_torch/ops/collectives.py"} <= names
     assert len(names) >= 15
 
 
@@ -115,6 +119,26 @@ def test_training_runs_on_cuda_by_default_and_is_refused_without_a_card(monkeypa
         port_main.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(Config(), ModelConfig(), [], [])
+
+
+def test_distributed_training_runs_on_cuda_by_default_and_is_refused_without_a_card(
+        monkeypatch):
+    """``--distributed`` changes the layout of the run, not the device: a
+    rank trains on ``cuda`` unless told ``--device cpu``, and without a card
+    the entry point raises before joining a group or loading any data."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--distributed", "--mesh_seq", "2", "--synthetic", "darcy2d", "--epochs", "1"]
+    assert port_main.build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(port_main.datasets, "load", lambda *_: pytest.fail("loaded data"))
+    monkeypatch.setattr(multihost, "initialize", lambda *a, **k: pytest.fail("joined a group"))
+    for env in ({}, dict(RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT="1")):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_main.main(argv)
 
 
 def test_validate_kernels_refuses_without_a_card(monkeypatch):

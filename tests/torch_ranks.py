@@ -1,0 +1,382 @@
+"""Rank processes for the port's multi-rank CPU tests
+(``test_torch_collectives.py``, ``test_torch_parallel.py``).
+
+``launch`` starts N processes of this file, one a rank, with the
+environment ``torchrun`` would give them (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), so
+each joins its gloo group through the port's own
+``multihost.initialize``. A rank runs one scenario on the payload the test
+wrote, saves what it found to ``<out>/rank<r>.pt`` and exits. Every wait
+is bounded: the group's timeout, and the launcher's deadline, after which
+it kills every rank. The ranks import torch and the port only.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+GROUP_TIMEOUT_S = 60.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    env = dict(os.environ)
+    env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world), GROUP_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               GNOT_DIST_TIMEOUT_S=str(GROUP_TIMEOUT_S))
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+def write_payload(payload: dict, path: Path) -> None:
+    """``torch.save`` of a payload, renamed into place whole: ranks started
+    before it exists wait for it."""
+    import torch
+
+    tmp = path.with_suffix(".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+class Launch:
+    """N rank processes of ``scenario`` on ``payload`` (a ``torch.save``
+    file, which may be written after the start: ``write_payload``),
+    started at once; ``wait`` collects their results."""
+
+    def __init__(self, scenario: str, world: int, payload: Path, out: Path):
+        self.out = out
+        out.mkdir(parents=True, exist_ok=True)
+        port = free_port()
+        self.procs = [
+            subprocess.Popen(
+                [sys.executable, __file__, scenario, str(payload), str(out)],
+                env=rank_env(r, world, port), cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for r in range(world)
+        ]
+
+    def wait(self, timeout_s: float) -> list[dict]:
+        import torch
+
+        deadline = time.monotonic() + timeout_s
+        logs = []
+        try:
+            for p in self.procs:
+                out, _ = p.communicate(timeout=max(0.1, deadline - time.monotonic()))
+                logs.append(out)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"ranks still running after {timeout_s} s; killed") from None
+        bad = [(r, p.returncode) for r, p in enumerate(self.procs) if p.returncode]
+        if bad:
+            raise AssertionError(
+                f"ranks failed {bad}:\n" + "\n".join(f"--- rank {r}:\n{logs[r][-3000:]}"
+                                                      for r, _ in bad))
+        return [torch.load(self.out / f"rank{r}.pt", weights_only=False)
+                for r in range(len(self.procs))]
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            p.wait()
+
+
+def place(full: np.ndarray, block: np.ndarray, spec: tuple, shape: dict, coords: dict) -> None:
+    """Write a rank's ``block`` of an array split by ``spec`` into
+    ``full``."""
+    idx = []
+    for dim, axis in enumerate(spec):
+        n = full.shape[dim]
+        if axis is None or shape[axis] == 1:
+            idx.append(slice(None))
+        else:
+            step = n // shape[axis]
+            idx.append(slice(coords[axis] * step, (coords[axis] + 1) * step))
+    full[tuple(idx)] = block
+
+
+# --------------------------------------------------------------------------
+# Scenarios (run inside a rank).
+# --------------------------------------------------------------------------
+
+
+def _collectives(payload: dict, rank: int) -> dict:
+    """``fused_nla_sp`` on each case's mesh (its blocks and its part of
+    the gradients), the ring against the all-reduce, and the agreements."""
+    import torch
+
+    from gnot_tpu_torch.config import MeshConfig
+    from gnot_tpu_torch.ops.collectives import all_reduce_sum, ring_allreduce
+    from gnot_tpu_torch.ops.fused_attention import fused_nla_sp
+    from gnot_tpu_torch.parallel import multihost
+    from gnot_tpu_torch.parallel.mesh import make_mesh
+
+    q, k, v, mask, h = (payload[n] for n in ("q", "k", "v", "mask", "n_head"))
+    out = {"cases": {}}
+    for name, case in payload["cases"].items():
+        mesh = make_mesh(MeshConfig(**case["mesh"]))
+        qs_, ks_, vs_ = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o, qs = fused_nla_sp(qs_, ks_, vs_, mask, h, mesh, **case["kwargs"])
+        (torch.sum(o ** 2) + torch.sum(qs * 0.5)).backward()
+        out["cases"][name] = {
+            "shape": mesh.shape, "coords": mesh.coords, "out": o.detach(), "qs": qs.detach(),
+            "grads": [t.grad for t in (qs_, ks_, vs_)],
+        }
+    # The ring against the all-reduce on a generic tensor, and its backward.
+    mesh = make_mesh(MeshConfig(seq=8))
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4) * (rank + 1)
+    xr, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    yr = ring_allreduce(xr, mesh.group("seq"))
+    yp = all_reduce_sum(xp, mesh.group("seq"))
+    w = torch.full_like(x, float(rank))
+    (yr * w).sum().backward()
+    (yp * w).sum().backward()
+    out["ring"] = {"ring": yr.detach(), "psum": yp.detach(), "g_ring": xr.grad,
+                   "g_psum": xp.grad}
+    out["agree"] = {
+        "flag_one": multihost.sync_flag(rank == 5),
+        "flag_none": multihost.sync_flag(False),
+        "same": multihost.all_agree("latest:latest.3.pt"),
+        "diverged": multihost.all_agree("latest:latest.3.pt" if rank != 2 else "x"),
+        "gauge": multihost.per_host_gauge(float(rank)),
+    }
+    return out
+
+
+def _small_config(payload: dict, *, mesh: dict | None, batch_size: int, **over):
+    from gnot_tpu_torch.config import (
+        Config, DataConfig, MeshConfig, ModelConfig, OptimConfig, TrainConfig)
+
+    mc = ModelConfig(**payload["model"])
+    optim = OptimConfig(grad_accum=over.pop("grad_accum", 1),
+                        flat_params=over.pop("flat_params", False))
+    train = dict(epochs=1, graceful_preempt=False, distributed=bool(mesh), seed=0)
+    train.update(over)
+    cfg = Config(optim=optim, data=DataConfig(batch_size=batch_size),
+                 train=TrainConfig(**train), mesh=MeshConfig(**(mesh or {})))
+    return cfg, mc
+
+
+def _train(payload: dict, rank: int) -> dict:
+    """The sharded train steps of each case from the carried JAX weights,
+    the ragged-tail eval, telemetry on a mesh, the stop agreement and the
+    restore-walk agreement."""
+    import torch
+
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.data.batch import Loader
+    from gnot_tpu_torch.parallel import multihost
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+    from gnot_tpu_torch.train.trainer import Trainer, stack_batches
+
+    samples = datasets.synth_ns2d(16, n_points=64)
+    # Each call takes a fresh copy: the port's eager steps donate nothing,
+    # but JAX's linter (tests/test_analysis.py) reads a batch passed to a
+    # ``train_step`` as donated.
+    def batches():
+        return list(Loader(samples, 8))
+    lrs = payload["lrs"]
+    out = {"cases": {}}
+    for name, case in payload["cases"].items():
+        cfg, mc = _small_config(payload, mesh=case["mesh"], batch_size=8,
+                                **case.get("over", {}))
+        trainer = Trainer(cfg, mc, samples, [], device="cpu")
+        trainer.initialize()
+        trainer.load_standard_params(payload["params"])
+        res = {}
+        if case["steps"] == "single":
+            telem = {} if case.get("telemetry") else None
+            res["losses"] = [float(trainer.train_step(batches()[0], lrs[0], telem))]
+            if telem is not None:
+                res["telemetry"] = {k: v.detach().clone() for k, v in telem.items()}
+                if rank == 0:
+                    out["single_telemetry"] = _single_telemetry(payload, samples,
+                                                                batches()[0])
+        elif case["steps"] == "two":
+            res["losses"] = [float(trainer.train_step(b, lr)) for b, lr in zip(batches(), lrs)]
+        else:  # one dispatch of two steps
+            res["losses"] = trainer.multi_train_step(stack_batches(batches()), lrs).tolist()
+            res["multi_eval"] = trainer.multi_eval_step(stack_batches(batches())).tolist()
+        params = trainer.standard_params()
+        if rank == 0:
+            res["params"] = {n: t.detach().clone() for n, t in params.items()}
+        if case.get("roundtrip"):
+            res["roundtrip"] = _checkpoint_roundtrip(trainer, cfg, mc, samples)
+        out["cases"][name] = res
+    out["eval"] = _ragged_eval(payload)
+    out["stop"] = _stop_agreement(payload, rank)
+    out["diverge"] = {}
+    for which, dirs in payload["diverge"].items():
+        try:
+            Checkpointer(dirs[rank]).restore_latest()
+            out["diverge"][which] = "restored"
+        except RuntimeError as exc:
+            out["diverge"][which] = str(exc)
+    out["process"] = (multihost.process_index(), multihost.process_count())
+    return out
+
+
+def _checkpoint_roundtrip(trainer, cfg, mc, samples) -> bool:
+    """A checkpoint's whole state (gathered from the shards) loaded into a
+    fresh trainer on the same mesh (each rank keeping its shards) gathers
+    back bitwise: weights, both AdamW moments and the step counts."""
+    import torch
+
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    state = trainer.checkpoint_state()
+    fresh = Trainer(cfg, mc, samples, [], device="cpu")
+    fresh.initialize()
+    fresh.load_checkpoint_state(state)
+    again = fresh.checkpoint_state()
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    return same(state, again)
+
+
+def _single_telemetry(payload: dict, samples, batch) -> dict:
+    """The telemetry of the same step on one device (no mesh)."""
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    cfg, mc = _small_config(payload, mesh=None, batch_size=8)
+    single = Trainer(cfg, mc, samples, [], device="cpu")
+    single.initialize()
+    single.load_standard_params(payload["params"])
+    telem = {}
+    single.train_step(batch, payload["lrs"][0], telem)
+    return {k: v.detach().clone() for k, v in telem.items()}
+
+
+def _ragged_eval(payload: dict) -> float:
+    """``evaluate`` on a data2 x seq2 x model2 mesh over 6 test samples in
+    batches of 4: the tail batch is filled with repeats and scored per
+    sample."""
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    samples = datasets.synth_ns2d(16, n_points=64)
+    tests = datasets.synth_ns2d(6, seed=5, n_points=64)
+    cfg, mc = _small_config(payload, mesh=dict(data=2, seq=2, model=2), batch_size=4)
+    trainer = Trainer(cfg, mc, samples[:8], tests, device="cpu")
+    trainer.initialize()
+    trainer.load_standard_params(payload["params"])
+    return trainer.evaluate()
+
+
+def _stop_agreement(payload: dict, rank: int) -> dict:
+    """Two epochs of two steps on a data4 x seq2 mesh where only rank 5
+    gets SIGTERM, at step 3: every rank stops at step 3 and rank 0 saves
+    ``latest`` (epoch 1, replayed on resume). A fresh trainer resumed from
+    it, and the stopped trainer carried on in memory from the same epoch
+    (no checkpoint in between), end on the same weights and losses."""
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    samples = datasets.synth_ns2d(16, n_points=64)
+    stop_dir = payload["stop_dir"]
+
+    def trainer_for(**over):
+        cfg, mc = _small_config(payload, mesh=dict(data=4, seq=2), batch_size=4,
+                                epochs=2, graceful_preempt=True, checkpoint_dir=stop_dir,
+                                **over)
+        return Trainer(cfg, mc, samples[:8], samples[8:12], device="cpu",
+                       checkpointer=Checkpointer(stop_dir))
+
+    def final(t):
+        return {"host_step": t.host_step, "loss": t.history[-1].train_loss,
+                "params": {n: v.detach().clone() for n, v in t.standard_params().items()}}
+
+    stopped = trainer_for(**({"inject_fault": "sigterm@3"} if rank == 5 else {}))
+    stopped.fit()
+    res = {"stop_step": stopped.host_step, "stop_epochs": len(stopped.history),
+           "latest": Checkpointer(stop_dir)._read_sidecar("latest")}
+    resumed = trainer_for(resume=True)
+    resumed.fit()
+    res["resumed"] = final(resumed)
+    stopped.checkpointer = None
+    stopped.start_epoch = len(stopped.history)
+    stopped.fit()
+    res["carried_on"] = final(stopped)
+    return res
+
+
+def _sp_cuda(payload: dict, rank: int) -> dict:
+    """``fused_nla_sp`` over 2 ranks sharing the card (gloo with CUDA
+    tensors), psum and ring: its blocks, its gradient parts and its kernel
+    launches."""
+    import torch
+
+    from gnot_tpu_torch.config import MeshConfig
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(seq=2))
+    q, k, v, mask = (payload[n].cuda() for n in ("q", "k", "v", "mask"))
+    out = {"coords": mesh.coords, "cases": {}}
+    for coll in ("psum", "ring"):
+        fa.nla_reduce_kernel.launches = fa.nla_apply_kernel.launches = 0
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o, qs = fa.fused_nla_sp(*leaves, mask, payload["n_head"], mesh, sp_collective=coll)
+        (torch.sum(o**2) + torch.sum(qs * 0.5)).backward()
+        out["cases"][coll] = {
+            "out": o.detach().cpu(), "qs": qs.detach().cpu(),
+            "grads": [t.grad.cpu() for t in leaves],
+            "launches": [fa.nla_reduce_kernel.launches, fa.nla_apply_kernel.launches]}
+    return out
+
+
+SCENARIOS = {"collectives": _collectives, "train": _train, "sp_cuda": _sp_cuda}
+
+
+def main() -> None:
+    scenario, payload_path, out = sys.argv[1:4]
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(1)
+    from gnot_tpu_torch.parallel import multihost
+
+    multihost.initialize("cuda" if scenario.endswith("_cuda") else "cpu",
+                         timeout_s=GROUP_TIMEOUT_S)
+    try:
+        # The launcher may start the ranks before it has written the payload.
+        deadline = time.monotonic() + GROUP_TIMEOUT_S
+        while not os.path.exists(payload_path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no payload at {payload_path}")
+            time.sleep(0.05)
+        payload = torch.load(payload_path, weights_only=False)
+        result = SCENARIOS[scenario](payload, multihost.process_index())
+        torch.save(result, Path(out) / f"rank{multihost.process_index()}.pt")
+    finally:
+        multihost.shutdown()
+
+
+if __name__ == "__main__":
+    main()
