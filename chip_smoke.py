@@ -291,6 +291,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    metrics; (d) ``--mesh_seq 2`` with SIGTERM to rank 1 alone: both ranks
    stop after step 3 and rank 0 saves ``latest``; ``--resume`` in a fresh
    launch ends bitwise where the stopped run carried on in memory ends.
+19. the rest of parallel training at phase 18's flags, ranks sharing the
+   card (gloo with CUDA tensors): (a) the pipeline schedule, ``--mesh_pipe
+   2`` on 2 ranks (2 blocks a stage, M = 2) and ``--mesh_pipe 4
+   --microbatches 4`` on 4 (1 block a stage), and (b) ``--mesh_model 2
+   --mesh_pipe 2`` on 4, each within 1e-5 of phase 18 (b)'s mesh of one;
+   (c) ``--packed --mesh_data 2`` on 2 within 1e-5 of the single-device
+   packed run of phase 9's flags (``--ffn_impl xla``); (d) ``--scan_layers
+   --mesh_data 2 --mesh_model 2`` on 4 within 1e-5 of a single-device
+   ``--scan_layers`` run; per rank of (a)-(d) the step time, the stage
+   hops' calls and host ms a step with the share spent waiting on gloo,
+   the bubble ``(S-1)/(M+S-1)`` and peak memory, and 0 FFN and attention
+   kernel launches (both packages refuse kernels on a mesh); (e)
+   ``--mesh_pipe 2`` with SIGTERM to rank 1 alone: both stop after step 3,
+   and ``--resume`` in a fresh launch (beside the single-device
+   references of (c) and (d)) ends bitwise where the stopped run carried
+   on in memory ends.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -332,7 +348,9 @@ and (c); ``federation_serve_launches``, ``federation_tcp_launches``,
 ``federation_bf16_launches`` and ``federation_kill_launches`` over phase
 17's runs (a), (b), (c) and (d) (every host's replicas summed). The
 ``nla_reduce`` and ``nla_apply`` entries' ``sp_launches`` are their counts
-under ``fused_nla_sp`` in phase 18 (a), summed over the ranks. Launches
+under ``fused_nla_sp`` in phase 18 (a), summed over the ranks; the FFN
+kernel's ``mesh_train_launches`` is its count over every rank of phase 19
+(0: a mesh runs the FFN's torch path). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -4819,6 +4837,9 @@ def rank_main(plan_path: Path) -> None:
     import torch
 
     from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.ops import collectives
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
     from gnot_tpu_torch.parallel import multihost
 
     plan = json.loads(plan_path.read_text())
@@ -4839,6 +4860,10 @@ def rank_main(plan_path: Path) -> None:
                 argv += ["--inject_fault", "sigterm@3"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            collectives.reset_hop_stats()
+            kernels = [fused_gated_ffn_kernel, fa.nla_reduce_kernel, fa.nla_apply_kernel,
+                       fa.nla_reduce_seg_kernel, fa.nla_apply_seg_kernel]
+            launched = sum(k.launches for k in kernels)
             t0 = time.perf_counter()
             trainer = port_main.run(argv)
             torch.cuda.synchronize()
@@ -4846,7 +4871,10 @@ def rank_main(plan_path: Path) -> None:
                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                    "mesh": trainer.mesh.shape, "host_step": trainer.host_step,
                    "losses": [h.step_losses.tolist() for h in trainer.history],
-                   "metrics": [h.test_metric for h in trainer.history]}
+                   "metrics": [h.test_metric for h in trainer.history],
+                   "hops": dict(collectives.HOP_STATS),
+                   "micro": getattr(trainer.model, "n_micro", 0),
+                   "kernel_launches": sum(k.launches for k in kernels) - launched}
             if run.get("profile"):
                 res["allreduce_ms"] = allreduce_ms(out_dir / name / f"prof{rank}" / "epoch_1.trace.json")
             if run.get("carry_on"):
@@ -4894,6 +4922,18 @@ def epoch_records(path: Path) -> list[dict]:
 def rel_diff(np, a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def par_results(out_dir: Path, launches: list) -> dict[str, list]:
+    """Every rank's results of each ``(world, plan)`` launch (written under
+    ``out_dir`` as ``plan<i>_rank<r>.json``), by run name, in rank order."""
+    results = {}
+    for i, (world, _) in enumerate(launches):
+        for r in range(world):
+            path = out_dir / f"plan{i}_rank{r}.json"
+            for name, res in json.loads(path.read_text()).items():
+                results.setdefault(name, []).append(res)
+    return results
 
 
 def parallel_phase(torch, np, card: str) -> dict:
@@ -4958,12 +4998,7 @@ def parallel_phase(torch, np, card: str) -> dict:
     finally:
         text = wait_all(procs, "d, b")[-1]
     log(f"[par] four launches (a, c, d, b) {time.monotonic() - t0:.1f} s")
-    results = {}
-    for i, (world, _) in enumerate(launches):
-        for r in range(world):
-            path = PAR_OUT / f"plan{i}_rank{r}.json"
-            for name, res in json.loads(path.read_text()).items():
-                results.setdefault(name, []).append(res)
+    results = par_results(PAR_OUT, launches)
 
     # (b) the mesh of one against the run without --distributed.
     base_recs = epoch_records(PAR_OUT / "base.jsonl")
@@ -5032,6 +5067,7 @@ def parallel_phase(torch, np, card: str) -> dict:
         f"reduce {sp_launches[0]} apply {sp_launches[1]}")
     out["sp_launches"] = {"nla_reduce": sp_launches[0], "nla_apply": sp_launches[1]}
     out["sp_max_abs_err"] = worst
+    out["mesh_of_one"] = b_vals
 
     want = np.asarray(b_vals)
     for name in ("data2", "seq2", "model2", "expert3"):
@@ -5080,6 +5116,131 @@ def parallel_phase(torch, np, card: str) -> dict:
     if set(stop_steps) != {3} or latest["epoch"] != 0 or not bitwise or len(set(sums)) != 1:
         raise RuntimeError("[par] (d) the stop agreement or the resume is not whole")
     log(f"[par] phase 18 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 19: the pipeline schedule, packed batches and the stacked layout on
+# a mesh.
+# --------------------------------------------------------------------------
+
+PIPE_OUT = TRAIN_OUT / "pipeline"
+# Phase 9's packed training flags on the FFN's torch path (a mesh refuses
+# the kernel), over the rank mesh.
+PACKED_PAR_ARGV = [a if a != "pallas" else "xla" for a in PACKED_TRAIN_ARGV] + ["--distributed"]
+
+
+def mesh_run_line(np, name: str, per_rank: list, recs: list, want, bubble: float, card: str
+                  ) -> float:
+    """Log one run of phase 19 (a)-(d) against ``want`` (its epochs' train
+    losses and test metrics) and return the max rel diff: per rank the step
+    time (epoch seconds over its steps, each epoch), the hops' calls and
+    host ms a step (eval's forward hops included) with the share spent
+    waiting on gloo, and the peak memory."""
+    keys = ("train_loss", "test_metric")
+    got = [r[k] for r in recs for k in keys]
+    diff = rel_diff(np, got, want)
+    steps = per_rank[0]["host_step"] // len(recs)
+    hops = [(r["hops"]["calls"] / per_rank[0]["host_step"],
+             round(r["hops"]["ms"] / per_rank[0]["host_step"], 3),
+             round(r["hops"]["wait_ms"] / max(r["hops"]["ms"], 1e-9), 3)) for r in per_rank]
+    agree = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
+    log(f"[pipe] {name}: mesh {per_rank[0]['mesh']}, microbatches {per_rank[0]['micro']}, "
+        f"bubble {bubble:.3f}; train/test {got}, max rel diff {diff:.3e} (bar {PAR_RTOL}); "
+        f"ranks' losses equal {agree}; step time {[r['epoch_seconds'] / steps * 1e3 for r in recs]}"
+        f" ms (epochs 0, 1; rank 0's clock, the card shared by {len(per_rank)} ranks); hops a "
+        f"step per rank (calls, host ms, share waiting on gloo): {hops}; peak memory "
+        f"{[round(r['peak_mib'], 1) for r in per_rank]} MiB; kernel launches "
+        f"{[r['kernel_launches'] for r in per_rank]} on {card}")
+    if not agree:
+        raise RuntimeError(f"[pipe] {name}: the ranks' losses differ")
+    return diff
+
+
+def pipeline_phase(torch, np, card: str, mesh_of_one: list) -> dict:
+    """Phase 19: the rest of parallel training on the one card, ranks as
+    processes sharing it through gloo. (a) the pipeline schedule on 2 and
+    on 4 ranks, (b) with the model axis, each against phase 18 (b)'s mesh
+    of one (``mesh_of_one``); (c) packed rows over the data axis and (d)
+    the stacked layout over data x model, each against its single-device
+    run; (e) a stop on one rank of a pipe mesh and its bitwise resume.
+    Every rank launches no kernel: both packages refuse them on a mesh."""
+    from gnot_tpu_torch import main as port_main
+
+    import shutil
+
+    t_phase = time.monotonic()
+    shutil.rmtree(PIPE_OUT, ignore_errors=True)
+    PIPE_OUT.mkdir(parents=True)
+    ck = PIPE_OUT / "ck"
+    runs2 = [dict(name="pipe2", argv=PAR_ARGV + ["--mesh_pipe", "2"]),
+             dict(name="packed_data2", argv=PACKED_PAR_ARGV + ["--mesh_data", "2"]),
+             dict(name="stop", argv=PAR_ARGV + ["--mesh_pipe", "2", "--checkpoint_dir", str(ck)],
+                  sigterm_rank=1, carry_on=True)]
+    runs4 = [dict(name="pipe4_micro4", argv=PAR_ARGV + ["--mesh_pipe", "4", "--microbatches",
+                                                        "4"]),
+             dict(name="model2_pipe2", argv=PAR_ARGV + ["--mesh_model", "2", "--mesh_pipe", "2"]),
+             dict(name="scan_data2_model2", argv=PAR_ARGV + ["--scan_layers", "--mesh_data", "2",
+                                                            "--mesh_model", "2"])]
+    resume = [dict(name="resume", argv=PAR_ARGV + ["--mesh_pipe", "2", "--checkpoint_dir",
+                                                   str(ck), "--resume"])]
+    launches = [(2, dict(runs=runs2)), (4, dict(runs=runs4)), (2, dict(runs=resume))]
+    for i, (world, plan) in enumerate(launches):
+        for run in plan["runs"]:
+            (PIPE_OUT / run["name"]).mkdir()
+        (PIPE_OUT / f"plan{i}.json").write_text(json.dumps(plan))
+    t0 = time.monotonic()
+    # (a)-(d) one launch after another, so that each times its own ranks.
+    launch_ranks(2, [str(PIPE_OUT / "plan0.json")], "a, c, e")
+    launch_ranks(4, [str(PIPE_OUT / "plan1.json")], "a, b, d")
+    # (e)'s resume times nothing: the single-device references beside it.
+    port = free_port()
+    procs = [popen([sys.executable, str(Path(__file__).resolve()), "--rank",
+                    str(PIPE_OUT / "plan2.json")], rank_env(2, port, r)) for r in range(2)]
+    try:
+        single = {}
+        for name, argv in (("packed", PACKED_PAR_ARGV), ("scan", PAR_ARGV + ["--scan_layers"])):
+            argv = [a for a in argv if a != "--distributed"]
+            with contextlib.redirect_stdout(io.StringIO()):
+                port_main.run(argv + ["--metrics_path", str(PIPE_OUT / f"{name}.jsonl")])
+            single[name] = [r[k] for r in epoch_records(PIPE_OUT / f"{name}.jsonl")
+                            for k in ("train_loss", "test_metric")]
+    finally:
+        wait_all(procs, "e")
+    log(f"[pipe] three launches (a, c, e; a, b, d; e) and the single-device runs "
+        f"{time.monotonic() - t0:.1f} s")
+    results = par_results(PIPE_OUT, launches)
+    out = {"mesh_train_launches": 0}
+    worst = 0.0
+    for name, want, s, m in (("pipe2", mesh_of_one, 2, 2), ("pipe4_micro4", mesh_of_one, 4, 4),
+                             ("model2_pipe2", mesh_of_one, 2, 2),
+                             ("packed_data2", single["packed"], 1, 1),
+                             ("scan_data2_model2", single["scan"], 1, 1)):
+        per_rank = results[name]
+        bubble = (s - 1) / (m + s - 1)
+        diff = mesh_run_line(np, name, per_rank, epoch_records(PIPE_OUT / name / "m.jsonl"),
+                             want, bubble, card)
+        out["mesh_train_launches"] += sum(r["kernel_launches"] for r in per_rank)
+        if diff > PAR_RTOL:
+            raise RuntimeError(f"[pipe] {name} does not train as its reference")
+        worst = max(worst, diff)
+    if out["mesh_train_launches"]:
+        raise RuntimeError(f"[pipe] a mesh launched {out['mesh_train_launches']} kernels")
+
+    stop, res = results["stop"], results["resume"]
+    stop_steps = [r["host_step"] for r in stop]
+    latest = json.loads((ck / "latest.json").read_text())
+    carried = [r["carried"] for r in stop]
+    bitwise = all(c["losses"][-1] == r["losses"][-1] and c["metrics"][-1] == r["metrics"][-1]
+                  for c, r in zip(carried, res))
+    sums = [r["param_sum"] for r in stop + res]
+    log(f"[pipe] (e) --mesh_pipe 2, SIGTERM to rank 1 alone: stop steps {stop_steps}, latest "
+        f"epoch {latest['epoch']} ({latest['dir']}); the resumed run's last epoch bitwise the "
+        f"stopped run carried on in memory: {bitwise}, weight sums {sums}")
+    if set(stop_steps) != {3} or latest["epoch"] != 0 or not bitwise or len(set(sums)) != 1:
+        raise RuntimeError("[pipe] (e) the stop agreement or the resume is not whole")
+    log(f"[pipe] (a)-(d) worst max rel diff {worst:.3e} (bar {PAR_RTOL}); phase 19 took "
+        f"{time.monotonic() - t_phase:.1f} s on {card}")
     return out
 
 
@@ -5303,6 +5464,9 @@ def main() -> int:
     # -- phase 18: parallel training over torch.distributed ----------------
     par = parallel_phase(torch, np, card)
 
+    # -- phase 19: the pipeline, packed and stacked meshes ------------------
+    pipe = pipeline_phase(torch, np, card, par["mesh_of_one"])
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -5335,6 +5499,7 @@ def main() -> int:
         **router_launches,
         **autoscale_launches,
         **federation_launches,
+        "mesh_train_launches": pipe["mesh_train_launches"],
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -21,10 +21,9 @@ from gnot_tpu_torch.models.precision import SERVE_DTYPES
 
 class NotPortedError(ValueError):
     """A configuration value that selects a part of ``gnot_tpu`` the port
-    does not have yet. The distributed trainer raises it for the pipeline
-    mesh (``mesh.pipe > 1``, ``mesh.microbatches``), ``--packed`` on a mesh
-    and ``--scan_layers`` on a mesh (``parallel/mesh.py::refuse_unported``);
-    ``EngineReplica.prewarm_from``, ``--serve_prewarm`` and the
+    does not have yet. The distributed trainer raises it for parity mode
+    on the seq or model axis (``parallel/mesh.py::validate_layers``) and
+    ``main`` for ``--serve --distributed``; ``EngineReplica.prewarm_from``, ``--serve_prewarm`` and the
     federation's ``ClusterRouter(manifests=...)`` /
     ``build_local_federation(manifests=...)`` raise it for snapshot
     hydration (eager PyTorch has no compiled executable to serialize; a
@@ -219,10 +218,13 @@ class MeshConfig:
     # Expert parallelism over the stacked soft-MoE expert axis (the
     # gated combine becomes one all-reduce). n_expert % expert == 0.
     expert: int = 1
-    # Pipeline parallelism over the attention-block stack. Not ported:
-    # the trainer refuses pipe > 1 (NotPortedError).
+    # Pipeline parallelism over the attention-block stack: each rank of a
+    # pipe line holds n_attn_layers / pipe consecutive blocks (a stage) and
+    # the microbatch schedule runs over them (parallel/pipeline.py).
+    # Composes with data and model only.
     pipe: int = 1
-    # Microbatches per pipeline round-trip (pipe > 1 only); not ported.
+    # Microbatches per pipeline round-trip (pipe > 1 only); 0 = one per
+    # stage. The bubble is (pipe - 1) / (microbatches + pipe - 1).
     microbatches: int = 0
 
 

@@ -112,8 +112,10 @@ trace and ``--flight_recorder_s`` turns on the flight recorders. JAX's
 
 Parallel training (``gnot_tpu/main.py``'s seven mesh flags, defaults and
 checks): ``--distributed`` trains over the rank mesh of ``--mesh_data``,
-``--mesh_seq``, ``--mesh_model`` and ``--mesh_expert``
-(``parallel/mesh.py``), one process a rank, launched by ``torchrun``
+``--mesh_seq``, ``--mesh_model``, ``--mesh_expert`` and ``--mesh_pipe``
+with ``--microbatches`` (``parallel/mesh.py``, the pipeline schedule in
+``parallel/pipeline.py``), ``--packed`` and ``--scan_layers`` included,
+one process a rank, launched by ``torchrun``
 (``python -m torch.distributed.run --nproc_per_node N -m
 gnot_tpu_torch.main --distributed ...``) or alone as a mesh of one. Each
 rank joins the group ``torchrun``'s environment describes
@@ -123,9 +125,9 @@ a rank, gloo with CUDA tensors when ranks share a card, named on the
 shard of the samples (``shard_samples``), padded to the whole dataset's
 lengths. Rank 0 alone writes the metrics, the trace, ``run.json`` (with the
 mesh and ``process_count`` / ``process_index``), the checkpoints, the
-export and the predictions. ``--mesh_pipe`` > 1 and ``--microbatches``
-are refused (``NotPortedError``), as are ``--packed``, ``--scan_layers``
-and ``--serve`` with ``--distributed``, and ``--device_id`` with it.
+export and the predictions. ``--serve`` with ``--distributed`` is
+refused (``NotPortedError``: JAX serves on a one-process mesh, the port's
+mesh is one process a rank), and ``--device_id`` with it.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
@@ -667,12 +669,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh_pipe", type=int, default=1,
         help="pipeline parallelism over the attention-block stack "
              "(n_attn_layers must be divisible by it; composes with the "
-             "data axis only); not ported: > 1 is refused"
+             "data axis only)"
     )
     p.add_argument(
         "--microbatches", type=int, default=0,
         help="microbatches per pipeline round (0 = one per stage); the "
-             "pipeline bubble is (pipe-1)/(microbatches+pipe-1); not ported"
+             "pipeline bubble is (pipe-1)/(microbatches+pipe-1)"
     )
     return p
 

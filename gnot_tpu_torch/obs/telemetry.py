@@ -32,6 +32,13 @@ import torch
 
 from gnot_tpu_torch.obs import events
 
+#: ``gnot_tpu/obs/telemetry.py``'s refusal of telemetry on a pipe mesh.
+PIPE_ERROR = (
+    "telemetry does not compose with the pipeline mesh path yet (the "
+    "shard_map schedule builds its own step); set mesh pipe=1 or "
+    "disable telemetry"
+)
+
 
 @torch.no_grad()
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -22,17 +22,32 @@ transpose of what the forward does with the result:
 
 ``ring_allreduce`` sums over a group by S-1 neighbour hops (send to the
 next rank, receive from the previous one, add) instead of one all-reduce;
-its backward replays the ring in the reverse direction. Gloo carries the
-hops through host memory when the tensor is on the card
-(``_p2p_staged``); NCCL takes them on the card.
+its backward replays the ring in the reverse direction. ``hop`` is one
+such exchange, the pipeline's stage-to-stage handoff (JAX's ``ppermute``
+``s -> s+1``), and ``broadcast_from`` makes one rank's tensor every rank's
+(the pipeline's last-stage outputs). Gloo carries a hop and a broadcast
+through host memory when the tensor is on the card (``_staged``: gloo
+takes no point-to-point of a CUDA tensor); NCCL takes them on the card.
+``HOP_STATS`` counts the hops and their host time.
 
 A group of size 1, or ``None``, makes every function here the identity.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.distributed as dist
+
+#: Every ``hop`` since the last reset: calls, the host milliseconds of each
+#: whole call and the part of them spent waiting on the backend's send and
+#: receive (the rest stages the tensor through host memory).
+HOP_STATS = {"calls": 0, "ms": 0.0, "wait_ms": 0.0}
+
+
+def reset_hop_stats() -> None:
+    HOP_STATS.update(calls=0, ms=0.0, wait_ms=0.0)
 
 
 def group_size(group) -> int:
@@ -99,9 +114,10 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _hop(buf: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
+def hop(buf: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
     """Send ``buf`` to group rank ``to`` while receiving the same shape
     from group rank ``frm``; returns what was received."""
+    t0 = time.perf_counter()
     staged = _staged(group, buf)
     send = buf.cpu() if staged else buf.contiguous()
     recv = torch.empty_like(send)
@@ -109,9 +125,24 @@ def _hop(buf: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
         dist.P2POp(dist.isend, send, dist.get_global_rank(group, to), group),
         dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm), group),
     ]
+    t1 = time.perf_counter()
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return recv.to(buf.device, non_blocking=True) if staged else recv
+    t2 = time.perf_counter()
+    out = recv.to(buf.device, non_blocking=True) if staged else recv
+    HOP_STATS["calls"] += 1
+    HOP_STATS["wait_ms"] += (t2 - t1) * 1e3
+    HOP_STATS["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def broadcast_from(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (a new tensor
+    on ``x``'s device; no gradient)."""
+    staged = _staged(group, x)
+    buf = x.detach().cpu() if staged else x.detach().contiguous().clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.to(x.device, non_blocking=True) if staged else buf
 
 
 def _ring(x: torch.Tensor, group, step: int) -> torch.Tensor:
@@ -121,7 +152,7 @@ def _ring(x: torch.Tensor, group, step: int) -> torch.Tensor:
     me = dist.get_rank(group)
     acc, buf = x.clone(), x
     for _ in range(size - 1):
-        buf = _hop(buf, group, (me + step) % size, (me - step) % size)
+        buf = hop(buf, group, (me + step) % size, (me - step) % size)
         acc = acc + buf
     return acc
 

@@ -110,21 +110,39 @@ def packed_rel_l2_per_seg(
     return per * valid, valid
 
 
+def packed_rel_l2_sums(predictions, targets, mask, node_seg, n_seg: int):
+    """``(sum, count)``: the per-sample relative L2 summed over the samples
+    present in the dispatch, and their count."""
+    per, valid = packed_rel_l2_per_seg(predictions, targets, mask, node_seg, n_seg)
+    return per.sum(), valid.sum()
+
+
+def packed_mse_sums(predictions, targets, mask, node_seg, n_seg: int):
+    """``(sum, count)`` of the packed ``mse_loss``: per-segment node-mean
+    squared error (mean over the channels), summed over the present
+    segments, and their count."""
+    s = packed_segment_sums((predictions - targets) ** 2, mask, node_seg, n_seg)
+    n = _packed_counts(mask, node_seg, n_seg)
+    valid = (n > 0).to(s.dtype)
+    per = (s / torch.clamp(n, min=1.0)[:, None].to(s.dtype)).mean(dim=1)
+    return (per * valid).sum(), valid.sum()
+
+
 def packed_rel_l2_loss(predictions, targets, mask, node_seg, n_seg: int) -> torch.Tensor:
     """Mean per-sample relative L2 over the samples present in the
     dispatch: the packed ``rel_l2_loss``."""
-    per, valid = packed_rel_l2_per_seg(predictions, targets, mask, node_seg, n_seg)
-    return per.sum() / torch.clamp(valid.sum(), min=1.0)
+    total, count = packed_rel_l2_sums(predictions, targets, mask, node_seg, n_seg)
+    return total / torch.clamp(count, min=1.0)
 
 
 def packed_mse_loss(predictions, targets, mask, node_seg, n_seg: int) -> torch.Tensor:
     """The packed ``mse_loss``: per-segment node-mean squared error, mean
     over the present segments and the channels."""
-    s = packed_segment_sums((predictions - targets) ** 2, mask, node_seg, n_seg)
-    n = _packed_counts(mask, node_seg, n_seg)
-    valid = (n > 0).to(s.dtype)
-    per = (s / torch.clamp(n, min=1.0)[:, None].to(s.dtype)).mean(dim=1)
-    return (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    total, count = packed_mse_sums(predictions, targets, mask, node_seg, n_seg)
+    return total / torch.clamp(count, min=1.0)
 
 
 PACKED_LOSSES = {"rel_l2": packed_rel_l2_loss, "mse": packed_mse_loss}
+#: The packed losses as ``(sum, count)`` over one rank's segments: on a
+#: data axis the loss is the sums over every rank's, divided.
+PACKED_LOSS_SUMS = {"rel_l2": packed_rel_l2_sums, "mse": packed_mse_sums}

@@ -22,7 +22,13 @@ each takes):
   (``models/layers.py``).
 * ``expert``: the stacked experts split; each rank runs its experts on
   every token and the gate-weighted combine closes with an all-reduce.
-* ``pipe``: not ported (``refuse_unported``).
+* ``pipe``: the block stack split into stages, one a rank of the line,
+  run as a microbatch schedule (``parallel/pipeline.py``); composes with
+  ``data`` and ``model``. The stacked blocks keep their stage's layers
+  (``param_spec``: ``blocks.X`` takes X's spec behind a leading layer dim
+  on ``pipe``, which on a mesh without a pipe axis is JAX's GSPMD rule for
+  the stacked layout); the embedding's gradients are summed over ``pipe``
+  as well as ``data`` (``reduce_grads``).
 
 Each rank builds the whole model from the seed and keeps its shards
 (``shard_model``); ``gather_params`` / ``gather_tensor`` assemble the
@@ -45,13 +51,12 @@ import torch
 import torch.distributed as dist
 
 from gnot_tpu_torch.config import MeshConfig, ModelConfig, NotPortedError
+from gnot_tpu_torch.data.batch import PackedBatch
 from gnot_tpu_torch.ops.collectives import copy_to, reduce_from
 
 AXES = ("data", "seq", "model", "expert", "pipe")
-
-#: Where each refusal stands in the JAX package, for its message.
-PIPELINE_LINES = "gnot_tpu/parallel/pipeline.py:182-284, :350-496"
-ROADMAP_ITEM = "ROADMAP.md queue 1, item 1 (the pipeline mesh and the rest of parallel training)"
+#: The axes that split weights (the rest split the batch).
+SPLIT_AXES = ("model", "expert", "pipe")
 
 
 def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
@@ -112,8 +117,8 @@ class Mesh:
 
     @property
     def sharded(self) -> bool:
-        """Whether any weight is split (model or expert axis > 1)."""
-        return self.shape["model"] > 1 or self.shape["expert"] > 1
+        """Whether any weight is split (model, expert or pipe axis > 1)."""
+        return any(self.shape[a] > 1 for a in SPLIT_AXES)
 
     @property
     def local_data(self) -> int:
@@ -155,38 +160,13 @@ def make_mesh(cfg: MeshConfig, *, nodes: int = 1, timeout_s: float | None = None
 
 
 # --------------------------------------------------------------------------
-# Refusals and the GSPMD checks.
+# The GSPMD checks.
 # --------------------------------------------------------------------------
-
-
-def refuse_unported(mesh_cfg: MeshConfig, *, packed: bool, scan_layers: bool) -> None:
-    """The parts of JAX's parallel training this slice does not port,
-    refused by name: the pipeline mesh, packed batches on a mesh, the
-    stacked layout on a GSPMD mesh."""
-    if mesh_cfg.pipe > 1 or mesh_cfg.microbatches:
-        raise NotPortedError(
-            f"--mesh_pipe {mesh_cfg.pipe} / --microbatches {mesh_cfg.microbatches}: "
-            f"the pipeline mesh schedule ({PIPELINE_LINES}) is not ported; "
-            f"it waits for {ROADMAP_ITEM}"
-        )
-    if packed:
-        raise NotPortedError(
-            "--packed on a mesh (gnot_tpu/parallel/mesh.py::packed_batch_pspecs, "
-            f"gnot_tpu/train/trainer.py:440-470) is not ported; it waits for {ROADMAP_ITEM}"
-        )
-    if scan_layers:
-        raise NotPortedError(
-            "--scan_layers on a GSPMD mesh (gnot_tpu/parallel/mesh.py::_param_pspec's "
-            f"blocks/ rules, tests/test_pipeline.py:314) is not ported; it waits for "
-            f"{ROADMAP_ITEM}"
-        )
 
 
 def _validate_gspmd(model_cfg: ModelConfig, mesh: Mesh) -> None:
     """``gnot_tpu``'s config-validity guards of every GSPMD step builder,
-    with its messages, plus the port's own: the reference's parity head
-    merge interleaves heads and sequence positions across rows, so it has
-    no per-rank form on the seq or model axis."""
+    with its messages, plus the port's own (``validate_layers``)."""
     if mesh.shape.get("expert", 1) > 1 and (model_cfg.n_expert % mesh.shape["expert"]):
         raise ValueError(
             f"n_expert={model_cfg.n_expert} must be divisible by the "
@@ -197,6 +177,16 @@ def _validate_gspmd(model_cfg: ModelConfig, mesh: Mesh) -> None:
             "ffn_impl='pallas' is single-device/DP only (no shard_map "
             "form yet); use ffn_impl='xla' on a mesh"
         )
+    validate_layers(model_cfg, mesh)
+
+
+def validate_layers(model_cfg: ModelConfig, mesh: Mesh) -> None:
+    """The port's own checks of the layers' mesh forward, on every mesh
+    (a pipeline's stages split heads over ``model`` as GSPMD's mesh does):
+    whole head groups a rank, a column layer closed by a row layer, and no
+    parity mode on the seq or model axis, whose reference head merge
+    interleaves heads and sequence positions across rows, so it has no
+    per-rank form."""
     if model_cfg.n_head % mesh.shape["model"]:
         raise ValueError(
             f"n_head={model_cfg.n_head} must be divisible by the model axis size "
@@ -234,7 +224,10 @@ def shard_batch(mesh: Mesh, batch, *, stacked: bool = False):
     """This rank's block of a host ``MeshBatch`` (``batch_pspecs``): batch
     rows by its data coordinate within the node, mesh points and function
     points by its seq coordinate. ``stacked=True`` for a K-step stacked
-    batch (leading step axis, never split). Contiguous CPU tensors."""
+    batch (leading step axis, never split). Contiguous CPU tensors. A
+    ``PackedBatch`` takes ``packed_batch_pspecs``' block."""
+    if isinstance(batch, PackedBatch):
+        return shard_packed_batch(mesh, batch, stacked=stacked)
     lead = 1 if stacked else 0
     d, dn = mesh.coords["data"] % mesh.local_data, mesh.local_data
     s, sn = mesh.coords["seq"], mesh.shape["seq"]
@@ -261,6 +254,29 @@ def shard_batch(mesh: Mesh, batch, *, stacked: bool = False):
         node_mask=part(batch.node_mask, 0, 1, "node_mask"),
         funcs=part(batch.funcs, 1, 2, "funcs"),
         func_mask=part(batch.func_mask, 1, 2, "func_mask"),
+    )
+
+
+def shard_packed_batch(mesh: Mesh, batch: PackedBatch, *, stacked: bool = False) -> PackedBatch:
+    """This rank's block of a host ``PackedBatch``
+    (``gnot_tpu/parallel/mesh.py::packed_batch_pspecs``): the packed rows
+    (coords, y, the token mask, the chunk -> segment table) split over
+    ``data``; the slot tables (theta, the input-function slot rows, their
+    mask and segment map) stay whole on every rank, and segment ids stay
+    global. Each sample lies whole in one row (first-fit places it so), so
+    each segment's Grams and loss sums are one rank's."""
+    lead = 1 if stacked else 0
+    d, dn = mesh.coords["data"] % mesh.local_data, mesh.local_data
+
+    def rows(t, what):
+        return _block(t, lead, d, dn, f"packed {what} rows").contiguous()
+
+    return dataclasses.replace(
+        batch,
+        coords=rows(batch.coords, "coords"),
+        y=rows(batch.y, "y"),
+        node_mask=rows(batch.node_mask, "node_mask"),
+        node_seg=rows(batch.node_seg, "node_seg"),
     )
 
 
@@ -311,8 +327,14 @@ def _param_pspec_at(path: str, ndim: int) -> tuple:
 
 
 def param_spec(name: str, ndim: int) -> tuple:
-    """The rule of a port parameter name (``block_0.ffn1.experts...``)."""
-    return _param_pspec(name.replace(".", "/"), ndim)
+    """The rule of a port parameter name (``block_0.ffn1.experts...``).
+    A stacked ``blocks.X`` splits its leading layer dim over ``pipe``
+    (``gnot_tpu/parallel/pipeline.py::state_shardings``); on a mesh whose
+    pipe axis is 1 that is ``_param_pspec``'s unsplit layer dim."""
+    path = name.replace(".", "/")
+    if path.startswith("blocks/"):
+        return ("pipe",) + _param_pspec_at(path, ndim - 1)
+    return _param_pspec(path, ndim)
 
 
 def shard_tensor(full: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
@@ -377,32 +399,49 @@ def shard_params(params: dict[str, torch.Tensor], mesh: Mesh) -> dict[str, torch
 # --------------------------------------------------------------------------
 
 
-def reduce_grads(mesh: Mesh, grads: list[torch.Tensor]) -> None:
+def _all_reduce_packed(grads: list[torch.Tensor], group, divide: int = 1) -> None:
+    """Sum ``grads`` over ``group`` in place, divided by ``divide``: one
+    all-reduce of them all packed into one buffer (a collective a tensor
+    would pay the group's latency ~200 times a step)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    if divide > 1:
+        flat /= divide
+    torch._foreach_copy_(grads, [part.view_as(g) for part, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+def reduce_grads(mesh: Mesh, grads: list[torch.Tensor],
+                 over_pipe: list[bool] | None = None) -> None:
     """Sum every gradient over the ranks that saw other data (the data x
     seq line) and divide by the data degree, in place: the gradient of the
     mean over the data ranks' losses. Sharded weights are summed the same
-    way (their model/expert shards already hold their whole gradient)."""
+    way (their model/expert/pipe shards already hold their whole gradient).
+    On a pipe axis the gradients ``over_pipe`` marks (the embedding's, which
+    every stage's blocks read) are first summed over it: each stage holds
+    the part its own blocks gave."""
+    if mesh.group("pipe") is not None and over_pipe and any(over_pipe):
+        _all_reduce_packed([g for g, o in zip(grads, over_pipe) if o], mesh.group("pipe"))
     if mesh.grad_group is None:
         return
-    # One all-reduce of every gradient packed into one buffer: a collective
-    # a tensor would pay the group's latency ~200 times a step.
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.grad_group)
-    if mesh.shape["data"] > 1:
-        flat /= mesh.shape["data"]
-    torch._foreach_copy_(grads, [part.view_as(g) for part, g in
-                                 zip(flat.split([g.numel() for g in grads]), grads)])
+    _all_reduce_packed(grads, mesh.grad_group, mesh.shape["data"])
+
+
+def _summed(value: torch.Tensor, group) -> torch.Tensor:
+    """``value`` summed over ``group`` (no gradient; itself without one)."""
+    if group is None:
+        return value
+    out = value.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def mean_over_data(mesh: Mesh, value: torch.Tensor) -> torch.Tensor:
     """The mean of a per-rank value over the data axis (the loss of the
     global batch from each rank's row mean). COLLECTIVE over data."""
-    group = mesh.group("data")
-    if group is None:
+    if mesh.group("data") is None:
         return value
-    out = value.detach().clone()
-    dist.all_reduce(out, group=group)
-    return out / mesh.shape["data"]
+    return _summed(value, mesh.group("data")) / mesh.shape["data"]
 
 
 def gather_rows(mesh: Mesh, value: torch.Tensor) -> torch.Tensor:
@@ -420,11 +459,11 @@ def global_sq_norm(mesh: Mesh, tensors: Iterable[torch.Tensor], specs: Iterable[
                    ) -> torch.Tensor:
     """The squared global norm of tensors held as shards under ``specs``:
     each tensor's local sum of squares, summed over the axes it is split
-    over (replicated tensors count once). COLLECTIVE over model and
-    expert when either splits a tensor."""
+    over (replicated tensors count once). COLLECTIVE over model, expert and
+    pipe when any splits a tensor."""
     by_axes: dict[tuple, list[torch.Tensor]] = {}
     for t, spec in zip(tensors, specs):
-        axes = tuple(a for a in ("model", "expert") if a in spec and mesh.shape[a] > 1)
+        axes = tuple(a for a in SPLIT_AXES if a in spec and mesh.shape[a] > 1)
         by_axes.setdefault(axes, []).append(t)
     total = None
     for axes, ts in sorted(by_axes.items()):
@@ -435,13 +474,14 @@ def global_sq_norm(mesh: Mesh, tensors: Iterable[torch.Tensor], specs: Iterable[
     return total
 
 
+def sum_over_data(mesh: Mesh, value: torch.Tensor) -> torch.Tensor:
+    """A value summed over the data axis (no gradient)."""
+    return _summed(value, mesh.group("data"))
+
+
 def sum_over_grad_group(mesh: Mesh, value: torch.Tensor) -> torch.Tensor:
     """A value summed over the data x seq line (no gradient)."""
-    if mesh.grad_group is None:
-        return value
-    out = value.detach().clone()
-    dist.all_reduce(out, group=mesh.grad_group)
-    return out
+    return _summed(value, mesh.grad_group)
 
 
 # --------------------------------------------------------------------------

@@ -105,9 +105,21 @@ sequence axis needs bucketed padding, a short last train batch is
 dropped, and a short last test batch is filled with repeats of its last
 sample and scored per sample on the real rows only. Checkpoints hold the
 whole state (``checkpoint_state``, gathered; rank 0 writes it) and every
-rank restores it into its shards (``load_checkpoint_state``). The pipeline
-mesh, packed batches and the stacked layout on a mesh are refused
-(``mesh.refuse_unported``).
+rank restores it into its shards (``load_checkpoint_state``). Also on a
+mesh, as JAX composes them:
+
+* a ``pipe`` axis (``MeshConfig(pipe=S)``): the model is
+  ``pipeline.PipelinedGNOT``, the stacked layout with each rank's stage of
+  the blocks, its forward the microbatch schedule; the embedding's
+  gradients are summed over ``pipe`` as well as ``data``; checkpoints
+  hold the stacked layout, gathered. JAX's refusals with it: telemetry,
+  ``steps_per_dispatch`` > 1, ``flat_params``;
+* packed batches (``--packed``) on the data, model and expert axes of one
+  node: rows split over ``data`` (the loader's row count is a multiple of
+  it), the slot tables whole on every rank, and the loss the mean over the
+  segments of the whole dispatch (sums and counts over ``data``);
+* the stacked layout (``--scan_layers``), its blocks split by the layers'
+  rules behind an unsplit layer dim.
 
 ``standard_params()`` gives the weights in the standard layout whatever
 the trainer holds; checkpoints keep the trainer's own layout, and
@@ -147,10 +159,17 @@ from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.obs import events, health
 from gnot_tpu_torch.obs import telemetry as obs_telemetry
-from gnot_tpu_torch.ops.segment import LOSSES, PACKED_LOSSES, PER_SAMPLE_LOSSES
+from gnot_tpu_torch.ops.segment import (
+    LOSSES,
+    PACKED_LOSS_SUMS,
+    PACKED_LOSSES,
+    PER_SAMPLE_LOSSES,
+)
 from gnot_tpu_torch.parallel import mesh as mesh_lib
 from gnot_tpu_torch.parallel import multihost
+from gnot_tpu_torch.parallel import pipeline
 from gnot_tpu_torch.parallel.pipeline import (
+    PipelinedGNOT,
     StackedGNOT,
     is_stacked,
     stack_params,
@@ -212,27 +231,43 @@ def batch_loss(model: GNOT, batch: MeshBatch | PackedBatch, loss_name: str,
     in the dispatch (``packed_loss_fn``). ``gates`` collects the standard
     forward's gate stats (``GNOT.forward``). ``per_sample`` gives the
     ``[B]`` per-graph losses. On a mesh's sequence axis the pools sum over
-    the axis's ranks."""
+    the axis's ranks; on its data axis a packed dispatch's mean is over
+    every rank's segments (``_packed_mesh_loss``)."""
     preds = apply_batch(model, batch, gates)
-    if isinstance(batch, PackedBatch):
-        return PACKED_LOSSES[loss_name](preds, batch.y, batch.node_mask, batch.node_seg,
-                                        batch.n_seg)
     mesh = getattr(model, "mesh", None)
+    if isinstance(batch, PackedBatch):
+        args = (preds, batch.y, batch.node_mask, batch.node_seg, batch.n_seg)
+        if mesh is not None and mesh.group("data") is not None:
+            return _packed_mesh_loss(mesh, *PACKED_LOSS_SUMS[loss_name](*args))
+        return PACKED_LOSSES[loss_name](*args)
     seq_group = mesh.group("seq") if mesh is not None else None
     table = PER_SAMPLE_LOSSES if per_sample else LOSSES
     return table[loss_name](preds, batch.y, batch.node_mask, seq_group)
 
 
-def make_loaders(data: DataConfig, train_samples, test_samples, *, pin_memory: bool):
+def _packed_mesh_loss(mesh, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """A packed loss over the data axis: the mean over the segments of the
+    whole dispatch (``gnot_tpu/train/trainer.py::packed_loss_fn`` on rows
+    split over ``data``), ``sum_r total_r / sum_r count_r``. A mean of the
+    ranks' means would weigh a rank's segments by its count. Returned
+    scaled by the data degree, so that the trainer's mean over the data
+    ranks (of the value and of the gradients) is that mean."""
+    count = mesh_lib.sum_over_data(mesh, count)
+    return total * mesh.shape["data"] / torch.clamp(count, min=1.0)
+
+
+def make_loaders(data: DataConfig, train_samples, test_samples, *, pin_memory: bool,
+                 row_multiple: int = 1):
     """The train (shuffled) and test loaders of ``data``: ``PackedLoader``s
-    with ``data.packed``, else ``Loader``s (an empty test split gets an
+    with ``data.packed`` (their row count a multiple of ``row_multiple``,
+    the mesh's data degree), else ``Loader``s (an empty test split gets an
     empty ``Loader`` either way)."""
     if data.packed:
         train = PackedLoader(train_samples, data.batch_size, chunk=data.pack_chunk,
                              shuffle=data.shuffle_train, seed=data.seed,
-                             pin_memory=pin_memory)
+                             row_multiple=row_multiple, pin_memory=pin_memory)
         test = (PackedLoader(test_samples, data.batch_size, chunk=data.pack_chunk,
-                             pin_memory=pin_memory)
+                             row_multiple=row_multiple, pin_memory=pin_memory)
                 if len(test_samples) else Loader([], data.batch_size))
         return train, test
     pads = dict(bucket=data.bucket, pad_nodes=data.pad_nodes, pad_funcs=data.pad_funcs,
@@ -523,32 +558,36 @@ class Trainer:
                 checkpointer.fault_injector = self._faults
             if checkpointer.on_event is None and metrics_sink is not None:
                 checkpointer.on_event = metrics_sink.log
-        # JAX's flat, packed and stacked layouts run an overridden forward
-        # whose telemetry has no gate stats; the port gives the same keys.
-        self._gate_telemetry = not (config.optim.flat_params or config.data.packed
-                                    or model_cfg.scan_layers)
         # The rank mesh (train.distributed), its checks, and the mesh's
         # data rules (fixed pads, drop_remainder, the repeat-padded tail).
         self.mesh: mesh_lib.Mesh | None = None
         self._eval_tail = 0  # real samples in a repeat-padded tail eval batch
         if config.train.distributed:
-            mesh_lib.refuse_unported(config.mesh, packed=config.data.packed,
-                                     scan_layers=model_cfg.scan_layers)
-            if config.optim.flat_params and (config.mesh.model > 1 or config.mesh.expert > 1):
-                raise ValueError(
-                    "flat_params keeps the params as one replicated "
-                    "buffer and composes with the data/seq mesh axes "
-                    "only; set mesh model=expert=pipe=1"
-                )
+            self._refuse_on_mesh(config)
             self.mesh = multihost.make_hybrid_mesh(config.mesh)
-            mesh_lib._validate_gspmd(model_cfg, self.mesh)
-            config, test_samples = self._mesh_data(config, train_samples, test_samples)
+            if self.mesh.shape["pipe"] > 1:
+                pipeline._validate(model_cfg, self.mesh)
+                mesh_lib.validate_layers(model_cfg, self.mesh)
+            else:
+                mesh_lib._validate_gspmd(model_cfg, self.mesh)
+            if not config.data.packed:
+                # A packed dispatch has one shape already; its only mesh
+                # rule is a row count that splits over data (the loader's).
+                config, test_samples = self._mesh_data(config, train_samples, test_samples)
             self.config = config
+        pipe = self.mesh is not None and self.mesh.shape["pipe"] > 1
+        # The stacked layout: --scan_layers, and every pipeline.
+        self._stacked_layout = model_cfg.scan_layers or pipe
+        # JAX's flat, packed, stacked and pipelined layouts run an overridden
+        # forward whose telemetry has no gate stats; the port gives the same keys.
+        self._gate_telemetry = not (config.optim.flat_params or config.data.packed
+                                    or self._stacked_layout)
         refuse_compositions(config, model_cfg)
         # Batches for the card are page-locked on the prefetch thread, so
         # each step's copy neither blocks the host nor drains the stream.
         self.train_loader, self.test_loader = make_loaders(
-            config.data, train_samples, test_samples, pin_memory=self.device.type == "cuda"
+            config.data, train_samples, test_samples, pin_memory=self.device.type == "cuda",
+            row_multiple=self.mesh.shape["data"] if self.mesh is not None else 1,
         )
         accum = config.optim.grad_accum
         if accum > 1 and len(self.train_loader) % accum:
@@ -568,14 +607,26 @@ class Trainer:
         # serving draws them; the stacked layout draws the same weights
         # and stacks them.
         gen = torch.Generator().manual_seed(config.train.seed)
-        model_cls = StackedGNOT if model_cfg.scan_layers else GNOT
-        self.model = model_cls(model_cfg, generator=gen).to(self.device)
+        if pipe:
+            n_micro = pipeline.resolve_microbatches(self.mesh, config.mesh.microbatches)
+            self.model = PipelinedGNOT(model_cfg, n_micro, generator=gen).to(self.device)
+        else:
+            model_cls = StackedGNOT if model_cfg.scan_layers else GNOT
+            self.model = model_cls(model_cfg, generator=gen).to(self.device)
         if self.mesh is not None:
             mesh_lib.shard_model(self.model, self.mesh)
         self.flat = FlatParams(self.model) if config.optim.flat_params else None
         # The sharding rule of each optimizer tensor (global norms on a mesh).
         self._specs = ([(None,)] if self.flat is not None
                        else list(mesh_lib.param_specs(self.model).values()))
+        # On a pipe axis, which gradients are summed over it: the
+        # embedding's, which every stage's blocks read. The head's are not
+        # (every stage runs it alike on the broadcast outputs), nor the
+        # blocks' (each stage holds its own).
+        self._over_pipe = None
+        if pipe:
+            self._over_pipe = [n.startswith(("gating.", "x_embed.", "input_func_mlps."))
+                               for n, _ in self.model.named_parameters()]
         self.optimizer: torch.optim.AdamW | None = None
         # Gradient accumulation (grad_accum > 1): the window's running
         # mean gradient, one per optimizer tensor, and MultiSteps' counts.
@@ -587,6 +638,41 @@ class Trainer:
         # Micro-steps taken so far (the JAX state's step counter).
         self.host_step = 0
         self.history: list[EpochRecord] = []
+
+    @staticmethod
+    def _refuse_on_mesh(config: Config) -> None:
+        """JAX's refusals on a mesh, with its messages, before the mesh is
+        made: telemetry with a pipe axis; packed batches across nodes, or
+        with the seq or pipe axis; the flat layout with a split weight;
+        more than one step a dispatch with a pipe axis."""
+        mesh = config.mesh
+        if config.train.telemetry and mesh.pipe > 1:
+            raise ValueError(obs_telemetry.PIPE_ERROR)
+        if config.data.packed:
+            if multihost.node_count() > 1:
+                raise ValueError(
+                    "packed + multi-process not composed yet (the "
+                    "cross-host packed global-batch assembly is not "
+                    "built); packed meshes are single-process"
+                )
+            if mesh.seq > 1 or mesh.pipe > 1:
+                raise ValueError(
+                    "packed composes with the data/model/expert mesh "
+                    "axes only: a seq shard would straddle packed "
+                    "segments, and the pipeline forward does not "
+                    "thread segment ids; set mesh seq=pipe=1"
+                )
+        if config.optim.flat_params and max(mesh.model, mesh.expert, mesh.pipe) > 1:
+            raise ValueError(
+                "flat_params keeps the params as one replicated "
+                "buffer and composes with the data/seq mesh axes "
+                "only; set mesh model=expert=pipe=1"
+            )
+        if config.train.steps_per_dispatch > 1 and mesh.pipe > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 does not compose with the pipeline "
+                "mesh path; use single-step dispatch with pipe > 1"
+            )
 
     def _mesh_data(self, config: Config, train_samples, test_samples):
         """The mesh's data rules (``gnot_tpu/train/trainer.py``'s mesh
@@ -615,6 +701,9 @@ class Trainer:
                 "padding (lengths divisible by the seq axis); drop "
                 "--no_bucket"
             )
+        if self.mesh.shape["pipe"] > 1:
+            pipeline.validate_local_batch(self.mesh, data.batch_size,
+                                          config.mesh.microbatches, self.mesh.nodes)
         if len(train_samples) % data.batch_size:
             data = dataclasses.replace(data, drop_remainder=True)  # partial batches can't shard
         tail = len(test_samples) % data.batch_size
@@ -727,7 +816,7 @@ class Trainer:
         state of another layout raises (``convert_flat_state`` /
         ``pipeline.convert_state_layout`` convert it first)."""
         layout = "flat" if self.flat is not None else (
-            "stacked" if self.model_cfg.scan_layers else "standard")
+            "stacked" if self._stacked_layout else "standard")
         if state_layout(state) != layout:
             raise ValueError(
                 f"the state is in the {state_layout(state)} parameter layout but this "
@@ -761,18 +850,18 @@ class Trainer:
         that splits them, gathered (COLLECTIVE)."""
         params = self.model.state_dict()
         if self.mesh is not None:
-            return mesh_lib.gather_params(params, self.mesh)
-        if self.model_cfg.scan_layers:
+            params = mesh_lib.gather_params(params, self.mesh)
+        if self._stacked_layout:
             return unstack_params(params, self.model_cfg.n_attn_layers)
         return params
 
     def load_standard_params(self, params: Mapping[str, torch.Tensor]) -> None:
         """Load standard-layout weights (a ``GNOT`` state_dict) into the
         trainer's own layout (on a mesh, this rank's shards of them)."""
+        if self._stacked_layout:
+            params = stack_params(params, self.model_cfg.n_attn_layers)
         if self.mesh is not None:
             params = mesh_lib.shard_params(params, self.mesh)
-        if self.model_cfg.scan_layers:
-            params = stack_params(params, self.model_cfg.n_attn_layers)
         self.model.load_state_dict(params)
 
     def standard_model(self) -> GNOT:
@@ -780,7 +869,7 @@ class Trainer:
         in the standard and flat layouts, an unstacked copy in the stacked
         one, and on a mesh a single-device copy of the whole weights
         (gathered: COLLECTIVE) that runs no collective."""
-        if not self.model_cfg.scan_layers and self.mesh is None:
+        if not self._stacked_layout and self.mesh is None:
             return self.model
         with torch.device("meta"):
             model = GNOT(self.model_cfg)
@@ -826,8 +915,15 @@ class Trainer:
         gates = {} if telem is not None and self._gate_telemetry else None
         loss = batch_loss(self.model, batch, self.config.train.loss, gates)
         loss.backward()
+        if self._over_pipe is not None:
+            # A stage after the first reads no query embedding: its part of
+            # that gradient is zero.
+            for p in self._opt_params():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if self.mesh is not None:
-            mesh_lib.reduce_grads(self.mesh, [p.grad for p in self._opt_params()])
+            mesh_lib.reduce_grads(self.mesh, [p.grad for p in self._opt_params()],
+                                  self._over_pipe)
         if telem is None:
             self._update()
         else:

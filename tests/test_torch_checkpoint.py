@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu.resilience import faults as jax_faults
 from gnot_tpu.resilience.retry import RetryPolicy as JaxRetryPolicy

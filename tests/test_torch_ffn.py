@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu.ops.pallas_ffn import _erf_f32, fused_gated_ffn as jax_fused_gated_ffn
 from gnot_tpu.ops.pallas_ffn import _reference_impl as jax_reference_impl

@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu.models import layers as jl
 from gnot_tpu_torch.interop import flatten_tree

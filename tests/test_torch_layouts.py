@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from jax.flatten_util import ravel_pytree
 
 from gnot_tpu import main as jax_main

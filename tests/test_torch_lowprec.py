@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu.config import ModelConfig as JaxModelConfig
 from gnot_tpu.data import datasets
@@ -541,7 +542,9 @@ def _jax_three_steps(mc, jax_samples, params0=None):
     """JAX's three AdamW steps, run eagerly so that every bf16 op rounds as
     it does op by op (under jit XLA keeps fused bf16 intermediates in f32,
     ~5e-3 off the op-by-op result): (params before, step losses, step-1
-    gradients, params after)."""
+    gradients, params after). Without ``params0`` the weights are
+    ``init_state``'s from seed 0, its ``init_params`` under one ``jax.jit``
+    (bitwise flax's eager init, which compiles op by op)."""
     from gnot_tpu.config import OptimConfig as JaxOptimConfig
     from gnot_tpu.data.batch import Loader as JaxLoader
     from gnot_tpu.train import trainer as jax_trainer
@@ -549,11 +552,15 @@ def _jax_three_steps(mc, jax_samples, params0=None):
 
     model = JaxGNOT(JaxModelConfig(**mc))
     batches = list(JaxLoader(jax_samples, 4, shuffle=True, seed=2))
+    if params0 is None:
+        params0 = jax.jit(lambda b: jax_trainer.init_params(model, b, 0))(batches[0])
+    params = jax.tree.map(np.array, jax.device_get(params0))
     with jax.disable_jit():
-        state = jax_trainer.init_state(model, JaxOptimConfig(), batches[0], seed=0)
-        if params0 is not None:
-            state = state.replace(params=jax.tree.map(jnp.asarray, params0))
-        params = jax.tree.map(np.array, jax.device_get(state.params))
+        # init_state's state on those weights: AdamW's zero moments, step 0.
+        start = jax.tree.map(jnp.asarray, params)
+        tx = jax_trainer.make_optimizer(JaxOptimConfig(), JaxOptimConfig().lr)
+        state = jax_trainer.TrainState(params=start, opt_state=tx.init(start),
+                                       step=jnp.zeros((), jnp.int32))
         grads = jax.grad(lambda p: jax_trainer.batch_loss(model, p, batches[0], "rel_l2"))(
             state.params)
         step = jax_trainer.make_train_step(model, JaxOptimConfig(), "rel_l2")

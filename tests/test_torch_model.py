@@ -7,6 +7,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu.config import ModelConfig as JaxModelConfig
 from gnot_tpu.data import datasets

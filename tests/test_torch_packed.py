@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from gnot_tpu import make_config
 from gnot_tpu.config import ModelConfig as JaxModelConfig

@@ -161,17 +161,35 @@ def _collectives(payload: dict, rank: int) -> dict:
 
 
 def _small_config(payload: dict, *, mesh: dict | None, batch_size: int, **over):
+    """The config of a case: ``over`` may set the optimizer's ``grad_accum``
+    and ``flat_params``, the model's ``n_attn_layers`` and ``scan_layers``,
+    the data's ``packed``; the rest are train fields."""
     from gnot_tpu_torch.config import (
         Config, DataConfig, MeshConfig, ModelConfig, OptimConfig, TrainConfig)
 
-    mc = ModelConfig(**payload["model"])
+    model = {k: over.pop(k) for k in ("n_attn_layers", "scan_layers") if k in over}
+    mc = ModelConfig(**dict(payload["model"], **model))
     optim = OptimConfig(grad_accum=over.pop("grad_accum", 1),
                         flat_params=over.pop("flat_params", False))
+    data = DataConfig(batch_size=batch_size, packed=over.pop("packed", False),
+                      pack_chunk=PACK_CHUNK)
     train = dict(epochs=1, graceful_preempt=False, distributed=bool(mesh), seed=0)
     train.update(over)
-    cfg = Config(optim=optim, data=DataConfig(batch_size=batch_size),
-                 train=TrainConfig(**train), mesh=MeshConfig(**(mesh or {})))
+    cfg = Config(optim=optim, data=data, train=TrainConfig(**train),
+                 mesh=MeshConfig(**(mesh or {})))
     return cfg, mc
+
+
+#: The packed cases' chunk, and their samples: NS2d graphs of 64 and of 32
+#: points, so rows (and so data ranks) hold different numbers of samples.
+PACK_CHUNK = 16
+
+
+def packed_samples(datasets):
+    """``datasets`` is the port's or the JAX package's module."""
+    big = datasets.synth_ns2d(6, n_points=64)
+    small = datasets.synth_ns2d(6, seed=9, n_points=32)
+    return [s for pair in zip(big, small) for s in pair]
 
 
 def _train(payload: dict, rank: int) -> dict:
@@ -181,7 +199,7 @@ def _train(payload: dict, rank: int) -> dict:
     import torch
 
     from gnot_tpu_torch.data import datasets
-    from gnot_tpu_torch.data.batch import Loader
+    from gnot_tpu_torch.data.batch import Loader, PackedLoader
     from gnot_tpu_torch.parallel import multihost
     from gnot_tpu_torch.train.checkpoint import Checkpointer
     from gnot_tpu_torch.train.trainer import Trainer, stack_batches
@@ -195,13 +213,20 @@ def _train(payload: dict, rank: int) -> dict:
     lrs = payload["lrs"]
     out = {"cases": {}}
     for name, case in payload["cases"].items():
-        cfg, mc = _small_config(payload, mesh=case["mesh"], batch_size=8,
-                                **case.get("over", {}))
-        trainer = Trainer(cfg, mc, samples, [], device="cpu")
+        over = dict(case.get("over", {}))
+        cfg, mc = _small_config(payload, mesh=case["mesh"], batch_size=8, **over)
+        data = packed_samples(datasets) if cfg.data.packed else samples
+        trainer = Trainer(cfg, mc, data, [], device="cpu")
         trainer.initialize()
-        trainer.load_standard_params(payload["params"])
+        trainer.load_standard_params(payload["params"][mc.n_attn_layers])
         res = {}
-        if case["steps"] == "single":
+        if cfg.data.packed:
+            # The unshuffled first dispatch, rows a multiple of the data axis.
+            batch = PackedLoader(data, 8, chunk=PACK_CHUNK, row_multiple=4).probe_batch()
+            block = trainer._device_batch(batch).node_seg
+            res["segments"] = int(torch.unique(block[block < batch.n_seg]).numel())
+            res["losses"] = [float(trainer.train_step(batch, lrs[0]))]
+        elif case["steps"] == "single":
             telem = {} if case.get("telemetry") else None
             res["losses"] = [float(trainer.train_step(batches()[0], lrs[0], telem))]
             if telem is not None:
@@ -220,8 +245,11 @@ def _train(payload: dict, rank: int) -> dict:
         if case.get("roundtrip"):
             res["roundtrip"] = _checkpoint_roundtrip(trainer, cfg, mc, samples)
         out["cases"][name] = res
-    out["eval"] = _ragged_eval(payload)
-    out["stop"] = _stop_agreement(payload, rank)
+    out["eval"] = _ragged_eval(payload, dict(data=2, seq=2, model=2))
+    out["pipe_eval"] = _ragged_eval(payload, dict(data=2, model=2, pipe=2))
+    out["stop"] = _stop_agreement(payload, rank, dict(data=4, seq=2), stop_dir=payload["stop_dir"])
+    out["pipe_stop"] = _stop_agreement(payload, rank, dict(data=2, model=2, pipe=2),
+                                       stop_dir=payload["pipe_stop_dir"])
     out["diverge"] = {}
     for which, dirs in payload["diverge"].items():
         try:
@@ -266,43 +294,41 @@ def _single_telemetry(payload: dict, samples, batch) -> dict:
     cfg, mc = _small_config(payload, mesh=None, batch_size=8)
     single = Trainer(cfg, mc, samples, [], device="cpu")
     single.initialize()
-    single.load_standard_params(payload["params"])
+    single.load_standard_params(payload["params"][mc.n_attn_layers])
     telem = {}
     single.train_step(batch, payload["lrs"][0], telem)
     return {k: v.detach().clone() for k, v in telem.items()}
 
 
-def _ragged_eval(payload: dict) -> float:
-    """``evaluate`` on a data2 x seq2 x model2 mesh over 6 test samples in
-    batches of 4: the tail batch is filled with repeats and scored per
-    sample."""
+def _ragged_eval(payload: dict, mesh: dict) -> float:
+    """``evaluate`` on ``mesh`` over 6 test samples in batches of 4: the
+    tail batch is filled with repeats and scored per sample."""
     from gnot_tpu_torch.data import datasets
     from gnot_tpu_torch.train.trainer import Trainer
 
     samples = datasets.synth_ns2d(16, n_points=64)
     tests = datasets.synth_ns2d(6, seed=5, n_points=64)
-    cfg, mc = _small_config(payload, mesh=dict(data=2, seq=2, model=2), batch_size=4)
+    cfg, mc = _small_config(payload, mesh=mesh, batch_size=4)
     trainer = Trainer(cfg, mc, samples[:8], tests, device="cpu")
     trainer.initialize()
-    trainer.load_standard_params(payload["params"])
+    trainer.load_standard_params(payload["params"][mc.n_attn_layers])
     return trainer.evaluate()
 
 
-def _stop_agreement(payload: dict, rank: int) -> dict:
-    """Two epochs of two steps on a data4 x seq2 mesh where only rank 5
-    gets SIGTERM, at step 3: every rank stops at step 3 and rank 0 saves
-    ``latest`` (epoch 1, replayed on resume). A fresh trainer resumed from
-    it, and the stopped trainer carried on in memory from the same epoch
-    (no checkpoint in between), end on the same weights and losses."""
+def _stop_agreement(payload: dict, rank: int, mesh: dict, stop_dir: str) -> dict:
+    """Two epochs of two steps on ``mesh`` where only rank 5 gets SIGTERM,
+    at step 3: every rank stops at step 3 and rank 0 saves ``latest``
+    (epoch 1, replayed on resume). A fresh trainer resumed from it, and the
+    stopped trainer carried on in memory from the same epoch (no checkpoint
+    in between), end on the same weights and losses."""
     from gnot_tpu_torch.data import datasets
     from gnot_tpu_torch.train.checkpoint import Checkpointer
     from gnot_tpu_torch.train.trainer import Trainer
 
     samples = datasets.synth_ns2d(16, n_points=64)
-    stop_dir = payload["stop_dir"]
 
     def trainer_for(**over):
-        cfg, mc = _small_config(payload, mesh=dict(data=4, seq=2), batch_size=4,
+        cfg, mc = _small_config(payload, mesh=mesh, batch_size=4,
                                 epochs=2, graceful_preempt=True, checkpoint_dir=stop_dir,
                                 **over)
         return Trainer(cfg, mc, samples[:8], samples[8:12], device="cpu",
@@ -316,6 +342,8 @@ def _stop_agreement(payload: dict, rank: int) -> dict:
     stopped.fit()
     res = {"stop_step": stopped.host_step, "stop_epochs": len(stopped.history),
            "latest": Checkpointer(stop_dir)._read_sidecar("latest")}
+    state = Checkpointer(stop_dir).restore_latest()[0]  # every rank's walk agrees
+    res["saved_shapes"] = {n: tuple(t.shape) for n, t in state["model"].items()}
     resumed = trainer_for(resume=True)
     resumed.fit()
     res["resumed"] = final(resumed)
