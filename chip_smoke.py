@@ -307,6 +307,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and ``--resume`` in a fresh launch (beside the single-device
    references of (c) and (d)) ends bitwise where the stopped run carried
    on in memory ends.
+20. the native host packer (``gnot_tpu_torch/native``, built with g++ on
+   this host at first use): (a) ``status()`` native, then each C symbol
+   above its bar (f32 ``pack_rows`` at 48 MiB and up, the threaded sweep;
+   bf16 ``pack_rows`` at 128 KiB; ``unpad_rows`` at 8 MiB and up) called
+   once, counted by wrapping the dlopen handles' functions from this
+   script, bitwise its numpy version; each symbol native against numpy
+   at payloads around its bar, in turns, with this host's crossover;
+   (b) ``main --serve --serve_dtype bfloat16 --synthetic ns2d --n_test 32
+   --serve_max_batch 16``: 32/32 ok, one fused pad-and-cast call for each
+   field over the bf16 bar in every dispatch, 8 FFN launches a dispatch,
+   the ``native_packer`` event and ``run.json``'s ``native_packer`` and
+   ``serve_dtype``, outputs within phase 4b's bar of the plain-FFN forward
+   and bitwise the same run with the native path off (the module's bars
+   raised), and a 16-row dispatch's host phases both ways in turns; (c)
+   phase 4's f32 serving with the event, 16/16 within phase 4's bar; (d)
+   ``python -m gnot_tpu_torch.analysis`` exits 0.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -350,7 +366,10 @@ and (c); ``federation_serve_launches``, ``federation_tcp_launches``,
 ``nla_reduce`` and ``nla_apply`` entries' ``sp_launches`` are their counts
 under ``fused_nla_sp`` in phase 18 (a), summed over the ranks; the FFN
 kernel's ``mesh_train_launches`` is its count over every rank of phase 19
-(0: a mesh runs the FFN's torch path). Launches
+(0: a mesh runs the FFN's torch path); ``native_serve_launches``,
+``native_serve_numpy_launches`` and ``native_serve_f32_launches`` its
+counts over phase 20's runs (b) native, (b) with the native path off and
+(c), and ``native_direct_calls`` the C calls of phase 20 (a). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -5244,6 +5263,359 @@ def pipeline_phase(torch, np, card: str, mesh_of_one: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 20: the native host packer on the serve and collate path, and the
+# port's lint on the card's Python.
+# --------------------------------------------------------------------------
+# (b): bf16 serving of 32 NS2d-1k requests in 16-row dispatches: a
+# dispatch's coords (131,072 B) and input function (98,304 B) cross the
+# bf16 bar (96 KB), so each takes the fused pad-and-cast sweep.
+NATIVE_SERVE_ARGV = ["--serve", "--serve_dtype", "bfloat16", "--ffn_impl", "pallas",
+                     "--synthetic", "ns2d", "--n_test", "32", "--serve_max_batch", "16",
+                     "--device", "cuda"]
+NATIVE_OUT = TRAIN_OUT / "native20"
+# Host timings: median of this many calls, each payload in turns native,
+# numpy, numpy, native.
+NATIVE_REPS = 7
+
+
+@contextlib.contextmanager
+def native_call_counts(native):
+    """Count every call of the packer's C symbols through both dlopen
+    handles (``native._lib``, ``native._lib_gil``) by wrapping the handles'
+    function objects from here; the package itself counts nothing. Yields
+    ``{symbol: calls}``; the handles get their functions back on exit."""
+    if not native.native_available():
+        raise RuntimeError(f"the native packer did not load: {native.status()['error']}")
+    counts = {"gnot_pack_rows": 0, "gnot_pack_rows_bf16": 0, "gnot_unpad_rows": 0}
+    saved = []
+    for lib in (native._lib, native._lib_gil):
+        for name in counts:
+            fn = getattr(lib, name)
+            saved.append((lib, name, fn))
+
+            def counted(*a, _fn=fn, _name=name):
+                counts[_name] += 1
+                return _fn(*a)
+
+            setattr(lib, name, counted)
+    try:
+        yield counts
+    finally:
+        for lib, name, fn in saved:
+            setattr(lib, name, fn)
+
+
+@contextlib.contextmanager
+def packer_bars(native, pack: dict | None = None, unpad: int | None = None):
+    """The packer's payload bars set to ``pack`` / ``unpad`` for the block
+    (a bar past any payload turns the native path off), restored on exit."""
+    saved = dict(native.PACK_NATIVE_MIN_BYTES), native.NATIVE_UNPAD_MIN_BYTES
+    if pack is not None:
+        native.PACK_NATIVE_MIN_BYTES.update(pack)
+    if unpad is not None:
+        native.NATIVE_UNPAD_MIN_BYTES = unpad
+    try:
+        yield
+    finally:
+        native.PACK_NATIVE_MIN_BYTES.update(saved[0])
+        native.NATIVE_UNPAD_MIN_BYTES = saved[1]
+
+
+def host_ms(fn, reps: int = NATIVE_REPS) -> float:
+    """Median host-clock ms of ``reps`` calls of ``fn`` after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def crossover_line(tag: str, rows: list[tuple[int, float, float]], bar: int, card: str) -> str:
+    """One line of a native-vs-numpy sweep: each payload's two medians and
+    the smallest payload from which the native call stays faster."""
+    cross = None
+    for payload, nat, ref in rows:
+        if nat < ref and cross is None:
+            cross = payload
+        elif nat >= ref:
+            cross = None
+    parts = ", ".join(f"{p / 2**20:.3f} MiB {n:.4f}/{r:.4f}" for p, n, r in rows)
+    found = f"{cross / 2**20:.3f} MiB" if cross is not None else "none in the sweep"
+    return (f"[native] {tag} native/numpy host ms (a median of {NATIVE_REPS} calls a turn, "
+            f"two turns each in the order native, numpy, numpy, native): {parts}; "
+            f"crossover on this host {found} (the JAX package's bar {bar / 2**20:.3f} MiB, "
+            f"measured on its own host) on {card}")
+
+
+def native_direct_calls(np, native, card: str) -> dict:
+    """Phase 20 (a): each C symbol above its bar, bitwise its numpy
+    version and counted, then the native-vs-numpy sweeps."""
+    rng = np.random.default_rng(20)
+    # f32 pack: 48 MiB of ragged input, the threaded sweep (32 MB and up).
+    arrs = [rng.standard_normal((int(n), 64), dtype=np.float32)
+            for n in rng.integers(4000, 4500, size=50)]
+    max_len = max(a.shape[0] for a in arrs)
+    checks = []
+    with native_call_counts(native) as calls:
+        out, mask = native.pack_rows(arrs, max_len, "float32")
+    want = native.pack_rows_numpy(arrs, max_len, "float32")
+    checks.append(("pack_rows f32", sum(a.nbytes for a in arrs), calls["gnot_pack_rows"],
+                   np.array_equal(out.view(np.uint32), want[0].view(np.uint32))
+                   and np.array_equal(mask, want[1])))
+    # bf16 pack: the bf16 serving dispatch's coords, 16 x 1024 x 2 (131 KB).
+    arrs16 = [rng.standard_normal((1024, 2), dtype=np.float32) for _ in range(16)]
+    arrs16[0][:2] = [[np.nan, -np.nan], [np.inf, -np.inf]]
+    with native_call_counts(native) as calls:
+        out, mask = native.pack_rows(arrs16, 1024, "bfloat16")
+    want = native.pack_rows_numpy(arrs16, 1024, "bfloat16")
+    checks.append(("pack_rows bf16", sum(a.nbytes for a in arrs16),
+                   calls["gnot_pack_rows_bf16"],
+                   np.array_equal(out, want[0]) and np.array_equal(mask, want[1])))
+    # unpad: over 8 MiB cut out of a [32, 4200, 16] f32 output, ragged spans.
+    dense = rng.standard_normal((32, 4200, 16), dtype=np.float32)
+    spans = [(i, int(o), 4200 - int(o)) for i, o in enumerate(rng.integers(0, 64, size=32))]
+    with native_call_counts(native) as calls:
+        got = native.unpad_rows(dense, spans)
+    want = native.unpad_rows_numpy(dense, spans)
+    checks.append(("unpad_rows f32", sum(s[2] for s in spans) * 64, calls["gnot_unpad_rows"],
+                   all(np.array_equal(g.view(np.uint32), w.view(np.uint32))
+                       for g, w in zip(got, want))))
+    floors = {"pack_rows f32": 48 << 20, "pack_rows bf16": 96 << 10, "unpad_rows f32": 8 << 20}
+    for name, nbytes, n_calls, same in checks:
+        if nbytes < floors[name]:
+            raise RuntimeError(f"{name}: {nbytes} B is under the phase's {floors[name]} B")
+        log(f"[native] {name} at {nbytes / 2**20:.3f} MiB: C symbol calls {n_calls}, "
+            f"bitwise the numpy version {same}")
+        if n_calls != 1 or not same:
+            raise RuntimeError(f"{name}: {n_calls} C calls (want 1), bitwise {same}")
+
+    # The sweeps: each symbol native against numpy at payloads around its
+    # bar, in turns native, numpy, numpy, native.
+    def sweep(cases, run_native, run_numpy):
+        rows = []
+        for payload, data in cases:
+            nat, ref = [], []
+            for which in ("native", "numpy", "numpy", "native"):
+                fn = run_native if which == "native" else run_numpy
+                (nat if which == "native" else ref).append(host_ms(lambda: fn(data)))
+            rows.append((payload, statistics.median(nat), statistics.median(ref)))
+        return rows
+
+    lines = []
+    bf16_cases = []
+    for n_pts in (384, 768, 1536, 3072, 6144, 12288):
+        blocks = [rng.standard_normal((n_pts, 2), dtype=np.float32) for _ in range(16)]
+        bf16_cases.append((16 * n_pts * 8, blocks))
+    with packer_bars(native, pack={"bfloat16": 0}):
+        rows = sweep(bf16_cases, lambda b: native.pack_rows(b, b[0].shape[0], "bfloat16"),
+                     lambda b: native.pack_rows_numpy(b, b[0].shape[0], "bfloat16"))
+    lines.append(crossover_line("pack_rows bf16", rows, native.PACK_NATIVE_MIN_BYTES["bfloat16"],
+                                card))
+    f32_cases = []
+    for mib in (8, 16, 32, 48):
+        # mib ragged blocks of about 1 MiB each.
+        blocks = [rng.standard_normal((4096 - i, 64), dtype=np.float32) for i in range(mib)]
+        f32_cases.append((sum(b.nbytes for b in blocks), blocks))
+    with packer_bars(native, pack={"float32": 0}):
+        rows = sweep(f32_cases, lambda b: native.pack_rows(b, 4096, "float32"),
+                     lambda b: native.pack_rows_numpy(b, 4096, "float32"))
+    lines.append(crossover_line("pack_rows f32", rows, native.PACK_NATIVE_MIN_BYTES["float32"],
+                                card))
+    unpad_cases = []
+    for mib in (1, 2, 4, 8, 16):
+        length = (mib << 20) // (32 * 16 * 4)
+        out = rng.standard_normal((32, length, 16), dtype=np.float32)
+        unpad_cases.append((out.nbytes, (out, [(i, 0, length) for i in range(32)])))
+    with packer_bars(native, unpad=0):
+        rows = sweep(unpad_cases, lambda d: native.unpad_rows(*d),
+                     lambda d: native.unpad_rows_numpy(*d))
+    lines.append(crossover_line("unpad_rows", rows, native.NATIVE_UNPAD_MIN_BYTES, card))
+    for line in lines:
+        log(line)
+    return {name.replace(" ", "_"): n_calls for name, _, n_calls, _ in checks}
+
+
+def native_serve_run(torch, port_main, native, argv: list[str], tag: str):
+    """One serve run through ``main`` with a sink and run.json under
+    NATIVE_OUT/<tag>: (ServeRun, FFN launches, C symbol calls, the
+    native_packer records, run.json)."""
+    import shutil
+
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+
+    out = NATIVE_OUT / tag
+    shutil.rmtree(out, ignore_errors=True)
+    argv = argv + ["--metrics_path", str(out / "m.jsonl")]
+    torch.cuda.synchronize()
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
+    with native_call_counts(native) as calls:
+        run, _ = run_observed(port_main, argv)
+    launches = fused_gated_ffn_kernel.launches
+    by_dtype = dict(fused_gated_ffn_kernel.launches_by_dtype)
+    records = [r for r in read_jsonl(out / "m.jsonl") if r.get("event") == "native_packer"]
+    manifest = json.load(open(out / "run.json"))
+    summary = run.summary
+    n_ok = sum(r.ok for r in run.results)
+    log(f"[native] ({tag}) python -m gnot_tpu_torch.main {' '.join(argv)}: {n_ok}/"
+        f"{len(run.results)} ok, dispatches {summary['dispatches']} + "
+        f"{summary['warmed_buckets']} warm-up, FFN launches {launches} {json.dumps(by_dtype)}, "
+        f"C symbol calls {json.dumps(calls)}, dispatch p50 {summary['dispatch_ms_p50']:.3f} ms "
+        f"(host clock)")
+    if n_ok != len(run.results):
+        raise RuntimeError(f"({tag}) {n_ok}/{len(run.results)} ok: "
+                           f"{[(r.reason, r.detail) for r in run.results if not r.ok]}")
+    want_status = native.status()
+    if (len(records) != 1 or records[0]["impl"] != "native"
+            or manifest.get("native_packer") != json.loads(json.dumps(want_status))
+            or manifest.get("serve_dtype") != summary["dtype"]):
+        raise RuntimeError(f"({tag}) native_packer records {records}, run.json "
+                           f"{manifest.get('native_packer')} / {manifest.get('serve_dtype')}")
+    dispatches = summary["dispatches"] + summary["warmed_buckets"]
+    expected = 2 * run.model.config.n_attn_layers * dispatches
+    if launches != expected or set(by_dtype) != {"bf16" if summary["dtype"] == "bfloat16"
+                                                 else "f32"}:
+        raise RuntimeError(f"({tag}) expected {expected} FFN launches, counted {launches} "
+                           f"{by_dtype}")
+    return run, launches, dict(calls), dispatches
+
+
+def native_phase(torch, np, card: str, layers) -> dict:
+    """Phase 20: (a) the packer built on this host, each C symbol above its
+    bar bitwise its numpy version, and this host's crossovers; (b) bf16
+    serving through the fused pad-and-cast against the same run with the
+    native path off (bitwise) and the plain-FFN forward (phase 4b's bar),
+    with the host dispatch time both ways in turns; (c) f32 serving at
+    phase 4's configuration; (d) the port's lint on this Python."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch import native
+    from gnot_tpu_torch.data.batch import collate
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, fused_gated_ffn_reference
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+
+    t_phase = time.monotonic()
+    st = native.status()
+    log(f"[native] status {json.dumps(st)}")
+    if st["impl"] != "native" or not st["available"]:
+        raise RuntimeError(f"the native packer did not load: {st['error']}")
+    direct = native_direct_calls(np, native, card)
+
+    # (b) bf16 serving, the native path and the numpy path.
+    run, launches, calls, dispatches = native_serve_run(
+        torch, port_main, native, NATIVE_SERVE_ARGV, "bf16_native")
+    bar = native.PACK_NATIVE_MIN_BYTES["bfloat16"]
+    s = run.samples[0]
+    rows = int(NATIVE_SERVE_ARGV[NATIVE_SERVE_ARGV.index("--serve_max_batch") + 1])
+    per_dispatch = sum(rows * a.shape[0] * a.shape[1] * 4 >= bar for a in (s.coords, s.y, *s.funcs))
+    if calls["gnot_pack_rows_bf16"] != per_dispatch * dispatches or per_dispatch == 0:
+        raise RuntimeError(f"expected {per_dispatch} fused pad-and-cast calls in each of "
+                           f"{dispatches} dispatches, counted {calls}")
+    log(f"[native] (b) {calls['gnot_pack_rows_bf16']} fused pad-and-cast calls = {per_dispatch} "
+        f"fields over the bar x {dispatches} dispatches; FFN launches {launches} = 8 x "
+        f"{dispatches}")
+    with packer_bars(native, pack={"bfloat16": 1 << 62, "float32": 1 << 62}, unpad=1 << 62):
+        off, off_launches, off_calls, _ = native_serve_run(
+            torch, port_main, native, NATIVE_SERVE_ARGV, "bf16_numpy")
+    if any(off_calls.values()):
+        raise RuntimeError(f"the numpy-path run called the C symbols: {off_calls}")
+    same = all(np.array_equal(a.output, b.output) for a, b in zip(run.results, off.results))
+    log(f"[native] (b) outputs bitwise the numpy-path run's: {same} ({len(run.results)} requests)")
+    if not same or len(run.results) != len(off.results):
+        raise RuntimeError("bf16 serving through the native packer differs from the numpy path")
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain = InferenceEngine(run.model, batch_size=rows, dtype="bfloat16").predict(run.samples)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    rel = float(np.linalg.norm(np.concatenate([r.output for r in run.results])
+                               - np.concatenate(plain)) / np.linalg.norm(np.concatenate(plain)))
+    log(f"[native] (b) outputs vs the same bf16 forward through the kernel's plain version: "
+        f"relative norm {rel:.3e} (phase 4b's bar {BF16_PLAIN_REL})")
+    if rel > BF16_PLAIN_REL:
+        raise RuntimeError(f"bf16 serving off phase 4b's bar: {rel}")
+    # The host dispatch: one 16-row bf16 dispatch through the engine, its
+    # batch assembly (collate and the copy to the card), device and unpad
+    # phases, and collate alone to host tensors, native and numpy in turns
+    # after one warm dispatch of each.
+    engine = InferenceEngine(run.model, batch_size=rows, dtype="bfloat16")
+    group = run.samples[:rows]
+    key = engine.bucket_key(group[0])
+    big = 1 << 62
+
+    def on_path(which):
+        return (packer_bars(native, pack={"bfloat16": big, "float32": big}, unpad=big)
+                if which == "numpy" else contextlib.nullcontext())
+
+    def dispatch(timings=None):
+        return engine.infer(group, pad_nodes=key[0], pad_funcs=key[1], rows=rows,
+                            timings=timings, clock=time.perf_counter)
+
+    for which in ("native", "numpy"):
+        with on_path(which):
+            dispatch()
+    phases = {"native": [], "numpy": []}
+    collate_ms = {"native": [], "numpy": []}
+    for which in ("native", "numpy", "numpy", "native"):
+        with on_path(which):
+            collate_ms[which].append(host_ms(lambda: collate(
+                group, bucket=False, pad_nodes=key[0], pad_funcs=key[1], device="cpu",
+                dtype="bfloat16")))
+            for _ in range(NATIVE_REPS):
+                t = {}
+                t0 = time.perf_counter()
+                dispatch(t)
+                total = time.perf_counter() - t0
+                phases[which].append({k: (v[1] - v[0]) * 1e3 for k, v in t.items()
+                                      if isinstance(v, tuple)} | {"total": total * 1e3})
+    med = {w: {k: statistics.median(p[k] for p in ps) for k in ps[0]} for w, ps in phases.items()}
+    log(f"[native] (b) one 16-row bf16 dispatch, host clock (median of {2 * NATIVE_REPS}, in "
+        f"turns native, numpy, numpy, native): batch assembly {med['native']['batch_assembly']:.3f}"
+        f" vs {med['numpy']['batch_assembly']:.3f} ms, device (forward + copy to the host) "
+        f"{med['native']['device']:.3f} vs {med['numpy']['device']:.3f} ms, unpad "
+        f"{med['native']['unpad']:.3f} vs {med['numpy']['unpad']:.3f} ms, whole dispatch "
+        f"{med['native']['total']:.3f} vs {med['numpy']['total']:.3f} ms; collate alone to host "
+        f"tensors {statistics.median(collate_ms['native']):.3f} vs "
+        f"{statistics.median(collate_ms['numpy']):.3f} ms (native vs numpy; bucket {key}, the "
+        f"host is the card machine's CPU) on {card}")
+
+    # (c) f32 serving at phase 4's configuration: every payload under the
+    # f32 bars, so numpy packs by the policy; the record says native.
+    f32_argv = ["--serve", "--ffn_impl", "pallas", "--synthetic", "ns2d", "--n_test", "16",
+                "--serve_max_batch", "4", "--device", "cuda"]
+    f32_run, f32_launches, f32_calls, _ = native_serve_run(
+        torch, port_main, native, f32_argv, "f32")
+    if len(f32_run.results) != 16:
+        raise RuntimeError(f"(f32) {len(f32_run.results)} results, want 16")
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain = InferenceEngine(f32_run.model, batch_size=4).predict(f32_run.samples)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    worst = 0.0
+    for r, want in zip(f32_run.results, plain):
+        np.testing.assert_allclose(r.output, want, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        worst = max(worst, float(np.max(np.abs(r.output - want))))
+    log(f"[native] (c) f32: 16/16 ok, {f32_launches} FFN launches, C symbol calls "
+        f"{json.dumps(f32_calls)} (every payload under the f32 bars), max_abs_err vs the plain "
+        f"forward {worst:.3e} (rtol {MODEL_RTOL} atol {MODEL_ATOL})")
+
+    # (d) the port's lint on this Python.
+    t0 = time.monotonic()
+    lint = subprocess.run([sys.executable, "-m", "gnot_tpu_torch.analysis"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    last = (lint.stdout.strip().splitlines() or [""])[-1]
+    log(f"[native] (d) python -m gnot_tpu_torch.analysis: exit {lint.returncode}, {last} "
+        f"({time.monotonic() - t0:.1f} s)")
+    if lint.returncode != 0:
+        raise RuntimeError(f"the port's lint failed:\n{lint.stdout}\n{lint.stderr}")
+    log(f"[native] phase 20 took {time.monotonic() - t_phase:.1f} s")
+    return {"native_serve_launches": launches, "native_serve_numpy_launches": off_launches,
+            "native_serve_f32_launches": f32_launches, "native_direct_calls": direct}
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -5467,6 +5839,9 @@ def main() -> int:
     # -- phase 19: the pipeline, packed and stacked meshes ------------------
     pipe = pipeline_phase(torch, np, card, par["mesh_of_one"])
 
+    # -- phase 20: the native host packer, the port's lint ------------------
+    native_launches = native_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -5500,6 +5875,7 @@ def main() -> int:
         **autoscale_launches,
         **federation_launches,
         "mesh_train_launches": pipe["mesh_train_launches"],
+        **native_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

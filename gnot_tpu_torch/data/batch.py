@@ -10,9 +10,12 @@ reference's padding semantics stay as they are:
   * zero padding at the tail of the length axis (reference utils.py:3-4).
 
 Bucketing rounds pad lengths up to the next bucket boundary so the
-number of distinct dispatch shapes is O(log L). Packing runs in numpy
-(``pack_rows_numpy``, the same bytes as ``gnot_tpu``'s native packer);
-the finished batch is a ``MeshBatch`` of tensors on one device.
+number of distinct dispatch shapes is O(log L). ``collate`` packs through
+the native host packer (``gnot_tpu_torch/native``: the C sweep above its
+payload bars, its bitwise numpy version below them; at bf16 the fused
+pad-and-cast), as the JAX package's does; the finished batch is a
+``MeshBatch`` of tensors on one device. Host data is cast to bf16 by
+``native.bf16_bits`` only, the JAX package's bits, NaN signs included.
 
 ``PackedBatch``, ``pack_collate``, ``PackPlan``, ``pack_prefix`` and
 ``PackedLoader`` port the packed ("pack, don't pad") layout: several
@@ -34,6 +37,11 @@ from typing import Iterator, Sequence
 
 import numpy as np
 import torch
+
+from gnot_tpu_torch import native
+# The numpy versions live in native/ beside the C sweep; these names stay
+# importable from here.
+from gnot_tpu_torch.native import pack_rows_numpy, unpad_rows_numpy  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -223,41 +231,13 @@ def pad_rows(arr: np.ndarray, length: int) -> np.ndarray:
     return np.pad(arr, pad)
 
 
-def pack_rows_numpy(
-    arrs: list[np.ndarray], max_len: int
-) -> tuple[np.ndarray, np.ndarray]:
-    """Pad ``[len_i, dim]`` blocks to ``[n, max_len, dim]`` float32 plus
-    an ``[n, max_len]`` 0/1 mask (zero pad at the row tail)."""
-    dim = arrs[0].shape[1] if arrs[0].ndim == 2 else -1
-    for a in arrs:
-        if a.ndim != 2 or a.shape[1] != dim:
-            raise ValueError(
-                f"pack_rows needs uniform [len_i, {dim}] blocks, got {a.shape}"
-            )
-    too_long = max(a.shape[0] for a in arrs)
-    if too_long > max_len:
-        raise ValueError(f"row block of {too_long} rows exceeds max_len={max_len}")
-    out = np.zeros((len(arrs), max_len, dim), np.float32)
-    mask = np.zeros((len(arrs), max_len), np.float32)
-    for i, a in enumerate(arrs):
-        out[i, : a.shape[0]] = np.ascontiguousarray(a, np.float32)
-        mask[i, : a.shape[0]] = 1.0
-    return out, mask
-
-
-def unpad_rows_numpy(
-    out: np.ndarray, spans: list[tuple[int, int, int]]
-) -> list[np.ndarray]:
-    """Per-span OWNED copies ``out[row, off:off+length]`` — no response
-    pins the whole dispatch buffer."""
-    if out.ndim != 3:
-        raise ValueError(f"unpad_rows needs a [R, L, dim] output, got {out.shape}")
-    for r, off, length in spans:
-        if not (0 <= r < out.shape[0] and 0 <= off and off + length <= out.shape[1]):
-            raise ValueError(
-                f"span {(r, off, length)} out of bounds for {out.shape}"
-            )
-    return [out[r, off : off + length].copy() for r, off, length in spans]
+def _host_tensor(a: np.ndarray | None, device) -> torch.Tensor | None:
+    """``a`` on ``device``: bf16 bits (``np.uint16``) as ``torch.bfloat16``,
+    anything else as its own dtype."""
+    if a is None:
+        return None
+    t = torch.from_numpy(a)
+    return (t.view(torch.bfloat16) if a.dtype == np.uint16 else t).to(device)
 
 
 def collate(
@@ -285,11 +265,13 @@ def collate(
         if bucket:
             max_nodes = bucket_length(max_nodes)
 
-    coords, node_mask = pack_rows_numpy([s.coords for s in samples], max_nodes)
-    y, _ = pack_rows_numpy([s.y for s in samples], max_nodes)
+    coords, node_mask = native.pack_rows([s.coords for s in samples], max_nodes, dtype)
+    y, _ = native.pack_rows([s.y for s in samples], max_nodes, dtype)
     theta = np.stack(
         [np.atleast_1d(np.asarray(s.theta, np.float32)) for s in samples]
     )
+    if dtype == "bfloat16":
+        theta = native.bf16_bits(theta)
 
     n_funcs = len(samples[0].funcs)
     funcs = func_mask = None
@@ -303,7 +285,7 @@ def collate(
             if bucket:
                 max_f = bucket_length(max_f)
         packed = [
-            pack_rows_numpy([s.funcs[j] for s in samples], max_f)
+            native.pack_rows([s.funcs[j] for s in samples], max_f, dtype)
             for j in range(n_funcs)
         ]
         funcs = np.stack([p[0] for p in packed])
@@ -312,13 +294,7 @@ def collate(
         coords=coords, theta=theta, y=y, node_mask=node_mask,
         funcs=funcs, func_mask=func_mask,
     )
-    target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    return MeshBatch(
-        **{
-            k: None if v is None else torch.from_numpy(v).to(target).to(device)
-            for k, v in arrays.items()
-        }
-    )
+    return MeshBatch(**{k: _host_tensor(v, device) for k, v in arrays.items()})
 
 
 def pack_collate(
@@ -367,13 +343,11 @@ def pack_collate(
             func_mask[j, slot, : f.shape[0]] = 1.0
         if n_funcs:
             func_seg[slot, 0] = slot
-    target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
     def put(a: np.ndarray | None) -> torch.Tensor | None:
-        if a is None:
-            return None
-        t = torch.from_numpy(a)
-        return (t if a.dtype == np.int32 else t.to(target)).to(device)
+        if a is not None and a.dtype == np.float32 and dtype == "bfloat16":
+            a = native.bf16_bits(a)
+        return _host_tensor(a, device)
 
     return PackedBatch(
         coords=put(coords), theta=put(theta), y=put(y), node_mask=put(node_mask),

@@ -146,7 +146,7 @@ import time
 
 import torch
 
-from gnot_tpu_torch import interop
+from gnot_tpu_torch import interop, native
 from gnot_tpu_torch.config import (
     Config,
     DataConfig,
@@ -162,6 +162,7 @@ from gnot_tpu_torch.data.batch import MeshSample, PackPlan
 from gnot_tpu_torch.device import resolve_device
 from gnot_tpu_torch.models.gnot import GNOT
 from gnot_tpu_torch.models.precision import SERVE_DTYPES
+from gnot_tpu_torch.obs import events
 from gnot_tpu_torch.obs import manifest as manifest_lib
 from gnot_tpu_torch.obs import metrics as metrics_lib
 from gnot_tpu_torch.obs.tracing import Tracer
@@ -844,15 +845,13 @@ class RunManifest:
             self.path = manifest_lib.manifest_path_for(self.args.metrics_path)
         extra = {"metrics_path": self.args.metrics_path,
                  "kind": self.fields.get("kind"), "restore": self.fields.get("restore")}
-        if self.fields.get("metrics") is not None:
-            # The live metrics plane's stats (MetricsPublisher.stats()).
-            extra["metrics"] = self.fields["metrics"]
-        if self.fields.get("autoscale") is not None:
-            # The controller's stats and replica-seconds (--autoscale).
-            extra["autoscale"] = self.fields["autoscale"]
-        if self.fields.get("federation") is not None:
-            # The cluster summary without per_host (--hosts N > 1).
-            extra["federation"] = self.fields["federation"]
+        # The live metrics plane's stats (MetricsPublisher.stats()), the
+        # controller's stats and replica-seconds (--autoscale), the cluster
+        # summary without per_host (--hosts N > 1), and a serve run's host
+        # packer status and dtype: each only when the run has it.
+        for key in ("metrics", "autoscale", "federation", "native_packer", "serve_dtype"):
+            if self.fields.get(key) is not None:
+                extra[key] = self.fields[key]
         manifest_lib.write_manifest(
             self.path, argv=self.argv, extra=extra,
             **{k: self.fields.get(k) for k in ("config", "model_config", "device", "mesh")},
@@ -964,6 +963,22 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     if manifest is not None and checkpointer is not None:
         # Which checkpoint serving restored, any fallback walk included.
         manifest.write(restore=checkpointer.last_restore)
+    # Whether batch assembly and unpad run the C++ packer or numpy, once,
+    # as an event and in run.json (gnot_tpu/main.py's record), for every
+    # serving layout: one server, replicas, the autoscaler, --hosts.
+    packer = native.status()
+    if sink is not None:
+        sink.log(
+            event=events.NATIVE_PACKER,
+            available=packer["available"],
+            impl=packer["impl"],
+            pack_native_min_bytes=packer["pack_native_min_bytes"],
+            unpad_native_min_bytes=packer["unpad_native_min_bytes"],
+            **({"so": packer["so"]} if packer["so"] else {}),
+            **({"error": packer["error"]} if packer["error"] else {}),
+        )
+    if manifest is not None:
+        manifest.write(native_packer=packer, serve_dtype=sc.dtype)
     if sc.hosts > 1:
         # The federation: its own function, so the path with --hosts 1
         # stays exactly as it is.

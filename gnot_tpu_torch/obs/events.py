@@ -6,13 +6,12 @@ tuples, and the same span names, so a record or a trace file written by
 the port reads as one the JAX package wrote (its ``validate_record``
 accepts it). ``module=`` names the port's file that emits each kind.
 
-The registries differ by three kinds: ``aot_prewarm`` has no emitter
-(eager PyTorch has no executable to serialize), ``native_packer`` waits
-for the native packer (``ROADMAP.md``), and ``recompile`` has no meaning
-without a jit trace cache and is never emitted (``obs/health.py``); nor is
-the serve span ``compile``. ``host_skew`` is registered for the
-multi-process trainer, which the port does not have yet (``ROADMAP.md``):
-nothing emits it today.
+The registries differ by two kinds: ``aot_prewarm`` has no emitter
+(eager PyTorch has no executable to serialize), and ``recompile`` has no
+meaning without a jit trace cache and is never emitted
+(``obs/health.py``); nor is the serve span ``compile``. ``host_skew`` is
+emitted by the multi-process trainer (``train/trainer.py``) and
+``native_packer`` by every serve run (``main.py``), as in the JAX package.
 
 Emit sites use the module constants (``events.SHED``), never fresh
 string literals. Stdlib only.
@@ -48,6 +47,7 @@ ROUTE = "route"
 REPLICA_HEALTH = "replica_health"
 ROLLING_RELOAD = "rolling_reload"
 REPLICA_WARM = "replica_warm"
+NATIVE_PACKER = "native_packer"
 SESSION_MIGRATE = "session_migrate"
 REPLICA_REMOVE = "replica_remove"
 PROGRAM_CATALOG = "program_catalog"
@@ -250,6 +250,17 @@ EVENTS: dict[str, EventSpec] = {
         "(its warm-up dispatches, JAX's name for the cold path) or 'none' "
         "(never warmed); emitted at every add_replica",
         optional=("hits", "misses", "reason"),
+    ),
+    "native_packer": EventSpec(
+        fields=("available", "impl"),
+        module="gnot_tpu_torch/main.py",
+        doc="one-time serve-start record of the host packer path: `impl` "
+        "'native' (the C++ packer loaded; the fused pad/cast and the "
+        "batched unpad run from the recorded `*_min_bytes` bars up, the "
+        "bitwise numpy version below them) or 'python' (numpy only; "
+        "`error` says why), so a run's numbers name the path that made them",
+        optional=("so", "error", "pack_native_min_bytes",
+                  "unpad_native_min_bytes"),
     ),
     "session_migrate": EventSpec(
         fields=(

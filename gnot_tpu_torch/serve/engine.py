@@ -59,9 +59,9 @@ from gnot_tpu_torch.data.batch import (
     collate,
     pack_collate,
     pack_prefix,
-    unpad_rows_numpy,
     validate_samples,
 )
+from gnot_tpu_torch.native import unpad_rows
 from gnot_tpu_torch.models import precision
 from gnot_tpu_torch.models.gnot import GNOT, apply_batch
 from gnot_tpu_torch.obs.costs import program_costs, unavailable_costs
@@ -231,7 +231,7 @@ class InferenceEngine:
         if timings is not None:
             timings["batch_assembly"] = (t0, clock())
             timings["program"] = program
-        outs = self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+        outs = self._timed(timings, clock, batch, lambda out: unpad_rows(
             out, [(i, 0, s.coords.shape[0]) for i, s in enumerate(reqs)]))
         self._capture_costs(program, rows=rows, pad_nodes=pad_nodes, pad_funcs=pad_funcs)
         return outs
@@ -291,7 +291,7 @@ class InferenceEngine:
         if timings is not None:
             timings["batch_assembly"] = (t0, clock())
             timings["program"] = program
-        outs = self._timed(timings, clock, batch, lambda out: unpad_rows_numpy(
+        outs = self._timed(timings, clock, batch, lambda out: unpad_rows(
             out, [(r, off, s.coords.shape[0]) for s, (r, off) in zip(reqs, placements)]))
         self._capture_costs(program, plan=plan)
         return outs
@@ -322,7 +322,7 @@ class InferenceEngine:
                 self._note_shape(batch)
                 out = self._forward(model, batch)
                 outs.extend(
-                    unpad_rows_numpy(
+                    unpad_rows(
                         out, [(j, 0, s.coords.shape[0]) for j, s in enumerate(chunk)]
                     )
                 )

@@ -593,6 +593,11 @@ class ReplicaRouter:
                 r.set_warming(True)
                 self._assess(r, self._clock())  # the warming edge
                 try:
+                    # _reload_lock exists to serialize rollouts; holding it
+                    # across each replica's reload IS the rolling-reload
+                    # contract (one replica warming, the rest serving).
+                    # Request traffic never takes this lock.
+                    #: allowed_blocking — rolling reload serialized by design
                     ok = r.server.reload(deadline_ms=deadline_ms)
                 finally:
                     r.set_warming(False)

@@ -1285,10 +1285,13 @@ class InferenceServer:
             self.tenants.release(tenant if tenant is not None else DEFAULT_TENANT)
 
     def _tenant_stat(self, tenant: str) -> dict:
-        """The tenant's summary record; the caller holds ``_lock``."""
-        st = self._tenant_stats.get(tenant)
+        """The tenant's summary record. The caller holds ``_lock`` (every
+        ``_note_tenant_*`` call site takes it; taking it here too would
+        self-deadlock on the non-reentrant lock)."""
+        st = self._tenant_stats.get(tenant)  # graftlint: disable=GL004 — caller holds _lock (see docstring)
         if st is None:
-            st = self._tenant_stats[tenant] = {"requests": 0, "completed": 0, "shed": {}}
+            st = self._tenant_stats[tenant] = {  # graftlint: disable=GL004 — caller holds _lock (see docstring)
+                "requests": 0, "completed": 0, "shed": {}}
         return st
 
     def _tenant_counter(self, name: str, tenant: str, **labels):

@@ -155,7 +155,7 @@ def test_validate_kernels_refuses_without_a_card(monkeypatch):
 
 def test_importing_the_port_builds_nothing():
     """Every module imports in a fresh interpreter without building or
-    loading a kernel (kernels build on first launch only)."""
+    loading a kernel or the host packer (both build on first use only)."""
     mods = [
         p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(".__init__")
         for p in PORT_FILES[:-1]
@@ -169,6 +169,8 @@ def test_importing_the_port_builds_nothing():
         "for n in ('nla_reduce', 'nla_apply', 'nla_reduce_seg', 'nla_apply_seg'):\n"
         "    assert getattr(fused_attention, n + '_kernel').launches == 0, n\n"
         "assert fused_attention._launchers == {}\n"
+        "from gnot_tpu_torch import native\n"
+        "assert native._lib is None and not native._load_failed\n"
         "print('imported', len(sys.modules) > 0)\n"
     )
     out = subprocess.run(

@@ -55,6 +55,9 @@ def test_event_specs_are_jax_s():
         assert spec.module.startswith("gnot_tpu_torch/")
     # The server's rollout sessions and tenant quotas emit these three.
     assert {"rollout_step", "session_snapshot", "tenant_quota_shed"} <= set(events.EVENTS)
+    # Every JAX kind but the two with no eager-PyTorch meaning (AOT
+    # snapshots, jit recompiles); native_packer is emitted at serve start.
+    assert set(jax_events.EVENTS) - set(events.EVENTS) == {"aot_prewarm", "recompile"}
     assert set(events.SPANS) <= set(jax_events.SPANS)
     assert tracing.SERVE_SPANS == jax_tracing.SERVE_SPANS
     assert tracing.TRAIN_SPANS == jax_tracing.TRAIN_SPANS
