@@ -323,6 +323,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    raised), and a 16-row dispatch's host phases both ways in turns; (c)
    phase 4's f32 serving with the event, 16/16 within phase 4's bar; (d)
    ``python -m gnot_tpu_torch.analysis`` exits 0.
+21. serving over a rank mesh and parity on a mesh, at phase 4's and
+   phase 7's flags with ``--ffn_impl xla`` (both packages refuse the FFN
+   kernel on a mesh): (b) first, ``--serve --distributed`` with two nodes
+   (``node_count`` patched), with ``--serve_replicas 2`` and with
+   ``--autoscale`` raise JAX's ValueErrors before any rank exists; then
+   one launch of 2 ranks sharing the card (gloo with CUDA tensors): (a)
+   ``main --serve --distributed`` on ``--mesh_data 2``, ``--mesh_model 2``
+   and ``--mesh_seq 2``, 16/16 each within rtol 1e-4 / atol 1e-5 of the
+   single-device ``--serve --ffn_impl xla`` run, bf16 on the data mesh
+   within phase 4b's bf16-vs-f32 bar, a hot reload mid-stream (best A
+   served first, latest B = A x 0.9 reloaded after the 8th request:
+   requests 9-16 within the bar of B's single-device outputs), and a
+   SIGTERM to rank 0 at its third request (both ranks exit 0); per run a
+   dispatch's host p50, its broadcast, forward and gather ms on rank 0,
+   the follower's receive and forward ms, the weight ops' ms, peak memory;
+   (c) ``--attention_mode parity`` training on ``--mesh_model 2`` and on
+   ``--mesh_seq 2`` (bucketing kept on, as the API's default: the command
+   line turns it off in parity mode, and JAX refuses seq > 1 then), each
+   within 1e-5 of its single-device parity run, with the step time and
+   the merge's all-gathers and their host ms a step; (d) ``python -m
+   gnot_tpu_torch.analysis --changed`` exits 0.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -369,7 +390,10 @@ kernel's ``mesh_train_launches`` is its count over every rank of phase 19
 (0: a mesh runs the FFN's torch path); ``native_serve_launches``,
 ``native_serve_numpy_launches`` and ``native_serve_f32_launches`` its
 counts over phase 20's runs (b) native, (b) with the native path off and
-(c), and ``native_direct_calls`` the C calls of phase 20 (a). Launches
+(c), and ``native_direct_calls`` the C calls of phase 20 (a);
+``mesh_serve_launches`` and ``mesh_parity_train_launches`` its counts over
+both ranks of phase 21's serving runs (a) and parity runs (c), 0 (a mesh
+runs the FFN's torch path). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -4842,16 +4866,24 @@ def sp_cases(out_dir: Path) -> None:
 
 
 def rank_main(plan_path: Path) -> None:
-    """A rank of phase 18, its plan in ``plan_path`` and its results beside
-    it (``<plan>_rank<r>.json``): with ``plan["sp"]`` (a) first
-    (``sp_cases``), then each run of ``plan["runs"]`` (c)/(d) through the port's
+    """A rank of phases 18 and 21, its plan in ``plan_path`` and its results
+    beside it (``<plan>_rank<r>.json``): with ``plan["sp"]`` (a) first
+    (``sp_cases``), then each run of ``plan["runs"]`` through the port's
     entry point (``gnot_tpu_torch.main.run``) in this rank's process, in
-    the one process group this rank joins first; per run its losses,
-    metrics, peak device memory, and with ``profile`` its all-reduce time a
-    step from the ``torch.profiler`` trace of epoch 1. ``sigterm_rank``
-    gives that rank alone ``--inject_fault sigterm@3`` (a real SIGTERM to
-    its process before step 3); ``carry_on`` then trains the stopped
-    trainer on from its epoch in memory (no checkpoint in between)."""
+    the one process group this rank joins first; per training run its
+    losses, metrics, peak device memory, the parity merge's all-gathers,
+    and with ``profile`` its all-reduce time a step from the
+    ``torch.profiler`` trace of epoch 1. ``sigterm_rank`` gives that rank
+    alone ``--inject_fault sigterm@3`` (a real SIGTERM to its process
+    before step 3); ``carry_on`` then trains the stopped trainer on from its
+    epoch in memory (no checkpoint in between). ``bucketed`` keeps the
+    loaders' bucketing on in parity mode (the API's default; the command
+    line turns it off, and the seq axis needs bucketed lengths). A serving
+    run (``--serve``) records rank 0's summary and its outputs
+    (``<run>/outputs.npz``) or a follower's counters; ``sigterm_submit`` N
+    sends rank 0 a SIGTERM as it submits its N-th request."""
+    import signal as signal_lib
+
     import numpy as np
     import torch
 
@@ -4860,12 +4892,14 @@ def rank_main(plan_path: Path) -> None:
     from gnot_tpu_torch.ops import fused_attention as fa
     from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
     from gnot_tpu_torch.parallel import multihost
+    from gnot_tpu_torch.serve.server import InferenceServer
 
     plan = json.loads(plan_path.read_text())
     out_dir = plan_path.parent
     multihost.initialize(torch.device("cuda"))
     rank = multihost.process_index()
     results = {}
+    data_config, submit = port_main.data_config, InferenceServer.submit
     try:
         if plan.get("sp"):
             sp_cases(out_dir)
@@ -4877,23 +4911,55 @@ def rank_main(plan_path: Path) -> None:
                 argv += ["--profile_dir", str(out_dir / name / f"prof{rank}")]
             if run.get("sigterm_rank") == rank:
                 argv += ["--inject_fault", "sigterm@3"]
+            port_main.data_config = ((lambda args: dataclasses.replace(data_config(args),
+                                                                      bucket=True))
+                                     if run.get("bucketed") else data_config)
+            if run.get("sigterm_submit") and rank == 0:
+                calls = []
+
+                def submit_then_signal(server, sample, _n=run["sigterm_submit"], **kw):
+                    calls.append(1)
+                    if len(calls) == _n:
+                        os.kill(os.getpid(), signal_lib.SIGTERM)
+                    return submit(server, sample, **kw)
+
+                InferenceServer.submit = submit_then_signal
+            else:
+                InferenceServer.submit = submit
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             collectives.reset_hop_stats()
+            collectives.reset_gather_stats()
             kernels = [fused_gated_ffn_kernel, fa.nla_reduce_kernel, fa.nla_apply_kernel,
                        fa.nla_reduce_seg_kernel, fa.nla_apply_seg_kernel]
             launched = sum(k.launches for k in kernels)
             t0 = time.perf_counter()
-            trainer = port_main.run(argv)
+            console = io.StringIO()
+            with (contextlib.redirect_stdout(console) if "--serve" in argv
+                  else contextlib.nullcontext()):
+                result = port_main.run(argv)
             torch.cuda.synchronize()
             res = {"wall_s": time.perf_counter() - t0,
                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-                   "mesh": trainer.mesh.shape, "host_step": trainer.host_step,
-                   "losses": [h.step_losses.tolist() for h in trainer.history],
-                   "metrics": [h.test_metric for h in trainer.history],
-                   "hops": dict(collectives.HOP_STATS),
-                   "micro": getattr(trainer.model, "n_micro", 0),
-                   "kernel_launches": sum(k.launches for k in kernels) - launched}
+                   "kernel_launches": sum(k.launches for k in kernels) - launched,
+                   "gathers": dict(collectives.GATHER_STATS)}
+            if isinstance(result, port_main.ServeRun):
+                if result.follower is not None:
+                    res["follower"] = result.follower
+                else:
+                    res["summary"] = result.summary
+                    res["ok"] = [r.ok for r in result.results]
+                    res["console"] = console.getvalue()[-2000:]
+                    np.savez(out_dir / name / "outputs.npz",
+                             *[r.output for r in result.results if r.ok])
+                results[name] = res
+                continue
+            trainer = result
+            res.update({"mesh": trainer.mesh.shape, "host_step": trainer.host_step,
+                        "losses": [h.step_losses.tolist() for h in trainer.history],
+                        "metrics": [h.test_metric for h in trainer.history],
+                        "hops": dict(collectives.HOP_STATS),
+                        "micro": getattr(trainer.model, "n_micro", 0)})
             if run.get("profile"):
                 res["allreduce_ms"] = allreduce_ms(out_dir / name / f"prof{rank}" / "epoch_1.trace.json")
             if run.get("carry_on"):
@@ -4909,6 +4975,7 @@ def rank_main(plan_path: Path) -> None:
                                          for p in params.values()))
             results[name] = res
     finally:
+        port_main.data_config, InferenceServer.submit = data_config, submit
         multihost.shutdown()
     plan_path.with_name(f"{plan_path.stem}_rank{rank}.json").write_text(json.dumps(results))
 
@@ -5616,6 +5683,233 @@ def native_phase(torch, np, card: str, layers) -> dict:
             "native_serve_f32_launches": f32_launches, "native_direct_calls": direct}
 
 
+# --------------------------------------------------------------------------
+# Phase 21: serving over a rank mesh, parity mode on the seq and model axes,
+# and the port's diff-scoped lint.
+# --------------------------------------------------------------------------
+MESH_OUT = TRAIN_OUT / "mesh21"
+# (a): phase 4's traffic (16 NS2d-1k requests, max_batch 4) through the
+# FFN's torch path, which both packages take on a mesh.
+MESH_SERVE_ARGV = ["--serve", "--ffn_impl", "xla", "--synthetic", "ns2d", "--n_train", "16",
+                   "--n_test", "16", "--serve_max_batch", "4", "--device", "cuda"]
+# (c): phase 7's flags (darcy2d, 256 points: the pads are the same bucketed
+# or not) through the FFN's torch path.
+MESH_PARITY_ARGV = [a if a != "pallas" else "xla" for a in PARITY_ARGV]
+# (b): the first words of JAX's refusals (gnot_tpu/main.py:1093-1098 and
+# :1110-1115), which the port raises word for word (its CPU tests compare
+# them with JAX's own).
+MESH_REFUSALS = {"two nodes": "--serve is single-process (the request-serving layer",
+                 "replicas": "--serve_replicas/--autoscale build their own per-replica",
+                 "autoscale": "--serve_replicas/--autoscale build their own per-replica"}
+
+
+def mesh_outputs(np, name: str) -> list:
+    outs = np.load(MESH_OUT / name / "outputs.npz")
+    return [outs[f"arr_{i}"] for i in range(len(outs.files))]
+
+
+def mesh_serving_phase(torch, np, card: str) -> dict:
+    """Phase 21: (b) first, in this process, the refusals of ``--serve
+    --distributed`` before any rank exists; the single-device references;
+    then one launch of 2 ranks sharing the card (gloo with CUDA tensors):
+    (a) serving on ``--mesh_data 2``, ``--mesh_model 2`` and ``--mesh_seq 2``
+    against the single-device ``--serve --ffn_impl xla`` run, bf16 on the
+    data mesh, a hot reload mid-stream on it, and a SIGTERM to rank 0; (c)
+    parity training on ``--mesh_model 2`` and ``--mesh_seq 2`` against the
+    single-device parity runs; then (d) the lint's ``--changed`` mode.
+    Every rank launches no kernel: both packages refuse them on a mesh."""
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.parallel import multihost
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.train.checkpoint import Checkpointer
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    import shutil
+
+    t_phase = time.monotonic()
+    shutil.rmtree(MESH_OUT, ignore_errors=True)
+    MESH_OUT.mkdir(parents=True)
+
+    # (b) JAX's refusals, raised before any rank would wait on another.
+    base = MESH_SERVE_ARGV + ["--distributed"]
+    node_count = multihost.node_count
+    for tag, flags in (("two nodes", []), ("replicas", ["--serve_replicas", "2"]),
+                       ("autoscale", ["--autoscale"])):
+        if tag == "two nodes":
+            multihost.node_count = lambda: 2
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                port_main.run(base + flags)
+        except ValueError as exc:
+            message = str(exc)
+        else:
+            raise RuntimeError(f"[mesh] (b) {tag}: --serve --distributed was not refused")
+        finally:
+            multihost.node_count = node_count
+        log(f"[mesh] (b) {tag}: ValueError {message!r}")
+        if not message.startswith(MESH_REFUSALS[tag]):
+            raise RuntimeError(f"[mesh] (b) {tag}: not JAX's words")
+
+    # The references on one device: the seed's weights (A) served plainly,
+    # a checkpoint holding A as best and A * 0.9 (B) as latest, B's outputs
+    # through the engine at the served shape, and the parity runs.
+    t0 = time.monotonic()
+    ck = MESH_OUT / "ck"
+    args = port_main.build_parser().parse_args(MESH_SERVE_ARGV)
+    from gnot_tpu_torch.data import datasets
+
+    train, test = datasets.load(port_main.data_config(args))
+    mc = port_main.model_config(args, train)
+    trainer = Trainer(port_main.train_config(args), mc, train, test, device="cuda")
+    trainer.initialize()
+    saver = Checkpointer(str(ck), extra_meta=port_main.checkpoint_meta(args, mc))
+    saver.save_best(trainer.checkpoint_state(), 0, 1.0)
+    with torch.no_grad():
+        for p in trainer.model.parameters():
+            p.mul_(0.9)
+    saver.save_latest(trainer.checkpoint_state(), 1, 2.0)
+    saver.wait()
+    with contextlib.redirect_stdout(io.StringIO()):
+        single = port_main.run(MESH_SERVE_ARGV)
+    want = [r.output for r in single.results]
+    engine_b = InferenceEngine(trainer.model, batch_size=4)
+    pn, pf = engine_b.bucket_key(single.samples[0])
+    want_b = [o for i in range(0, 16, 4)
+              for o in engine_b.infer(single.samples[i:i + 4], pad_nodes=pn, pad_funcs=pf)]
+    del trainer, engine_b
+    parity_want = {}
+    data_config = port_main.data_config
+    for tag, bucketed in (("", False), ("bucketed", True)):
+        path = MESH_OUT / f"parity_single{tag}.jsonl"
+        if bucketed:
+            port_main.data_config = lambda a: dataclasses.replace(data_config(a), bucket=True)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                port_main.run(MESH_PARITY_ARGV + ["--metrics_path", str(path)])
+        finally:
+            port_main.data_config = data_config
+        parity_want[bucketed] = [r[k] for r in epoch_records(path)
+                                 for k in ("train_loss", "test_metric")]
+    log(f"[mesh] single-device references (the f32 serve run, B's outputs, two parity runs) "
+        f"{time.monotonic() - t0:.1f} s; parity bucketed vs not: "
+        f"{rel_diff(np, parity_want[True], parity_want[False]):.3e} (darcy2d's 256-point pads)")
+
+    # (a) and (c): one launch of 2 ranks sharing the card.
+    def serve(name, *flags, **kw):
+        return dict(name=name, argv=base + list(flags), **kw)
+
+    runs = [serve("serve_data2", "--mesh_data", "2"),
+            serve("serve_model2", "--mesh_model", "2"),
+            serve("serve_seq2", "--mesh_seq", "2"),
+            serve("serve_bf16_data2", "--mesh_data", "2", "--serve_dtype", "bfloat16"),
+            serve("serve_reload_data2", "--mesh_data", "2", "--checkpoint_dir", str(ck),
+                  "--serve_reload_every", "8"),
+            serve("serve_sigterm_data2", "--mesh_data", "2", sigterm_submit=3),
+            dict(name="parity_model2", argv=MESH_PARITY_ARGV + ["--distributed", "--mesh_model",
+                                                                "2"]),
+            dict(name="parity_seq2", argv=MESH_PARITY_ARGV + ["--distributed", "--mesh_seq", "2"],
+                 bucketed=True)]
+    launches = [(2, dict(runs=runs))]
+    for run in runs:
+        (MESH_OUT / run["name"]).mkdir()
+    (MESH_OUT / "plan0.json").write_text(json.dumps(launches[0][1]))
+    t0 = time.monotonic()
+    launch_ranks(2, [str(MESH_OUT / "plan0.json")], "mesh serving and parity")
+    log(f"[mesh] one launch of 2 ranks, {len(runs)} runs: {time.monotonic() - t0:.1f} s")
+    results = par_results(MESH_OUT, launches)
+    out = {"mesh_serve_launches": 0, "mesh_parity_train_launches": 0}
+
+    for run in runs[:6]:
+        name = run["name"]
+        lead, follower = results[name]
+        out["mesh_serve_launches"] += lead["kernel_launches"] + follower["kernel_launches"]
+        summary, stats, fol = lead["summary"], lead["summary"]["mesh"], follower["follower"]
+        got = mesh_outputs(np, name)
+        n = summary["requests"]
+        if lead["ok"] != [True] * n or summary["completed"] != n:
+            raise RuntimeError(f"[mesh] (a) {name}: {summary['completed']}/{n} ok")
+        if fol["dispatches"] != stats["dispatches"] or fol["weights"] != stats["weights"]:
+            raise RuntimeError(f"[mesh] (a) {name}: the follower ran {fol}, rank 0 {stats}")
+        if name == "serve_bf16_data2":
+            worst = max(float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                        for g, w in zip(got, want))
+            verdict = f"worst relative norm vs the f32 single-device run {worst:.3e} (bar " \
+                      f"{BF16_F32_REL})"
+            if worst > BF16_F32_REL:
+                raise RuntimeError(f"[mesh] (a) {name}: {verdict}")
+        elif name == "serve_reload_data2":
+            # Reloads after the 8th and the 16th submission, both to B.
+            if summary["reloads"] != 2:
+                raise RuntimeError(f"[mesh] (a) {name}: {summary['reloads']} reloads")
+            after = max(float(np.max(np.abs(g - w))) for g, w in zip(got[8:], want_b[8:]))
+            for g, w in zip(got[8:], want_b[8:]):
+                np.testing.assert_allclose(g, w, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+            before = ["A" if np.allclose(g, a, rtol=MODEL_RTOL, atol=MODEL_ATOL) else
+                      "B" if np.allclose(g, b, rtol=MODEL_RTOL, atol=MODEL_ATOL) else "?"
+                      for g, a, b in zip(got[:8], want[:8], want_b[:8])]
+            if "?" in before:
+                raise RuntimeError(f"[mesh] (a) {name}: requests 1-8 served {before}")
+            verdict = (f"{summary['reloads']} reloads; requests 1-8 on weights "
+                       f"{''.join(before)}, 9-16 on B within "
+                       f"max_abs_err {after:.3e} of B's single-device outputs; restores "
+                       f"{lead['console'].count('Restored')}")
+        else:
+            worst = 0.0
+            for g, w in zip(got, want[:n]):
+                np.testing.assert_allclose(g, w, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+                worst = max(worst, float(np.max(np.abs(g - w))))
+            verdict = f"max_abs_err vs the single-device run {worst:.3e}"
+            if name == "serve_sigterm_data2":
+                if n != 3:
+                    raise RuntimeError(f"[mesh] (a) {name}: {n} requests after the SIGTERM")
+                verdict += "; SIGTERM at the 3rd submit: rank 0 drained, both ranks exit 0"
+        log(f"[mesh] (a) {name}: {summary['completed']}/{n} ok, mesh {stats['shape']}, "
+            f"{stats['dispatches']} dispatches ({summary['dispatches']} served + warm-up), "
+            f"{stats['weights']} weight ops ({stats['weights_ms']:.1f} ms on rank 0); a dispatch "
+            f"p50 {summary['dispatch_ms_p50']:.2f} ms host clock; medians after the first "
+            f"dispatch on rank 0: broadcast {stats['broadcast_ms_p50']:.3f} ms, forward "
+            f"{stats['forward_ms_p50']:.2f} ms, gather {stats['gather_ms_p50']:.3f} ms; the "
+            f"follower's receive {fol['broadcast_ms_p50']:.2f} ms (its idle wait included), "
+            f"forward {fol['forward_ms_p50']:.2f} ms; FFN launches {lead['kernel_launches']} + "
+            f"{follower['kernel_launches']}; peak {lead['peak_mib']:.0f} / "
+            f"{follower['peak_mib']:.0f} MiB; {verdict}")
+
+    for name, bucketed in (("parity_model2", False), ("parity_seq2", True)):
+        per_rank = results[name]
+        out["mesh_parity_train_launches"] += sum(r["kernel_launches"] for r in per_rank)
+        recs = epoch_records(MESH_OUT / name / "m.jsonl")
+        got = [r[k] for r in recs for k in ("train_loss", "test_metric")]
+        diff = rel_diff(np, got, parity_want[bucketed])
+        steps = per_rank[0]["host_step"] // len(recs)
+        agree = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
+        calls = [r["gathers"]["calls"] for r in per_rank]
+        log(f"[mesh] (c) {name}: mesh {per_rank[0]['mesh']}; train/test {got}, max rel diff vs "
+            f"the single-device parity run {diff:.3e} (bar {PAR_RTOL}); ranks' losses equal "
+            f"{agree}; step time {[r['epoch_seconds'] / steps * 1e3 for r in recs]} ms (epochs "
+            f"0, 1, eval included); the merge's all-gathers per rank {calls} over "
+            f"{per_rank[0]['host_step']} steps and the evals, "
+            f"{[round(r['gathers']['ms'] / per_rank[0]['host_step'], 2) for r in per_rank]} "
+            f"host ms a step; peak {[round(r['peak_mib']) for r in per_rank]} MiB; FFN launches "
+            f"{[r['kernel_launches'] for r in per_rank]} on {card}")
+        if diff > PAR_RTOL or not agree or min(calls) == 0:
+            raise RuntimeError(f"[mesh] (c) {name} does not train as the single-device run")
+    if out["mesh_serve_launches"] or out["mesh_parity_train_launches"]:
+        raise RuntimeError(f"[mesh] a mesh launched kernels: {out}")
+
+    # (d) the lint scoped to what git sees changed (the full run without git).
+    t0 = time.monotonic()
+    lint = subprocess.run([sys.executable, "-m", "gnot_tpu_torch.analysis", "--changed"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    last = (lint.stdout.strip().splitlines() or [""])[-1]
+    note = (lint.stderr.strip().splitlines() or [""])[-1]
+    log(f"[mesh] (d) python -m gnot_tpu_torch.analysis --changed: exit {lint.returncode}, "
+        f"{last} {note} ({time.monotonic() - t0:.1f} s)")
+    if lint.returncode != 0:
+        raise RuntimeError(f"the port's --changed lint failed:\n{lint.stdout}\n{lint.stderr}")
+    log(f"[mesh] phase 21 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return out
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -5842,6 +6136,9 @@ def main() -> int:
     # -- phase 20: the native host packer, the port's lint ------------------
     native_launches = native_phase(torch, np, card, layers)
 
+    # -- phase 21: serving over a rank mesh, parity on a mesh, --changed ----
+    mesh_launches = mesh_serving_phase(torch, np, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -5876,6 +6173,7 @@ def main() -> int:
         **federation_launches,
         "mesh_train_launches": pipe["mesh_train_launches"],
         **native_launches,
+        **mesh_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -125,9 +125,17 @@ a rank, gloo with CUDA tensors when ranks share a card, named on the
 shard of the samples (``shard_samples``), padded to the whole dataset's
 lengths. Rank 0 alone writes the metrics, the trace, ``run.json`` (with the
 mesh and ``process_count`` / ``process_index``), the checkpoints, the
-export and the predictions. ``--serve`` with ``--distributed`` is
-refused (``NotPortedError``: JAX serves on a one-process mesh, the port's
-mesh is one process a rank), and ``--device_id`` with it.
+export and the predictions. ``--device_id`` with it is refused.
+
+Serving over the rank mesh (``gnot_tpu/main.py``'s serve on a
+one-process mesh): ``--serve --distributed`` on one node builds the
+trainer on every rank (its mesh, checks and shards), and rank 0 runs the
+serving tier over a ``serve/mesh_serve.py::MeshEngine`` whose dispatches
+and weight publishes are ops every other rank applies (``follow``) until
+rank 0's stop op; only rank 0 prints and writes. Several nodes, and
+``--serve_replicas`` / ``--autoscale`` (so ``--hosts``) on the mesh, raise
+JAX's ValueErrors on every rank before any waits on another
+(``refuse_serving_mesh``); so do bf16 with the flat or stacked layout.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--device_id i``
 pins ``cuda:i``.
@@ -169,6 +177,7 @@ from gnot_tpu_torch.obs.tracing import Tracer
 from gnot_tpu_torch.parallel import multihost
 from gnot_tpu_torch.resilience.faults import FaultInjector
 from gnot_tpu_torch.resilience.preemption import PreemptionHandler
+from gnot_tpu_torch.serve import mesh_serve
 from gnot_tpu_torch.serve.engine import InferenceEngine
 from gnot_tpu_torch.serve.policies import TenantPolicy
 from gnot_tpu_torch.serve.autoscaler import AutoscaleController
@@ -655,8 +664,9 @@ def build_parser() -> argparse.ArgumentParser:
     # Parallel training (gnot_tpu/main.py:539-560).
     p.add_argument(
         "--distributed", action="store_true",
-        help="train over the rank mesh (one torch.distributed process a "
-             "rank; spans hosts when launched by torchrun on several nodes)"
+        help="train (or, with --serve, serve) over the rank mesh (one "
+             "torch.distributed process a rank; training spans hosts when "
+             "launched by torchrun on several nodes, serving one node)"
     )
     p.add_argument("--mesh_data", type=int, default=-1)
     p.add_argument("--mesh_seq", type=int, default=1)
@@ -878,6 +888,9 @@ class ServeRun:
     # The live metrics plane's stats with ``summary_agrees`` (run.json's
     # ``metrics``), when --metrics_interval_s is on.
     metrics: dict | None = None
+    # A follower rank of a serving mesh: its counters (mesh_serve.follow);
+    # it serves nothing itself and prints no summary.
+    follower: dict | None = None
 
 
 def checkpoint_meta(args, mc: ModelConfig) -> dict:
@@ -930,7 +943,11 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
     ``ReplicaRouter`` over N replicas on the same card takes the server's
     place, and with ``--autoscale`` one over the founding replicas, which an
     ``AutoscaleController`` scales. The server writes its events to ``sink``
-    and its request spans to ``tracer`` when given."""
+    and its request spans to ``tracer`` when given. With ``--distributed``
+    every rank builds the trainer of the serving mesh; rank 0 serves
+    through a ``MeshEngine`` (``_run_serve_tier``) and sends the stop op on
+    every way out, and every other rank returns the ``ServeRun`` of its
+    ``mesh_serve.follow`` (``follower``: its counters, no summary)."""
     if args.serve_prewarm:
         raise NotPortedError(
             "--serve_prewarm (AOT executable snapshots, JAX's serve/aot.py) has no "
@@ -947,19 +964,60 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
             "drop --scan_layers/--flat_params for replicated serving "
             "(single-server --serve supports them)"
         )
-    faults = FaultInjector.from_spec(sc.inject_fault)
     train_samples, samples = datasets.load(data)
-    gen = torch.Generator().manual_seed(args.seed)
     mc = model_config(args, train_samples)
+    if not args.distributed:
+        return _run_serve_tier(args, sc, data, device, samples, mc, sink=sink, tracer=tracer,
+                               manifest=manifest, registry=registry)
+    # Serving over the rank mesh (serve/mesh_serve.py): every rank builds
+    # the trainer (the mesh, its checks, its shards), as JAX's serve builds
+    # its trainer; rank 0 serves and the other ranks follow.
+    trainer = Trainer(train_config(args), mc, train_samples, samples, device=device)
+    if sc.dtype != "float32" and (trainer.flat is not None or trainer._stacked_layout):
+        raise ValueError(
+            "serve.dtype='bfloat16' serves the standard param "
+            "layout only; drop --scan_layers/--flat_params (or "
+            "serve float32)"
+        )
+    if multihost.process_index() != 0:
+        return ServeRun({}, [], samples, trainer.model,
+                        follower=mesh_serve.follow(trainer, dtype=sc.dtype))
+    engine = mesh_serve.MeshEngine(trainer, batch_size=data.batch_size, dtype=sc.dtype)
+    try:
+        return _run_serve_tier(args, sc, data, device, samples, mc, sink=sink, tracer=tracer,
+                               manifest=manifest, registry=registry, mesh_engine=engine)
+    finally:
+        # Every way out of rank 0's serving ends the followers' loop.
+        engine.close()
+
+
+def _run_serve_tier(args, sc: ServeConfig, data: DataConfig, device: torch.device,
+                    samples: list[MeshSample], mc: ModelConfig, *, sink=None, tracer=None,
+                    manifest: RunManifest | None = None, registry=None,
+                    mesh_engine: mesh_serve.MeshEngine | None = None) -> ServeRun:
+    """The serving tier of ``run_serve``: the weights (restored into a whole
+    model), the server or the router, the storm and the report. With
+    ``mesh_engine`` (rank 0 of a serving mesh) the one server dispatches
+    through it, the restored weights are its first publish, the checkpointer
+    restores on this rank alone, and a packed plan's rows split over the data
+    ranks."""
+    replicated = sc.replicas > 1 or sc.autoscale
+    faults = FaultInjector.from_spec(sc.inject_fault)
+    gen = torch.Generator().manual_seed(args.seed)
     if manifest is not None:
-        manifest.write(config=train_config(args), model_config=mc, device=device, kind="serve")
+        manifest.write(config=train_config(args), model_config=mc, device=device, kind="serve",
+                       mesh=mesh_engine.mesh if mesh_engine is not None else None)
     model = GNOT(mc, generator=gen).to(device)
     checkpointer = (
         Checkpointer(args.checkpoint_dir, extra_meta=checkpoint_meta(args, mc),
-                     on_event=sink.log if sink is not None else None)
+                     on_event=sink.log if sink is not None else None,
+                     local=mesh_engine is not None)
         if args.checkpoint_dir else None
     )
     restored = restore_for_serving(model, checkpointer, param_layout(args))
+    if mesh_engine is not None:
+        # The served weights reach every rank before the first dispatch.
+        mesh_engine.swap_params(model.state_dict())
     if manifest is not None and checkpointer is not None:
         # Which checkpoint serving restored, any fallback walk included.
         manifest.write(restore=checkpointer.last_restore)
@@ -986,10 +1044,10 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
                                     manifest=manifest)
     # Packed dispatch: the one fixed dispatch shape comes from the traffic
     # itself, the samples about to be served (per_devices 1: each replica
-    # has the whole card).
+    # has the whole card; on a mesh, the rows split over the data ranks).
     pack_plan = (
         PackPlan.for_slices(samples, chunk=sc.pack_chunk, batch_size=sc.max_batch,
-                            per_devices=1)
+                            per_devices=mesh_engine.mesh.local_data if mesh_engine else 1)
         if sc.packed else None
     )
     reload_fn = (CheckpointReloader(checkpointer, model, layout=param_layout(args))
@@ -1043,7 +1101,8 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
         else:
             replicas = None
             server = InferenceServer(
-                InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype), **common)
+                mesh_engine or InferenceEngine(model, batch_size=data.batch_size, dtype=sc.dtype),
+                **common)
         controller = None
         try:
             t0 = time.monotonic()
@@ -1138,6 +1197,12 @@ def run_serve(args, *, sink=None, tracer=None, manifest: RunManifest | None = No
                    restored=restored)
     if pack_plan is not None:
         summary["pack_plan"] = dataclasses.asdict(pack_plan)
+    if mesh_engine is not None:
+        if mesh_engine.failed is not None:
+            raise RuntimeError(
+                f"a rank of the serving mesh failed: {mesh_engine.failed}") from mesh_engine.failed
+        summary["mesh"] = {"shape": mesh_engine.mesh.shape,
+                           **mesh_serve.stats_summary(mesh_engine.stats)}
     return ServeRun(summary, results, samples, model, pack_plan, metrics)
 
 
@@ -1435,6 +1500,26 @@ def _node_shard(cfg: Config, train_samples, test_samples):
     return cfg, multihost.shard_samples(train_samples), multihost.shard_samples(test_samples)
 
 
+def refuse_serving_mesh(sc: ServeConfig) -> None:
+    """JAX's refusals of ``--serve --distributed``, in its words, on every
+    rank before any waits on another: several nodes (JAX serves on one
+    process, whose devices are the port's ranks of one node), and replicas
+    or the elastic pool on the trainer's mesh (``--hosts N`` needs replicas,
+    so it is refused here too)."""
+    if multihost.node_count() > 1:
+        raise ValueError(
+            "--serve is single-process (the request-serving layer does "
+            "not compose with multi-host SPMD; single-process meshes "
+            "are fine)"
+        )
+    if sc.replicas > 1 or sc.autoscale:
+        raise ValueError(
+            "--serve_replicas/--autoscale build their own per-replica "
+            "mesh slices; drop --distributed (the trainer mesh) when "
+            "serving replicated"
+        )
+
+
 def run(argv: list[str] | None = None) -> Trainer | ServeRun:
     """The command line's run: the trainer of a training (or eval) run,
     or the ``ServeRun`` of ``--serve`` after printing its summary line.
@@ -1452,17 +1537,14 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
         if args.distributed:
             if args.device_id >= 0:
                 parser.error("--device_id pins a single device; drop --distributed")
-            if args.serve:
-                raise NotPortedError(
-                    "--serve with --distributed: serving over a trainer's mesh "
-                    "(gnot_tpu/main.py:1093-1115) is not ported; serve without it"
-                )
             # Without a card this raises before any rank waits on another.
             resolve_device(args.device)
             if not torch.distributed.is_initialized():
                 # A group the caller made is the caller's to end.
                 multihost.initialize(run_device(args))
                 stack.callback(multihost.shutdown)
+            if args.serve:
+                refuse_serving_mesh(sc)
         # Rank 0 alone writes the records, the trace and run.json.
         writer = multihost.process_index() == 0
         # One registry for the run (the live metrics plane): the server's
@@ -1497,7 +1579,8 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
                              registry=registry)
         result = run_serve(args, sink=sink, tracer=tracer, manifest=manifest,
                            registry=registry)
-    print(json.dumps({"serve_summary": result.summary}))
+    if result.follower is None:
+        print(json.dumps({"serve_summary": result.summary}))
     return result
 
 
@@ -1508,6 +1591,8 @@ def main(argv: list[str] | None = None) -> float:
     result = run(argv)
     if isinstance(result, Trainer):
         return result.best_metric
+    if result.follower is not None:
+        return 1.0  # a follower served nothing itself; it left on the stop op
     if result.summary.get("sessions") is not None:
         return sum(r.ok for r in result.results) / max(1, len(result.results))
     return result.summary["completed"] / max(1, result.summary["requests"])

@@ -21,7 +21,9 @@ weights run their part and the collectives GSPMD inserts in JAX: heads
 over ``model`` (``LinearAttention``: column-parallel q/k/v, row-parallel
 ``fc_out``), the stacked MLPs' hidden axis over ``model`` (a column layer,
 then row layers, ``Mlp.forward_tp``), the experts over ``expert``
-(``GatedExpertFfn``), and the Gram sums over ``seq``. Off a mesh
+(``GatedExpertFfn``), and the Gram sums over ``seq``. Parity mode's
+interleaved head merge reads every head and every point of a row, so on
+the seq or model axis it gathers them (``_parity_merge``). Off a mesh
 (``mesh`` None) every forward is the single-device one, op for op.
 """
 
@@ -38,7 +40,7 @@ from gnot_tpu_torch.ops.attention import (
     packed_normalized_linear_attention,
     split_heads,
 )
-from gnot_tpu_torch.ops.collectives import reduce_from
+from gnot_tpu_torch.ops.collectives import all_gather, reduce_from
 from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn, kernel_takes
 from gnot_tpu_torch.parallel.mesh import close, enter, local_slice
 
@@ -221,6 +223,25 @@ def _row_parallel(layer: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], kernel.shape[-1])
 
 
+def _parity_merge(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The reference's interleaved merge of this rank's ``[B, H_loc, L_loc,
+    D]`` block on a seq or model mesh: every rank's heads (``model``) and
+    points (``seq``) gathered into the row's whole ``[B, H, L, D]``,
+    reshaped to ``[B, L, H*D]`` as on one device, and this rank's block kept:
+    its rows of the sequence axis and, with ``model`` > 1, its column block,
+    the input the row-parallel ``fc_out`` closes (``_row_parallel``). The
+    gather's backward sums over the group and keeps this rank's block."""
+    x = all_gather(x, mesh.group("model"), 1)
+    x = all_gather(x, mesh.group("seq"), 2)
+    b, h, l, d = x.shape
+    x = x.reshape(b, l, h * d)
+    if mesh.size("seq") > 1:
+        x = local_slice(x, mesh, "seq", dim=1)
+    if mesh.size("model") > 1:
+        x = local_slice(x, mesh, "model", dim=-1)
+    return x
+
+
 def set_mesh(model: nn.Module, mesh) -> None:
     """Give every module of ``model`` that runs a collective the mesh
     (``None``: the single-device forward)."""
@@ -280,6 +301,9 @@ class LinearAttention(nn.Module):
 
     def _merge(self, x: torch.Tensor) -> torch.Tensor:
         if self.parity:
+            mesh = self.mesh
+            if mesh is not None and (mesh.size("seq") > 1 or mesh.size("model") > 1):
+                return _parity_merge(x, mesh)
             b, h, l, d = x.shape
             return x.reshape(b, l, h * d)
         return merge_heads(x)

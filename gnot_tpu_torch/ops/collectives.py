@@ -30,6 +30,15 @@ through host memory when the tensor is on the card (``_staged``: gloo
 takes no point-to-point of a CUDA tensor); NCCL takes them on the card.
 ``HOP_STATS`` counts the hops and their host time.
 
+``all_gather``: this rank's block of a tensor concatenated with every
+other rank's along one dim, forward; the backward sums the gathered
+gradient over the group and keeps this rank's block (a reduce-scatter,
+written as an all-reduce and a slice: gloo has no reduce-scatter). For a
+block that every rank then reads whole: the parity head merge on the
+seq and model axes (``models/layers.py``), whose interleave mixes every
+rank's heads and points into each rank's rows. ``GATHER_STATS`` counts
+its forward calls and their host time.
+
 A group of size 1, or ``None``, makes every function here the identity.
 """
 
@@ -46,8 +55,17 @@ import torch.distributed as dist
 HOP_STATS = {"calls": 0, "ms": 0.0, "wait_ms": 0.0}
 
 
+#: Every forward ``all_gather`` since the last reset: calls and the host
+#: milliseconds of each whole call.
+GATHER_STATS = {"calls": 0, "ms": 0.0}
+
+
 def reset_hop_stats() -> None:
     HOP_STATS.update(calls=0, ms=0.0, wait_ms=0.0)
+
+
+def reset_gather_stats() -> None:
+    GATHER_STATS.update(calls=0, ms=0.0)
 
 
 def group_size(group) -> int:
@@ -106,6 +124,37 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` itself; its gradient is summed over ``group``."""
     return x if group_size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim)
+    GATHER_STATS["calls"] += 1
+    GATHER_STATS["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        summed = _all_reduce(g, ctx.group)
+        mine = summed.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n)
+        return mine.contiguous(), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in group
+    rank order; the gradient is summed over the group and this rank's block
+    kept."""
+    return x if group_size(group) == 1 else _AllGather.apply(x, group, dim % x.dim())
 
 
 def _staged(group, t: torch.Tensor) -> bool:

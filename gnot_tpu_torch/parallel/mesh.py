@@ -50,7 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gnot_tpu_torch.config import MeshConfig, ModelConfig, NotPortedError
+from gnot_tpu_torch.config import MeshConfig, ModelConfig
 from gnot_tpu_torch.data.batch import PackedBatch
 from gnot_tpu_torch.ops.collectives import copy_to, reduce_from
 
@@ -183,20 +183,13 @@ def _validate_gspmd(model_cfg: ModelConfig, mesh: Mesh) -> None:
 def validate_layers(model_cfg: ModelConfig, mesh: Mesh) -> None:
     """The port's own checks of the layers' mesh forward, on every mesh
     (a pipeline's stages split heads over ``model`` as GSPMD's mesh does):
-    whole head groups a rank, a column layer closed by a row layer, and no
-    parity mode on the seq or model axis, whose reference head merge
-    interleaves heads and sequence positions across rows, so it has no
-    per-rank form."""
+    whole head groups a rank, and a column layer closed by a row layer.
+    Parity mode runs on every axis: its interleaved head merge gathers the
+    heads and points it mixes (``models/layers.py::_parity_merge``)."""
     if model_cfg.n_head % mesh.shape["model"]:
         raise ValueError(
             f"n_head={model_cfg.n_head} must be divisible by the model axis size "
             f"{mesh.shape['model']} (TP shards whole head groups)"
-        )
-    if model_cfg.attention_mode == "parity" and (mesh.shape["seq"] > 1 or mesh.shape["model"] > 1):
-        raise NotPortedError(
-            "attention_mode='parity' on a seq or model mesh axis: the reference's "
-            "interleaved head merge mixes heads and sequence positions across "
-            "rows, which no rank holds alone; use the data/expert axes or masked mode"
         )
     if mesh.shape["model"] > 1 and model_cfg.n_mlp_num_layers < 1:
         raise ValueError(
@@ -453,6 +446,17 @@ def gather_rows(mesh: Mesh, value: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(value) for _ in range(mesh.shape["data"])]
     dist.all_gather(parts, value.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def gather_points(mesh: Mesh, value: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Per-point values of every seq rank (their blocks of the sequence
+    axis ``dim``), concatenated in seq order. COLLECTIVE over seq."""
+    group = mesh.group("seq")
+    if group is None:
+        return value
+    parts = [torch.empty_like(value) for _ in range(mesh.shape["seq"])]
+    dist.all_gather(parts, value.contiguous(), group=group)
+    return torch.cat(parts, dim)
 
 
 def global_sq_norm(mesh: Mesh, tensors: Iterable[torch.Tensor], specs: Iterable[tuple]

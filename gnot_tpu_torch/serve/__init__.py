@@ -23,7 +23,10 @@ router):
 * ``federation``: ``HostAgent`` (one host's pool behind the versioned wire
   protocol), ``ClusterRouter`` (placement across hosts, the lease-based
   ``FailureDetector``, session re-migration, the merged cluster trace),
-  ``build_local_federation`` and ``topology_key``.
+  ``build_local_federation`` and ``topology_key``;
+* ``mesh_serve``: serving over a rank mesh (``--serve --distributed``):
+  ``MeshEngine`` on rank 0, ``follow`` on the other ranks, the op
+  protocol between them.
 
 AOT prewarm is not ported (``ROADMAP.md``). The names of ``server``,
 ``replica``, ``router``, ``autoscaler`` and ``federation`` load on first

@@ -82,7 +82,7 @@ class InferenceEngine:
         self._lock = threading.Lock()
         # The published model (a cast copy below f32); swap_params
         # replaces the reference.
-        self._model = precision.serve_model(model, dtype).eval()  #: guarded_by _lock
+        self._model = self._published(model)  #: guarded_by _lock
         # Distinct dispatch signatures seen so far.
         self._shapes: set[tuple] = set()  #: guarded_by _lock
         # The shared program catalog (serve/catalog.py), or None.
@@ -91,6 +91,10 @@ class InferenceEngine:
     def _on_stream(self):
         """The engine's stream as the calling thread's current one."""
         return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+    def _published(self, model: GNOT) -> GNOT:
+        """The model a dispatch runs for ``model``: a cast copy below f32."""
+        return precision.serve_model(model, self.dtype).eval()
 
     # -- params ------------------------------------------------------------
 

@@ -39,7 +39,8 @@ and emitted as a ``restore`` or ``restore_fallback`` event.
 On a multi-rank run (``parallel/multihost.py``) the trainer hands every
 save the whole state, gathered from the ranks' shards; rank 0 writes it
 (the other ranks' saves are no-ops), so the file is the single-device
-layout. Every rank restores the same file and keeps its shards. The
+layout. Every rank restores the same file and keeps its shards (a
+``local`` checkpointer's walk is its rank's alone: serving's rank 0). The
 restore walk agrees across ranks, as JAX's does across hosts: the ranks
 meet before the walk (rank 0's save in flight is then published), agree on
 each candidate (``all_agree``) and on its outcome (``sync_flag``: one
@@ -150,6 +151,7 @@ class Checkpointer:
         fault_injector=None,
         retry_policy: RetryPolicy | None = None,
         on_event: Callable[..., None] | None = None,
+        local: bool = False,
     ):
         """``extra_meta`` is provenance recorded in every sidecar and file:
         ``main.py`` records the resolved numerics (``gelu``,
@@ -158,8 +160,12 @@ class Checkpointer:
         run's. ``fault_injector`` fires its ``ckpt_io`` errors inside each
         I/O attempt and its ``corrupt_ckpt`` after a publish; ``on_event``
         (the sink's ``log``) gets the ``io_retry``, ``restore`` and
-        ``restore_fallback`` events."""
+        ``restore_fallback`` events. ``local`` makes every restore walk
+        this rank's alone, agreeing with no other rank: serving over a mesh
+        (``serve/mesh_serve.py``), where rank 0 restores and sends the
+        weights to the ranks that wait for its next operation."""
         self.directory = os.path.abspath(directory)
+        self.local = local
         os.makedirs(self.directory, exist_ok=True)
         self.extra_meta = dict(extra_meta or {})
         self.fault_injector = fault_injector
@@ -347,7 +353,7 @@ class Checkpointer:
         best_metric)`` or None, leaving the skips in ``_skipped``."""
         requested = requested or name
         self.wait()
-        multiproc = multihost.process_count() > 1
+        multiproc = multihost.process_count() > 1 and not self.local
         if multiproc:
             # Every rank past its wait: rank 0's last save is published.
             multihost.sync_flag(False)

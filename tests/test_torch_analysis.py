@@ -394,3 +394,128 @@ def test_module_entry_point(tmp_path):
     assert out.returncode == 1, out.stderr
     (finding,) = json.loads(out.stdout)["findings"]
     assert (finding["rule"], finding["path"], finding["line"]) == ("GL004", "dirty.py", 10)
+
+
+# -- --changed and --update-baseline against tools/lint.py's on one repository --
+
+
+def _git(root, *args):
+    subprocess.run(["git", "-c", "user.email=t@t", "-c", "user.name=t", *args],
+                   cwd=root, check=True, capture_output=True, timeout=60)
+
+
+def _jax_lint_main():
+    """``tools/lint.py``'s main(), loaded in-process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("gnot_lint_cli",
+                                                  os.path.join(ROOT, "tools", "lint.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _fixture_repo(root, rule, files):
+    """A git repository at ``root`` whose lint roots are ``gnot_tpu_torch``
+    for both tools (JAX's through its pyproject section, the port's by
+    default), ``files`` committed as its first commit."""
+    enable = ", ".join(f'"{r}"' for r in rule.split(","))
+    _ta_write(root, {"pyproject.toml": f'[tool.graftlint]\nenable = [{enable}]\n'
+                                       'paths = ["gnot_tpu_torch"]\n', **files})
+    _git(root, "init", "-q")
+    _git(root, "add", "-A")
+    _git(root, "commit", "-qm", "seed")
+
+
+def _both(root, rule, *argv, capsys):
+    """The exit codes and outputs of ``tools/lint.py`` and of the port's
+    CLI, one after the other, on the repository at ``root``."""
+    jax_rc = _jax_lint_main()([*argv, "--root", str(root)])
+    jax_out = capsys.readouterr().out
+    port_rc = lint_cli.main([*argv, "--root", str(root), "--rules", rule])
+    return (jax_rc, port_rc), (jax_out, capsys.readouterr().out)
+
+
+def test_changed_mode_scopes_the_report_and_baselines_per_rule_and_path(tmp_path, capsys):
+    """``--changed`` reports only changed files under the lint roots; the
+    baseline (written by ``--update-baseline`` from a full run) masks its
+    findings counted per ``(rule, path)``, so a new finding beyond the
+    count fails: at every step the port's CLI exits as ``tools/lint.py``
+    does on the same repository (``tests/test_analysis.py:1045-1088``)."""
+    bad = _GUARDED.format(body="self._n += 1")
+    _fixture_repo(tmp_path, "GL004", {"gnot_tpu_torch/mod.py": "x = 1\n", "scratch.py": bad})
+    rcs, outs = _both(tmp_path, "GL004", "--changed", capsys=capsys)
+    assert rcs == (0, 0) and all("no changes vs HEAD" in o for o in outs)
+    # A violation outside the lint roots is not gated.
+    _ta_write(tmp_path, {"scratch.py": bad + "\n# touched\n"})
+    assert _both(tmp_path, "GL004", "--changed", capsys=capsys)[0] == (0, 0)
+    # One in a changed file under the roots fails...
+    _ta_write(tmp_path, {"gnot_tpu_torch/mod.py": bad})
+    rcs, outs = _both(tmp_path, "GL004", "--changed", capsys=capsys)
+    assert rcs == (1, 1) and all("gnot_tpu_torch/mod.py:10: GL004" in o for o in outs)
+    # ...unless the baseline tolerates it...
+    os.makedirs(tmp_path / "tools")
+    assert _both(tmp_path, "GL004", "--update-baseline", capsys=capsys)[0] == (0, 0)
+    baseline = json.load(open(tmp_path / lint_cli.BASELINE_PATH))
+    assert [(f["rule"], f["path"]) for f in baseline["findings"]] == [
+        ("GL004", "gnot_tpu_torch/mod.py")]
+    rcs, outs = _both(tmp_path, "GL004", "--changed", capsys=capsys)
+    assert rcs == (0, 0) and all("1 baseline-masked" in o for o in outs)
+    # ...also when edits move it to another line...
+    _ta_write(tmp_path, {"gnot_tpu_torch/mod.py": "# moved\n\n" + bad})
+    assert _both(tmp_path, "GL004", "--changed", capsys=capsys)[0] == (0, 0)
+    # ...and a new finding beyond the baseline's count still fails.
+    _ta_write(tmp_path, {"gnot_tpu_torch/mod.py": bad + "\n" + bad.replace("class Box",
+                                                                             "class Box2")})
+    rcs, outs = _both(tmp_path, "GL004", "--changed", "--format", "json", capsys=capsys)
+    assert rcs == (1, 1)
+    for out in outs:
+        stats = json.loads(out)["stats"]
+        assert (stats["findings"], stats["baseline_masked"]) == (1, 1)
+    # Paths with --changed are a usage error, as in tools/lint.py.
+    assert _both(tmp_path, "GL004", "--changed", "gnot_tpu_torch", capsys=capsys)[0] == (2, 2)
+
+
+def test_changed_mode_keeps_the_cross_file_analysis(tmp_path, capsys):
+    """``--changed`` scopes the report, not the analysis: an edit to one
+    class that inverts the lock order another, unchanged file holds is
+    found (the cross-file pass reads every root), while an unchanged
+    file's own per-file finding stays out of the report; both tools
+    agree (``tests/test_analysis.py:1120-1140``)."""
+    alpha, beta = _LOCK_PAIR.split("\n\nclass Beta")
+    beta = "import threading\n\n\nclass Beta" + beta
+    rules = "GL004,GL008"
+    _fixture_repo(tmp_path, rules, {
+        "gnot_tpu_torch/alpha.py": alpha,
+        "gnot_tpu_torch/beta.py": beta.format(beta_body="self.other.poke_alpha()"),
+        "gnot_tpu_torch/old.py": _GUARDED.format(body="self._n += 1")})
+    assert lint_cli.main(["--root", str(tmp_path), "--rules", rules]) == 1
+    assert "old.py:10: GL004" in capsys.readouterr().out
+    assert _both(tmp_path, rules, "--changed", capsys=capsys)[0] == (0, 0)
+    _ta_write(tmp_path, {"gnot_tpu_torch/beta.py": beta.format(
+        beta_body="with self._lock:\n            self.other.poke_alpha()")})
+    rcs, outs = _both(tmp_path, rules, "--changed", capsys=capsys)
+    assert rcs == (1, 1)
+    for out in outs:
+        assert "GL008" in out and "alpha.py" in out and "old.py" not in out
+
+
+def test_changed_mode_reports_project_findings_for_a_doc_edit(tmp_path, capsys):
+    """A docs-only edit can cause a registry/docs drift finding (GL005,
+    project-level): ``--changed`` reports it though no ``.py`` changed
+    (``tests/test_analysis.py:1090-1118``); without git it falls back to a
+    full run."""
+    files = {f"gnot_tpu_torch/{p}": _REGISTRY for p in (
+        "obs/events.py", "resilience/faults.py", "serve/federation.py")}
+    files.update({"gnot_tpu_torch/mod.py": "x = 1\n", "docs/observability.md": _DOCS,
+                  "docs/robustness.md": _DOCS, "docs/distributed.md": _DOCS,
+                  "README.md": ""})
+    _fixture_repo(tmp_path, "GL005", files)
+    assert lint_cli.main(["--changed", "--root", str(tmp_path), "--rules", "GL005"]) == 0
+    capsys.readouterr()
+    _ta_write(tmp_path, {"docs/observability.md": _DOCS.replace("`reload` ", "")})
+    assert lint_cli.main(["--changed", "--root", str(tmp_path), "--rules", "GL005"]) == 1
+    assert "reload" in capsys.readouterr().out
+    shutil.rmtree(tmp_path / ".git")
+    assert lint_cli.main(["--changed", "--root", str(tmp_path), "--rules", "GL005"]) == 1
+    assert "git unavailable; falling back to a full run" in capsys.readouterr().err

@@ -1,17 +1,34 @@
-"""The port's parallel training against the JAX package's on the CPU.
+"""The port's parallel training and serving against the JAX package's on
+the CPU.
 
 One launch of 8 gloo ranks (``torch_ranks.py``) runs every multi-rank
 scenario of this file: the sharded train step on four meshes, gradient
 accumulation, the multi step, the flat layout on ``data4 x seq2``, the
 pipeline schedule on three pipe meshes, packed batches and the stacked
-layout on ``data4 x model2``, the ragged-tail eval (GSPMD and pipelined),
-telemetry on a mesh, the stop agreement (on a seq and on a pipe mesh) and
-the restore-walk agreement. Each is held against JAX's single-device step
-from the same carried weights at ``tests/test_sharding.py``'s and
-``tests/test_pipeline.py``'s bars. The mesh checks and refusals run in
-this process, and the CLI tests hold ``torchrun`` over 4 ranks (and over
-2, with a pipe axis) against JAX's ``main --distributed`` on 4 (and 2)
-host devices."""
+layout on ``data4 x model2``, parity mode on ``data2 x seq2 x model2`` and
+``data2 x model2 x pipe2``, the ragged-tail eval (GSPMD and pipelined),
+telemetry on a mesh, the stop agreement (on a seq and on a pipe mesh),
+the restore-walk agreement, and serving over ``data2 x seq2 x model2``
+(a hot reload, bf16, a SIGTERM to a follower alone and one to rank 0).
+Each training case is held against JAX's single-device step from the
+same carried weights at ``tests/test_sharding.py``'s and
+``tests/test_pipeline.py``'s bars, and serving against JAX's
+``Trainer.inference_engine()`` on the same mesh of 8 host devices. The
+mesh checks and refusals run in this process, and the CLI tests hold
+``torchrun`` over 4 ranks (and over 2, with a pipe axis, and 2 serving)
+against JAX's ``main --distributed`` on 4 (and 2) host devices.
+
+What JAX serves on a one-process mesh (``main --serve --distributed
+--mesh_data 2 --mesh_seq 2 --mesh_model 2`` on 8 host devices, each flag
+run): warm-up, ``--serve_dtype bfloat16``, ``--serve_packed``,
+``--scan_layers``, ``--serve_reload_every``, ``--serve_rollout_steps``,
+the tenant flags, ``--metrics_interval_s``, and the expert and pipe axes;
+``--flat_params`` on the data and seq axes. What it refuses, and the port
+with its words: several processes, ``--serve_replicas`` / ``--autoscale``
+/ ``--hosts`` on the mesh, bf16 with ``--scan_layers`` or
+``--flat_params``, ``--flat_params`` with a split weight, ``--ffn_impl
+pallas``, parity mode on seq (its bucketing is off, and seq needs
+bucketed lengths)."""
 
 import dataclasses
 import json
@@ -61,6 +78,7 @@ SMALL = dict(input_dim=2, theta_dim=1, input_func_dim=3, out_dim=1, n_input_func
 LRS = [1e-3, 8e-4]
 ROOT = torch_ranks.ROOT
 DS2M2 = dict(data=2, seq=2, model=2)
+PARITY = dict(attention_mode="parity", gelu="erf")
 D2M2P2 = dict(data=2, model=2, pipe=2)
 # The pipe meshes follow tests/test_pipeline.py:76-82 on a batch of 8:
 # M = S with 1 block a stage, M = 2 with DP, M > S with 2 blocks a stage.
@@ -86,6 +104,8 @@ CASES = {
     "multi_step": dict(mesh=DS2M2, steps="multi", over=dict(steps_per_dispatch=2)),
     "flat_data4_seq2": dict(mesh=dict(data=4, seq=2), steps="single",
                             over=dict(flat_params=True)),
+    "parity_data2_seq2_model2": dict(mesh=DS2M2, steps="single", over=dict(PARITY)),
+    "parity_data2_model2_pipe2": dict(mesh=D2M2P2, steps="single", over=dict(PARITY)),
 }
 
 
@@ -137,6 +157,37 @@ def _jax_references(jbatches, model, params, optim):
     return params4, want
 
 
+def _jax_mesh_serving(param_sets: list) -> list[list[np.ndarray]]:
+    """JAX's ``Trainer.inference_engine()`` on the serving scenarios' mesh
+    (data2 x seq2 x model2 of this process's 8 host devices, the trainer's
+    fixed pad lengths), its ``predict`` of the requests under each weight
+    set in turn, each placed with the trainer's own param shardings. The
+    trainer's state is built with ``init_params`` under one ``jax.jit``."""
+    from gnot_tpu.config import Config as JaxConfig
+    from gnot_tpu.config import DataConfig as JaxDataConfig
+    from gnot_tpu.config import MeshConfig as JaxMeshConfig
+    from gnot_tpu.config import TrainConfig as JaxTrainConfig
+
+    train, reqs = torch_ranks.serve_samples(jax_datasets)
+    cfg = JaxConfig(data=JaxDataConfig(batch_size=4), train=JaxTrainConfig(distributed=True),
+                    mesh=JaxMeshConfig(**torch_ranks.SERVE_MESH))
+    trainer = jax_trainer.Trainer(cfg, JaxModelConfig(**SMALL), train, reqs)
+    eager = jax_trainer.init_params
+    jax_trainer.init_params = lambda model, batch, seed: jax.jit(
+        lambda b: eager(model, b, seed))(batch)
+    try:
+        trainer.initialize()
+    finally:
+        jax_trainer.init_params = eager
+    outs = []
+    for params in param_sets:
+        placed = jax.tree.map(lambda old, new: jax.device_put(new, old.sharding),
+                              trainer.state.params, params)
+        trainer.state = trainer.state.replace(params=placed)
+        outs.append(trainer.inference_engine().predict(reqs))
+    return outs
+
+
 def _diverge_dirs(root):
     """Checkpoint directories whose restore walks diverge on rank 3: another
     ``latest`` file name ("candidate"), or none at all ("exhausted")."""
@@ -160,21 +211,32 @@ def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel")
     # JAX's CLI runs are the longest: they start first; the ranks start
     # before their payload (JAX's weights) is written, and wait for it.
-    cli = [_start_jax_cli(CLI, 4), _start_jax_cli(PIPE_CLI, 2)]
+    cli = [_start_jax_cli(CLI, 4), _start_jax_cli(PIPE_CLI, 2),
+           _start_jax_cli(SERVE_CLI + ["--metrics_path", str(tmp / "jax_serve" / "m.jsonl")], 2)]
     launch = torch_ranks.Launch("train", 8, tmp / "payload.pt", tmp / "out")
     try:
         jbatches = list(JaxLoader(jax_datasets.synth_ns2d(16, n_points=64), 8))
         optim = JaxOptimConfig()
         model, params = _jax_params(jbatches[0])
         params4, want = _jax_references(jbatches, model, params, optim)
+        reload = jax.tree.map(lambda a: a * np.float32(0.9), params)
         payload = dict(model=SMALL, lrs=LRS, cases=CASES, stop_dir=str(tmp / "stop"),
                        pipe_stop_dir=str(tmp / "pipe_stop"), diverge=_diverge_dirs(tmp),
                        params={2: params_from_jax(params, ModelConfig(**SMALL)),
                                4: params_from_jax(params4, ModelConfig(
-                                   **dict(SMALL, n_attn_layers=4)))})
+                                   **dict(SMALL, n_attn_layers=4)))},
+                       serve_reload=params_from_jax(reload, ModelConfig(**SMALL)))
         torch_ranks.write_payload(payload, tmp / "payload.pt")
         cli.append(_start_port_cli(tmp / "cli", payload["params"][2]))
         cli.append(_start_port_cli(tmp / "pipe_cli", payload["params"][2], pipe=True))
+        cli.append(_popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                           "--master_port", str(torch_ranks.free_port()), "-m",
+                           "gnot_tpu_torch.main", *SERVE_CLI, "--device", "cpu",
+                           "--metrics_path", str(tmp / "port_serve" / "m.jsonl")]))
+        parity = JaxGNOT(JaxModelConfig(**SMALL, **PARITY))
+        want["parity"] = _jax_steps(jax_trainer.make_train_step(parity, optim, "rel_l2"), params,
+                                    optim, jbatches[:1])
+        want["serve"] = _jax_mesh_serving([params, reload])
         step = jax_trainer.make_train_step(model, optim, "rel_l2")
         want["single"] = _jax_steps(step, params, optim, jbatches[:1])
         want["two"] = _jax_steps(step, params, optim, jbatches)
@@ -185,7 +247,9 @@ def ranks(tmp_path_factory):
         tests = jax_datasets.synth_ns2d(6, seed=5, n_points=64)
         want["eval"] = float(np.mean([float(evaluate(params, b)) for b in JaxLoader(tests, 4)]))
         results = launch.wait(timeout_s=240)
-        yield dict(results=results, want=want, payload=payload, cli=cli, cli_dir=tmp)
+        # The finale's records (rank 7 died in it and wrote none).
+        dead = [torch.load(tmp / "out" / f"dead{r}.pt", weights_only=False) for r in range(7)]
+        yield dict(results=results, want=want, payload=payload, cli=cli, cli_dir=tmp, dead=dead)
     finally:
         launch.kill()
         for p in cli:
@@ -375,11 +439,9 @@ def test_mesh_validation_has_jax_messages():
         mesh_lib._validate_gspmd(ModelConfig(**dict(SMALL, n_expert=3)), mesh)
     with pytest.raises(ValueError, match="ffn_impl='pallas' is single-device/DP only"):
         mesh_lib._validate_gspmd(ModelConfig(**dict(SMALL, ffn_impl="pallas")), mesh)
-    with pytest.raises(NotPortedError, match="parity"):
-        mesh_lib._validate_gspmd(
-            ModelConfig(**dict(SMALL, attention_mode="parity", gelu="erf")),
-            mesh_lib.Mesh(dict(shape, data=4, expert=1, seq=2), mesh_lib.rank_coords(shape, 0),
-                          {}))
+    # Parity mode runs on the seq and model axes, as JAX's GSPMD does.
+    for axes in (dict(data=4, seq=2), dict(data=4, model=2), dict(data=2, model=2, pipe=2)):
+        mesh_lib.validate_layers(ModelConfig(**dict(SMALL, **PARITY)), _mesh(**axes))
 
 
 def _mesh(**axes):
@@ -565,12 +627,168 @@ def test_a_managed_job_without_torchrun_env_is_refused(monkeypatch):
         multihost.initialize("cpu")
 
 
-def test_device_id_and_serve_do_not_compose_with_distributed(capsys):
+def test_device_id_and_serve_do_not_compose_with_distributed(capsys, monkeypatch):
+    """``--device_id`` with ``--distributed`` is refused as before; ``--serve
+    --distributed`` serves on one node (the serving tests below), and what
+    JAX refuses of it raises JAX's ValueError, word for word, before any
+    rank waits: several nodes (JAX: several processes), and replicas, the
+    elastic pool or the federation on the trainer's mesh. JAX's messages
+    come from its own ``_run_serve``, stopped at each check."""
+    import types
+
+    from gnot_tpu import main as jax_main
+    from gnot_tpu.config import Config as JaxConfig
+    from gnot_tpu.config import ServeConfig as JaxServeConfig
+
     with pytest.raises(SystemExit):
         port_main.main(["--distributed", "--device_id", "0", "--device", "cpu"])
     assert "--device_id pins a single device; drop --distributed" in capsys.readouterr().err
-    with pytest.raises(NotPortedError, match="--serve with --distributed"):
-        port_main.main(["--distributed", "--serve", "--device", "cpu"])
+
+    def jax_refusal(processes: int, **serve) -> str:
+        cfg = JaxConfig(serve=JaxServeConfig(**serve))
+        trainer = types.SimpleNamespace(initialize=lambda: None, mesh="mesh")
+        with monkeypatch.context() as m:
+            m.setattr(jax, "process_count", lambda: processes)
+            with pytest.raises(ValueError) as err:
+                jax_main._run_serve(None, cfg, trainer, [], None, None)
+        return str(err.value)
+
+    base = ["--serve", "--distributed", "--device", "cpu"]
+    cases = [(dict(processes=1, replicas=2), ["--serve_replicas", "2"]),
+             (dict(processes=1, autoscale=True), ["--autoscale"]),
+             (dict(processes=1, replicas=2, hosts=2), ["--serve_replicas", "2", "--hosts", "2"])]
+    for serve, flags in cases:
+        with pytest.raises(ValueError) as got:
+            port_main.main(base + flags)
+        assert not isinstance(got.value, NotPortedError)
+        assert str(got.value) == jax_refusal(**serve)
+    monkeypatch.setattr(multihost, "node_count", lambda: 2)
+    with pytest.raises(ValueError) as got:
+        port_main.main(base)
+    assert not isinstance(got.value, NotPortedError)
+    assert str(got.value) == jax_refusal(2)
+
+
+def test_a_world_of_one_serves_bitwise_the_run_without_distributed():
+    """``--serve --distributed`` alone is a serving mesh of one: its
+    outputs are bitwise the run without ``--distributed`` (one pad shape:
+    the NS2d graphs all have 64 points), with one dispatch shape and the
+    mesh's counters in the summary; bf16 with the stacked layout is JAX's
+    refusal."""
+    argv = ["--serve", "--device", "cpu", "--synthetic", "ns2d", "--synth_size", "64",
+            "--n_train", "4", "--n_test", "6", "--n_attn_layers", "1",
+            "--n_attn_hidden_dim", "16", "--n_mlp_num_layers", "1", "--n_mlp_hidden_dim", "16",
+            "--n_input_hidden_dim", "16", "--n_expert", "2", "--n_head", "2"]
+    plain = port_main.run(argv)
+    mesh = port_main.run(argv + ["--distributed"])
+    assert [r.ok for r in mesh.results] == [True] * 6
+    for a, b in zip(plain.results, mesh.results):
+        assert np.array_equal(a.output, b.output)
+    assert mesh.summary["compiled_shapes"] == 1
+    assert mesh.summary["mesh"]["shape"] == dict(data=1, seq=1, model=1, expert=1, pipe=1)
+    assert mesh.summary["mesh"]["weights"] == 1
+    with pytest.raises(ValueError, match="serves the standard param layout only; drop "
+                                         r"--scan_layers/--flat_params \(or serve float32\)"):
+        port_main.run(argv + ["--distributed", "--scan_layers", "--serve_dtype", "bfloat16"])
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_mesh_serving_matches_jax_s_mesh_engine(ranks):
+    """Serving on data2 x seq2 x model2: 16 requests all answered, each
+    output within 1e-4 / 1e-5 of JAX's ``inference_engine()`` on the same
+    mesh from the same weights, before and after a hot reload; one
+    dispatch shape (the fixed pads); every rank ran every dispatch and
+    both weight publishes."""
+    res = [r["serve"] for r in ranks["results"]]
+    got = res[0]
+    want, want_reload = ranks["want"]["serve"]
+    assert got["ok"] == [True] * 16 and got["reloaded"]
+    for o, w in zip(got["outputs"], want):
+        np.testing.assert_allclose(o, w, rtol=1e-4, atol=1e-5)
+    for o, w in zip(got["reload_outputs"], want_reload):
+        np.testing.assert_allclose(o, w, rtol=1e-4, atol=1e-5)
+    assert max(_rel(a, b) for a, b in zip(want, want_reload)) > 1e-2  # the reload changed them
+    summary = got["summary"]
+    assert (summary["completed"], summary["compiled_shapes"], summary["reloads"]) == (16, 1, 1)
+    assert got["stats"]["dispatches"] == summary["dispatches"] + 1  # and the warm-up
+    assert got["stats"]["weights"] == 2
+    for r in res[1:]:
+        assert r["f32"]["dispatches"] == got["stats"]["dispatches"]
+        assert r["f32"]["weights"] == 2
+
+
+def test_a_sigterm_to_a_follower_alone_does_not_end_it(ranks):
+    """Rank 3 got a SIGTERM after its second op: it recorded it, ran every
+    later dispatch and left on rank 0's stop op, as every other follower."""
+    follows = [r["serve"]["f32"] for r in ranks["results"][1:]]
+    assert [f["sigterm"] for f in follows] == [i == 2 for i in range(7)]
+    assert len({f["dispatches"] for f in follows}) == 1
+
+
+def test_bf16_serving_on_a_mesh(ranks):
+    """bf16 on data2 x seq2 x model2 (a cast copy of each rank's shards)
+    against the port's single-device bf16 engine on the same pads and
+    weights, and against the single-device f32 one at JAX's bf16 serving
+    bar (2e-2 relative, ``tests/test_serve.py:1468``)."""
+    got = ranks["results"][0]["serve"]
+    for a, b, c in zip(got["bf16"], got["bf16_single"], got["f32_single"]):
+        assert _rel(a, b) < BF16_MESH_REL
+        assert _rel(a, c) < 2e-2
+
+
+def test_packed_serving_on_a_mesh(ranks):
+    """Packed dispatches on data2 x seq2 x model2 (the plan's rows a
+    multiple of the data ranks, split over them; each seq rank holds every
+    point of its rows) against the port's single-device packed engine, at
+    the model bar; every follower ran them."""
+    got = ranks["results"][0]["serve"]
+    assert got["packed_rows"] % 2 == 0 and len(got["packed"]) == 8
+    for a, b in zip(got["packed"], got["packed_single"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert {r["serve"]["packed"]["dispatches"] for r in ranks["results"][1:]} == {2}
+
+
+def test_a_sigterm_to_rank_0_drains_every_rank(ranks):
+    """``main --serve --distributed`` on every rank with a SIGTERM to rank
+    0 as it submits its third request: rank 0 submits no more, answers the
+    three, drains and sends the stop op; every follower ran every dispatch
+    and returned."""
+    res = [r["serve_sigterm"] for r in ranks["results"]]
+    summary = res[0]["summary"]
+    assert (summary["requests"], summary["completed"]) == (3, 3)
+    for r in res[1:]:
+        assert r["follower"]["dispatches"] == summary["mesh"]["dispatches"]
+
+
+def test_a_dead_follower_makes_rank_0_raise_not_wait(ranks):
+    """Rank 7 of a serving mesh dies after the weights op: rank 0's next
+    dispatch raises (the lost connection, well inside the group's 60 s
+    timeout), every later op raises at once without touching the group,
+    and the other followers' waits end with an error, not at the
+    timeout."""
+    dead = ranks["dead"]
+    assert dead[0]["dispatched"] == 0 and dead[0]["raised"] is not None
+    assert dead[0]["raised_after_s"] < 30
+    assert dead[0]["then"].startswith("the serving mesh failed earlier")
+    for d in dead[1:]:
+        assert d["raised"] is not None and d["after_s"] < 30
+
+
+@pytest.mark.parametrize("case", ["parity_data2_seq2_model2", "parity_data2_model2_pipe2"])
+def test_parity_step_on_a_mesh_matches_jax_single_device(ranks, case):
+    """Parity mode (the reference's interleaved head merge, erf GELU, no
+    masks) on data2 x seq2 x model2 and on data2 x model2 x pipe2: the merge
+    gathers every head and point of a row, so one step is JAX's
+    single-device parity step at ``tests/test_sharding.py``'s bars."""
+    want_losses, want_params = ranks["want"]["parity"]
+    losses = [r["cases"][case]["losses"] for r in ranks["results"]]
+    assert all(l == losses[0] for l in losses)
+    np.testing.assert_allclose(losses[0], want_losses, rtol=1e-5)
+    _assert_params(ranks["results"][0]["cases"][case]["params"], want_params, 2e-4, 2e-5, case)
 
 
 # -- the CLI: torchrun over 4 (2) ranks against JAX's main on 4 (2) devices --
@@ -582,6 +800,19 @@ BASE_CLI = ["--synthetic", "ns2d", "--synth_size", "64", "--n_train", "8", "--n_
             "--distributed"]
 CLI = BASE_CLI + ["--mesh_seq", "2", "--mesh_model", "2"]
 PIPE_CLI = BASE_CLI + ["--mesh_pipe", "2"]
+SERVE_CLI = ["--serve", "--distributed", "--mesh_data", "2", "--synthetic", "ns2d",
+             "--synth_size", "64", "--n_train", "8", "--n_test", "8", "--batch_size", "4",
+             "--n_attn_layers", "1", "--n_attn_hidden_dim", "16", "--n_mlp_num_layers", "1",
+             "--n_mlp_hidden_dim", "16", "--n_input_hidden_dim", "16", "--n_expert", "2",
+             "--n_head", "2"]
+# bf16 serving on the mesh against the single-device bf16 engine: the
+# model axis splits the hidden sums and the seq axis the Grams, each part
+# rounded to bf16 where one device rounds the whole sum. Sound runs read
+# 2.0e-3 to 2.6e-3 per request, as far as the single-device bf16 engine
+# is from f32 (2.7e-3 to 3.2e-3).
+BF16_MESH_REL = 1e-2
+# The serve summary's keys that only the port's server writes.
+PORT_SUMMARY_KEYS = {"dispatch_ms_p50", "dispatch_ms_max"}
 
 
 # JAX's ``main`` with its ``init_params`` under one ``jax.jit``: bitwise the
@@ -670,7 +901,7 @@ def test_torchrun_cli_matches_jax_main_distributed(ranks):
     --distributed`` with the same flags on 4 host devices (both meshes
     1 x 2 x 2): the final train loss and test metric at rtol 1e-5."""
     cli, tmp_path = ranks["cli"], ranks["cli_dir"] / "cli"
-    jax_out, port_out = _cli_outputs([cli[0], cli[2]])
+    jax_out, port_out = _cli_outputs([cli[0], cli[3]])
     assert "Distributed: backend=gloo ranks=4 nodes=1 device=cpu" in port_out
     want = _console_epoch(jax_out)
     got = _epoch_record(tmp_path / "port" / "m.jsonl")
@@ -687,7 +918,7 @@ def test_torchrun_pipe_cli_matches_jax_main_distributed(ranks):
     host devices (one block a stage, M = S = 2): the epoch's train loss and
     test metric within 1e-5."""
     cli, tmp_path = ranks["cli"], ranks["cli_dir"] / "pipe_cli"
-    jax_out, port_out = _cli_outputs([cli[1], cli[3]])
+    jax_out, port_out = _cli_outputs([cli[1], cli[4]])
     assert "Distributed: backend=gloo ranks=2 nodes=1 device=cpu" in port_out
     want = _console_epoch(jax_out)
     got = _epoch_record(tmp_path / "port" / "m.jsonl")
@@ -695,3 +926,30 @@ def test_torchrun_pipe_cli_matches_jax_main_distributed(ranks):
     np.testing.assert_allclose(got["test_metric"], want["test_metric"], rtol=1e-5)
     manifest = json.load(open(tmp_path / "port" / "run.json"))
     assert manifest["mesh"] == dict(data=1, seq=1, model=1, expert=1, pipe=2)
+
+
+def test_torchrun_serving_cli_matches_jax_main(ranks):
+    """``torchrun --nproc_per_node 2 -m gnot_tpu_torch.main --serve
+    --distributed --mesh_data 2 --device cpu`` against JAX's ``main --serve
+    --distributed --mesh_data 2`` on 2 host devices: the same ``Serve: N/M
+    ok`` count, the same key set of the ``serve_summary`` record (but the
+    port's own two, ``server.py``'s ``dispatch_ms_*``), and the port's rank
+    1 printing no summary of its own."""
+    cli, tmp = ranks["cli"], ranks["cli_dir"]
+    jax_out, port_out = _cli_outputs([cli[2], cli[5]])
+
+    def served(out):
+        (line,) = [l for l in out.splitlines() if l.startswith("Serve: ")]
+        return line.split(",")[0]
+
+    assert served(port_out) == served(jax_out) == "Serve: 8/8 ok"
+    assert port_out.count('{"serve_summary"') == 1
+
+    def summary(path):
+        (rec,) = [r for r in map(json.loads, open(path)) if r.get("event") == "serve_summary"]
+        return rec
+
+    port_keys = set(summary(tmp / "port_serve" / "m.jsonl"))
+    jax_keys = set(summary(tmp / "jax_serve" / "m.jsonl"))
+    assert port_keys - PORT_SUMMARY_KEYS == jax_keys
+    assert json.load(open(tmp / "port_serve" / "run.json"))["mesh"]["data"] == 2

@@ -162,12 +162,14 @@ def _collectives(payload: dict, rank: int) -> dict:
 
 def _small_config(payload: dict, *, mesh: dict | None, batch_size: int, **over):
     """The config of a case: ``over`` may set the optimizer's ``grad_accum``
-    and ``flat_params``, the model's ``n_attn_layers`` and ``scan_layers``,
-    the data's ``packed``; the rest are train fields."""
+    and ``flat_params``, the model's ``n_attn_layers``, ``scan_layers``,
+    ``attention_mode`` and ``gelu``, the data's ``packed``; the rest are
+    train fields."""
     from gnot_tpu_torch.config import (
         Config, DataConfig, MeshConfig, ModelConfig, OptimConfig, TrainConfig)
 
-    model = {k: over.pop(k) for k in ("n_attn_layers", "scan_layers") if k in over}
+    model = {k: over.pop(k) for k in ("n_attn_layers", "scan_layers", "attention_mode", "gelu")
+             if k in over}
     mc = ModelConfig(**dict(payload["model"], **model))
     optim = OptimConfig(grad_accum=over.pop("grad_accum", 1),
                         flat_params=over.pop("flat_params", False))
@@ -250,6 +252,8 @@ def _train(payload: dict, rank: int) -> dict:
     out["stop"] = _stop_agreement(payload, rank, dict(data=4, seq=2), stop_dir=payload["stop_dir"])
     out["pipe_stop"] = _stop_agreement(payload, rank, dict(data=2, model=2, pipe=2),
                                        stop_dir=payload["pipe_stop_dir"])
+    out["serve"] = _serve_mesh(payload, rank)
+    out["serve_sigterm"] = _serve_sigterm(payload, rank)
     out["diverge"] = {}
     for which, dirs in payload["diverge"].items():
         try:
@@ -354,6 +358,188 @@ def _stop_agreement(payload: dict, rank: int, mesh: dict, stop_dir: str) -> dict
     return res
 
 
+#: The serving scenarios' mesh and requests: NS2d graphs of 64 points.
+SERVE_MESH = dict(data=2, seq=2, model=2)
+
+
+def serve_samples(datasets):
+    """The serving scenarios' train split (which fixes the pad lengths) and
+    requests; ``datasets`` is the port's or the JAX package's module."""
+    return datasets.synth_ns2d(8, n_points=64), datasets.synth_ns2d(8, seed=7, n_points=64)
+
+
+def _serve_mesh(payload: dict, rank: int) -> dict:
+    """Serving on data2 x seq2 x model2 (``serve/mesh_serve.py``): rank 0's
+    ``InferenceServer`` over a ``MeshEngine`` publishing the carried
+    weights, the 8 requests, a hot reload to the second weight set, the 8
+    requests again, then a bf16 engine and a packed one on the same
+    trainer; every other rank follows. Rank 3 sends itself a SIGTERM after its second op, which
+    must not end it."""
+    import signal
+
+    import torch
+
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.data.batch import PackPlan, pack_prefix
+    from gnot_tpu_torch.models.gnot import GNOT
+    from gnot_tpu_torch.serve import mesh_serve
+    from gnot_tpu_torch.serve.engine import InferenceEngine
+    from gnot_tpu_torch.serve.server import InferenceServer
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    cfg, mc = _small_config(payload, mesh=SERVE_MESH, batch_size=4)
+    train, reqs = serve_samples(datasets)
+    trainer = Trainer(cfg, mc, train, reqs, device="cpu")
+    weights, reload = payload["params"][2], payload["serve_reload"]
+    if rank != 0:
+        if rank == 3:
+            recv, seen = mesh_serve.Wire.recv, []
+
+            def recv_then_signal(wire):
+                got = recv(wire)
+                seen.append(got[0]["op"])
+                if len(seen) == 2:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return got
+
+            mesh_serve.Wire.recv = recv_then_signal
+        out = {"f32": mesh_serve.follow(trainer, dtype="float32"),
+               "bf16": mesh_serve.follow(trainer, dtype="bfloat16"),
+               "packed": mesh_serve.follow(trainer, dtype="float32")}
+        return out
+    out = {}
+    engine = mesh_serve.MeshEngine(trainer, batch_size=4)
+    try:
+        engine.swap_params(weights)
+        server = InferenceServer(engine, max_batch=4, max_wait_ms=1.0,
+                                 reload_fn=lambda **kw: (reload, {"name": "reload"}))
+        server.start(warmup=reqs)
+        first = [f.result(timeout=60) for f in [server.submit(s) for s in reqs]]
+        reloaded = server.reload()
+        second = [f.result(timeout=60) for f in [server.submit(s) for s in reqs]]
+        out["summary"] = server.drain(timeout_s=60)
+    finally:
+        engine.close()
+    out.update(reloaded=reloaded, stats=mesh_serve.stats_summary(engine.stats),
+               ok=[r.ok for r in first + second],
+               outputs=[r.output for r in first], reload_outputs=[r.output for r in second])
+    # bf16 on the same mesh, against the port's single-device bf16 engine.
+    engine = mesh_serve.MeshEngine(trainer, batch_size=4, dtype="bfloat16")
+    try:
+        engine.swap_params(weights)
+        pn, pf = engine.bucket_key(reqs[0])
+        out["bf16"] = [o for i in range(0, 8, 4)
+                       for o in engine.infer(reqs[i:i + 4], pad_nodes=pn, pad_funcs=pf)]
+    finally:
+        engine.close()
+    # Packed dispatches (rows over data, every point on each seq rank).
+    plan = PackPlan.for_slices(reqs, chunk=PACK_CHUNK, batch_size=4,
+                               per_devices=trainer.mesh.local_data)
+    groups, rest = [], list(reqs)
+    while rest:
+        n = len(pack_prefix([r.coords.shape[0] for r in rest], plan))
+        groups.append(rest[:n])
+        rest = rest[n:]
+    engine = mesh_serve.MeshEngine(trainer, batch_size=4)
+    try:
+        engine.swap_params(weights)
+        out["packed"] = [o for g in groups for o in engine.infer_packed(g, plan)]
+    finally:
+        engine.close()
+    out["packed_rows"] = plan.n_rows
+    single = GNOT(mc)
+    single.load_state_dict(weights)
+    one = InferenceEngine(single, batch_size=4, dtype="bfloat16")
+    out["bf16_single"] = [o for i in range(0, 8, 4)
+                          for o in one.infer(reqs[i:i + 4], pad_nodes=pn, pad_funcs=pf)]
+    one32 = InferenceEngine(single, batch_size=4)
+    out["f32_single"] = [o for i in range(0, 8, 4)
+                         for o in one32.infer(reqs[i:i + 4], pad_nodes=pn, pad_funcs=pf)]
+    out["packed_single"] = [o for g in groups for o in one32.infer_packed(g, plan)]
+    return out
+
+
+def _serve_sigterm(payload: dict, rank: int) -> dict:
+    """``main --serve --distributed`` on data2 x seq2 x model2 on every rank
+    (the CLI's path, in the group this rank already joined), rank 0 sending
+    itself a SIGTERM as it submits the third request: rank 0 stops
+    submitting and drains, every rank returns."""
+    import signal
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.serve.server import InferenceServer
+
+    argv = ["--serve", "--distributed", "--device", "cpu", "--mesh_data", "2", "--mesh_seq", "2",
+            "--mesh_model", "2", "--synthetic", "ns2d", "--synth_size", "64", "--n_train", "8",
+            "--n_test", "8", "--n_attn_layers", "1", "--n_attn_hidden_dim", "16",
+            "--n_mlp_num_layers", "1", "--n_mlp_hidden_dim", "16", "--n_input_hidden_dim", "16",
+            "--n_expert", "2", "--n_head", "2"]
+    if rank == 0:
+        submit, calls = InferenceServer.submit, []
+
+        def submit_then_signal(server, sample, **kw):
+            calls.append(1)
+            if len(calls) == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return submit(server, sample, **kw)
+
+        InferenceServer.submit = submit_then_signal
+    try:
+        run = port_main.run(argv)
+    finally:
+        if rank == 0:
+            InferenceServer.submit = submit
+    if run.follower is not None:
+        return {"follower": run.follower}
+    return {"summary": {k: run.summary[k] for k in ("requests", "completed", "mesh")}}
+
+
+def _dead_follower(payload: dict, rank: int) -> dict:
+    """The last act of the serving mesh (data2 x seq2 x model2), after the
+    results are saved: rank 7 dies after its first op (the weights); rank
+    0's next dispatch must raise, not wait, and every later op raise at
+    once; the other followers' waits end when rank 0 leaves."""
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.serve import mesh_serve
+    from gnot_tpu_torch.train.trainer import Trainer
+
+    cfg, mc = _small_config(payload, mesh=SERVE_MESH, batch_size=4)
+    train, reqs = serve_samples(datasets)
+    trainer = Trainer(cfg, mc, train, reqs, device="cpu")
+    t0 = time.monotonic()
+    if rank == 0:
+        engine = mesh_serve.MeshEngine(trainer, batch_size=4)
+        engine.swap_params(payload["params"][2])
+        pn, pf = engine.bucket_key(reqs[0])
+        out = {"raised": None, "dispatched": 0}
+        try:
+            for _ in range(4):
+                engine.infer(reqs[:4], pad_nodes=pn, pad_funcs=pf)
+                out["dispatched"] += 1
+        except Exception as exc:  # noqa: BLE001 — what the test reads
+            out["raised"] = f"{type(exc).__name__}: {exc}"
+        out["raised_after_s"] = time.monotonic() - t0
+        try:
+            engine.infer(reqs[:4], pad_nodes=pn, pad_funcs=pf)
+        except RuntimeError as exc:
+            out["then"] = str(exc)
+        engine.close()  # sends nothing after a failure
+        return out
+    if rank == 7:
+        recv = mesh_serve.Wire.recv
+
+        def recv_then_die(wire):
+            got = recv(wire)
+            os._exit(0)
+
+        mesh_serve.Wire.recv = recv_then_die
+    try:
+        mesh_serve.follow(trainer, dtype="float32")
+        return {"raised": None}
+    except Exception as exc:  # noqa: BLE001 — what the test reads
+        return {"raised": f"{type(exc).__name__}: {exc}", "after_s": time.monotonic() - t0}
+
+
 def _sp_cuda(payload: dict, rank: int) -> dict:
     """``fused_nla_sp`` over 2 ranks sharing the card (gloo with CUDA
     tensors), psum and ring: its blocks, its gradient parts and its kernel
@@ -380,6 +566,10 @@ def _sp_cuda(payload: dict, rank: int) -> dict:
 
 
 SCENARIOS = {"collectives": _collectives, "train": _train, "sp_cuda": _sp_cuda}
+#: What a scenario's ranks do after saving their results, each saving its
+#: own to ``<out>/<name><rank>.pt`` and leaving without the group's
+#: teardown (the finale breaks the group on purpose).
+FINALES = {"train": ("dead", _dead_follower)}
 
 
 def main() -> None:
@@ -400,8 +590,14 @@ def main() -> None:
                 raise TimeoutError(f"no payload at {payload_path}")
             time.sleep(0.05)
         payload = torch.load(payload_path, weights_only=False)
-        result = SCENARIOS[scenario](payload, multihost.process_index())
-        torch.save(result, Path(out) / f"rank{multihost.process_index()}.pt")
+        rank = multihost.process_index()
+        result = SCENARIOS[scenario](payload, rank)
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+        if scenario in FINALES:
+            name, finale = FINALES[scenario]
+            torch.save(finale(payload, rank), Path(out) / f"{name}{rank}.pt")
+            sys.stdout.flush()
+            os._exit(0)
     finally:
         multihost.shutdown()
 
