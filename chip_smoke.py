@@ -344,6 +344,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 1e-5 of its single-device parity run, with the step time and
    the merge's all-gathers and their host ms a step; (d) ``python -m
    gnot_tpu_torch.analysis --changed`` exits 0.
+22. the serving operator's tools on the card host
+   (``gnot_tpu_torch/tools/``): (a) phase 4's serving through ``main
+   --serve --ffn_impl pallas`` with ``--trace_path``, ``--metrics_path``
+   and ``--metrics_interval_s 0.05`` and a ``ProgramCatalog`` on the
+   server (as phase 16 attaches one): 16/16 within phase 4's bars, 8 FFN
+   launches a dispatch, warm-ups included, and the final snapshot agreeing
+   with the summary; (b) the readers on (a)'s files, each in a process
+   where importing ``jax``, ``flax`` or ``gnot_tpu`` raises (and none was
+   tried): ``trace_report`` with 16 ``queue_wait`` and 16 ``device`` spans
+   and a request's critical path, ``metrics_report`` exiting 0 with its
+   final-snapshot cross-check agreeing, and the capacity fold of the
+   ``serve_summary`` event with no agreement problem; (c) ``serve_smoke``
+   on the card in its default mode and with ``--replicas 2``,
+   ``--rollout``, ``--tenants``, ``--hosts 2``, ``--capacity`` and
+   ``--trace_path``, each ending with no failure; (d) each reader's host
+   ms and each smoke mode's wall time beside the card's name and power
+   limit.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -393,7 +410,8 @@ counts over phase 20's runs (b) native, (b) with the native path off and
 (c), and ``native_direct_calls`` the C calls of phase 20 (a);
 ``mesh_serve_launches`` and ``mesh_parity_train_launches`` its counts over
 both ranks of phase 21's serving runs (a) and parity runs (c), 0 (a mesh
-runs the FFN's torch path). Launches
+runs the FFN's torch path); ``readers_serve_launches`` its count over phase
+22 (a), the served run whose files the readers read. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -5910,6 +5928,219 @@ def mesh_serving_phase(torch, np, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 22: the serving operator's tools on the card host.
+# --------------------------------------------------------------------------
+TOOLS_OUT = TRAIN_OUT / "tools22"
+# (a): phase 4's serving (the reference-default model, 16 NS2d-1k requests,
+# max_batch 4) with the trace, the event sink and the live metrics plane;
+# the paths are appended per run.
+TOOLS_SERVE_ARGV = SERVE13_ARGV + ["--metrics_interval_s", "0.05"]
+# (c): the smoke's modes on the card; the metrics path is appended per run
+# (and the trace path to "trace").
+SMOKE22_MODES = {
+    "default": [],
+    "replicas": ["--replicas", "2", "--inject_fault", "none"],
+    "rollout": ["--n", "6", "--rollout", "3", "--replicas", "2"],
+    "tenants": ["--tenants", "--n", "24"],
+    "hosts": ["--n", "8", "--hosts", "2", "--replicas", "2", "--inject_fault", "none"],
+    "capacity": ["--n", "6", "--mesh_lo", "80", "--mesh_hi", "200", "--inject_fault", "none",
+                 "--deadline_ms", "10000", "--capacity"],
+    "trace": ["--n", "8"],
+}
+# Runs `python -m <module> <args>` (or `-c <code> <args>`) in a process where
+# every import of JAX, flax or the JAX package raises; its last stderr line
+# names the imports it refused and the ones loaded anyway (both must be []).
+NO_JAX = r"""
+import runpy, sys, time
+BLOCKED = ("jax", "jaxlib", "flax", "gnot_tpu")
+refused = []
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            refused.append(name)
+            raise ImportError(f"import of {name} refused: this process runs without JAX")
+        return None
+sys.meta_path.insert(0, NoJax())
+target, sys.argv = sys.argv[1], sys.argv[1:]
+code, t0 = 0, time.perf_counter()
+try:
+    if target == "-c":
+        source, sys.argv = sys.argv[1], ["-c"] + sys.argv[2:]
+        exec(compile(source, "<no-jax>", "exec"), {"__name__": "__main__"})
+    else:
+        runpy.run_module(target, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(f"no-jax: refused {refused} loaded {loaded} in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+      file=sys.stderr)
+sys.exit(code)
+"""
+# The capacity fold of a run's serve_summary event (capacity_report's pure
+# parts), run under NO_JAX: one JSON line.
+CAPACITY_FOLD = r"""
+import json, sys
+from gnot_tpu_torch.tools import capacity_report as cr
+events = [json.loads(line) for line in open(sys.argv[1]) if line.strip()]
+[summary] = [e for e in events if e.get("event") == "serve_summary"]
+model = summary["capacity_model"]
+print(json.dumps({"programs": cr.program_rows(model), "capacity": cr.capacity_row(summary, model),
+                  "pack": cr.pack_recommendation(model, 64, 4, None)}))
+"""
+
+
+def no_jax_run(*args: str) -> tuple[subprocess.CompletedProcess, float]:
+    """``NO_JAX`` with ``args`` from the checkout's root: the finished
+    process and its wall seconds. Fails unless it exits 0 having refused
+    and loaded nothing of JAX."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", NO_JAX, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    wall = time.monotonic() - t0
+    note = (proc.stderr.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not note.startswith("no-jax: refused [] loaded []"):
+        raise RuntimeError(f"[tools] {args[0]} without JAX: exit {proc.returncode}\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc, wall
+
+
+def tools_phase(torch, np, card: str, layers) -> dict:
+    """Phase 22: (a) phase 4's serving through ``main --serve --ffn_impl
+    pallas`` with ``--trace_path``, ``--metrics_path`` and
+    ``--metrics_interval_s`` and a program catalog on the server, held to
+    phase 4's bars; (b) the port's readers on (a)'s files in processes
+    where JAX cannot be imported: ``trace_report``, ``metrics_report`` and
+    the capacity fold; (c) ``serve_smoke`` on the card in its default mode
+    and with ``--replicas 2``, ``--rollout``, ``--tenants``, ``--hosts 2``,
+    ``--capacity`` and ``--trace_path``; (d) each reader's host ms and each
+    smoke mode's wall time. Returns the FFN kernel's launches over (a)."""
+    import shutil
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.serve.catalog import ProgramCatalog
+    from gnot_tpu_torch.tools import capacity_report, metrics_report, serve_smoke, trace_report
+
+    shutil.rmtree(TOOLS_OUT, ignore_errors=True)
+    TOOLS_OUT.mkdir(parents=True)
+    t_phase = time.monotonic()
+
+    # (a) Full-width serving that writes the readers' files. main attaches
+    # no catalog; the server gets one on the run's sink, as phase 16's do.
+    d = TOOLS_OUT / "serve"
+    argv = TOOLS_SERVE_ARGV + ["--metrics_path", str(d / "m.jsonl"),
+                               "--trace_path", str(d / "t.json")]
+    server_cls = port_main.InferenceServer
+
+    def with_catalog(engine, **kw):
+        return server_cls(engine, catalog=ProgramCatalog(sink=kw.get("sink")), **kw)
+
+    port_main.InferenceServer = with_catalog
+    try:
+        fused_gated_ffn_kernel.launches = 0
+        t0 = time.monotonic()
+        run, lines = run_observed(port_main, argv)
+        serve_s = time.monotonic() - t0
+        launches = fused_gated_ffn_kernel.launches
+    finally:
+        port_main.InferenceServer = server_cls
+    summary = run.summary
+    per_forward = 2 * run.model.config.n_attn_layers
+    dispatches = summary["dispatches"] + summary["warmed_buckets"]
+    worst = hold_to_plain(np, "tools a", run.results, plain_outputs(torch, layers, run.model,
+                                                                     run.samples))
+    log(f"[tools] (a) python -m gnot_tpu_torch.main {' '.join(argv)} (a ProgramCatalog on the "
+        f"server): {sum(r.ok for r in run.results)}/{len(run.results)} ok in {serve_s:.2f} s, "
+        f"{[line for line in lines if line.startswith(('Wrote ', 'Metrics plane'))]}; outputs "
+        f"vs the plain-FFN forward max_abs_err {worst:.3e} (rtol {MODEL_RTOL} atol "
+        f"{MODEL_ATOL}); fused_gated_ffn launches {launches} = {per_forward} x {dispatches} "
+        f"dispatches ({summary['dispatches']} served + {summary['warmed_buckets']} warm-up)")
+    if (len(run.results) != 16 or not all(r.ok for r in run.results)
+            or launches != per_forward * dispatches or not summary.get("capacity_model")
+            or (run.metrics or {}).get("summary_agrees") is not True):
+        raise RuntimeError(f"[tools] (a) the served run is not whole: {json.dumps(summary)}")
+
+    # (b) The readers on (a)'s files, without JAX.
+    trace, series, metrics = d / "t.json", d / "m.series.jsonl", d / "m.jsonl"
+    proc, trace_wall = no_jax_run("gnot_tpu_torch.tools.trace_report", str(trace), "--json")
+    rep = json.loads(proc.stdout)
+    kinds = rep["kinds"]
+    cp = rep["critical_path"]
+    log(f"[tools] (b) trace_report {trace.relative_to(ROOT)} (no JAX, {trace_wall:.2f} s wall): "
+        f"{rep['spans']} spans, queue_wait {kinds['queue_wait']['count']} (p50 "
+        f"{kinds['queue_wait']['p50_ms']} p99 {kinds['queue_wait']['p99_ms']} ms), device "
+        f"{kinds['device']['count']} (p50 {kinds['device']['p50_ms']} p99 "
+        f"{kinds['device']['p99_ms']} ms), buckets {rep['buckets']}; critical path "
+        f"{cp and (cp['kind'], cp['trace_id'], cp['total_ms'], [p['name'] for p in cp['phases']])}")
+    if (kinds["queue_wait"]["count"] != 16 or kinds["device"]["count"] != 16
+            or not cp or cp["kind"] != "request"):
+        raise RuntimeError(f"[tools] (b) trace_report does not read the run: {rep}")
+    proc, metrics_wall = no_jax_run("gnot_tpu_torch.tools.metrics_report", str(series),
+                                    "--metrics", str(metrics))
+    agree = [line for line in proc.stdout.splitlines() if "agrees with serve_summary" in line]
+    log(f"[tools] (b) metrics_report {series.relative_to(ROOT)} (no JAX, {metrics_wall:.2f} s "
+        f"wall): exit 0, {proc.stdout.splitlines()[0]}; {agree}")
+    if not agree:
+        raise RuntimeError(f"[tools] (b) metrics_report: no final-snapshot agreement\n{proc.stdout}")
+    proc, fold_wall = no_jax_run("-c", CAPACITY_FOLD, str(metrics))
+    fold = json.loads(proc.stdout)
+    cap, pack = fold["capacity"], fold["pack"]
+    log(f"[tools] (b) capacity fold of the serve_summary event (no JAX, {fold_wall:.2f} s "
+        f"wall): programs {[(r['program'], r['dispatches'], r['flops_per_s']) for r in fold['programs']]}; "
+        f"agreement {cap['agreement']}; sustainable {cap['sustainable_requests_per_s']} "
+        f"requests/s, {cap['sustainable_tokens_per_s']} tokens/s; pack plan {pack['plan']}, "
+        f"projected pad waste {pack['projected_pad_waste']} vs observed "
+        f"{pack['observed_pad_waste']} ({card})")
+    if cap["agreement"]["problems"] != [] or not fold["programs"]:
+        raise RuntimeError(f"[tools] (b) the capacity fold disagrees: {cap['agreement']}")
+
+    # (d, readers) each reader in this process, host clock, on (a)'s files.
+    events_ = read_jsonl(metrics)
+    [event] = [e for e in events_ if e.get("event") == "serve_summary"]
+    model = event["capacity_model"]
+    reader_ms = {}
+    for name, fn in (
+        ("trace_report.report", lambda: trace_report.report(str(trace))),
+        ("metrics_report.run", lambda: metrics_report.run([str(series), "--metrics", str(metrics)])),
+        ("capacity fold", lambda: (capacity_report.program_rows(model),
+                                   capacity_report.capacity_row(event, model),
+                                   capacity_report.pack_recommendation(model, 64, 4, None))),
+    ):
+        times = []
+        for _ in range(5):
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+        reader_ms[name] = statistics.median(times)
+    log(f"[tools] (d) reader host ms (median of 5, this process): "
+        f"{ {k: round(v, 3) for k, v in reader_ms.items()} }; without-JAX processes' wall "
+        f"{trace_wall:.2f} / {metrics_wall:.2f} / {fold_wall:.2f} s (interpreter and torch "
+        f"import included); on {card}")
+
+    # (c) The smoke's modes on the card.
+    walls = {}
+    for mode, flags in SMOKE22_MODES.items():
+        md = TOOLS_OUT / "smoke" / mode
+        md.mkdir(parents=True)
+        smoke_argv = flags + ["--metrics_path", str(md / "serve.jsonl")]
+        if mode == "trace":
+            smoke_argv += ["--trace_path", str(md / "trace.json")]
+        t0 = time.monotonic()
+        got = serve_smoke.run(smoke_argv)
+        walls[mode] = time.monotonic() - t0
+        log(f"[tools] (c) serve_smoke {' '.join(smoke_argv)}: failures {got['failures']}, "
+            f"{walls[mode]:.2f} s wall, storm {got['wall_s']:.3f} s, "
+            f"{got['requests_per_s']:.1f} requests/s")
+        if got["failures"]:
+            raise RuntimeError(f"[tools] (c) serve_smoke {mode} failed: {got['failures']}")
+    log(f"[tools] (d) smoke wall s {json.dumps({k: round(v, 3) for k, v in walls.items()})} on "
+        f"{card}")
+    log(f"[tools] phase 22 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return {"readers_serve_launches": launches}
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -6139,6 +6370,9 @@ def main() -> int:
     # -- phase 21: serving over a rank mesh, parity on a mesh, --changed ----
     mesh_launches = mesh_serving_phase(torch, np, card)
 
+    # -- phase 22: the serving operator's tools on the card host -----------
+    tools_launches = tools_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -6174,6 +6408,7 @@ def main() -> int:
         "mesh_train_launches": pipe["mesh_train_launches"],
         **native_launches,
         **mesh_launches,
+        **tools_launches,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

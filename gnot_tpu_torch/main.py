@@ -1351,7 +1351,7 @@ def _run_serve_federated(args, sc: ServeConfig, model: GNOT, samples: list[MeshS
             f"({len(cluster.merged_trace['traceEvents'])} spans, "
             f"{len(cluster.merged_trace['otherData']['hosts'])} sources) "
             f"to {args.trace_path} (open in https://ui.perfetto.dev; "
-            "summarize with tools/trace_report.py)"
+            "summarize with python -m gnot_tpu_torch.tools.trace_report)"
         )
     if recorders is not None:
         dumps = [p for r in recorders.values() for p in r.dumps]
@@ -1567,7 +1567,7 @@ def run(argv: list[str] | None = None) -> Trainer | ServeRun:
                 path = t.flush(sink=sink)
                 print(f"Wrote {len(t.snapshot())} spans to {path} (open in "
                       "chrome://tracing / https://ui.perfetto.dev; summarize with "
-                      "tools/trace_report.py)")
+                      "python -m gnot_tpu_torch.tools.trace_report)")
 
             stack.callback(flush_trace)
         manifest = None

@@ -1,0 +1,20 @@
+"""The serving operator's tools of the port, one module for each of the
+repo's ``tools/`` scripts that reads or drives serving, under the same
+name, each run as ``python -m gnot_tpu_torch.tools.<name>``:
+
+* ``trace_report``: a ``--trace_path`` Chrome trace's per-kind, per-bucket,
+  per-replica, per-tenant and per-host tables and the critical path;
+* ``metrics_report``: the ``--metrics_interval_s`` series, its SLO breach
+  intervals and the final snapshot against ``serve_summary``;
+* ``serve_smoke``: the serving smoke with asserted counters, in every mode
+  of ``tools/serve_smoke.py``;
+* ``capacity_report``: a ``--capacity`` storm folded into program,
+  capacity and pack-plan rows;
+* ``lockmap_report``: the port's lock graph (``analysis/lockorder.py``) as
+  node, edge and summary records.
+
+Each keeps its JAX tool's flags, defaults, importable functions and
+returned dicts, and imports only the standard library, numpy, torch and
+the port: the readers run on any host that holds the files, the smoke on
+the card unless ``--device cpu`` is passed.
+"""
