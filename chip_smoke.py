@@ -361,6 +361,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--trace_path``, each ending with no failure; (d) each reader's host
    ms and each smoke mode's wall time beside the card's name and power
    limit.
+23. training at the reference's own scale and at long context, and the
+   attention kernels' bf16 instances: (a) ``gnot_tpu_torch.tools.
+   reference_scale_demo``'s ``generate(16, 4)`` (9.5-10.5k-point meshes,
+   760-850-point functions) under ``build/chip_smoke/ref_scale23/`` and its
+   ``train`` for 2 epochs with JAX's argv on the card: a summary record
+   with JAX's keys, finite losses, 0 FFN launches (``ffn_impl=xla``); (b)
+   the same pickles through ``main --train_data/--test_data --dtype
+   bfloat16 --steps_per_dispatch 5 --epochs 2 --ffn_impl pallas``: every
+   FFN launch at x ``[4, 12288, 256]`` in the training mix, 8 per train
+   step and eval forward, held step by step against the plain-FFN run (bar
+   ``BF16_TRAIN_REL``), the kernel against its plain version on the live
+   weights at that shape, host-clock step times with the kernel and with
+   ``ffn_impl=xla`` in turns, peak device memory; (c) ``--synthetic
+   heatsink3d --remat --dtype bfloat16 --ffn_impl pallas --n_train 4
+   --n_test 2 --epochs 1`` at ``--synth_size 16384 --batch_size 2`` and
+   ``65536 --batch_size 1``: finite losses, 16 launches a train step and 8
+   an eval forward, the launch shapes those of the loaders' batches, the
+   kernel against its plain version on the live weights at the largest,
+   then 64k without ``--remat`` for its peak memory beside the remat run's;
+   (d) ``validate_kernels.check_bf16`` at the four full-width cases: the
+   reduce pair on bf16 k, v and mask at ``OUT_TOL`` and bitwise the launch
+   on the widened inputs, the apply pair's bf16 ``out`` and ``qs`` within
+   one bf16 ulp, gradients through the plain backward; (e) device time
+   against the bound: the FFN kernel in the training mix at x ``[4, 12288,
+   256]``, ``[2, 24576, 256]`` and ``[1, 98304, 256]`` with its CTAs and
+   waves, and each attention kernel's bf16 instance beside phase 3b's f32
+   time, its bound counting bf16 bytes.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -411,7 +438,13 @@ counts over phase 20's runs (b) native, (b) with the native path off and
 ``mesh_serve_launches`` and ``mesh_parity_train_launches`` its counts over
 both ranks of phase 21's serving runs (a) and parity runs (c), 0 (a mesh
 runs the FFN's torch path); ``readers_serve_launches`` its count over phase
-22 (a), the served run whose files the readers read. Launches
+22 (a), the served run whose files the readers read;
+``ref_scale_demo_launches``, ``ref_scale_train_launches`` and
+``long_context_launches`` its counts over phase 23's runs (a), (b) and
+(c) (by ``--synth_size``, the remat runs), ``ref_scale_shapes`` its time
+and bound at (e)'s shapes; each attention entry's ``bf16_launches`` and
+``bf16`` are its count over phase 23 (d) and its bf16 instance's time and
+bound in (e). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -922,8 +955,9 @@ def bf16_serving_phase(torch, np, port_main, layers, f32_run, f32_peak_mib, card
 def attention_bounds(name: str, c: dict, n_head: int,
                      tensor_cores: bool = False) -> tuple[float, str]:
     """Least time for one attention stage on the case's inputs: the larger
-    of its bytes (each input read once, each output written once) over the
-    memory rate and the operations this data needs over their peak.
+    of its bytes (each input read once, each output written once, at its
+    dtype's size: the Grams f32, q, k, v, the mask, out and qs f32 or bf16)
+    over the memory rate and the operations this data needs over their peak.
     Operations count only rows that reach an output: for a reduce, key
     rows with mask != 0 in a chunk with a slot (2 E^2 for the Gram, ~6 E
     for softmax, mask and k_sum); for an apply, ~6 E per query row for the
@@ -932,8 +966,9 @@ def attention_bounds(name: str, c: dict, n_head: int,
     An apply reads only the head-diagonal blocks of the Grams it uses.
     Everything counts at the f32 CUDA-core rate, except that with
     ``tensor_cores`` a reduce's Gram takes the faster of the TF32 and the
-    bf16 split of f32 operands (``product_passes``, as ``ffn_bound_ms``:
-    3xTF32, the kernel's form) with the rest at the f32 rate beside it."""
+    bf16 split of its operands, the f32 softmax of k against an f32 or bf16
+    v (``product_passes``, as ``ffn_bound_ms``: 3xTF32 for f32 v, the
+    kernel's form), with the rest at the f32 rate beside it."""
     q, k, mask = c["q"], c["k"], c["mask"]
     f, bk, lk, e = k.shape
     b, l, _ = q.shape
@@ -954,12 +989,15 @@ def attention_bounds(name: str, c: dict, n_head: int,
     if name.startswith("nla_reduce"):
         rows = int(((mask != 0) & key_live[None]).sum())
         gram, rest = rows * 2 * e * e, rows * 6 * e
-        nbytes = 4 * (2 * k.numel() + mask.numel() + f * n_seg * (e * e + e)) + seg_bytes
+        nbytes = (2 * k.element_size() * k.numel() + mask.element_size() * mask.numel()
+                  + 4 * f * n_seg * (e * e + e) + seg_bytes)
     else:
         gram, rest = 0, b * l * 6 * e + f * int(q_live.sum()) * (2 * e * d + 3 * e)
-        nbytes = 4 * (2 * q.numel() + f * b * l * e + f * slots_used * (e * d + e)) + seg_bytes
+        nbytes = (q.element_size() * (2 * q.numel() + f * b * l * e)
+                  + 4 * f * slots_used * (e * d + e) + seg_bytes)
     if tensor_cores and gram:
-        tf32, bf16 = product_passes(True, True)
+        # The Gram's A is the f32 softmax of k; its B is v, f32 or bf16.
+        tf32, bf16 = product_passes(True, c["v"].element_size() == 4)
         t_ops = max(gram * min(tf32 / PEAK_TF32_FLOPS, bf16 / PEAK_BF16_FLOPS),
                     rest / PEAK_F32_FLOPS)
     else:
@@ -4435,6 +4473,13 @@ def catalog_autoscale_phase(torch, np, card: str, layers) -> dict:
     after_remove = removed[0]["t"] - t_dead if removed else float("nan")
     after_replace = replaced[0]["t"] - t_dead if replaced else float("nan")
     sess = summary["sessions"]
+    # A request placed on replica 0 just before the heal's removal drains it
+    # lands on a draining server and is answered rejected_draining, in both
+    # packages (tests/test_torch_router.py, removed_between_place_and_submit):
+    # at most one a client, the one in flight at the removal.
+    draining = reasons.get("rejected_draining", 0)
+    log(f"[autoscale] (c) client requests in flight at the heal's removal, answered "
+        f"rejected_draining: {draining} (at most the {len(threads)} clients)")
     log(f"[autoscale] (c) replica_kill@5 on replica 0 under 4 sessions and 4 closed-loop clients: "
         f"sessions {[(r.reason, len(r.outputs), r.migrations) for r in results]}; session_migrate "
         f"{moves}; replica_replace {[(e['from_replica'], e['to_replica'], e['reason']) for e in replaced]}"
@@ -4448,7 +4493,8 @@ def catalog_autoscale_phase(torch, np, card: str, layers) -> dict:
             or heal._slot_of.get(2) != 0 or not after_remove <= 0.5 + 0.02
             or not after_replace <= 0.5 + 0.02
             or not all(r.ok and len(r.outputs) == ROLLOUT_K for r in results) or sess["lost"]
-            or not bitwise or set(reasons) - {"ok", "error_replica_dead"}
+            or not bitwise or set(reasons) - {"ok", "error_replica_dead", "rejected_draining"}
+            or draining > len(threads)
             or launches != per_forward * (summary["dispatches"] + new_warm)
             or invalid(sink.records)):
         raise RuntimeError("[autoscale] (c) the dead replica was not healed whole")
@@ -6141,6 +6187,352 @@ def tools_phase(torch, np, card: str, layers) -> dict:
     return {"readers_serve_launches": launches}
 
 
+# -- phase 23: training at the reference's scale and at long context -----------------
+
+REF_OUT = TRAIN_OUT / "ref_scale23"
+# (b): the tool's pickles through main with the FFN kernel (the pickle paths
+# come first).
+REF_TRAIN_FLAGS = ["--dtype", "bfloat16", "--steps_per_dispatch", "5", "--epochs", "2",
+                   "--ffn_impl", "pallas", "--device", "cuda"]
+# (c): heatsink3d at long context, one run per (synth_size, batch_size).
+LONG_RUNS = ((16384, 2), (65536, 1))
+LONG_FLAGS = ["--synthetic", "heatsink3d", "--remat", "--dtype", "bfloat16", "--ffn_impl",
+              "pallas", "--n_train", "4", "--n_test", "2", "--epochs", "1", "--device", "cuda"]
+# (e): the FFN kernel's launch shapes [B, L] (width 256) of (b) and (c).
+REF_SHAPES = ((4, 12288), (2, 24576), (1, 98304))
+# The summary record of tools/reference_scale_demo.py, by its keys.
+REF_SUMMARY_KEYS = {"kind", "n_train", "epochs", "best_metric", "wall_seconds",
+                    "train_points_per_sec_end_to_end"}
+
+
+@contextlib.contextmanager
+def ffn_launch_shapes(layers):
+    """Every FFN call the model sends to the kernel, as (x shape, x dtype,
+    weight dtype), recorded around ``layers.fused_gated_ffn``."""
+    seen: list = []
+    real = layers.fused_gated_ffn
+
+    def recording(x, scores, kernels, biases, gelu_kind):
+        seen.append((tuple(x.shape), str(x.dtype).removeprefix("torch."),
+                     str(kernels[0].dtype).removeprefix("torch.")))
+        return real(x, scores, kernels, biases, gelu_kind=gelu_kind)
+
+    layers.fused_gated_ffn = recording
+    try:
+        yield seen
+    finally:
+        layers.fused_gated_ffn = real
+
+
+def loader_shapes(trainer) -> set:
+    """The ``[B, L]`` of every batch of the run's first train epoch and of
+    its test loader: the launch shapes the run gives the FFN kernel."""
+    trainer.train_loader.set_epoch(0)
+    shapes = {tuple(b.coords.shape[:2]) for b in trainer.train_loader}
+    return shapes | {tuple(b.coords.shape[:2]) for b in trainer.test_loader}
+
+
+def ffn_blocks(rows: int, n_sm: int) -> tuple[int, float]:
+    """The FFN kernel's CTAs for ``rows`` token rows (a cluster of two a
+    64-row tile, csrc/fused_gated_ffn.cu) and the waves they make on
+    ``n_sm`` SMs at one CTA an SM."""
+    blocks = 2 * -(-rows // 64)
+    return blocks, blocks / n_sm
+
+
+def live_mix_check(torch, np, layers, model, shape: tuple, tag: str) -> float:
+    """The FFN kernel against its plain version on the live weights of every
+    FFN module of ``model``, at launch shape ``shape`` in the training mix
+    (bf16 x, the f32 weights, f32 scores): within one bf16 ulp. Returns the
+    worst absolute difference."""
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel, fused_gated_ffn_reference
+
+    ffns = [m for m in model.modules() if isinstance(m, layers.GatedExpertFfn)]
+    rng = np.random.default_rng(23)
+    b, l, width = shape
+    x = torch.from_numpy(rng.standard_normal((b, l, width), dtype=np.float32)).cuda().bfloat16()
+    n_expert = ffns[0].experts.layers()[0].kernel.shape[0]
+    logits = torch.from_numpy(rng.standard_normal((b, l, n_expert), dtype=np.float32)).cuda()
+    scores = torch.softmax(logits, -1)
+    worst = 0.0
+    with torch.inference_mode():
+        for f in ffns:
+            k = [lin.kernel for lin in f.experts.layers()]
+            bias = [lin.bias for lin in f.experts.layers()]
+            got = fused_gated_ffn_kernel(x, scores, k, bias, gelu_kind=f.gelu)
+            want = fused_gated_ffn_reference(x, scores, k, bias, gelu_kind=f.gelu)
+            torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            del got, want
+    log(f"[{tag}] kernel vs plain on the live weights of all {len(ffns)} FFN modules at "
+        f"x {list(shape)} bf16 (the run's launch shape): max_abs_err {worst:.3e} (one bf16 ulp: "
+        f"rtol {BF16_RTOL} atol {BF16_ATOL})")
+    return worst
+
+
+def reference_scale_phase(torch, np, card: str, layers, attn: dict, mix: dict) -> dict:
+    """Phase 23: (a) the reference-scale tool at a cut scale with JAX's
+    argv; (b) its pickles through main with the FFN kernel, held against the
+    plain-FFN run; (c) heatsink3d at L = 16k and 64k with remat; (d) the
+    four attention kernels on bf16 inputs at full width; (e) device time
+    against the bound at the new shapes. Returns the kernels line's fields:
+    ``ffn`` for the FFN kernel's entry, ``attn`` by attention kernel."""
+    import argparse
+    import shutil
+
+    from gnot_tpu_torch import main as port_main
+    from gnot_tpu_torch import validate_kernels as vk
+    from gnot_tpu_torch.ops import fused_attention as fa
+    from gnot_tpu_torch.ops.fused_ffn import (
+        fused_gated_ffn,
+        fused_gated_ffn_kernel,
+        fused_gated_ffn_reference,
+    )
+    from gnot_tpu_torch.tools import reference_scale_demo as demo
+    from gnot_tpu_torch.train.trainer import Trainer, batch_loss
+
+    t_phase = time.monotonic()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shutil.rmtree(REF_OUT, ignore_errors=True)
+    out: dict = {}
+
+    # (a) The tool at a cut scale: 16 / 4 reference-scale samples, JAX's
+    # argv (ffn_impl xla: no FFN kernel launch), 2 epochs, on the card.
+    saved = demo.TRAIN_PKL, demo.TEST_PKL, demo.METRICS
+    demo.TRAIN_PKL, demo.TEST_PKL = str(REF_OUT / "train.pkl"), str(REF_OUT / "test.pkl")
+    demo.METRICS = str(REF_OUT / "demo_metrics.jsonl")
+    try:
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()) as gen_out:
+            demo.generate(16, 4)
+        gen_s = time.monotonic() - t0
+        fused_gated_ffn_kernel.launches = 0
+        demo_args = argparse.Namespace(epochs=2, steps_per_dispatch=5, device="cuda",
+                                       out=str(REF_OUT / "demo.jsonl"))
+        held_mib = reset_peak(torch)
+        with contextlib.redirect_stdout(io.StringIO()) as train_out:
+            demo.train(demo_args)
+        demo_mib = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+        demo_launches = fused_gated_ffn_kernel.launches
+    finally:
+        train_pkl, test_pkl = demo.TRAIN_PKL, demo.TEST_PKL
+        demo.TRAIN_PKL, demo.TEST_PKL, demo.METRICS = saved
+    for line in gen_out.getvalue().splitlines() + train_out.getvalue().splitlines():
+        if line:
+            log(f"[ref23] (a)   {line}")
+    records = read_jsonl(demo_args.out)
+    [summary] = [r for r in records if r.get("kind") == "summary"]
+    epochs = [r for r in records if "train_loss" in r]
+    log(f"[ref23] (a) python -m gnot_tpu_torch.tools.reference_scale_demo --generate --train "
+        f"--n_train 16 --n_test 4 --epochs 2 (pickles under {REF_OUT.relative_to(ROOT)}): "
+        f"generate {gen_s:.1f} s; summary {json.dumps(summary)}; epochs' points_per_sec "
+        f"{[round(r['points_per_sec'], 1) for r in epochs]}, epoch_seconds "
+        f"{[round(r['epoch_seconds'], 3) for r in epochs]}; FFN kernel launches {demo_launches} "
+        f"(JAX's argv trains ffn_impl=xla); the run's own peak device memory {demo_mib:.1f} MiB "
+        f"on {card}")
+    if (set(summary) != REF_SUMMARY_KEYS or summary["n_train"] != 16 or len(epochs) != 2
+            or not all(math.isfinite(r["train_loss"]) for r in epochs) or demo_launches
+            or not math.isfinite(summary["best_metric"])):
+        raise RuntimeError(f"[ref23] (a) the tool's run is not JAX's: {summary}, {epochs}, "
+                           f"{demo_launches} launches")
+    out["ref_scale_demo_launches"] = demo_launches
+
+    # (b) The same pickles through main with the FFN kernel, held against
+    # the plain-FFN run step by step.
+    argv = ["--train_data", train_pkl, "--test_data", test_pkl] + REF_TRAIN_FLAGS
+    args = port_main.build_parser().parse_args(argv)
+    held_mib = reset_peak(torch)
+    fused_gated_ffn_kernel.launches = 0
+    fused_gated_ffn_kernel.launches_by_dtype = {}
+    t0 = time.monotonic()
+    with ffn_launch_shapes(layers) as seen:
+        trainer, lines = train_quietly(port_main, args)
+    wall_s = time.monotonic() - t0
+    launches = fused_gated_ffn_kernel.launches
+    by_mix = dict(fused_gated_ffn_kernel.launches_by_dtype)
+    own_mib = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+    log(f"[ref23] (b) python -m gnot_tpu_torch.main {' '.join(argv)}: {wall_s:.2f} s")
+    for line in lines:
+        if line:
+            log(f"[ref23] (b)   {line}")
+    check_reference_lines(lines, args.epochs)
+    expected = expect_train_launches(trainer, launches, args.epochs, "ref23")
+    shapes = sorted(set(seen))
+    log(f"[ref23] (b) FFN launch shapes (x, x dtype, weight dtype) {shapes}, by dtype mix "
+        f"{json.dumps(by_mix)}; the run's own peak device memory {own_mib:.1f} MiB")
+    if shapes != [((4, 12288, 256), "bfloat16", "float32")] or by_mix != {
+            "bf16-x/f32-w": expected}:
+        raise RuntimeError(f"[ref23] (b) expected every launch at x [4, 12288, 256] in the "
+                           f"training mix, got {shapes} {by_mix}")
+    fused_gated_ffn_kernel.launches = 0
+    layers.fused_gated_ffn = fused_gated_ffn_reference
+    try:
+        plain, _ = train_quietly(port_main, args)
+    finally:
+        layers.fused_gated_ffn = fused_gated_ffn
+    if fused_gated_ffn_kernel.launches:
+        raise RuntimeError("[ref23] (b) the plain-FFN run launched the kernel")
+    metrics = lambda t: np.array([r.test_metric for r in t.history])  # noqa: E731
+    got = max(worst_rel(np, step_losses(np, trainer), step_losses(np, plain)),
+              worst_rel(np, metrics(trainer), metrics(plain)))
+    log(f"[ref23] (b) step losses, kernel {step_losses(np, trainer).tolist()}")
+    log(f"[ref23] (b) step losses, plain  {step_losses(np, plain).tolist()} (0 kernel launches)")
+    log(f"[ref23] (b) vs the plain-FFN run, worst relative difference over step losses and test "
+        f"metrics: {got:.3e} (bar BF16_TRAIN_REL {BF16_TRAIN_REL})")
+    if got > BF16_TRAIN_REL:
+        raise RuntimeError(f"[ref23] (b) the kernel run is {got} from the plain-FFN run")
+    live_mix_check(torch, np, layers, trainer.model, (4, 12288, 256), "ref23")
+    times: dict[str, list[float]] = {}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        times.setdefault(impl, []).append(
+            statistics.median(step_times(torch, Trainer, trainer, impl)[1:]))
+    log(f"[ref23] (b) step time at [4, 12288] bf16, host clock around each waited-for step, "
+        f"median of steps 2..8, two turns each: "
+        + "; ".join(f"ffn_impl={k} {[round(t, 3) for t in v]} ms" for k, v in times.items())
+        + f" on {card}")
+    # Where a step's time goes: forward, backward and optimizer, each waited
+    # for, with the kernel and with ffn_impl=xla, in turns.
+    batch = next(iter(trainer.train_loader))
+    xla_trainer = fresh_trainer(Trainer, trainer, "xla")
+    split: dict[str, list[dict]] = {"pallas": [], "xla": []}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        split[impl].append(step_phases(torch, batch_loss, xla_trainer if impl == "xla" else trainer,
+                                       batch))
+    for impl, runs in split.items():
+        log(f"[ref23] (b) step phases at [4, 12288] bf16, ffn_impl={impl}, median of 5, host ms / "
+            f"CUDA-event ms, two turns: " + "; ".join(
+                f"{name} " + " | ".join(f"{r[name][0]:.3f} / {r[name][1]:.3f}" for r in runs)
+                for name in runs[0]) + f" on {card}")
+    out.update(ref_scale_train_launches=launches, ref_scale_peak_mib=own_mib,
+               ref_scale_step_ms=times, ref_scale_step_phases=split)
+    del trainer, plain, xla_trainer, batch
+
+    # (c) Long context: heatsink3d at 16k and 64k points with remat, then
+    # 64k without remat for its peak memory.
+    long_launches, peaks = {}, {}
+    for size, batch, remat in [(s_, b_, True) for s_, b_ in LONG_RUNS] + [(65536, 1, False)]:
+        flags = [f for f in LONG_FLAGS if remat or f != "--remat"]
+        argv = flags + ["--synth_size", str(size), "--batch_size", str(batch)]
+        tag = f"{size}{'' if remat else ' no remat'}"
+        held_mib = reset_peak(torch)
+        fused_gated_ffn_kernel.launches = 0
+        t0 = time.monotonic()
+        with ffn_launch_shapes(layers) as seen:
+            trainer, lines = train_quietly(port_main, port_main.build_parser().parse_args(argv))
+        wall_s = time.monotonic() - t0
+        launches = fused_gated_ffn_kernel.launches
+        peaks[tag] = torch.cuda.max_memory_allocated() / 2**20 - held_mib
+        check_reference_lines(lines, 1)
+        cfg = trainer.model_cfg
+        steps, eval_batches = trainer.host_step, len(trainer.test_loader)
+        expected = 2 * cfg.n_attn_layers * ((2 if remat else 1) * steps + eval_batches)
+        want_shapes = {(b, l, cfg.n_attn_hidden_dim) for b, l in loader_shapes(trainer)}
+        got_shapes = {s for s, _, _ in seen}
+        losses = step_losses(np, trainer)
+        log(f"[ref23] (c) python -m gnot_tpu_torch.main {' '.join(argv)}: {wall_s:.2f} s; step "
+            f"losses {losses.tolist()}; FFN launches {launches} = 2 x {cfg.n_attn_layers} blocks "
+            f"x ({'2 x ' if remat else ''}{steps} train steps + {eval_batches} eval batches); "
+            f"launch shapes {sorted(got_shapes)} (the loaders' {sorted(want_shapes)}), mixes "
+            f"{sorted({(a, w) for _, a, w in seen})}; the run's own peak device memory "
+            f"{peaks[tag]:.1f} MiB on {card}")
+        if (launches != expected or got_shapes != want_shapes or not np.all(np.isfinite(losses))
+                or {(a, w) for _, a, w in seen} != {("bfloat16", "float32")}):
+            raise RuntimeError(f"[ref23] (c) {tag}: {launches} launches (expected {expected}), "
+                               f"shapes {got_shapes} vs {want_shapes}")
+        if remat:
+            long_launches[str(size)] = launches
+            live_mix_check(torch, np, layers, trainer.model, max(got_shapes, key=lambda s: s[0] * s[1]),
+                           "ref23")
+        del trainer
+    log(f"[ref23] (c) peak device memory at 64k, B=1: {peaks['65536']:.1f} MiB with --remat, "
+        f"{peaks['65536 no remat']:.1f} MiB without ({peaks['65536 no remat'] / peaks['65536']:.2f}x); "
+        f"at 16k, B=2, with --remat: {peaks['16384']:.1f} MiB; on {card}")
+    out.update(long_context_launches=long_launches, long_context_peak_mib=peaks)
+
+    # (d) The four attention kernels on bf16 inputs at full width.
+    wrappers = {"nla_reduce": fa.nla_reduce_kernel, "nla_apply": fa.nla_apply_kernel,
+                "nla_reduce_seg": fa.nla_reduce_seg_kernel, "nla_apply_seg": fa.nla_apply_seg_kernel}
+    cases = vk.full_width_cases(torch.device("cuda"))
+    for w in wrappers.values():
+        w.launches = 0
+    checks = []
+    for name in ("self", "cross", "self_packed", "cross_packed"):
+        checks += vk.check_bf16(name, cases[name], vk.N_HEAD)
+    bf16_launches = {n: w.launches for n, w in wrappers.items()}
+    failed = [c.name for c in checks if not c.ok]
+    log(f"[ref23] (d) {len(checks)} bf16 checks at full width, {len(failed)} failed; launches "
+        f"{json.dumps(bf16_launches)}")
+    if failed or not all(bf16_launches.values()):
+        raise RuntimeError(f"[ref23] (d) bf16 attention checks failed: {failed}, launches "
+                           f"{bf16_launches}")
+    attn_out = {n: {"bf16_launches": bf16_launches[n]} for n in wrappers}
+
+    # (e) Device time against the bound: the FFN kernel at the new shapes
+    # in the training mix, and each attention kernel in bf16.
+    ffn_rows = {}
+    for b, l in REF_SHAPES:
+        x, scores, kernels, biases = ffn_inputs(torch, np, b, l, 256, 3, 5, seed=b * l + 23)
+        call_args = (x.bfloat16(), scores, kernels, biases)
+        del x
+        with torch.inference_mode():
+            got_ = fused_gated_ffn_kernel(*call_args, gelu_kind="tanh")
+            want_ = fused_gated_ffn_reference(*call_args, gelu_kind="tanh")
+            err = (got_.float() - want_.float()).abs().max().item()
+            torch.testing.assert_close(got_.float(), want_.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+            del got_, want_
+            ms = device_ms(torch, lambda: fused_gated_ffn_kernel(*call_args, gelu_kind="tanh"))
+            plain_ms = device_ms(torch, lambda: fused_gated_ffn_reference(*call_args,
+                                                                            gelu_kind="tanh"))
+        bound_ms, bound_by = ffn_bound_ms(*call_args)
+        blocks, waves = ffn_blocks(b * l, n_sm)
+        log(f"[ref23] (e) FFN kernel at x [{b},{l},256] bf16, f32 weights, E=3 5 Linears tanh, "
+            f"weights warm in L2: device time {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; {blocks} CTAs, "
+            f"{waves:.2f} waves on {n_sm} SMs; max_abs_err vs plain {err:.3e}; at [4,1024,256] "
+            f"(phase 3, 128 CTAs, {128 / n_sm:.2f} waves) {mix['mix_ms']:.4f} ms, "
+            f"{mix['mix_bound_ms'] / mix['mix_ms']:.1%} of bound; on {card}")
+        ffn_rows[f"{b}x{l}x256"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by, blocks=blocks, waves=waves,
+                                        max_abs_err=err)
+        del call_args, scores, kernels, biases
+    out["ref_scale_shapes"] = ffn_rows
+
+    n_head = vk.N_HEAD
+    for name, case_name in (("nla_reduce", "self"), ("nla_apply", "self"),
+                            ("nla_reduce_seg", "self_packed"), ("nla_apply_seg", "self_packed")):
+        c = dict(cases[case_name])
+        c.update({x: c[x].bfloat16() for x in ("q", "k", "v", "mask")})
+        kv_args = (c["k"], c["v"], c["mask"])
+        if name == "nla_reduce":
+            kernel = lambda: fa.nla_reduce_kernel(*kv_args, n_head)  # noqa: E731
+            plain = lambda: fa.reduce_reference(*kv_args, n_head)  # noqa: E731
+        elif name == "nla_reduce_seg":
+            seg = (c["kv_seg"], c["n_seg"], n_head)
+            kernel = lambda: fa.nla_reduce_seg_kernel(*kv_args, *seg)  # noqa: E731
+            plain = lambda: fa.reduce_seg_reference(*kv_args, *seg)  # noqa: E731
+        elif name == "nla_apply":
+            grams = fa.reduce_reference(*kv_args, n_head)
+            kernel = lambda: fa.nla_apply_kernel(c["q"], *grams, n_head)  # noqa: E731
+            plain = lambda: fa.apply_reference(c["q"], *grams, n_head)  # noqa: E731
+        else:
+            grams = fa.reduce_seg_reference(*kv_args, c["kv_seg"], c["n_seg"], n_head)
+            kernel = lambda: fa.nla_apply_seg_kernel(c["q"], *grams, c["q_seg"], n_head)  # noqa: E731
+            plain = lambda: fa.apply_seg_reference(c["q"], *grams, c["q_seg"], n_head)  # noqa: E731
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(kernel(), plain()))
+        ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain)
+        bound_ms, bound_by = attention_bounds(name, c, n_head, tensor_cores=True)
+        f32 = attn[name]
+        log(f"[ref23] (e) {name} {case_name} bf16 q {list(c['q'].shape)} k {list(c['k'].shape)}: "
+            f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}, bf16 bytes), {bound_ms / ms:.1%} of bound; the f32 instance (phase "
+            f"3b) {f32['ms']:.4f} ms against {f32['bound_ms']:.4f} ({f32['bound_ms'] / f32['ms']:.1%}); "
+            f"max_abs_err {err:.3e} on {card}")
+        attn_out[name]["bf16"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, max_abs_err=err)
+    log(f"[ref23] phase 23 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return {"ffn": out, "attn": attn_out}
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -6373,6 +6765,9 @@ def main() -> int:
     # -- phase 22: the serving operator's tools on the card host -----------
     tools_launches = tools_phase(torch, np, card, layers)
 
+    # -- phase 23: the reference's scale, long context, bf16 attention ------
+    ref = reference_scale_phase(torch, np, card, layers, attn, mix)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -6409,6 +6804,7 @@ def main() -> int:
         **native_launches,
         **mesh_launches,
         **tools_launches,
+        **ref["ffn"],
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",
@@ -6423,6 +6819,7 @@ def main() -> int:
             "source": "gnot_tpu_torch/csrc/" + ("nla_reduce.cu" if "reduce" in name else "nla_apply.cu"),
             "replaces": replaces[name],
             **entry,
+            **ref["attn"][name],
             "library_ms": None,
             **({"sp_launches": par["sp_launches"][name]} if name in par["sp_launches"] else {}),
         })

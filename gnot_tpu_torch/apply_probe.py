@@ -122,7 +122,7 @@ VARIANTS: dict[str, list[tuple[str, str]]] = {
                        "    for (int idx = t; idx < 0; idx += kThreads) {\n")],
     "no_products": [("      for (int d = 0; d < D; ++d) {\n        const float4 w",
                      "      for (int d = 0; d < 0; ++d) {\n        const float4 w")],
-    "no_q_loads": [("x[j][i] = (rr < rows && col < e) ? __ldg(a.q + base + col) : 0.f;",
+    "no_q_loads": [("x[j][i] = (rr < rows && col < e) ? load_f(qp + base + col) : 0.f;",
                     "x[j][i] = (rr < rows && col < e) ? 1e-3f * col : 0.f;")],
     "empty": [("  extern __shared__ __align__(16) float smem[];\n",
                "  if (a.f >= 0) return;\n  extern __shared__ __align__(16) float smem[];\n")],
@@ -193,7 +193,7 @@ def variant_times(device, case: dict) -> None:
     try:
         for name, lib in libs.items():
             fn = lib.gnot_nla_apply
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fa._launchers["gnot_nla_apply"] = fn
             got = fa.nla_apply_kernel(q, kv, ksum, vk.N_HEAD)

@@ -1,4 +1,5 @@
-// Normalized-linear-attention apply stage for NVIDIA Hopper (sm_90a), float32.
+// Normalized-linear-attention apply stage for NVIDIA Hopper (sm_90a), float32
+// or bfloat16 queries.
 //
 // Replaces two TPU kernels of gnot_tpu/ops/pallas_attention.py:
 //   * nla_apply     (:304; pallas_call :268, body _apply_kernel :237)
@@ -47,12 +48,20 @@
 //     words. Each of 256 threads computes 4 columns of 4 rows.
 //   * Rows past L read as zero and are never stored, so q is not padded.
 //   * A pad chunk's rows are written as zeros without reading any Gram.
+//   * q is read as f32 or bf16, one instance per element type, and out and
+//     qs are stored in q's type (the TPU kernel's out_shape, :281-282): the
+//     bf16 instance widens q at the load (exact), computes in f32 as the f32
+//     instance does, and rounds each stored value once to nearest even, as
+//     astype does. qs is stored once, before the loop over f (the TPU
+//     kernel's pl.when(f_i == 0)); the product reads the f32 qs kept in
+//     shared memory. kv and k_sum are the reduce's f32.
 // Plain FFMA in f32; the divisions (the softmax's and the one by denom) are
 // exact IEEE division, as in the plain version.
 //
 // Supported: D in {16, 32}, E a multiple of D up to 256, any F, B, L. The
 // launchers refuse anything else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,18 +72,41 @@ constexpr int kRows = 16;  // query rows per block
 constexpr int kMaxE = 256;
 constexpr int kWarpRows = kRows / (kThreads / 32);  // softmax rows per warp
 
+// Element types of q, out and qs, as the launchers' codes.
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+
 struct ApplyArgs {
-  const float* __restrict__ q;     // [B, L, E]
+  const void* __restrict__ q;      // [B, L, E], f32 or bf16
   const float* __restrict__ kv;    // [F, S, E, E]
   const float* __restrict__ ksum;  // [F, S, E]
   const int* __restrict__ seg;     // [B, N] chunk -> slot ids, or nullptr: the slot of row b is b
-  float* __restrict__ out;         // [F, B, L, E]
-  float* __restrict__ qs;          // [B, L, E]
+  void* __restrict__ out;          // [F, B, L, E], q's type
+  void* __restrict__ qs;           // [B, L, E], q's type
   int f, b, l, e;
   int n_chunks;   // N: chunks per row
   int chunk_len;  // L / N
   int n_slots;    // S
 };
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);  // widening a bf16 is exact
+}
+
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Four consecutive values at a 16-byte (f32) or 8-byte (bf16) boundary.
+__device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+__device__ __forceinline__ uint32_t bf16_bits(float y) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(y)));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(x.x) | bf16_bits(x.y) << 16,
+                                            bf16_bits(x.z) | bf16_bits(x.w) << 16);
+}
 
 template <int D>
 constexpr int smem_floats() {
@@ -101,10 +133,13 @@ __device__ __forceinline__ void head_reduce(float (&v)[kWarpRows][kMaxE / 32]) {
       }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const __grid_constant__ ApplyArgs a) {
   extern __shared__ __align__(16) float smem[];
+  const T* qp = static_cast<const T*>(a.q);
+  T* outp = static_cast<T*>(a.out);
+  T* qsp = static_cast<T*>(a.qs);
   float* qst = smem;
   float* kvd = qst + kRows * kMaxE;
   float* kst = kvd + D * kMaxE;
@@ -138,7 +173,7 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
 #pragma unroll
     for (int i = 0; i < kMaxE / 32; ++i) {
       const int col = lane + 32 * i;
-      x[j][i] = (rr < rows && col < e) ? __ldg(a.q + base + col) : 0.f;
+      x[j][i] = (rr < rows && col < e) ? load_f(qp + base + col) : 0.f;
     }
   }
   // The softmax of the warp's 16 chains (2 rows x 8 column groups) stage
@@ -168,7 +203,7 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
       const float y = x[j][i] / m[j][i];
       if (col < e) {
         qst[rr * kMaxE + (col % D) * H + col / D] = y;
-        if (rr < rows) a.qs[base + col] = y;
+        if (rr < rows) store_f(qsp + base + col, y);
       }
     }
   }
@@ -182,9 +217,8 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
       for (int i = 0; i < kRows / 4; ++i) {
         const int rr = rg + 4 * i;
         if (has_cols && rr < rows) {
-          *reinterpret_cast<float4*>(
-              a.out + ((static_cast<size_t>(f) * a.b + b) * a.l + r0 + rr) * e + 4 * cq) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
+          store4(outp + ((static_cast<size_t>(f) * a.b + b) * a.l + r0 + rr) * e + 4 * cq,
+                 make_float4(0.f, 0.f, 0.f, 0.f));
         }
       }
     }
@@ -243,36 +277,35 @@ apply_kernel(const __grid_constant__ ApplyArgs a) {
         const int rr = rg + 4 * i;
         if (rr < rows) {
           const float dn = den[rr * (kMaxE / D) + h];
-          *reinterpret_cast<float4*>(
-              a.out + ((static_cast<size_t>(f) * a.b + b) * a.l + r0 + rr) * e + 4 * cq) =
-              make_float4(acc[i][0] / dn, acc[i][1] / dn, acc[i][2] / dn, acc[i][3] / dn);
+          store4(outp + ((static_cast<size_t>(f) * a.b + b) * a.l + r0 + rr) * e + 4 * cq,
+                 make_float4(acc[i][0] / dn, acc[i][1] / dn, acc[i][2] / dn, acc[i][3] / dn));
         }
       }
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        apply_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_floats<D>() * 4);
+        apply_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_floats<D>() * 4);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const ApplyArgs& a, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * 4;
-  const cudaError_t err = configure<D>();
+  const cudaError_t err = configure<D, T>();
   if (err != cudaSuccess) return err;
   if (a.b == 0 || a.l == 0) return cudaSuccess;
   const int tiles = (a.chunk_len + kRows - 1) / kRows;
   const dim3 grid(a.n_chunks * tiles, a.b);
-  apply_kernel<D><<<grid, kThreads, bytes, stream>>>(a);
+  apply_kernel<D, T><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -281,16 +314,19 @@ bool dims_ok(int f, int b, int l, int e, int d) {
          b <= 65535;
 }
 
-cudaError_t run(const ApplyArgs& a, int d, cudaStream_t stream) {
-  return d == 16 ? launch<16>(a, stream) : launch<32>(a, stream);
+cudaError_t run(const ApplyArgs& a, int d, int q_type, cudaStream_t stream) {
+  if (q_type == kF32) return d == 16 ? launch<16, float>(a, stream) : launch<32, float>(a, stream);
+  return d == 16 ? launch<16, __nv_bfloat16>(a, stream) : launch<32, __nv_bfloat16>(a, stream);
 }
+
+bool type_ok(int q_type) { return q_type == kF32 || q_type == kBf16; }
 
 template <int D>
 int occupancy(int* smem_bytes) {
   *smem_bytes = smem_floats<D>() * 4;
   int blocks = 0;
-  if (configure<D>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, apply_kernel<D>, kThreads,
+  if (configure<D, float>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, apply_kernel<D, float>, kThreads,
                                                     *smem_bytes) != cudaSuccess) {
     return -1;
   }
@@ -299,18 +335,21 @@ int occupancy(int* smem_bytes) {
 
 }  // namespace
 
-// nla_apply. q: [B, L, E] f32; kv: [F, B, E, E]; ksum: [F, B, 1, E];
-// out: [F, B, L, E]; qs: [B, L, E]. Returns a cudaError_t (0 = launched).
+// nla_apply. q: [B, L, E] of q_type (0 f32, 1 bf16); kv: [F, B, E, E] f32;
+// ksum: [F, B, 1, E] f32; out: [F, B, L, E] and qs: [B, L, E] of q_type.
+// Returns a cudaError_t (0 = launched).
 extern "C" int gnot_nla_apply(const void* q, const void* kv, const void* ksum, void* out, void* qs,
-                              int f, int b, int l, int e, int d, void* stream) {
-  if (!dims_ok(f, b, l, e, d)) return static_cast<int>(cudaErrorInvalidValue);
+                              int f, int b, int l, int e, int d, int q_type, void* stream) {
+  if (!dims_ok(f, b, l, e, d) || !type_ok(q_type)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ApplyArgs a;
-  a.q = static_cast<const float*>(q);
+  a.q = q;
   a.kv = static_cast<const float*>(kv);
   a.ksum = static_cast<const float*>(ksum);
   a.seg = nullptr;
-  a.out = static_cast<float*>(out);
-  a.qs = static_cast<float*>(qs);
+  a.out = out;
+  a.qs = qs;
   a.f = f;
   a.b = b;
   a.l = l;
@@ -318,25 +357,26 @@ extern "C" int gnot_nla_apply(const void* q, const void* kv, const void* ksum, v
   a.n_chunks = 1;
   a.chunk_len = l;
   a.n_slots = b;
-  return static_cast<int>(run(a, d, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(a, d, q_type, static_cast<cudaStream_t>(stream)));
 }
 
-// nla_apply_seg. q: [B, L, E] f32; kv: [F, S, E, E]; ksum: [F, S, 1, E];
-// seg: [B, N] int32 chunk -> slot ids, L = N * chunk; out: [F, B, L, E];
-// qs: [B, L, E]. Returns a cudaError_t (0 = launched).
+// nla_apply_seg. q: [B, L, E] of q_type; kv: [F, S, E, E] f32; ksum: [F, S,
+// 1, E] f32; seg: [B, N] int32 chunk -> slot ids, L = N * chunk; out: [F, B,
+// L, E] and qs: [B, L, E] of q_type. Returns a cudaError_t (0 = launched).
 extern "C" int gnot_nla_apply_seg(const void* q, const void* kv, const void* ksum, const void* seg,
                                   void* out, void* qs, int f, int b, int l, int e, int d,
-                                  int n_chunks, int n_slots, void* stream) {
-  if (!dims_ok(f, b, l, e, d) || n_chunks < 1 || l % n_chunks != 0 || n_slots < 0) {
+                                  int n_chunks, int n_slots, int q_type, void* stream) {
+  if (!dims_ok(f, b, l, e, d) || n_chunks < 1 || l % n_chunks != 0 || n_slots < 0 ||
+      !type_ok(q_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ApplyArgs a;
-  a.q = static_cast<const float*>(q);
+  a.q = q;
   a.kv = static_cast<const float*>(kv);
   a.ksum = static_cast<const float*>(ksum);
   a.seg = static_cast<const int*>(seg);
-  a.out = static_cast<float*>(out);
-  a.qs = static_cast<float*>(qs);
+  a.out = out;
+  a.qs = qs;
   a.f = f;
   a.b = b;
   a.l = l;
@@ -344,10 +384,10 @@ extern "C" int gnot_nla_apply_seg(const void* q, const void* kv, const void* ksu
   a.n_chunks = n_chunks;
   a.chunk_len = l / n_chunks;
   a.n_slots = n_slots;
-  return static_cast<int>(run(a, d, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(a, d, q_type, static_cast<cudaStream_t>(stream)));
 }
 
-// Resident blocks per SM of the kernel for head width d (16 or 32), and its
+// Resident blocks per SM of the f32 kernel for head width d (16 or 32), and its
 // shared memory per block in *smem_bytes; -1 on an error. For the probes.
 extern "C" int gnot_nla_apply_occupancy(int d, int* smem_bytes) {
   if (d != 16 && d != 32) return -1;

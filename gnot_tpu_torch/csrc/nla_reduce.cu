@@ -1,4 +1,5 @@
-// Normalized-linear-attention reduce stage for NVIDIA Hopper (sm_90a), float32.
+// Normalized-linear-attention reduce stage for NVIDIA Hopper (sm_90a), float32
+// or bfloat16 inputs, float32 outputs.
 //
 // Replaces two TPU kernels of gnot_tpu/ops/pallas_attention.py:
 //   * nla_reduce     (:206; pallas_call :171, body _reduce_kernel :145)
@@ -67,14 +68,27 @@
 //     copy of every stage. mma.sync fragments are loaded from any layout.
 //   * Rows past a chunk's end and columns past E are zero-filled by the copy
 //     and carry mask 0, so no input is padded.
-// f32 in and out. wgmma with TMA, skipping masked rows and warp
-// specialisation are later work.
+//   * k and v are read as f32 or bf16, one instance per element type (the
+//     TPU bodies cast every input to f32, :153-155 and :516-518); the mask
+//     is f32 or k's type. A bf16 instance reads its bf16 values from device
+//     memory itself and widens them to f32 as it stages them (exact), so
+//     everything after the load is the f32 instance's: on the same values
+//     widened, its outputs are bitwise the f32 instance's. The TF32 split of
+//     a bf16 v has a zero lo part, so its hi*lo product is skipped. Its rows
+//     are loaded into registers and stored to shared memory, not copied
+//     with cp.async (which copies bytes and cannot widen), so a step waits
+//     on the next step's loads before it computes.
+// f32 out. wgmma with TMA, skipping masked rows, warp specialisation and
+// asynchronous bf16 staging are later work.
 //
 // Supported: D in {16, 32}, E a multiple of D up to 256, any F, B, Lk. The
 // launchers refuse anything else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -89,10 +103,14 @@ constexpr int kStrideV = kTj + 8;
 constexpr int kMaxE = 256;
 constexpr int kCombineThreads = 256;
 
+// Element types of k / v and of the mask, as the launchers' codes.
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+
 struct ReduceArgs {
-  const float* __restrict__ k;     // [F, B, Lk, E]
-  const float* __restrict__ v;     // [F, B, Lk, E]
-  const float* __restrict__ mask;  // [F, B, Lk]
+  const void* __restrict__ k;      // [F, B, Lk, E], f32 or bf16
+  const void* __restrict__ v;      // [F, B, Lk, E], k's type
+  const void* __restrict__ mask;   // [F, B, Lk], f32 or k's type
   const int* __restrict__ seg;     // [B, N] chunk -> slot ids, or nullptr: the slot of row b is b
   float* __restrict__ partial;     // [F, B*N, E*E + E] scratch: per-chunk Gram, then k_sum
   float* __restrict__ kv;          // [F, S, E, E]
@@ -131,6 +149,20 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// bf16 to f32, exactly: a bf16 is the high half of the f32 it widens to.
+__device__ __forceinline__ float widen(uint32_t bits16) { return __uint_as_float(bits16 << 16); }
+
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Four consecutive bf16 values (8 bytes, 8-byte aligned), widened.
+__device__ __forceinline__ float4 load4_f(const __nv_bfloat16* p) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(widen(w.x & 0xffffu), widen(w.x >> 16), widen(w.y & 0xffffu),
+                     widen(w.y >> 16));
+}
+
 struct Stage {
   float k[kRows][kStrideK];
   float v[kRows][kStrideV];
@@ -164,32 +196,74 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // Start copying rows r0..r0+31 of the k stripe [i0, i0+wi), the v stripe
 // [j0, j0+wj) and the mask into `st`; rows at or past r_end and columns
-// past the stripe are zero-filled.
-__device__ __forceinline__ void stage_rows(Stage& st, const float* kp, const float* vp,
-                                           const float* mp, int e, int r0, int r_end, int i0,
-                                           int wi, int j0, int wj) {
+// past the stripe are zero-filled. f32 rows and an f32 mask go by cp.async;
+// bf16 ones are loaded, widened and stored here (all of a thread's loads
+// issued before its first store).
+template <typename T, typename M>
+__device__ __forceinline__ void stage_rows(Stage& st, const T* kp, const T* vp, const M* mp,
+                                           int e, int r0, int r_end, int i0, int wi, int j0,
+                                           int wj) {
   const int t = threadIdx.x;
   if (t < kRows) {
     const bool ok = r0 + t < r_end;
-    cp_async4(&st.m[t], ok ? mp + r0 + t : mp, ok ? 4 : 0);
+    if constexpr (std::is_same_v<M, float>) {
+      cp_async4(&st.m[t], ok ? mp + r0 + t : mp, ok ? 4 : 0);
+    } else {
+      st.m[t] = ok ? load_f(mp + r0 + t) : 0.f;
+    }
   }
-  for (int idx = t; idx < kRows * kTi / 4; idx += kThreads) {
-    const int rr = idx / (kTi / 4);
-    const int c4 = (idx % (kTi / 4)) * 4;
-    const bool ok = r0 + rr < r_end && c4 < wi;
-    cp_async16(&st.k[rr][c4], ok ? kp + static_cast<size_t>(r0 + rr) * e + i0 + c4 : kp, ok ? 16 : 0);
-  }
-  for (int idx = t; idx < kRows * kTj / 4; idx += kThreads) {
-    const int rr = idx / (kTj / 4);
-    const int c4 = (idx % (kTj / 4)) * 4;
-    const bool ok = r0 + rr < r_end && c4 < wj;
-    cp_async16(&st.v[rr][c4], ok ? vp + static_cast<size_t>(r0 + rr) * e + j0 + c4 : vp, ok ? 16 : 0);
+  if constexpr (std::is_same_v<T, float>) {
+    for (int idx = t; idx < kRows * kTi / 4; idx += kThreads) {
+      const int rr = idx / (kTi / 4);
+      const int c4 = (idx % (kTi / 4)) * 4;
+      const bool ok = r0 + rr < r_end && c4 < wi;
+      cp_async16(&st.k[rr][c4], ok ? kp + static_cast<size_t>(r0 + rr) * e + i0 + c4 : kp, ok ? 16 : 0);
+    }
+    for (int idx = t; idx < kRows * kTj / 4; idx += kThreads) {
+      const int rr = idx / (kTj / 4);
+      const int c4 = (idx % (kTj / 4)) * 4;
+      const bool ok = r0 + rr < r_end && c4 < wj;
+      cp_async16(&st.v[rr][c4], ok ? vp + static_cast<size_t>(r0 + rr) * e + j0 + c4 : vp, ok ? 16 : 0);
+    }
+  } else {
+    constexpr int kN = kRows * kTi / 4 / kThreads;  // 4-column pieces of k a thread
+    constexpr int vN = kRows * kTj / 4 / kThreads;  // and of v
+    float4 kx[kN], vx[vN];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int idx = t + n * kThreads;
+      const int rr = idx / (kTi / 4);
+      const int c4 = (idx % (kTi / 4)) * 4;
+      kx[n] = r0 + rr < r_end && c4 < wi
+                  ? load4_f(kp + static_cast<size_t>(r0 + rr) * e + i0 + c4) : zero;
+    }
+#pragma unroll
+    for (int n = 0; n < vN; ++n) {
+      const int idx = t + n * kThreads;
+      const int rr = idx / (kTj / 4);
+      const int c4 = (idx % (kTj / 4)) * 4;
+      vx[n] = r0 + rr < r_end && c4 < wj
+                  ? load4_f(vp + static_cast<size_t>(r0 + rr) * e + j0 + c4) : zero;
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int idx = t + n * kThreads;
+      *reinterpret_cast<float4*>(&st.k[idx / (kTi / 4)][(idx % (kTi / 4)) * 4]) = kx[n];
+    }
+#pragma unroll
+    for (int n = 0; n < vN; ++n) {
+      const int idx = t + n * kThreads;
+      *reinterpret_cast<float4*>(&st.v[idx / (kTj / 4)][(idx % (kTj / 4)) * 4]) = vx[n];
+    }
   }
 }
 
-template <int D>
+template <int D, typename T, typename M>
 __global__ void __launch_bounds__(kThreads)
 reduce_partial(const __grid_constant__ ReduceArgs a) {
+  // A bf16 v is exact in TF32: its lo part is 0, so its hi*lo product is.
+  constexpr bool kSplitV = std::is_same_v<T, float>;
   extern __shared__ __align__(16) float smem[];
   Stage* st = reinterpret_cast<Stage*>(smem);  // double-buffered k, v and mask rows
 
@@ -206,9 +280,9 @@ reduce_partial(const __grid_constant__ ReduceArgs a) {
   const int r_begin = chunk_begin + (u % a.n_split) * a.split_len;
   const int r_end = min(min(r_begin + a.split_len, chunk_begin + a.chunk_len), a.lk);
   const size_t slab = (static_cast<size_t>(blockIdx.z) * a.b + row) * a.lk;
-  const float* kp = a.k + slab * a.e;
-  const float* vp = a.v + slab * a.e;
-  const float* mp = a.mask + slab;
+  const T* kp = static_cast<const T*>(a.k) + slab * a.e;
+  const T* vp = static_cast<const T*>(a.v) + slab * a.e;
+  const M* mp = static_cast<const M*>(a.mask) + slab;
 
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -286,7 +360,7 @@ reduce_partial(const __grid_constant__ ReduceArgs a) {
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           mma_tf32(acc[mt][nt], al[mt], bh);
-          mma_tf32(acc[mt][nt], ah[mt], bl);
+          if (kSplitV) mma_tf32(acc[mt][nt], ah[mt], bl);
           mma_tf32(acc[mt][nt], ah[mt], bh);
         }
       }
@@ -365,13 +439,13 @@ reduce_combine(const __grid_constant__ ReduceArgs a) {
   }
 }
 
-template <int D>
+template <int D, typename T, typename M>
 cudaError_t launch(const ReduceArgs& a, cudaStream_t stream) {
   constexpr int bytes = 2 * sizeof(Stage);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        reduce_partial<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        reduce_partial<D, T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -379,7 +453,7 @@ cudaError_t launch(const ReduceArgs& a, cudaStream_t stream) {
   const int n_tiles = ((a.e + kTi - 1) / kTi) * ((a.e + kTj - 1) / kTj);
   if (a.b * a.n_chunks > 0) {
     const dim3 grid(n_tiles, a.b * a.n_chunks * a.n_split, a.f);
-    reduce_partial<D><<<grid, kThreads, bytes, stream>>>(a);
+    reduce_partial<D, T, M><<<grid, kThreads, bytes, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -394,8 +468,22 @@ bool dims_ok(int f, int b, int lk, int e, int d) {
          f <= 65535;
 }
 
-cudaError_t run(const ReduceArgs& a, int d, cudaStream_t stream) {
-  return d == 16 ? launch<16>(a, stream) : launch<32>(a, stream);
+// The instances: k and v f32 with an f32 mask, or bf16 with an f32 or bf16 mask.
+bool types_ok(int kv_type, int mask_type) {
+  return (kv_type == kF32 && mask_type == kF32) ||
+         (kv_type == kBf16 && (mask_type == kF32 || mask_type == kBf16));
+}
+
+template <int D>
+cudaError_t run_d(const ReduceArgs& a, int kv_type, int mask_type, cudaStream_t stream) {
+  if (kv_type == kF32) return launch<D, float, float>(a, stream);
+  if (mask_type == kF32) return launch<D, __nv_bfloat16, float>(a, stream);
+  return launch<D, __nv_bfloat16, __nv_bfloat16>(a, stream);
+}
+
+cudaError_t run(const ReduceArgs& a, int d, int kv_type, int mask_type, cudaStream_t stream) {
+  return d == 16 ? run_d<16>(a, kv_type, mask_type, stream)
+                 : run_d<32>(a, kv_type, mask_type, stream);
 }
 
 bool split_ok(int b, int n_chunks, int chunk_len, int n_split, int split_len) {
@@ -406,20 +494,23 @@ bool split_ok(int b, int n_chunks, int chunk_len, int n_split, int split_len) {
 
 }  // namespace
 
-// nla_reduce. k, v: [F, B, Lk, E] f32; mask: [F, B, Lk] f32; partial: scratch
-// of F * B * n_split * (E*E + E) floats; kv: [F, B, E, E]; ksum: [F, B, 1, E].
+// nla_reduce. k, v: [F, B, Lk, E] of kv_type (0 f32, 1 bf16); mask: [F, B, Lk]
+// of mask_type (f32, or bf16 with bf16 k and v); partial: f32 scratch of F * B
+// * n_split * (E*E + E) floats; kv: [F, B, E, E] f32; ksum: [F, B, 1, E] f32.
 // Row b is cut into n_split pieces of split_len rows (the last may be short).
 // Returns a cudaError_t (0 = launched).
 extern "C" int gnot_nla_reduce(const void* k, const void* v, const void* mask, void* partial,
                                void* kv, void* ksum, int f, int b, int lk, int e, int d,
-                               int n_split, int split_len, void* stream) {
-  if (!dims_ok(f, b, lk, e, d) || !split_ok(b, 1, lk, n_split, split_len) || b > 65535) {
+                               int n_split, int split_len, int kv_type, int mask_type,
+                               void* stream) {
+  if (!dims_ok(f, b, lk, e, d) || !split_ok(b, 1, lk, n_split, split_len) || b > 65535 ||
+      !types_ok(kv_type, mask_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ReduceArgs a;
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.mask = static_cast<const float*>(mask);
+  a.k = k;
+  a.v = v;
+  a.mask = mask;
   a.seg = nullptr;
   a.partial = static_cast<float*>(partial);
   a.kv = static_cast<float*>(kv);
@@ -433,26 +524,27 @@ extern "C" int gnot_nla_reduce(const void* k, const void* v, const void* mask, v
   a.n_split = n_split;
   a.split_len = split_len;
   a.n_slots = b;
-  return static_cast<int>(run(a, d, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(a, d, kv_type, mask_type, static_cast<cudaStream_t>(stream)));
 }
 
-// nla_reduce_seg. k, v: [F, B, Lk, E] f32; mask: [F, B, Lk] f32; seg: [B, N]
-// int32 chunk -> slot ids, Lk = N * chunk; each chunk is cut into n_split
-// pieces of split_len rows; partial: scratch of F * B * N * n_split *
-// (E*E + E) floats; kv: [F, S, E, E]; ksum: [F, S, 1, E]. Returns a
-// cudaError_t (0 = launched).
+// nla_reduce_seg. k, v: [F, B, Lk, E] of kv_type; mask: [F, B, Lk] of
+// mask_type (as nla_reduce); seg: [B, N] int32 chunk -> slot ids, Lk = N *
+// chunk; each chunk is cut into n_split pieces of split_len rows; partial: f32
+// scratch of F * B * N * n_split * (E*E + E) floats; kv: [F, S, E, E] f32;
+// ksum: [F, S, 1, E] f32. Returns a cudaError_t (0 = launched).
 extern "C" int gnot_nla_reduce_seg(const void* k, const void* v, const void* mask, const void* seg,
                                    void* partial, void* kv, void* ksum, int f, int b, int lk, int e,
                                    int d, int n_chunks, int n_slots, int n_split, int split_len,
-                                   void* stream) {
+                                   int kv_type, int mask_type, void* stream) {
   if (!dims_ok(f, b, lk, e, d) || n_chunks < 1 || lk % n_chunks != 0 || n_slots < 0 ||
-      n_slots > 65535 || !split_ok(b, n_chunks, lk / n_chunks, n_split, split_len)) {
+      n_slots > 65535 || !split_ok(b, n_chunks, lk / n_chunks, n_split, split_len) ||
+      !types_ok(kv_type, mask_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ReduceArgs a;
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.mask = static_cast<const float*>(mask);
+  a.k = k;
+  a.v = v;
+  a.mask = mask;
   a.seg = static_cast<const int*>(seg);
   a.partial = static_cast<float*>(partial);
   a.kv = static_cast<float*>(kv);
@@ -466,5 +558,5 @@ extern "C" int gnot_nla_reduce_seg(const void* k, const void* v, const void* mas
   a.n_split = n_split;
   a.split_len = split_len;
   a.n_slots = n_slots;
-  return static_cast<int>(run(a, d, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(a, d, kv_type, mask_type, static_cast<cudaStream_t>(stream)));
 }

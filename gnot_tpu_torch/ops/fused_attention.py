@@ -26,7 +26,10 @@ Four kernels back the four stages (``csrc/nla_reduce.cu``,
 whose forward launches the kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors; its backward recomputes through the plain
 version, as the JAX ``custom_vjp``s do. Masks and segment ids get no
-gradient. The kernels are float32 only and take D in {16, 32}, E <= 256.
+gradient. The kernels take D in {16, 32}, E <= 256, and float32 or bfloat16
+inputs, as the JAX kernels take any float dtype and compute in float32: the
+reduce stages return float32 whatever their inputs; the apply stages
+return ``out`` and ``qs`` in q's dtype, their plain versions too.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ REDUCE_MIN_SPLIT = 64
 
 # C launchers by name, bound once (argtypes set) per process.
 _launchers: dict = {}
+# The element types the kernels read, by the launchers' type codes.
+TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # --------------------------------------------------------------------------
@@ -87,7 +92,8 @@ def reduce_reference(k, v, mask, n_head: int):
 
 
 def apply_reference(q, kv, ksum, n_head: int):
-    """Plain form of the apply stage: ``(out [F,B,L,E], qs [B,L,E])``."""
+    """Plain form of the apply stage: ``(out [F,B,L,E], qs [B,L,E])`` in
+    q's dtype, computed in f32 (``pallas_attention._apply_ref``)."""
     e = q.shape[-1]
     qs = group_softmax(q, n_head)
     bd = block_diag_mask(e, e // n_head, q.device)
@@ -95,7 +101,7 @@ def apply_reference(q, kv, ksum, n_head: int):
     denom = torch.einsum("fble,ed->fbld", qs[None] * ksum, bd)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     out = torch.einsum("bld,fbde->fble", qs, kv * bd) / denom
-    return out, qs
+    return out.to(q.dtype), qs.to(q.dtype)
 
 
 def reduce_seg_reference(k, v, mask, seg, n_seg: int, n_head: int):
@@ -111,8 +117,9 @@ def reduce_seg_reference(k, v, mask, seg, n_seg: int, n_head: int):
 
 
 def apply_seg_reference(q, kv, ksum, seg, n_head: int):
-    """Plain form of the segment apply: ``(out [F,B,L,E], qs [B,L,E])``;
-    rows of pad chunks give 0."""
+    """Plain form of the segment apply: ``(out [F,B,L,E], qs [B,L,E])`` in
+    q's dtype (``pallas_attention._apply_seg_ref``); rows of pad chunks
+    give 0."""
     b, l, e = q.shape
     n_seg = kv.shape[1]
     n = seg.shape[1]
@@ -126,7 +133,7 @@ def apply_seg_reference(q, kv, ksum, seg, n_head: int):
     denom = torch.matmul(qc[None] * ks_t[:, :, :, None, :], bd)  # [F, B, N, C, E]
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     out = torch.einsum("bncd,fbnde->fbnce", qc, kv_t) / denom
-    return out.reshape(kv.shape[0], b, l, e), qs
+    return out.reshape(kv.shape[0], b, l, e).to(q.dtype), qs.to(q.dtype)
 
 
 def reference_impl(q, k, v, mask, n_head: int):
@@ -168,11 +175,22 @@ def _check_tensors(floats, ints=()) -> None:
         if t.data_ptr() % 16:
             raise ValueError("the attention kernels need 16-byte aligned tensors")
     for t in floats:
-        if t.dtype != torch.float32:
-            raise ValueError(f"the attention kernels are float32 only, got {t.dtype}")
+        if t.dtype not in TYPE_CODES:
+            raise ValueError(f"the attention kernels take float32 or bfloat16, got {t.dtype}")
     for t in ints:
         if t.dtype != torch.int32:
             raise ValueError(f"segment ids must be int32, got {t.dtype}")
+
+
+def _reduce_inputs(k, v, mask):
+    """``(k, v, mask)`` as a reduce kernel instance takes them: k and v of
+    one type, the mask f32 or k's type. Any other mix is widened here to
+    f32, an exact cast: f32 k with bf16 v reads as f32 k and v."""
+    if k.dtype != v.dtype:
+        k, v = k.float(), v.float()
+    if mask.dtype not in (torch.float32, k.dtype):
+        mask = mask.float()
+    return k, v, mask
 
 
 def _seg_tile(l: int, n_tiles: int, what: str) -> int:
@@ -250,9 +268,11 @@ def _stream(t: torch.Tensor) -> int:
 
 def nla_reduce_kernel(k, v, mask, n_head: int):
     """Launch ``csrc/nla_reduce.cu`` (dense form) on PyTorch's current
-    stream: ``(kv [F,B,E,E], ksum [F,B,1,E])``."""
+    stream: ``(kv [F,B,E,E], ksum [F,B,1,E])`` in f32. k and v are f32 or
+    bf16, the mask f32 or k's dtype; ``_reduce_inputs`` widens other mixes."""
     _check_kv(k, v, mask)
     _check_tensors([k, v, mask])
+    k, v, mask = _reduce_inputs(k, v, mask)
     f, b, lk, e = k.shape
     d = _head_width(e, n_head)
     n_sm = torch.cuda.get_device_properties(k.device).multi_processor_count
@@ -261,10 +281,10 @@ def nla_reduce_kernel(k, v, mask, n_head: int):
     partial = torch.empty(f, b * n_split, e * e + e, **opts)
     kv = torch.empty(f, b, e, e, **opts)
     ksum = torch.empty(f, b, 1, e, **opts)
-    fn = _lib("nla_reduce", "gnot_nla_reduce", 6, 7)
+    fn = _lib("nla_reduce", "gnot_nla_reduce", 6, 9)
     err = fn(k.data_ptr(), v.data_ptr(), mask.data_ptr(), partial.data_ptr(),
              kv.data_ptr(), ksum.data_ptr(), f, b, lk, e, d, n_split, split_len,
-             _stream(k))
+             TYPE_CODES[k.dtype], TYPE_CODES[mask.dtype], _stream(k))
     _raise_on(err, "nla_reduce")
     nla_reduce_kernel.launches += 1
     return kv, ksum
@@ -272,17 +292,19 @@ def nla_reduce_kernel(k, v, mask, n_head: int):
 
 def nla_apply_kernel(q, kv, ksum, n_head: int):
     """Launch ``csrc/nla_apply.cu`` (dense form) on PyTorch's current
-    stream: ``(out [F,B,L,E], qs [B,L,E])``."""
+    stream: ``(out [F,B,L,E], qs [B,L,E])`` in q's dtype (f32 or bf16). The
+    kernel reads f32 Grams: bf16 ones are widened here, an exact cast."""
     _check_apply(q, kv, ksum, q.shape[0])
     _check_tensors([q, kv, ksum])
+    kv, ksum = kv.float(), ksum.float()
     b, l, e = q.shape
     d = _head_width(e, n_head)
     f = kv.shape[0]
-    out = torch.empty(f, b, l, e, device=q.device, dtype=torch.float32)
-    qs = torch.empty(b, l, e, device=q.device, dtype=torch.float32)
-    fn = _lib("nla_apply", "gnot_nla_apply", 5, 5)
+    out = torch.empty(f, b, l, e, device=q.device, dtype=q.dtype)
+    qs = torch.empty(b, l, e, device=q.device, dtype=q.dtype)
+    fn = _lib("nla_apply", "gnot_nla_apply", 5, 6)
     err = fn(q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), out.data_ptr(),
-             qs.data_ptr(), f, b, l, e, d, _stream(q))
+             qs.data_ptr(), f, b, l, e, d, TYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "nla_apply")
     nla_apply_kernel.launches += 1
     return out, qs
@@ -290,13 +312,15 @@ def nla_apply_kernel(q, kv, ksum, n_head: int):
 
 def nla_reduce_seg_kernel(k, v, mask, seg, n_seg: int, n_head: int):
     """Launch ``csrc/nla_reduce.cu`` (segment form) on PyTorch's current
-    stream: ``(kv [F,S,E,E], ksum [F,S,1,E])``."""
+    stream: ``(kv [F,S,E,E], ksum [F,S,1,E])`` in f32; input types as
+    ``nla_reduce_kernel``'s."""
     _check_kv(k, v, mask)
     f, b, lk, e = k.shape
     if seg.dim() != 2 or seg.shape[0] != b:
         raise ValueError(f"seg must be [B={b}, N], got {tuple(seg.shape)}")
     _seg_tile(lk, seg.shape[1], "nla_reduce_seg")
     _check_tensors([k, v, mask], [seg])
+    k, v, mask = _reduce_inputs(k, v, mask)
     d = _head_width(e, n_head)
     n = seg.shape[1]
     n_sm = torch.cuda.get_device_properties(k.device).multi_processor_count
@@ -305,10 +329,11 @@ def nla_reduce_seg_kernel(k, v, mask, seg, n_seg: int, n_head: int):
     partial = torch.empty(f, b * n * n_split, e * e + e, **opts)
     kv = torch.empty(f, n_seg, e, e, **opts)
     ksum = torch.empty(f, n_seg, 1, e, **opts)
-    fn = _lib("nla_reduce", "gnot_nla_reduce_seg", 7, 9)
+    fn = _lib("nla_reduce", "gnot_nla_reduce_seg", 7, 11)
     err = fn(k.data_ptr(), v.data_ptr(), mask.data_ptr(), seg.data_ptr(),
              partial.data_ptr(), kv.data_ptr(), ksum.data_ptr(), f, b, lk, e, d,
-             n, n_seg, n_split, split_len, _stream(k))
+             n, n_seg, n_split, split_len, TYPE_CODES[k.dtype], TYPE_CODES[mask.dtype],
+             _stream(k))
     _raise_on(err, "nla_reduce_seg")
     nla_reduce_seg_kernel.launches += 1
     return kv, ksum
@@ -316,21 +341,23 @@ def nla_reduce_seg_kernel(k, v, mask, seg, n_seg: int, n_head: int):
 
 def nla_apply_seg_kernel(q, kv, ksum, seg, n_head: int):
     """Launch ``csrc/nla_apply.cu`` (segment form) on PyTorch's current
-    stream: ``(out [F,B,L,E], qs [B,L,E])``."""
+    stream: ``(out [F,B,L,E], qs [B,L,E])`` in q's dtype; Grams as
+    ``nla_apply_kernel``'s."""
     _check_apply(q, kv, ksum, kv.shape[1])
     b, l, e = q.shape
     if seg.dim() != 2 or seg.shape[0] != b:
         raise ValueError(f"seg must be [B={b}, N], got {tuple(seg.shape)}")
     _seg_tile(l, seg.shape[1], "nla_apply_seg")
     _check_tensors([q, kv, ksum], [seg])
+    kv, ksum = kv.float(), ksum.float()
     d = _head_width(e, n_head)
     f, n_seg = kv.shape[:2]
-    out = torch.empty(f, b, l, e, device=q.device, dtype=torch.float32)
-    qs = torch.empty(b, l, e, device=q.device, dtype=torch.float32)
-    fn = _lib("nla_apply", "gnot_nla_apply_seg", 6, 7)
+    out = torch.empty(f, b, l, e, device=q.device, dtype=q.dtype)
+    qs = torch.empty(b, l, e, device=q.device, dtype=q.dtype)
+    fn = _lib("nla_apply", "gnot_nla_apply_seg", 6, 8)
     err = fn(q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), seg.data_ptr(),
              out.data_ptr(), qs.data_ptr(), f, b, l, e, d, seg.shape[1], n_seg,
-             _stream(q))
+             TYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "nla_apply_seg")
     nla_apply_seg_kernel.launches += 1
     return out, qs
@@ -437,7 +464,7 @@ def nla_reduce(k, v, mask, n_head: int):
 
 def nla_apply(q, kv, ksum, n_head: int):
     """Apply the Gram accumulators to the query stream: ``(out [F,B,L,E],
-    q_softmaxed [B,L,E])``, heads merged."""
+    q_softmaxed [B,L,E])`` in q's dtype, heads merged."""
     return _Apply.apply(q, kv, ksum, n_head)
 
 

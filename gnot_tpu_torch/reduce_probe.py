@@ -54,7 +54,7 @@ N_SM = 132
 
 OUT_DIR = build.BUILD_DIR / "reduce_probe"
 _MMA_LO_HI = ("          mma_tf32(acc[mt][nt], al[mt], bh);\n", "")
-_MMA_HI_LO = ("          mma_tf32(acc[mt][nt], ah[mt], bl);\n", "")
+_MMA_HI_LO = ("          if (kSplitV) mma_tf32(acc[mt][nt], ah[mt], bl);\n", "")
 _MMA_HI_HI = ("          mma_tf32(acc[mt][nt], ah[mt], bh);\n", "")
 VARIANTS: dict[str, list[tuple[str, str]]] = {
     "kernel": [],
@@ -97,7 +97,7 @@ def variant_times(device, case: dict) -> None:
     try:
         for name, lib in libs.items():
             fn = lib.gnot_nla_reduce
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fa._launchers["gnot_nla_reduce"] = fn
             fa.REDUCE_MIN_SPLIT = default_floor

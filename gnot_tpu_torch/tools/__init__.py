@@ -1,6 +1,7 @@
-"""The serving operator's tools of the port, one module for each of the
-repo's ``tools/`` scripts that reads or drives serving, under the same
-name, each run as ``python -m gnot_tpu_torch.tools.<name>``:
+"""The operator's tools of the port, one module for each of the repo's
+``tools/`` scripts that reads or drives serving, and the reference-scale
+training demo, under the same name, each run as ``python -m
+gnot_tpu_torch.tools.<name>``:
 
 * ``trace_report``: a ``--trace_path`` Chrome trace's per-kind, per-bucket,
   per-replica, per-tenant and per-host tables and the critical path;
@@ -11,7 +12,9 @@ name, each run as ``python -m gnot_tpu_torch.tools.<name>``:
 * ``capacity_report``: a ``--capacity`` storm folded into program,
   capacity and pack-plan rows;
 * ``lockmap_report``: the port's lock graph (``analysis/lockorder.py``) as
-  node, edge and summary records.
+  node, edge and summary records;
+* ``reference_scale_demo``: reference-scale pickles (~10k-point meshes) and
+  a ``--train_data`` run on them with its throughput summary.
 
 Each keeps its JAX tool's flags, defaults, importable functions and
 returned dicts, and imports only the standard library, numpy, torch and

@@ -50,6 +50,10 @@ GRAD_TOL = (1e-5, 1e-6)
 # The composed kernels against the torch einsum path: the JAX package's
 # model-level bar.
 MODEL_TOL = (1e-4, 1e-5)
+# bf16 outputs against the plain version on the same bf16 inputs: both
+# compute in f32 and round once, so an element differs by at most one bf16
+# ulp (2^-7 of its value at most) where the two f32 results round apart.
+BF16_TOL = (2.0**-7, 1e-6)
 
 WIDTH, N_HEAD = 256, 8
 
@@ -182,6 +186,70 @@ def check_packed(name: str, q, k, v, mask, q_seg, kv_seg, n_seg: int, n_head: in
                   q, k, v)
     checks += [compare(g, f"{name} fused_nla_packed grad {w}", a, b, GRAD_TOL)
                for w, a, b in zip("qkv", got, want)]
+    return checks
+
+
+def check_bf16(name: str, case: dict, n_head: int, seed: int = 0) -> list[Check]:
+    """The stages of one case (dense, or packed where it has ``q_seg``) on
+    bf16 q, k, v and mask against their plain versions on the same bf16
+    inputs: the reduce's f32 Grams at OUT_TOL (its inputs are exact after
+    widening) and bitwise the reduce of the widened inputs; the apply's
+    ``out`` and ``qs`` in bf16 within one bf16 ulp (the apply takes the
+    plain Grams); gradients wrt q, k and v through the autograd Functions
+    against autograd through the plain versions, bf16, along one fixed
+    cotangent from ``seed``."""
+    g = "attn-bf16"
+    q, k, v, mask = (case[x].bfloat16() for x in ("q", "k", "v", "mask"))
+    if "q_seg" in case:
+        seg = (case["kv_seg"], case["n_seg"], n_head)
+        reduce, reduce_p = fa.nla_reduce_seg, fa.reduce_seg_reference
+        apply, apply_p = fa.nla_apply_seg, fa.apply_seg_reference
+        apply_args = (case["q_seg"], n_head)
+        fused = lambda *a: fa.fused_nla_packed(  # noqa: E731
+            *a, mask, case["q_seg"], case["kv_seg"], case["n_seg"], n_head)
+        plain = lambda *a: fa.reference_seg_impl(  # noqa: E731
+            *a, mask, case["q_seg"], case["kv_seg"], case["n_seg"], n_head)
+        stages = ("nla_reduce_seg", "nla_apply_seg")
+    else:
+        seg = (n_head,)
+        reduce, reduce_p = fa.nla_reduce, fa.reduce_reference
+        apply, apply_p = fa.nla_apply, fa.apply_reference
+        apply_args = (n_head,)
+        fused = lambda *a: fa.fused_nla(*a, mask, n_head)  # noqa: E731
+        plain = lambda *a: fa.reference_impl(*a, mask, n_head)  # noqa: E731
+        stages = ("nla_reduce", "nla_apply")
+    kv, ksum = reduce(k, v, mask, *seg)
+    kv_p, ksum_p = reduce_p(k, v, mask, *seg)
+    kv_w, ksum_w = reduce(k.float(), v.float(), mask.float(), *seg)
+    out, qs = apply(q, kv_p, ksum_p, *apply_args)
+    out_p, qs_p = apply_p(q, kv_p, ksum_p, *apply_args)
+    dtypes = [t.dtype for t in (kv, ksum, out, qs, out_p, qs_p)]
+    want_dtypes = [torch.float32] * 2 + [torch.bfloat16] * 4
+    checks = [
+        compare(g, f"{name} {stages[0]} kv", kv, kv_p, OUT_TOL, stages[0]),
+        compare(g, f"{name} {stages[0]} ksum", ksum, ksum_p, OUT_TOL, stages[0]),
+        compare(g, f"{name} {stages[0]} kv vs the widened inputs' (bitwise)", kv, kv_w, (0, 0)),
+        compare(g, f"{name} {stages[0]} ksum vs the widened inputs' (bitwise)", ksum, ksum_w,
+                (0, 0)),
+        compare(g, f"{name} {stages[1]} out", out, out_p, BF16_TOL, stages[1]),
+        compare(g, f"{name} {stages[1]} qs", qs, qs_p, BF16_TOL, stages[1]),
+        Check(g, f"{name} dtypes {[str(d) for d in dtypes]}", 0.0, 0.0, 0.0,
+              dtypes == want_dtypes),
+    ]
+    print(f"[{g}] {checks[-1].name}: {'ok' if checks[-1].ok else 'FAILED'}", flush=True)
+    gen = torch.Generator().manual_seed(seed)
+    cots = [torch.randn(t.shape, generator=gen).to(device=t.device, dtype=t.dtype)
+            for t in (out_p, qs_p)]
+
+    def grads(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, cots)
+
+    got, want = grads(fused), grads(plain)
+    checks += [compare(g, f"{name} grad {w} ({a.dtype})", a, b, BF16_TOL)
+               for w, a, b in zip("qkv", got, want)]
+    ok = all(a.dtype == torch.bfloat16 for a in got)
+    checks.append(Check(g, f"{name} grad dtypes bf16", 0.0, 0.0, 0.0, ok))
     return checks
 
 

@@ -6,7 +6,10 @@ kernels run in Pallas interpret mode (as tests/test_pallas.py runs them)
 and the port's stages take their plain versions through the same
 ``autograd.Function``s the card uses; the CUDA kernels run only on a card
 (tests/test_torch_cuda.py). Bar: rtol 1e-5 / atol 1e-6, the JAX
-package's own (tests/test_pallas.py:46).
+package's own (tests/test_pallas.py:46). On bf16 inputs both packages
+compute in f32: the reduce stages' f32 Grams keep that bar, and the apply
+stages' bf16 ``out`` / ``qs`` and the bf16 gradients, each rounded once from
+an f32 result, sit within one bf16 ulp of JAX's.
 """
 
 import types
@@ -509,3 +512,161 @@ def test_apply_probe_variants_apply_to_the_kernel_source():
     for name, edits in apply_probe.VARIANTS.items():
         text = build.variant_source("nla_apply", edits)
         assert (text == source) == (not edits), name
+
+
+# -- bf16 inputs ----------------------------------------------------------------
+
+
+def _bf16_exact(*arrays):
+    """The f32 arrays rounded to bf16 values (round to nearest even), as f32:
+    both packages read the same bf16 numbers from them."""
+    return [torch.from_numpy(np.asarray(a)).bfloat16().float().numpy() for a in arrays]
+
+
+def _jbf(*arrays):
+    return [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+
+
+def _tbf(*arrays):
+    return [torch.from_numpy(np.asarray(a)).bfloat16() for a in arrays]
+
+
+def _within_one_bf16_ulp(got, want):
+    """``|got - want|`` at most one bf16 ulp of ``want`` (bf16 keeps 8
+    significant bits: 2^(floor(log2 |want|) - 7)), or ATOL where ``want`` is
+    0: both sides round an f32 result once, and their f32 results differ by
+    the summation order only."""
+    got = np.asarray(got.detach().float() if isinstance(got, torch.Tensor) else got, np.float64)
+    want = np.asarray(want, np.float32).astype(np.float64)
+    mag = np.abs(want)
+    ulp = np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7), 0.0)
+    err = np.abs(got - want)
+    assert np.all(err <= np.maximum(ulp, ATOL)), float(np.max(err - np.maximum(ulp, ATOL)))
+
+
+def _dtype_name(x) -> str:
+    return str(x.dtype).removeprefix("torch.")
+
+
+def test_fault10_plain_apply_returns_q_dtype_like_jax():
+    """Fault 10: on a bf16 q the port's plain apply pair returned f32 where
+    JAX's (``_apply_ref`` / ``_apply_seg_ref``, and its kernels) return
+    ``out`` and ``qs`` in q's dtype. The reduce pair's plain versions keep
+    their f32 outputs, as JAX's do."""
+    h = 4
+    q, k, v, mask = _bf16_exact(*_dense_case(20))
+    kv_j, ksum_j = jpa._reduce_ref(*_jbf(k, v, mask), h)
+    kv, ksum = fa.reduce_reference(*_tbf(k, v, mask), h)
+    assert (_dtype_name(kv), _dtype_name(ksum)) == (str(kv_j.dtype), str(ksum_j.dtype)) == (
+        "float32", "float32")
+    out_j, qs_j = jpa._apply_ref(*_jbf(q), kv_j, ksum_j, h)
+    out, qs = fa.apply_reference(*_tbf(q), *_t(np.asarray(kv_j), np.asarray(ksum_j)), h)
+    assert (_dtype_name(out), _dtype_name(qs)) == (str(out_j.dtype), str(qs_j.dtype)) == (
+        "bfloat16", "bfloat16")
+    _within_one_bf16_ulp(out, out_j)
+    _within_one_bf16_ulp(qs, qs_j)
+
+    q, k, v, mask, seg, n_seg = _packed_case(seed=20)
+    q, k, v, mask = _bf16_exact(q, k, v, mask)
+    kv_j, ksum_j = jpa._reduce_seg_ref(*_jbf(k, v, mask), seg, n_seg, h)
+    out_j, qs_j = jpa._apply_seg_ref(*_jbf(q), kv_j, ksum_j, seg, h)
+    out, qs = fa.apply_seg_reference(*_tbf(q), *_t(np.asarray(kv_j), np.asarray(ksum_j), seg), h)
+    assert (_dtype_name(out), _dtype_name(qs)) == (str(out_j.dtype), str(qs_j.dtype)) == (
+        "bfloat16", "bfloat16")
+    _within_one_bf16_ulp(out, out_j)
+    _within_one_bf16_ulp(qs, qs_j)
+
+
+@pytest.mark.parametrize("stage", ["nla_reduce", "nla_apply", "nla_reduce_seg", "nla_apply_seg"])
+def test_bf16_stages_match_jax_kernels(stage):
+    """Each public stage on bf16 inputs (bf16 mask too) against JAX's kernel
+    in interpret mode on the same bf16 values: the output dtypes are JAX's
+    (f32 Grams; ``out`` and ``qs`` in q's dtype), the Grams at the f32 bar
+    (the inputs are exact after widening), ``out`` and ``qs`` within one
+    bf16 ulp. The apply stages take JAX's f32 Grams."""
+    h = 4
+    if stage.endswith("_seg"):
+        q, k, v, mask, seg, n_seg = _packed_case(seed=21)
+        q, k, v, mask = _bf16_exact(q, k, v, mask)
+        kv_j, ksum_j = jpa.nla_reduce_seg(*_jbf(k, v, mask), seg, n_seg, h)
+        if stage == "nla_reduce_seg":
+            got = fa.nla_reduce_seg(*_tbf(k, v, mask), torch.from_numpy(seg), n_seg, h)
+            want = (kv_j, ksum_j)
+        else:
+            got = fa.nla_apply_seg(*_tbf(q), *_t(np.asarray(kv_j), np.asarray(ksum_j), seg), h)
+            want = jpa.nla_apply_seg(*_jbf(q), kv_j, ksum_j, seg, h)
+    else:
+        q, k, v, mask = _bf16_exact(*_dense_case(21, n_funcs=2, l=40, lk=24))
+        kv_j, ksum_j = jpa.nla_reduce(*_jbf(k, v, mask), h)
+        if stage == "nla_reduce":
+            got, want = fa.nla_reduce(*_tbf(k, v, mask), h), (kv_j, ksum_j)
+        else:
+            got = fa.nla_apply(*_tbf(q), *_t(np.asarray(kv_j), np.asarray(ksum_j)), h)
+            want = jpa.nla_apply(*_jbf(q), kv_j, ksum_j, h)
+    assert [_dtype_name(g) for g in got] == [str(w.dtype) for w in want]
+    for g, w in zip(got, want):
+        if "reduce" in stage:
+            assert g.dtype == torch.float32
+            _close(g, w)
+        else:
+            assert g.dtype == torch.bfloat16
+            _within_one_bf16_ulp(g, w)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_gradients_match_jax(packed):
+    """Gradients wrt bf16 q, k and v through ``fused_nla`` /
+    ``fused_nla_packed`` (the backward recomputes the plain versions) against
+    ``jax.grad`` of JAX's kernels: bf16 like JAX's, within one bf16 ulp."""
+    h = 4
+    if packed:
+        q, k, v, mask, seg, n_seg = _packed_case(seed=22)
+        q, k, v, mask = _bf16_exact(q, k, v, mask)
+        seg_t = torch.from_numpy(seg)
+        fn_t = lambda *a: fa.fused_nla_packed(*a, *_tbf(mask), seg_t, seg_t, n_seg, h)  # noqa: E731
+        fn_j = lambda *a: jpa.fused_nla_packed(*a, *_jbf(mask), seg, seg, n_seg, h)  # noqa: E731
+    else:
+        q, k, v, mask = _bf16_exact(*_dense_case(22, n_funcs=2, l=40, lk=24))
+        fn_t = lambda *a: fa.fused_nla(*a, *_tbf(mask), h)  # noqa: E731
+        fn_j = lambda *a: jpa.fused_nla(*a, *_jbf(mask), h)  # noqa: E731
+    xs = [x.requires_grad_(True) for x in _tbf(q, k, v)]
+    _loss_torch(*fn_t(*xs)).backward()
+    g_j = jax.grad(lambda *a: _loss_jax(*fn_j(*a)), argnums=(0, 1, 2))(*_jbf(q, k, v))
+    for x, g in zip(xs, g_j):
+        assert _dtype_name(x.grad) == str(g.dtype) == "bfloat16"
+        _within_one_bf16_ulp(x.grad, np.asarray(g, np.float32))
+
+
+@pytest.mark.parametrize(
+    "k_dtype,v_dtype,mask_dtype,want",
+    [("float32", "float32", "float32", ("float32", "float32", "float32")),
+     ("bfloat16", "bfloat16", "bfloat16", ("bfloat16", "bfloat16", "bfloat16")),
+     ("bfloat16", "bfloat16", "float32", ("bfloat16", "bfloat16", "float32")),
+     ("float32", "float32", "bfloat16", ("float32", "float32", "float32")),
+     ("float32", "bfloat16", "bfloat16", ("float32", "float32", "float32")),
+     ("bfloat16", "float32", "float32", ("float32", "float32", "float32"))],
+)
+def test_reduce_widens_the_mixes_no_kernel_instance_takes(k_dtype, v_dtype, mask_dtype, want):
+    """The reduce kernels read k and v of one type and a mask of f32 or k's
+    type; ``_reduce_inputs`` widens any other mix to f32, an exact cast."""
+    rng = np.random.default_rng(23)
+    k, v = (torch.from_numpy(rng.normal(size=(1, 2, 8, 32)).astype(np.float32)) for _ in "kv")
+    mask = torch.ones(1, 2, 8)
+    args = [t.to(getattr(torch, d)) for t, d in zip((k, v, mask), (k_dtype, v_dtype, mask_dtype))]
+    got = fa._reduce_inputs(*args)
+    assert tuple(_dtype_name(t) for t in got) == want
+    for g, a in zip(got, args):
+        assert torch.equal(g.float(), a.float())
+
+
+def test_validate_kernels_bf16_checks_run_on_cpu():
+    """``validate_kernels.check_bf16`` at the four full-width cases, on the
+    CPU (the plain versions on both sides): the control flow, the dtypes
+    and the gradients' wiring that phase 23 of chip_smoke.py runs on the
+    card."""
+    cases = validate_kernels.full_width_cases("cpu")
+    for name in ("self", "cross", "self_packed", "cross_packed"):
+        checks = validate_kernels.check_bf16(name, cases[name], validate_kernels.N_HEAD)
+        assert len(checks) == 11 and all(c.ok for c in checks), [c for c in checks if not c.ok]
+        assert {c.kernel for c in checks} - {None} == (
+            {"nla_reduce_seg", "nla_apply_seg"} if "packed" in name else {"nla_reduce", "nla_apply"})

@@ -765,15 +765,48 @@ def test_attention_gradients_on_card(packed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("what", ["bf16", "head width"])
 def test_attention_kernels_refuse_on_card(what):
+    """What the four kernels refuse: a head width D = 8, and (the bf16 case)
+    f16 inputs. The bf16 case first holds each kernel on bf16 inputs against
+    its plain version on the same inputs: the reduce pair's f32 Grams bitwise
+    the f32 instance's on the widened inputs and at OUT_TOL of the plain
+    version; the apply pair's bf16 ``out`` and ``qs`` within one bf16 ulp;
+    a pad chunk's rows exactly 0; two launches bitwise equal."""
     device = _card()
     q, k, v, mask, seg, n_seg = _packed_inputs(4, device)
-    n_head, match = 4, "float32 only"
+    n_head, match = 4, "float32 or bfloat16"
     if what == "bf16":
-        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        qb, kb, vb, mb = q.bfloat16(), k.bfloat16(), v.bfloat16(), mask.bfloat16()
+        for reduce, plain, args in (
+                (fa.nla_reduce_kernel, fa.reduce_reference, (n_head,)),
+                (fa.nla_reduce_seg_kernel, fa.reduce_seg_reference, (seg, n_seg, n_head))):
+            got = reduce(kb, vb, mb, *args)
+            f32 = reduce(kb.float(), vb.float(), mb.float(), *args)
+            mixed = reduce(kb, vb, mask, *args)  # an f32 mask beside bf16 k and v
+            want = plain(kb, vb, mb, *args)
+            torch.cuda.synchronize()
+            assert [g.dtype for g in got] == [torch.float32] * 2
+            assert all(torch.equal(a, b) for a, b in zip(got, f32))
+            assert all(torch.equal(a, b) for a, b in zip(got, mixed))
+            _assert_stage(got, want, (OUT_TOL, OUT_TOL))
+        grams = fa.reduce_reference(kb, vb, mb, n_head)
+        seg_grams = fa.reduce_seg_reference(kb, vb, mb, seg, n_seg, n_head)
+        for apply, plain, args in (
+                (fa.nla_apply_kernel, fa.apply_reference, (*grams, n_head)),
+                (fa.nla_apply_seg_kernel, fa.apply_seg_reference, (*seg_grams, seg, n_head))):
+            got = apply(qb, *args)
+            again = apply(qb, *args)
+            want = plain(qb, *args)
+            torch.cuda.synchronize()
+            assert [g.dtype for g in got] == [torch.bfloat16] * 2
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            _assert_stage([g.float() for g in got], [w.float() for w in want],
+                          (BF16_ULP, BF16_ULP))
+        assert (got[0][:, 0, 5 * 24 :] == 0).all()  # the pad chunk
+        q, k, v = q.half(), k.half(), v.half()
     else:
         n_head, match = 8, "head widths"  # D = 8
-    kv = torch.zeros(2, 2, 64, 64, device=device, dtype=q.dtype)
-    ksum = torch.zeros(2, 2, 1, 64, device=device, dtype=q.dtype)
+    kv = torch.zeros(2, 2, 64, 64, device=device)
+    ksum = torch.zeros(2, 2, 1, 64, device=device)
     calls = [
         lambda: fa.nla_reduce_kernel(k, v, mask, n_head),
         lambda: fa.nla_apply_kernel(q, kv, ksum, n_head),

@@ -637,6 +637,30 @@ def _resume(P, tmp_path):
     return out
 
 
+def _removed_between_place_and_submit(P, tmp_path):
+    """Phase 16 (c)'s window on the card, forced by a hook instead of
+    timing: the router places a request on replica 0, then the heal's
+    removal (reason ``heal_dead``) drains replica 0 before the submit lands
+    there. A request placed after the removal goes to replica 1."""
+    sink = ListSink()
+    reps = _pool(P, 2)
+    router = _router(P, reps, sink).start()
+    s = P["samples"]
+    results = [router.submit(s[0]).result(timeout=60)]
+    place = router._place
+
+    def place_then_remove(key):
+        replica, reason = place(key)
+        router._place = place
+        router.remove_replica(replica.replica_id, timeout_s=10.0, reason="heal_dead")
+        return replica, reason
+
+    router._place = place_then_remove
+    results += [router.submit(x).result(timeout=60) for x in s[1:3]]
+    summary = router.drain()
+    return _outcome(results, sink, summary)
+
+
 SCRIPTS = {
     "cold_assign": _cold_assign,
     "breaker": _breaker,
@@ -652,6 +676,7 @@ SCRIPTS = {
     "breaker_migrates": lambda P, t: _migrate(P, t, "rollout_nan@2"),
     "scale_in": lambda P, t: _scale_in(P, t, kill=False),
     "scale_in_kill": lambda P, t: _scale_in(P, t, kill=True),
+    "removed_between_place_and_submit": _removed_between_place_and_submit,
 }
 
 
@@ -710,6 +735,14 @@ def test_the_router_script_runs_as_in_jax(name, setup, tmp_path):
         assert got["results"][1].steps_completed == 6
         assert any(e.get("session") == "restartable" and e["replica"] in (10, 11)
                    for e in _kinds(got, "route"))
+    elif name == "removed_between_place_and_submit":
+        # Neither router places the request again: both answer it
+        # rejected_draining, the reason the card's check must admit for a
+        # request in flight at a heal's removal.
+        assert reasons == ["ok", "rejected_draining", "ok"]
+        assert [r for r, _ in _routes(got)] == [0, 0, 1]
+        [rm] = _kinds(got, "replica_remove")
+        assert (rm["replica"], rm["reason"]) == (0, "heal_dead")
     elif name.startswith("scale_in"):
         assert set(reasons) == {"ok"} and summary["sessions"]["lost"] == 0
         moves = [(m["session"], m["reason"], m["at_step"], m["replay_from"])
