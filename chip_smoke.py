@@ -387,7 +387,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the bound: the FFN kernel in the training mix at x ``[4, 12288,
    256]``, ``[2, 24576, 256]`` and ``[1, 98304, 256]`` with its CTAs and
    waves, and each attention kernel's bf16 instance beside phase 3b's f32
-   time, its bound counting bf16 bytes.
+   time, its bound counting bf16 bytes;
+24. the train-step bench (``python -m gnot_tpu_torch.bench``) and the three
+   tools built on it, each run failing the phase with a ``[bench] <run>:``
+   error; every run at windows of 5 and 20 steps, best of 2, with
+   ``--mem_stats`` and no CPU baseline unless it says otherwise: (a)
+   NS2d-1k in bf16 and f32 through ``--ffn_impl xla`` and ``pallas``, in
+   this process: JAX's JSON keys, ``scan_marginal``, a non-null ``mfu``,
+   one ``flops_per_step`` for both FFN paths, 8 FFN launches for each step
+   run through the kernel (75 a run), and an f32 step from one state
+   through either path after the windows' restore bitwise its first, the
+   kernel's within ``MODEL_RTOL`` of ``xla``'s; (b) ``--timing persstep``
+   within ``PERSSTEP_RATIO`` of (a)'s marginal; (c) darcy2d, elasticity,
+   inductor2d and heatsink3d; (d) ``--packed`` at ``pack_ab``'s train size
+   and ``--flat_params``; (e) ``--n_points 12288`` through ``xla`` and the
+   kernel; (f) the f32 CPU baseline of one step, the entry point run
+   without JAX; (g) ``honest_probe``, ``profile_step`` without JAX (its
+   top kernel families, the records CUPTI kept against the launches) and
+   ``pack_ab`` with its numerics bar (``PACK_AB_BAR``).
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -444,7 +461,10 @@ runs the FFN's torch path); ``readers_serve_launches`` its count over phase
 (c) (by ``--synth_size``, the remat runs), ``ref_scale_shapes`` its time
 and bound at (e)'s shapes; each attention entry's ``bf16_launches`` and
 ``bf16`` are its count over phase 23 (d) and its bf16 instance's time and
-bound in (e). Launches
+bound in (e); ``bench_launches`` is its count over phase 24 (a)'s two
+kernel runs, ``bench_ref_scale_launches`` over (e)'s kernel run and
+``pack_ab_launches`` over (g)'s ``pack_ab`` (0: both its arms run
+``ffn_impl=xla``). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -6533,6 +6553,262 @@ def reference_scale_phase(torch, np, card: str, layers, attn: dict, mix: dict) -
     return {"ffn": out, "attn": attn_out}
 
 
+
+# -- phase 24: the bench and the tools built on it --------------------------------
+BENCH_OUT = TRAIN_OUT / "bench24"
+# Each bench run's windows: 5 and 20 steps, best of 2, no CPU baseline,
+# unless the run says otherwise.
+BENCH_WINDOWS = ["--k1", "5", "--k2", "20", "--repeats", "2", "--cpu_steps", "0"]
+# The JSON line's keys, the JAX bench's (bench.py:469-480).
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_step", "flops_per_step",
+              "achieved_tflops", "mfu", "timing", "dtype"}
+# (b): the per-step loop against the marginal of the same workload.
+PERSSTEP_RATIO = (0.5, 2.0)
+# (g): a packed request's output against its solo dispatch (tools/pack_ab.py).
+PACK_AB_BAR = 1e-5
+
+
+def bench_line(name: str, r: dict, peak_mib, card: str) -> str:
+    tflops = "n/a" if r["achieved_tflops"] is None else f"{r['achieved_tflops']:.2f}"
+    mfu = "null" if r["mfu"] is None else f"{r['mfu']:.4f}"
+    peak = "not read" if peak_mib is None else f"{peak_mib:.1f} MiB"
+    return (f"[bench] {name}: {r['metric']} dtype {r['dtype']} {r['ms_per_step']:.4f} ms/step "
+            f"({r['timing']}), {r['value']:.1f} points/s, {tflops} TFLOP/s of products, "
+            f"mfu {mfu}, vs_baseline {r['vs_baseline']}, peak {peak} on {card}")
+
+
+def process_state(torch) -> str:
+    """What this process carries into a host-bound measurement: its live
+    threads by name, the lock-order guard's mode, the sync debug mode,
+    torch's intra-op threads and the objects the collector tracks."""
+    import collections
+    import gc
+    import threading
+
+    from gnot_tpu_torch.utils import lockguard
+
+    names = collections.Counter(re.sub(r"\d+", "N", t.name) for t in threading.enumerate())
+    return (f"process state: {sum(names.values())} threads {dict(names)}, lock guard "
+            f"{lockguard.installed_mode()}, sync debug mode {torch.cuda.get_sync_debug_mode()}, "
+            f"torch threads {torch.get_num_threads()}, gc objects {len(gc.get_objects())}")
+
+
+def bench_in_process(bench, name: str, argv: list[str]) -> dict:
+    """``bench.main(argv + --mem_stats)`` in this process: its JSON line
+    (checked for JAX's keys), the steps it ran and those through the FFN
+    kernel (a step whose model runs the kernel path), the kernel's launches
+    over the run, and ``--mem_stats`` (the timed windows' peak device
+    memory). Fails with a ``[bench] <name>:`` error."""
+    from gnot_tpu_torch.models.layers import GatedExpertFfn
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+
+    real_step = bench.train_step
+    counted = {"steps": 0, "kernel_steps": 0}
+
+    def counting_step(state, batch, lr):
+        ffn = next(m for m in state.model.modules() if isinstance(m, GatedExpertFfn))
+        counted["steps"] += 1
+        counted["kernel_steps"] += ffn.ffn_impl == "pallas"
+        return real_step(state, batch, lr)
+
+    out, err = io.StringIO(), io.StringIO()
+    fused_gated_ffn_kernel.launches = 0
+    bench.train_step = counting_step
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result = bench.main([*argv, "--mem_stats"])
+    except Exception as e:
+        raise RuntimeError(f"[bench] {name}: {type(e).__name__}: {e}\n{err.getvalue()[-3000:]}") from e
+    finally:
+        bench.train_step = real_step
+    wall = time.monotonic() - t0
+    launches = fused_gated_ffn_kernel.launches
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    if line != result or set(line) != BENCH_KEYS:
+        raise RuntimeError(f"[bench] {name}: printed {line}, returned {result}; keys "
+                           f"{sorted(set(line) ^ BENCH_KEYS)} differ from the JAX bench's")
+    if not result["value"] > 0:
+        raise RuntimeError(f"[bench] {name}: value {result['value']}")
+    notes = [ln for ln in err.getvalue().splitlines() if ln.strip()]
+    mem = next((json.loads(ln) for ln in reversed(notes) if ln.startswith("{")), None)
+    if mem is None or set(mem) != set(bench.MEM_KEYS) or not mem["peak_bytes_in_use"]:
+        raise RuntimeError(f"[bench] {name}: --mem_stats printed {mem}")
+    return dict(result=result, launches=launches, wall=wall, mem=mem,
+                peak_mib=mem["peak_bytes_in_use"] / 2**20, **counted)
+
+
+def bench_phase(torch, card: str) -> dict:
+    """Phase 24: ``python -m gnot_tpu_torch.bench`` and the three tools built
+    on it on the card, each run failing the phase with a ``[bench] <run>:``
+    error. (a) NS2d-1k in bf16 and f32, ``--ffn_impl xla`` and ``pallas``,
+    in this process: JAX's keys, ``scan_marginal``, ``mfu`` not null, one
+    flop count for both FFN paths, 8 kernel launches a kernel step (the
+    flop count's step runs the ``xla`` path); (b) ``--timing persstep``
+    within ``PERSSTEP_RATIO`` of (a)'s marginal; (c) the other four
+    ``--config``s; (d) ``--packed`` at pack_ab's train size and
+    ``--flat_params``; (e) ``--n_points 12288`` through ``xla`` and the
+    kernel with ``--mem_stats``; (f) the CPU baseline of one step, as
+    ``python -m gnot_tpu_torch.bench`` without JAX; (g) ``honest_probe``,
+    ``profile_step`` (without JAX) and ``pack_ab`` with its numerics bar.
+    Returns the FFN entry's fields."""
+    import shutil
+
+    from gnot_tpu_torch import bench
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.tools import honest_probe, pack_ab
+
+    t_phase = time.monotonic()
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    BENCH_OUT.mkdir(parents=True)
+    log(f"[bench] {process_state(torch)}")
+    k1, k2, repeats = 5, 20, 2
+    window_steps = (k1 + k2) * (1 + repeats)  # one warm-up window and `repeats` timed, each K
+    log(f"[bench] {bench.SCAN_MARGINAL_NOTE}")
+    runs: dict[str, dict] = {}
+
+    def run(name: str, argv: list[str]) -> dict:
+        r = bench_in_process(bench, name, argv)
+        runs[name] = r
+        log(bench_line(name, r["result"], r["peak_mib"], card)
+            + f" ({r['wall']:.1f} s wall, {r['steps']} steps)")
+        return r
+
+    # (a) The headline, both dtypes, both FFN paths.
+    bench_launches = 0
+    for dtype in ("bfloat16", "float32"):
+        for ffn in ("xla", "pallas"):
+            name = f"(a) ns2d {dtype} {ffn}"
+            r = run(name, ["--dtype", dtype, "--ffn_impl", ffn, *BENCH_WINDOWS])
+            res = r["result"]
+            if res["timing"] != "scan_marginal" or res["mfu"] is None:
+                raise RuntimeError(f"[bench] {name}: timing {res['timing']}, mfu {res['mfu']}")
+            want_steps = window_steps if ffn == "pallas" else 0
+            if r["kernel_steps"] != want_steps or r["launches"] != 8 * r["kernel_steps"]:
+                raise RuntimeError(f"[bench] {name}: {r['launches']} FFN kernel launches over "
+                                   f"{r['kernel_steps']} kernel steps (want 8 x {want_steps})")
+            bench_launches += r["launches"]
+        flops = {ffn: runs[f"(a) ns2d {dtype} {ffn}"]["result"]["flops_per_step"]
+                 for ffn in ("xla", "pallas")}
+        if flops["xla"] != flops["pallas"] or not flops["xla"]:
+            raise RuntimeError(f"[bench] (a) ns2d {dtype}: flops_per_step {flops}")
+        ms = {ffn: runs[f"(a) ns2d {dtype} {ffn}"]["result"]["ms_per_step"]
+              for ffn in ("xla", "pallas")}
+        log(f"[bench] (a) {dtype}: flops_per_step {flops['xla']:.0f} for both FFN paths; "
+            f"kernel / xla ms per step {ms['pallas'] / ms['xla']:.3f}")
+    log(f"[bench] (a) fused_gated_ffn launches {bench_launches} = 8 x {bench_launches // 8} "
+        f"kernel steps ({window_steps} a pallas run: windows of {k1} and {k2}, one warm-up "
+        f"and {repeats} timed each)")
+    # The windows' restore writes the weights back in place: the kernel's
+    # first step after it must run on images packed anew, not stale ones.
+    losses = {}
+    for ffn in ("xla", "pallas"):
+        step, state, batch, _ = bench.build("float32", ffn_impl=ffn)
+        dbatch = batch.to(state.device)
+        start = bench._snapshot(state)
+        first = step(state, dbatch, 1e-3)[1].item()
+        step(state, dbatch, 1e-3)
+        bench._restore(state, start)
+        again = step(state, dbatch, 1e-3)[1].item()
+        if again != first:
+            raise RuntimeError(f"[bench] (a) restore {ffn}: step after the restore {again!r}, "
+                               f"first step {first!r}")
+        losses[ffn] = first
+        del state
+    rel = abs(losses["pallas"] - losses["xla"]) / abs(losses["xla"])
+    log(f"[bench] (a) f32 step from one state: kernel {losses['pallas']!r}, xla "
+        f"{losses['xla']!r} (relative {rel:.2e}, bar rtol {MODEL_RTOL}); each path's step after "
+        "a restore bitwise its first")
+    if not math.isclose(losses["pallas"], losses["xla"], rel_tol=MODEL_RTOL, abs_tol=MODEL_ATOL):
+        raise RuntimeError(f"[bench] (a) restore: kernel {losses['pallas']} vs xla {losses['xla']}")
+
+    # (b) The per-step loop against the marginal.
+    r = run("(b) ns2d bfloat16 xla persstep", ["--timing", "persstep", "--repeats", "2",
+                                               "--cpu_steps", "0"])
+    ratio = r["result"]["ms_per_step"] / runs["(a) ns2d bfloat16 xla"]["result"]["ms_per_step"]
+    log(f"[bench] (b) persstep / scan_marginal ms per step {ratio:.3f} "
+        f"(bar {PERSSTEP_RATIO[0]}-{PERSSTEP_RATIO[1]})")
+    if not PERSSTEP_RATIO[0] <= ratio <= PERSSTEP_RATIO[1]:
+        raise RuntimeError(f"[bench] (b) persstep: {ratio:.3f} x the marginal")
+
+    # (c) The other configs (ns2d is (a)'s).
+    for config in ("darcy2d", "elasticity", "inductor2d", "heatsink3d"):
+        run(f"(c) {config} bfloat16 xla", ["--config", config, *BENCH_WINDOWS])
+
+    # (d) The layouts.
+    run("(d) elasticity packed", ["--config", "elasticity", "--n_points", "256",
+                                  "--batch_size", "16", "--packed", "--pack_chunk", "64",
+                                  *BENCH_WINDOWS])
+    run("(d) ns2d flat_params", ["--flat_params", *BENCH_WINDOWS])
+
+    # (e) The reference's scale, through xla and the kernel.
+    ref_launches = 0
+    for ffn in ("xla", "pallas"):
+        name = f"(e) ns2d 12288 {ffn}"
+        r = run(name, ["--n_points", "12288", "--ffn_impl", ffn, *BENCH_WINDOWS])
+        if r["launches"] != 8 * r["kernel_steps"]:
+            raise RuntimeError(f"[bench] {name}: {r['launches']} launches over "
+                               f"{r['kernel_steps']} kernel steps")
+        ref_launches += r["launches"]
+        log(f"[bench] {name} mem_stats {json.dumps(r['mem'])}")
+
+    # (f) One CPU baseline, as a user runs the entry point, without JAX.
+    argv = ["--k1", "5", "--k2", "20", "--repeats", "1", "--cpu_steps", "1"]
+    try:
+        proc, wall = no_jax_run("gnot_tpu_torch.bench", *argv)
+    except RuntimeError as e:
+        raise RuntimeError(f"[bench] (f) cpu baseline: {e}") from e
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    points = res["value"] * res["ms_per_step"] / 1e3
+    cpu_s = points / (res["value"] / res["vs_baseline"])
+    log(bench_line("(f) ns2d bfloat16 xla, --cpu_steps 1 --repeats 1", res, None, card))
+    log(f"[bench] (f) the f32 CPU step: {cpu_s:.3f} s ({points:.0f} points), vs_baseline "
+        f"{res['vs_baseline']}; the process took {wall:.1f} s wall")
+
+    # (g) The tools.
+    out = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            line = honest_probe.main(["--k1", "5", "--k2", "20", "--windows", "2"])
+    except Exception as e:
+        raise RuntimeError(f"[bench] (g) honest_probe: {type(e).__name__}: {e}") from e
+    log(f"[bench] (g) honest_probe: {line} ({time.monotonic() - t0:.1f} s wall) on {card}")
+    prof_out = BENCH_OUT / "profile_breakdown.json"
+    try:
+        proc, wall = no_jax_run("gnot_tpu_torch.tools.profile_step", "--k", "5", "--top", "8",
+                                "--out", str(prof_out), "--trace_dir", str(BENCH_OUT / "trace"))
+    except RuntimeError as e:
+        raise RuntimeError(f"[bench] (g) profile_step: {e}") from e
+    prof = json.loads(prof_out.read_text())
+    if not prof["kernel_records"] or prof["while_wrapper_ms_per_step"] is not None:
+        raise RuntimeError(f"[bench] (g) profile_step: {prof_out} {prof}")
+    log(f"[bench] (g) profile_step --k 5 ({wall:.1f} s wall): device busy "
+        f"{prof['module_total_ms_per_step']:.4f} ms a step, device records "
+        f"{prof['ops_total_ms_per_step']:.4f} ms a step, {prof['kernel_records']} kernel records "
+        f"of {prof['launch_calls']} launch calls ({prof['records_lost']} without a record) "
+        f"on {card}")
+    for f_ in prof["op_families"]:
+        log(f"[bench] (g)   {f_['ms_per_step']:8.4f} ms {f_['pct_of_ops']:5.1f}% "
+            f"x{f_['count_per_step']:6.1f}  {f_['family'][:90]}")
+    fused_gated_ffn_kernel.launches = 0
+    out = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            records = pack_ab.main(["--steps", "2", "--repeats", "1", "--serve_n", "8"])
+    except Exception as e:
+        raise RuntimeError(f"[bench] (g) pack_ab: {type(e).__name__}: {e}") from e
+    pack_launches = fused_gated_ffn_kernel.launches
+    summary = records[-1]
+    log(f"[bench] (g) pack_ab ({time.monotonic() - t0:.1f} s wall, {pack_launches} FFN kernel "
+        f"launches: both arms run ffn_impl=xla) {json.dumps(summary)} on {card}")
+    if summary["platform"] != "gpu" or not summary["max_abs_diff"] <= PACK_AB_BAR:
+        raise RuntimeError(f"[bench] (g) pack_ab: {summary}")
+    log(f"[bench] phase 24 took {time.monotonic() - t_phase:.1f} s on {card}")
+    return {"bench_launches": bench_launches, "bench_ref_scale_launches": ref_launches,
+            "pack_ab_launches": pack_launches}
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -6768,6 +7044,9 @@ def main() -> int:
     # -- phase 23: the reference's scale, long context, bf16 attention ------
     ref = reference_scale_phase(torch, np, card, layers, attn, mix)
 
+    # -- phase 24: the bench and the tools built on it ------------------------
+    bench_fields = bench_phase(torch, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -6805,6 +7084,7 @@ def main() -> int:
         **mesh_launches,
         **tools_launches,
         **ref["ffn"],
+        **bench_fields,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -1,6 +1,7 @@
 """The operator's tools of the port, one module for each of the repo's
-``tools/`` scripts that reads or drives serving, and the reference-scale
-training demo, under the same name, each run as ``python -m
+``tools/`` scripts that reads or drives serving, the reference-scale
+training demo and the three tools built on the bench
+(``gnot_tpu_torch/bench.py``), under the same name, each run as ``python -m
 gnot_tpu_torch.tools.<name>``:
 
 * ``trace_report``: a ``--trace_path`` Chrome trace's per-kind, per-bucket,
@@ -14,10 +15,17 @@ gnot_tpu_torch.tools.<name>``:
 * ``lockmap_report``: the port's lock graph (``analysis/lockorder.py``) as
   node, edge and summary records;
 * ``reference_scale_demo``: reference-scale pickles (~10k-point meshes) and
-  a ``--train_data`` run on them with its throughput summary.
+  a ``--train_data`` run on them with its throughput summary;
+* ``honest_probe``: the bench's marginal ms a step for an ad-hoc config;
+* ``profile_step``: the bench step's device records under
+  ``torch.profiler``, by kernel family;
+* ``pack_ab``: padded against packed, the bench's train step and the
+  smoke's serving storm, with the packed outputs held to their solo
+  dispatches.
 
 Each keeps its JAX tool's flags, defaults, importable functions and
 returned dicts, and imports only the standard library, numpy, torch and
-the port: the readers run on any host that holds the files, the smoke on
-the card unless ``--device cpu`` is passed.
+the port: the readers run on any host that holds the files, the smoke,
+the bench tools and the demo on the card unless ``--device cpu`` is
+passed.
 """

@@ -1260,3 +1260,49 @@ def test_fused_nla_sp_on_two_ranks_sharing_the_card(tmp_path):
         torch.testing.assert_close(qs, want_qs.detach().cpu(), rtol=1e-4, atol=1e-5)
         for g, t in zip(grads, leaves):
             torch.testing.assert_close(g, t.grad.cpu(), rtol=1e-4, atol=1e-5)
+
+
+
+@pytest.mark.cuda
+def test_the_bench_on_card_launches_8_a_kernel_step_and_prints_jax_keys(capsys):
+    """``bench.main`` at NS2d-1k bf16 through the FFN kernel: windows of 1
+    and 2 steps, each once warm and once timed (6 kernel steps), 8 launches
+    each; the flop count's step runs the ``xla`` path and launches none."""
+    _card()
+    from chip_smoke import BENCH_KEYS
+    from gnot_tpu_torch import bench
+
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    result = bench.main(["--ffn_impl", "pallas", "--k1", "1", "--k2", "2", "--repeats", "1",
+                         "--cpu_steps", "0"])
+    assert fused_ffn.fused_gated_ffn_kernel.launches - before == 8 * (1 + 2) * 2
+    assert set(result) == BENCH_KEYS and result["timing"] == "scan_marginal"
+    assert result["value"] > 0 and result["flops_per_step"] > 0
+    assert result["mfu"] is not None or not torch.cuda.get_device_name().startswith(
+        "NVIDIA H100 80GB HBM3")
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith('{"metric"')
+
+
+@pytest.mark.cuda
+def test_the_bench_kernel_step_after_a_restore_matches_the_xla_step():
+    """One f32 step from one state through the kernel and through ``xla``:
+    the losses at the model-level bar; and the kernel's step again after
+    ``_restore`` (the weights written back in place, their packed images
+    made again) bitwise its first, not a step on stale images."""
+    _card()
+    from gnot_tpu_torch import bench
+
+    losses = {}
+    for impl in ("xla", "pallas"):
+        step, state, batch, _ = bench.build("float32", ffn_impl=impl)
+        dbatch = batch.to(state.device)
+        start = bench._snapshot(state)
+        losses[impl] = step(state, dbatch, 1e-3)[1].item()
+        step(state, dbatch, 1e-3)
+        bench._restore(state, start)
+        assert state.host_step == 0
+        before = fused_ffn.fused_gated_ffn_kernel.launches
+        again = step(state, dbatch, 1e-3)[1].item()
+        assert fused_ffn.fused_gated_ffn_kernel.launches - before == (8 if impl == "pallas" else 0)
+        assert again == losses[impl]
+    np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=1e-4, atol=1e-5)
