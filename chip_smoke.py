@@ -404,7 +404,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel; (f) the f32 CPU baseline of one step, the entry point run
    without JAX; (g) ``honest_probe``, ``profile_step`` without JAX (its
    top kernel families, the records CUPTI kept against the launches) and
-   ``pack_ab`` with its numerics bar (``PACK_AB_BAR``).
+   ``pack_ab`` with its numerics bar (``PACK_AB_BAR``);
+25. the seven overhead and chaos A/B tools, the phase failing with an
+   ``[ab] <tool>:`` error that names the run: (a) each of ``telemetry_ab``,
+   ``tracing_ab``, ``metrics_ab``, ``capacity_ab``, ``dtrace_ab``,
+   ``rollout_ab`` and ``federation_ab`` with ``--device cuda`` at its
+   argv in ``AB_TOOLS``, in a process of its own where JAX cannot be
+   imported (the seven start together and wait, imported, at a gate; each
+   runs alone once released): JAX's arm and summary names, ``platform`` "gpu", the summary
+   arithmetic, and the correctness bars (the chaos A/Bs' ``failures`` empty:
+   no session lost with migration or failover, some lost by each twin, at
+   least one re-migrated, parity within 1e-5, the single-host pin
+   byte-identical; publisher snapshots >= 1, attributed dispatches > 0);
+   the 2% overhead bars are only reported; (b) ``telemetry_ab``'s and
+   ``tracing_ab``'s windows on the reference-default model through the FFN
+   kernel (NS2d-1k, batch 4, f32), both arms interleaved, best of 2,
+   windows of 10 steps, 8 kernel launches a step counted over every
+   warm-up and timed step; (c) the phase's seconds.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -464,7 +480,9 @@ and bound at (e)'s shapes; each attention entry's ``bf16_launches`` and
 bound in (e); ``bench_launches`` is its count over phase 24 (a)'s two
 kernel runs, ``bench_ref_scale_launches`` over (e)'s kernel run and
 ``pack_ab_launches`` over (g)'s ``pack_ab`` (0: both its arms run
-``ffn_impl=xla``). Launches
+``ffn_impl=xla``); ``abtools_launches`` is its count over phase 25 (b)'s
+two kernel A/Bs (the tools of (a) run ``ffn_impl=xla``, in processes of
+their own). Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -6809,6 +6827,271 @@ def bench_phase(torch, card: str) -> dict:
     return {"bench_launches": bench_launches, "bench_ref_scale_launches": ref_launches,
             "pack_ab_launches": pack_launches}
 
+
+# -- phase 25: the overhead and chaos A/B tools ------------------------------------
+AB_OUT = TRAIN_OUT / "ab25"
+# (a): each tool's argv on the card (``--device cuda`` and its ``--out``
+# are appended): the JAX defaults (metrics_ab and capacity_ab 400 requests x
+# 3, dtrace_ab 32 x 3, rollout_ab 12 sessions x 6 steps, federation_ab 8 x
+# 12) but for telemetry_ab's and tracing_ab's windows, cut from 60 steps x 3
+# to 20 x 2 to keep the phase under AB_BUDGET_S (PERF.md §4).
+AB_TOOLS = {
+    "telemetry_ab": ["--steps", "20", "--repeats", "2"],
+    "tracing_ab": ["--steps", "20", "--repeats", "2"],
+    **{name: [] for name in ("metrics_ab", "capacity_ab", "dtrace_ab", "rollout_ab",
+                             "federation_ab")},
+}
+# Each overhead A/B's arms and summary name, JAX's.
+AB_NAMES = {
+    "telemetry_ab": (("telemetry_off", "telemetry_on"), "telemetry_overhead"),
+    "tracing_ab": (("tracing_off", "tracing_on"), "tracing_overhead"),
+    "metrics_ab": (("metrics_off", "metrics_on"), "metrics_overhead"),
+    "capacity_ab": (("capacity_off", "capacity_on"), "capacity_overhead"),
+    "dtrace_ab": (("dtrace_off", "dtrace_on"), "dtrace_overhead"),
+}
+# (b): the reference-default model through the FFN kernel at NS2d-1k,
+# batch 4, f32; windows of AB_STEPS steps, best of AB_REPEATS, the arms
+# interleaved.
+AB_MODEL = {"ffn_impl": "pallas"}
+AB_POINTS, AB_BATCH, AB_STEPS, AB_REPEATS = 1024, 4, 10, 2
+# The JAX package's overhead bar (tests/test_artifacts.py), reported only.
+AB_OVERHEAD_BAR = 0.02
+# The chaos A/Bs' parity bar (tools/rollout_ab.py, tools/federation_ab.py).
+AB_PARITY_BAR = 1e-5
+AB_BUDGET_S = 120.0
+# The seven processes' start-up, side by side, up to their "ready" gates.
+AB_READY_TIMEOUT_S = 120.0
+# A tool's process this long after its release gets SIGABRT (its threads'
+# stacks are kept): under the chaos A/Bs' own 180 s waits.
+AB_TOOL_TIMEOUT_S = 150.0
+
+
+# (a)'s runner: NO_JAX with a prelude that imports torch, the port's heavy
+# modules and the tool, opens the CUDA context, prints "ready" and waits
+# for a line on stdin before it runs the tool. The seven processes start
+# together and pay their start-up (~11-15 s each on the card host) side by
+# side; each tool then runs alone, released when the one before it exits.
+AB_WARM_MODULES = ("gnot_tpu_torch.train.trainer", "gnot_tpu_torch.serve.server",
+                   "gnot_tpu_torch.serve.router", "gnot_tpu_torch.serve.federation",
+                   "gnot_tpu_torch.obs.metrics")
+AB_RUNNER = NO_JAX.replace("target, sys.argv = sys.argv[1], sys.argv[1:]\n", f"""\
+import importlib, torch
+for _m in {AB_WARM_MODULES!r} + (sys.argv[1],):
+    importlib.import_module(_m)
+torch.zeros(1, device="cuda").sum().item()
+print("ready", flush=True)
+sys.stdin.readline()
+target, sys.argv = sys.argv[1], sys.argv[1:]
+""")
+
+
+def ab_tool_start(name: str, argv: list[str]):
+    """``python -m gnot_tpu_torch.tools.<name> <argv>`` under
+    ``AB_RUNNER`` (JAX unimportable), started and left at its "ready"
+    gate; its stderr goes to ``<out>.stderr.txt``."""
+    out = Path(argv[argv.index("--out") + 1])
+    err = open(out.with_name(out.name + ".stderr.txt"), "w")
+    env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
+    proc = subprocess.Popen([sys.executable, "-c", AB_RUNNER, f"gnot_tpu_torch.tools.{name}",
+                             *argv], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    return proc
+
+
+def ab_tool_error(name: str, argv: list[str], proc, gate: str, wall: float,
+                  stdout: str = "") -> RuntimeError:
+    """The ``[ab] <name>:`` error of a tool that failed: its argv, exit
+    code, gate line, stdout tail and the last lines of its stderr file."""
+    out = Path(argv[argv.index("--out") + 1])
+    err_path = out.with_name(out.name + ".stderr.txt")
+    lines = err_path.read_text().strip().splitlines()
+    threads = [ln for ln in lines if ln.startswith("Exception in thread")]
+    tail = "\n".join(lines[-60:])
+    return RuntimeError(f"[ab] {name} {' '.join(argv)}: exit {proc.returncode} after "
+                        f"{wall:.1f} s (gate read {gate!r}); {threads}\nstdout: "
+                        f"{stdout[-2000:]}\nstderr ({err_path}, last "
+                        f"lines):\n{tail}")
+
+
+def ab_abort(proc) -> str:
+    """SIGABRT a tool's process (Python's fault handler writes every
+    thread's stack to its stderr file) and return its stdout's rest."""
+    import signal
+
+    proc.send_signal(signal.SIGABRT)
+    return proc.communicate(timeout=60)[0]
+
+
+def ab_tool_ready(name: str, argv: list[str], proc, deadline: float) -> None:
+    """Wait, until the monotonic ``deadline``, for a started tool's
+    "ready" line. A process that ends first, prints another line or is
+    still starting at the deadline is aborted and fails with its
+    ``[ab] <name>:`` error."""
+    import select
+
+    t0 = time.monotonic()
+    gate = ""
+    if select.select([proc.stdout], [], [], max(0.0, deadline - t0))[0]:
+        gate = proc.stdout.readline().strip()
+    if gate != "ready":
+        stdout = ab_abort(proc) if proc.poll() is None else proc.communicate(timeout=60)[0]
+        raise ab_tool_error(name, argv, proc, gate or "nothing by the deadline",
+                            time.monotonic() - t0, stdout)
+
+
+def ab_tool_finish(name: str, argv: list[str], proc) -> tuple[list[dict], float]:
+    """Release a tool already at its "ready" gate, wait for it alone and
+    return its ``--out`` records and its wall seconds from the release. A
+    process still running ``AB_TOOL_TIMEOUT_S`` after it is aborted. Fails
+    with its ``[ab] <name>:`` error on a non-zero exit or without the
+    no-JAX runner's closing note."""
+    out = Path(argv[argv.index("--out") + 1])
+    t0 = time.monotonic()
+    try:
+        stdout, _ = proc.communicate("go\n", timeout=AB_TOOL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stdout = ab_abort(proc)
+    wall = time.monotonic() - t0
+    lines = out.with_name(out.name + ".stderr.txt").read_text().strip().splitlines()
+    if proc.returncode != 0 or not (lines or [""])[-1].startswith(
+            "no-jax: refused [] loaded []"):
+        raise ab_tool_error(name, argv, proc, "ready", wall, stdout)
+    return read_jsonl(out), wall
+
+
+def check_overhead_records(name: str, recs: list[dict]) -> dict:
+    """An overhead A/B's records: JAX's arm and summary names, platform
+    "gpu", and the summary's arithmetic (``on / off - 1`` for a time,
+    ``1 - on / off`` for a rate, rounded to 4 places as JAX's). Returns the
+    summary."""
+    arms, summary_name = AB_NAMES[name]
+    [summary] = [r for r in recs if "summary" in r]
+    got_arms = tuple(r["arm"] for r in recs if "arm" in r)
+    if got_arms != arms or summary["summary"] != summary_name or any(
+            r["platform"] != "gpu" for r in recs if "arm" in r):
+        raise RuntimeError(f"[ab] {name}: arms {got_arms}, summary {summary['summary']}, "
+                           f"platforms {[r.get('platform') for r in recs]}")
+    key = next(k for k in ("ms_per_step", "ms_per_request", "requests_per_s") if k in recs[0])
+    off, on = recs[0][key], recs[1][key]
+    frac = round(1.0 - on / off, 4) if key == "requests_per_s" else round(on / off - 1.0, 4)
+    if summary["overhead_frac"] != frac:
+        raise RuntimeError(f"[ab] {name}: overhead_frac {summary['overhead_frac']} != {frac} "
+                           f"from {key} {off} / {on}")
+    return summary
+
+
+def check_chaos_summary(name: str, s: dict) -> None:
+    """The chaos A/Bs' asserted bars on their summary record (the process
+    exits 1 on any of JAX's own ``failures``; these are read back)."""
+    if name == "rollout_ab":
+        ok = (s["lost_migration"] == 0 and s["lost_no_migration"] >= 1 and s["migrated"] >= 1
+              and s["max_abs_diff"] <= AB_PARITY_BAR)
+    else:
+        ok = (s["lost_chaos"] == 0 and s["lost_no_failover"] >= 1 and s["remigrated"] >= 1
+              and s["max_abs_diff"] <= AB_PARITY_BAR and s["single_host_byte_identical"] is True)
+    if not ok:
+        raise RuntimeError(f"[ab] {name}: a correctness bar broke: {json.dumps(s)}")
+
+
+def ab_tools_phase(torch, card: str) -> dict:
+    """Phase 25: (a) the seven A/B tools on the card, one process each
+    under ``NO_JAX``, their records checked; (b) ``telemetry_ab``'s and
+    ``tracing_ab``'s windows in this process on the reference-default
+    model through the FFN kernel, every launch counted; (c) the phase's
+    seconds against ``AB_BUDGET_S``. Returns the FFN entry's field."""
+    import shutil
+
+    from gnot_tpu_torch.models.layers import GatedExpertFfn
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.tools import telemetry_ab, tracing_ab
+
+    t_phase = time.monotonic()
+    shutil.rmtree(AB_OUT, ignore_errors=True)
+    AB_OUT.mkdir(parents=True)
+
+    # (a) Each tool in a process of its own: all started at once, each run
+    # alone in turn.
+    argvs = {name: [*flags, "--device", "cuda", "--out", str(AB_OUT / f"{name}.jsonl")]
+             for name, flags in AB_TOOLS.items()}
+    procs = {name: ab_tool_start(name, argv) for name, argv in argvs.items()}
+    walls = {}
+    try:
+        deadline = time.monotonic() + AB_READY_TIMEOUT_S
+        for name in AB_TOOLS:  # all seven at their gates before the first goes
+            ab_tool_ready(name, argvs[name], procs[name], deadline)
+        log(f"[ab] (a) all seven at their gates {time.monotonic() - t_phase:.1f} s into "
+            "the phase")
+        ran = [(name, *ab_tool_finish(name, argvs[name], procs[name])) for name in AB_TOOLS]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    log(f"[ab] (a) seven processes started together, each run alone once released: all "
+        f"done {time.monotonic() - t_phase:.1f} s into the phase ({sum(w for *_, w in ran):.1f} "
+        "s of it released)")
+    for name, recs, wall in ran:
+        argv = argvs[name]
+        walls[name] = wall
+        if name in AB_NAMES:
+            summary = check_overhead_records(name, recs)
+            if name == "metrics_ab" and not summary["snapshots_on"] >= 1:
+                raise RuntimeError(f"[ab] metrics_ab: no publisher snapshot: {summary}")
+            if name == "capacity_ab" and not summary["attributed_dispatches"] > 0:
+                raise RuntimeError(f"[ab] capacity_ab: no attributed dispatch: {summary}")
+            bar = "hit" if summary["overhead_frac"] < AB_OVERHEAD_BAR else "missed"
+            note = f"JAX's 2% bar {bar} (reported, not asserted)"
+        else:
+            check_chaos_summary(name, recs[-1])
+            note = "correctness bars hold"
+        log(f"[ab] (a) python -m gnot_tpu_torch.tools.{name} {' '.join(argv)} "
+            f"({walls[name]:.1f} s wall, no JAX): {note}; records "
+            f"{json.dumps(recs)} on {card}")
+
+    # (b) The reference-default model through the FFN kernel: one trainer,
+    # put back to its start state before every window.
+    _, state, batch = telemetry_ab.build(False, AB_POINTS, AB_BATCH, model_kwargs=AB_MODEL)
+    impls = {m.ffn_impl for m in state.model.modules() if isinstance(m, GatedExpertFfn)}
+    if impls != {"pallas"}:
+        raise RuntimeError(f"[ab] (b): the model's FFNs run {impls}")
+    restore = telemetry_ab.restorer(state)
+    per_step = 2 * state.model.config.n_attn_layers
+    arms = (("telemetry_off", telemetry_ab, telemetry_ab.plain_step, False, 10),
+            ("telemetry_on", telemetry_ab, telemetry_ab.instrumented_step, True, 10),
+            ("tracing_off", tracing_ab, tracing_ab.device_step, False, 1.0),
+            ("tracing_on", tracing_ab, tracing_ab.device_step, True, 1.0))
+    best = {arm: float("inf") for arm, *_ in arms}
+    fused_gated_ffn_kernel.launches = 0
+    steps_run = 0
+    for _ in range(AB_REPEATS):
+        for arm, tool, step, on, knob in arms:  # knob: log_every or sample_rate
+            best[arm] = min(best[arm], tool._window(step, state, batch, on, AB_STEPS, knob,
+                                                    restore, 1e-3))
+            steps_run += AB_STEPS + 1
+    launches = fused_gated_ffn_kernel.launches
+    ms = {k: round(v * 1e3, 4) for k, v in best.items()}
+    fracs = {k: round(ms[f"{k}_on"] / ms[f"{k}_off"] - 1.0, 4) for k in ("telemetry", "tracing")}
+    log(f"[ab] (b) the reference-default model (4 blocks, width 256, 3 experts, 8 heads) "
+        f"through the FFN kernel, NS2d-{AB_POINTS} batch {AB_BATCH} f32, windows of "
+        f"{AB_STEPS} steps, best of {AB_REPEATS}, arms interleaved: ms a step {ms}; "
+        f"overhead_frac {fracs} (JAX's 2% bar: "
+        f"{ {k: 'hit' if v < AB_OVERHEAD_BAR else 'missed' for k, v in fracs.items()} }, "
+        f"reported, not asserted); fused_gated_ffn launches {launches} = {per_step} x "
+        f"{steps_run} steps (warm-up and timed, both arms of both A/Bs) on {card}")
+    if launches != per_step * steps_run:
+        raise RuntimeError(f"[ab] (b): {launches} FFN kernel launches over {steps_run} steps "
+                           f"(want {per_step} a step)")
+    del state, restore
+
+    # (c) The phase's time.
+    took = time.monotonic() - t_phase
+    log(f"[ab] (c) tool wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"phase 25 took {took:.1f} s (budget {AB_BUDGET_S:.0f} s: "
+        f"{'within' if took < AB_BUDGET_S else 'OVER'}) on {card}")
+    return {"abtools_launches": launches}
+
+
 def _tensor_leaves(tree):
     if hasattr(tree, "is_cuda"):
         yield tree
@@ -7047,6 +7330,9 @@ def main() -> int:
     # -- phase 24: the bench and the tools built on it ------------------------
     bench_fields = bench_phase(torch, card)
 
+    # -- phase 25: the overhead and chaos A/B tools ----------------------------
+    ab_fields = ab_tools_phase(torch, card)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -7085,6 +7371,7 @@ def main() -> int:
         **tools_launches,
         **ref["ffn"],
         **bench_fields,
+        **ab_fields,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

@@ -891,12 +891,7 @@ class HostAgent:
         if msg.get("resume"):
             # Re-migration: restore from the persisted snapshot; its cursor
             # is the replay point.
-            state = None
-            if self.session_store is not None:
-                try:
-                    state = self.session_store.load(name)
-                except KeyError:
-                    state = None
+            state = self.session_store.load(name) if self.session_store is not None else None
             if state is None:
                 with self._lock:
                     self._inflight.discard(rid)
@@ -904,8 +899,10 @@ class HostAgent:
                            detail=f"nothing persisted for {name!r}"))
                 return
             at_step = int(state.get("cursor", 0))
+            # The snapshot read once: a dead owner still running may finish
+            # the session and delete it before a second read.
             fut = self.router.resume_rollout(
-                name, deadline_ms=msg.get("deadline_ms"),
+                name, state=state, deadline_ms=msg.get("deadline_ms"),
                 rollout_deadline_ms=msg.get("rollout_deadline_ms"), on_step=_on_step,
                 trace_ctx=ctx)
         else:

@@ -425,10 +425,11 @@ class SessionStore:
     def load(self, name: str) -> dict | None:
         """The persisted ``snapshot_state`` of ``name`` (None when there is
         none), for ``RolloutSession.from_state``."""
-        path = self._path(name)
-        if not os.path.exists(path):
+        try:
+            z = np.load(self._path(name), allow_pickle=False)
+        except FileNotFoundError:  # never written, or deleted by its finished owner
             return None
-        with np.load(path, allow_pickle=False) as z:
+        with z:
             meta = json.loads(str(z["meta"]))
             sample = MeshSample(
                 coords=z["coords"],

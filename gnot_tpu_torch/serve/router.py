@@ -485,7 +485,8 @@ class ReplicaRouter:
         self._place_session(session, sample)
         return session.future
 
-    def resume_rollout(self, name: str, *, deadline_ms: float | None = None,
+    def resume_rollout(self, name: str, *, state: dict | None = None,
+                       deadline_ms: float | None = None,
                        rollout_deadline_ms: float | None = None,
                        on_step=None, trace_ctx=None) -> RolloutFuture:
         """Resume a session persisted to the session store (by a drain, or
@@ -493,12 +494,15 @@ class ReplicaRouter:
         rollout. ``KeyError`` when nothing is stored under ``name``; a
         session complete at its snapshot resolves at once. A cross-host
         re-migration arrives here with the session's original
-        ``trace_ctx``, so its resumed steps join that trace."""
+        ``trace_ctx``, so its resumed steps join that trace, and with the
+        ``state`` its host agent already loaded (read once, so a snapshot
+        deleted after the agent's read still resumes)."""
         if self._session_store is None:
             raise RuntimeError("no session store configured")
         if any(r.server.has_session(name) for r in self._pool()):
             raise ValueError(f"a session named {name!r} is already resident in the pool")
-        state = self._session_store.load(name)
+        if state is None:
+            state = self._session_store.load(name)
         if state is None:
             raise KeyError(f"no persisted session {name!r}")
         sc = self._server_kwargs

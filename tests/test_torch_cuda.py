@@ -1306,3 +1306,24 @@ def test_the_bench_kernel_step_after_a_restore_matches_the_xla_step():
         assert fused_ffn.fused_gated_ffn_kernel.launches - before == (8 if impl == "pallas" else 0)
         assert again == losses[impl]
     np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_telemetry_ab_on_card_runs_its_micro_model_through_the_kernel(monkeypatch, capsys):
+    """``telemetry_ab.main --device cuda`` with the micro-bench model's FFNs
+    on the kernel path: windows of 2 steps, once each arm, each after one
+    warm-up step (6 steps), 2 blocks x 2 launches a step; JAX's arms and
+    summary, platform "gpu", the summary arithmetic."""
+    _card()
+    from gnot_tpu_torch.tools import telemetry_ab
+
+    monkeypatch.setitem(telemetry_ab.MICRO_ARCH, "ffn_impl", "pallas")
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    recs = telemetry_ab.main(["--steps", "2", "--repeats", "1", "--device", "cuda"])
+    assert fused_ffn.fused_gated_ffn_kernel.launches - before == 2 * 2 * 2 * (1 + 2)
+    off, on, summary = recs
+    assert (off["arm"], on["arm"], summary["summary"]) == (
+        "telemetry_off", "telemetry_on", "telemetry_overhead")
+    assert off["platform"] == on["platform"] == "gpu"
+    assert summary["overhead_frac"] == round(on["ms_per_step"] / off["ms_per_step"] - 1.0, 4)
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith('{"summary"')

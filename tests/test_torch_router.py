@@ -83,6 +83,10 @@ TINY = dict(n_attn_layers=1, n_attn_hidden_dim=16, n_mlp_num_layers=1, n_mlp_hid
 #: Every script's wedge bound but the wedge script's: long enough that a
 #: loaded machine's slow thread never reads as wedged.
 NO_WEDGE = 60.0
+#: The breaker script's cooldown: long enough that a loaded machine's six
+#: requests never outlast it, so only the clock's jump past it opens the
+#: trial (well under NO_WEDGE, so the jump reads no replica as wedged).
+BREAKER_COOLDOWN_S = 20.0
 
 
 class ListSink:
@@ -340,12 +344,12 @@ def _breaker(P, tmp_path):
     back to replica 0 and closes it; four more follow."""
     sink, clock = ListSink(), OffsetClock()
     reps = _pool(P, 2)
-    router = _router(P, reps, sink, breaker_cooldown_s=0.3, clock=clock).start()
+    router = _router(P, reps, sink, breaker_cooldown_s=BREAKER_COOLDOWN_S, clock=clock).start()
     for _ in range(3):
         reps[0].server.breaker.record_failure()
     s = P["samples"]
     results = [router.submit(x).result(timeout=60) for x in s[:6]]
-    clock.offset += 0.4  # past the cooldown, without sleeping
+    clock.offset += BREAKER_COOLDOWN_S + 0.1  # past the cooldown, without sleeping
     results.append(router.submit(s[0]).result(timeout=60))
     closed = reps[0].server.breaker.state
     results += [router.submit(x).result(timeout=60) for x in s[:4]]
