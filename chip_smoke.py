@@ -420,7 +420,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``tracing_ab``'s windows on the reference-default model through the FFN
    kernel (NS2d-1k, batch 4, f32), both arms interleaved, best of 2,
    windows of 10 steps, 8 kernel launches a step counted over every
-   warm-up and timed step; (c) the phase's seconds.
+   warm-up and timed step; (c) the phase's seconds;
+26. the open-loop serving load tools, each failure an ``[ab] <tool>:``
+   error: (a) ``serve_bench``, ``lowprec_ab``, ``tenant_ab`` and
+   ``autoscale_ab`` at ``--quick --device cuda``, each through its
+   ``run()`` in a process of its own where JAX cannot be imported, started
+   together and released one at a time after all four reached their gates,
+   and ``loadgen`` in a process of its own (its traces for one seed
+   bitwise the digest of the CPU, where the tests hold them to
+   ``tools/loadgen.py``; every ``serve_bench`` run's arrivals recomputed).
+   Asserted: the correctness bars (replicated vs solo and the parity within
+   their bars, no interactive shed and the tenant rollup, the quota sheds
+   and the default-path pin, no lost session or request in the chaos
+   scale-in, a scale-out), and no entry in ``failures`` besides a capacity
+   bar. Reported with a verdict: the capacity bars of each ``main``
+   (sustained rates, a p99 under an SLO set from one idle dispatch, saved
+   replica-seconds, the native packer's gain, ``serve_bench``'s 2.5x
+   ``bar_speedup``, a bar for N devices): the replicas are threads sharing
+   this one card and its host, each one's dispatch stretched by the others. (b) open-loop serving at full width through the FFN
+   kernel: ``serve_bench``'s ``make_replicas``, ``fresh_router``,
+   ``run_arm`` and ``numerics_check`` on the reference-default model
+   (``ffn_impl="pallas"``, f32, ``max_batch`` 4), 1 and 2 replicas at 0.6x
+   and 2.4x the measured 1-replica capacity, windows of 2 s; 8 launches per
+   dispatch and warm-up dispatch, every served output held to the plain
+   forward at ``MODEL_RTOL`` / ``MODEL_ATOL``, replicated within 1e-5 of
+   solo; (c) the phase's seconds.
 No phase was cut in depth for this: phase 6 keeps its 2 epochs.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -482,7 +506,8 @@ kernel runs, ``bench_ref_scale_launches`` over (e)'s kernel run and
 ``pack_ab_launches`` over (g)'s ``pack_ab`` (0: both its arms run
 ``ffn_impl=xla``); ``abtools_launches`` is its count over phase 25 (b)'s
 two kernel A/Bs (the tools of (a) run ``ffn_impl=xla``, in processes of
-their own). Launches
+their own); ``load_tools_launches`` is its count over phase 26 (b)'s
+warm-ups and open-loop runs, summed over the replicas. Launches
 made to time a kernel or to hold it against its plain version come after
 the counts are read.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -6876,7 +6901,7 @@ AB_WARM_MODULES = ("gnot_tpu_torch.train.trainer", "gnot_tpu_torch.serve.server"
                    "gnot_tpu_torch.obs.metrics")
 AB_RUNNER = NO_JAX.replace("target, sys.argv = sys.argv[1], sys.argv[1:]\n", f"""\
 import importlib, torch
-for _m in {AB_WARM_MODULES!r} + (sys.argv[1],):
+for _m in {AB_WARM_MODULES!r} + tuple(m for m in sys.argv[1:2] if m != "-c"):
     importlib.import_module(_m)
 torch.zeros(1, device="cuda").sum().item()
 print("ready", flush=True)
@@ -6885,16 +6910,17 @@ target, sys.argv = sys.argv[1], sys.argv[1:]
 """)
 
 
-def ab_tool_start(name: str, argv: list[str]):
+def ab_tool_start(name: str, argv: list[str], target: list[str] | None = None):
     """``python -m gnot_tpu_torch.tools.<name> <argv>`` under
     ``AB_RUNNER`` (JAX unimportable), started and left at its "ready"
-    gate; its stderr goes to ``<out>.stderr.txt``."""
+    gate; its stderr goes to ``<out>.stderr.txt``. ``target`` (``["-c",
+    source]``) runs ``source`` with ``<argv>`` in place of the module."""
     out = Path(argv[argv.index("--out") + 1])
     err = open(out.with_name(out.name + ".stderr.txt"), "w")
     env = {**os.environ, "PYTHONFAULTHANDLER": "1"}
-    proc = subprocess.Popen([sys.executable, "-c", AB_RUNNER, f"gnot_tpu_torch.tools.{name}",
-                             *argv], cwd=ROOT, env=env, stdin=subprocess.PIPE,
-                            stdout=subprocess.PIPE, stderr=err, text=True)
+    target = target or [f"gnot_tpu_torch.tools.{name}"]
+    proc = subprocess.Popen([sys.executable, "-c", AB_RUNNER, *target, *argv], cwd=ROOT, env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
     err.close()
     return proc
 
@@ -7090,6 +7116,281 @@ def ab_tools_phase(torch, card: str) -> dict:
         f"phase 25 took {took:.1f} s (budget {AB_BUDGET_S:.0f} s: "
         f"{'within' if took < AB_BUDGET_S else 'OVER'}) on {card}")
     return {"abtools_launches": launches}
+
+
+# -- phase 26: the open-loop serving load tools ------------------------------------
+LOAD_OUT = TRAIN_OUT / "load26"
+# (a): the four tools with an argv, each at JAX's --quick sizes on the card,
+# each through its run() (as JAX's own tests run serve_bench and
+# lowprec_ab), the returned summary's failures (tenant_ab, autoscale_ab)
+# written beside its --out. Each tool's main also holds capacity bars (a
+# sustained rate, a p99 under an SLO set from one idle dispatch, saved
+# replica-seconds, the native packer's gain) that one card misses: its
+# replicas share the card and the host, and serve_bench --trace_path shows
+# each replica thread's dispatch stretched by the others (PERF.md §5, §6).
+# The phase asserts the correctness bars and reports the capacity bars.
+LOAD_TOOLS = ("serve_bench", "lowprec_ab", "tenant_ab", "autoscale_ab")
+LOAD_RUN = ("import json, sys\nfrom gnot_tpu_torch.tools import {name}\n"
+            "s = {name}.run(sys.argv[1:])\n"
+            "out = sys.argv[sys.argv.index('--out') + 1]\n"
+            "with open(out + '.failures.json', 'w') as f:\n"
+            "    json.dump(s.get('failures'), f)\n")
+# serve_bench's --quick window and seed (the traces its records are
+# recomputed from).
+LOAD_QUICK_S, LOAD_SEED = 2.0, 0
+# loadgen's traces for one seed (``loadgen_digest``): the digest the CPU
+# gives, where tests/test_torch_load_tools.py holds the same traces
+# bitwise to tools/loadgen.py's.
+LOADGEN_DIGEST = "50238dc7976fbecd4afaa00249d3500647587c9e8d5bf986b51bbde1f6f9a360"
+LOADGEN_RUN = ("from chip_smoke import loadgen_digest\n"
+               "from gnot_tpu_torch.tools import loadgen\nprint(loadgen_digest(loadgen))\n")
+# (b): serve_bench's functions on the reference-default model through the
+# FFN kernel: its --quick loads and window, 1 and 2 replicas.
+LOAD_LOADS, LOAD_REPLICAS = (0.6, 2.4), (1, 2)
+# serve_bench's --max_shed_frac default: the shed share a sustained run may have.
+LOAD_MAX_SHED = 0.02
+LOAD_BUDGET_S = 120.0
+
+
+def loadgen_digest(loadgen) -> str:
+    """sha256 over ``loadgen``'s traces for seed 0: every pattern's
+    ``trace_times`` and ``ramp_split``, and a two-tenant
+    ``multi_stream_times`` with its tenant order."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for pattern in loadgen.PATTERNS:
+        times = loadgen.trace_times(pattern, base_rps=40.0, duration_s=5.0, seed=0)
+        h.update(np.asarray(times, np.float64).tobytes())
+        h.update(str(loadgen.ramp_split(times, 5.0)).encode())
+    merged = loadgen.multi_stream_times(
+        {"interactive": {"pattern": "steady", "base_rps": 30.0},
+         "batch": {"pattern": "diurnal_bursty", "base_rps": 60.0, "peak_mult": 2.0}},
+        duration_s=5.0, seed=0)
+    h.update(np.asarray([t for t, _ in merged], np.float64).tobytes())
+    h.update(",".join(name for _, name in merged).encode())
+    return h.hexdigest()
+
+
+class RecordingRouter:
+    """A router whose ``submit`` keeps each (sample, future) pair, so the
+    served outputs of an open-loop run can be held to the plain forward."""
+
+    def __init__(self, router):
+        self.router = router
+        self.served: list = []
+
+    def start(self):
+        self.router.start()
+        return self
+
+    def submit(self, sample):
+        fut = self.router.submit(sample)
+        self.served.append((sample, fut))
+        return fut
+
+    def drain(self):
+        return self.router.drain()
+
+
+def check_load_tools(recs: dict, failures: dict, loadgen) -> tuple[dict, list[str]]:
+    """(a)'s records: the correctness bars asserted, every ``serve_bench``
+    run's arrivals recomputed from ``loadgen``, and the capacity bars of
+    each tool's ``main`` (JAX's) returned as "bar: hit" / "bar: missed"
+    lines. A ``failures`` entry of ``tenant_ab`` or ``autoscale_ab`` other
+    than its capacity bar's fails the phase. Returns (summaries, verdicts)."""
+    summaries = {name: next(r for r in rows if r.get("summary") == name)
+                 for name, rows in recs.items()}
+    verdicts = []
+
+    def report(tool: str, bar: str, hit: bool) -> bool:
+        verdicts.append(f"{tool} {bar}: {'hit' if hit else 'missed'}")
+        return not hit
+
+    sb = summaries["serve_bench"]
+    runs = [r for r in recs["serve_bench"] if "arm" in r]
+    if ({r["arm"] for r in runs} != {"replicas_1", f"replicas_{sb['replicas_n']}"}
+            or not sb["max_abs_diff"] <= sb["bar_numeric"]):
+        raise RuntimeError(f"[ab] serve_bench: a bar broke: {json.dumps(sb)}")
+    loads = sorted({r["load_mult"] for r in runs})
+    for r in runs:
+        times = loadgen.trace_times("steady", base_rps=r["offered_rps"], duration_s=LOAD_QUICK_S,
+                                    seed=LOAD_SEED + loads.index(r["load_mult"]))
+        if (r["submitted"] != len(times)
+                or r["completed"] + sum(r["shed"].values()) != r["submitted"]):
+            raise RuntimeError(f"[ab] serve_bench: run {r} against {len(times)} arrivals")
+    for n in ("1", "n"):
+        report("serve_bench", f"sustained_rps_{n} {sb[f'sustained_rps_{n}']} (p99 <= "
+               f"{sb['slo_p99_ms']} ms, shed <= {sb['max_shed_frac']})",
+               sb[f"sustained_rps_{n}"] is not None)
+    report("serve_bench", f"speedup {sb['speedup']} >= bar_speedup {sb['bar_speedup']}",
+           (sb["speedup"] or 0) >= sb["bar_speedup"])
+    lp = summaries["lowprec_ab"]
+    if not lp["parity_max_delta"] <= lp["parity_bar"]:
+        raise RuntimeError(f"[ab] lowprec_ab: a bar broke: {json.dumps(lp)}")
+    report("lowprec_ab", f"host_reduction_frac {lp['host_reduction_frac']} > 0",
+           (lp["host_reduction_frac"] or 0) > 0)
+    report("lowprec_ab", f"sustained_rps_bf16 {lp['sustained_rps_bf16']} (p99 <= "
+           f"{lp['slo_p99_ms']} ms)", lp["sustained_rps_bf16"] is not None)
+    ta = summaries["tenant_ab"]
+    iso = next(r for r in recs["tenant_ab"] if r.get("arm") == "isolated")
+    p99_missed = report("tenant_ab", f"isolated interactive p99 {ta['isolated_interactive_p99_ms']}"
+                        f" ms <= SLO {ta['slo_p99_ms']} ms",
+                        ta["isolated_interactive_p99_ms"] <= ta["slo_p99_ms"])
+    if not (len(failures["tenant_ab"]) == int(p99_missed)
+            and ta["isolated_interactive_shed"] == 0 and ta["pin_tenant_footprint"] == 0
+            and ta["flood_factor"] >= ta["bar_flood_factor"]
+            and ta["isolated_batch_quota_sheds"] >= 1
+            and sum(t["submitted"] for t in iso["tenants"].values()) == ta["arrivals"]
+            and all(t["completed"] + t["shed_total"] == t["submitted"]
+                    for t in iso["tenants"].values())):
+        raise RuntimeError(f"[ab] tenant_ab: a bar broke: {failures['tenant_ab']} "
+                           f"{json.dumps(ta)}")
+    au = summaries["autoscale_ab"]
+    rs_missed = report("autoscale_ab", f"replica-seconds {au['replica_seconds_autoscaled']} < "
+                       f"static {au['replica_seconds_static']}",
+                       au["replica_seconds_autoscaled"] < au["replica_seconds_static"])
+    if not (len(failures["autoscale_ab"]) == int(rs_missed)
+            and au["chaos_lost_sessions"] == 0 and au["chaos_lost_requests"] == 0
+            and au["chaos_max_abs_diff"] <= AB_PARITY_BAR and au["scale_ups"] >= 1):
+        raise RuntimeError(f"[ab] autoscale_ab: a bar broke: {failures['autoscale_ab']} "
+                           f"{json.dumps(au)}")
+    return summaries, verdicts
+
+
+def load_full_width(torch, np, card: str, layers) -> int:
+    """Phase 26 (b): ``serve_bench``'s ``make_replicas``, ``fresh_router``,
+    ``run_arm`` and ``numerics_check`` on the reference-default model
+    through the FFN kernel; every launch counted, every served output held
+    to the plain forward. Returns the launches."""
+    from gnot_tpu_torch.config import ModelConfig
+    from gnot_tpu_torch.data import datasets
+    from gnot_tpu_torch.models.gnot import GNOT
+    from gnot_tpu_torch.ops.fused_ffn import fused_gated_ffn_kernel
+    from gnot_tpu_torch.tools import serve_bench, serve_smoke
+
+    t_b = time.monotonic()
+    samples = datasets.synth_darcy2d(4, seed=0, grid_n=8)
+    mc = ModelConfig(ffn_impl="pallas", **datasets.infer_model_dims(samples))
+    model = GNOT(mc, generator=torch.Generator().manual_seed(0)).to("cuda")
+    traffic = serve_smoke.mixed_traffic(16, seed=LOAD_SEED, mesh_lo=600, mesh_hi=1000)
+    plain = plain_outputs(torch, layers, model, traffic)
+    dispatch_s = serve_bench.dispatch_seconds(model, traffic, max_batch=4)
+    cap1 = 4 / dispatch_s
+    slo = serve_bench.auto_slo_ms(dispatch_s)
+    per_dispatch = 2 * mc.n_attn_layers
+    torch.cuda.synchronize()
+    fused_gated_ffn_kernel.launches = 0
+    pools = {n: serve_bench.make_replicas(model, n, max_batch=4, traffic=traffic)
+             for n in LOAD_REPLICAS}
+    runs, served = [], []
+    for li, mult in enumerate(LOAD_LOADS):
+        for n in LOAD_REPLICAS:
+            router = RecordingRouter(serve_bench.fresh_router(pools[n][0], max_batch=4))
+            rec = serve_bench.run_arm(router, traffic, offered_rps=mult * cap1,
+                                      duration_s=LOAD_QUICK_S, seed=LOAD_SEED + li)
+            runs.append({"replicas": n, "load_mult": mult, **rec})
+            served += router.served
+    torch.cuda.synchronize()
+    launches = fused_gated_ffn_kernel.launches
+    warmed = sum(warm["programs_warmed"] for _, warm in pools.values())
+    dispatches = sum(r["dispatches"] for r in runs)
+    if launches != per_dispatch * (dispatches + warmed) or launches == 0:
+        raise RuntimeError(f"[load] (b): {launches} FFN kernel launches, want {per_dispatch} x "
+                           f"({dispatches} dispatches + {warmed} warm-ups)")
+    by_id = {id(s): want for s, want in zip(traffic, plain)}
+    results = [fut.result(timeout=0) for _, fut in served]
+    ok = [(r, by_id[id(s)]) for (s, _), r in zip(served, results) if r.ok]
+    worst = hold_to_plain(np, "load", [r for r, _ in ok], [want for _, want in ok])
+    replicated = serve_bench.numerics_check(model, pools[2][0], traffic, max_batch=4)
+    if not replicated <= AB_PARITY_BAR:
+        raise RuntimeError(f"[load] (b): replicated vs solo {replicated} over {AB_PARITY_BAR}")
+    sustained = {n: serve_bench.sustained([r for r in runs if r["replicas"] == n],
+                                          slo_p99_ms=slo, max_shed_frac=LOAD_MAX_SHED)
+                 for n in LOAD_REPLICAS}
+    log(f"[load] (b) the reference-default model (4 blocks, width 256, 3 experts, 8 heads) "
+        f"through the FFN kernel, f32, serve_smoke.mixed_traffic (16 samples, darcy64 and "
+        f"600-1000-point clouds), max_batch 4: dispatch {dispatch_s * 1e3:.2f} ms -> 1-replica "
+        f"capacity {cap1:.1f} req/s, p99 SLO {slo} ms; runs {json.dumps(runs)} on {card}")
+    log(f"[load] (b) sustained (shed <= {LOAD_MAX_SHED:.0%}, p99 <= {slo} ms): "
+        f"{ {n: (s['achieved_rps'], s['p99_ms']) if s else None for n, s in sustained.items()} } "
+        f"(req/s, p99 ms) for 1 / 2 replicas; fused_gated_ffn launches {launches} = "
+        f"{per_dispatch} x ({dispatches} dispatches + {warmed} warm-ups) over both pools, no "
+        f"fallback; {len(ok)} served outputs vs the plain forward max_abs_err {worst:.3e} "
+        f"(rtol {MODEL_RTOL} atol {MODEL_ATOL}); replicated vs solo {replicated:.3e} "
+        f"({time.monotonic() - t_b:.1f} s)")
+    return launches
+
+
+def load_tools_phase(torch, np, card: str, layers) -> dict:
+    """Phase 26: (a) the open-loop serving load tools on the card, each in a
+    process of its own under ``NO_JAX``, the correctness bars asserted and
+    the capacity bars reported; (b) ``load_full_width``; (c) the phase's
+    seconds. Returns the FFN entry's field."""
+    import shutil
+
+    from gnot_tpu_torch.tools import loadgen
+
+    t_phase = time.monotonic()
+    shutil.rmtree(LOAD_OUT, ignore_errors=True)
+    LOAD_OUT.mkdir(parents=True)
+
+    # (a) The four tools in processes of their own, started together;
+    # loadgen's own process runs while they start.
+    argvs = {name: ["--quick", "--device", "cuda", "--out", str(LOAD_OUT / f"{name}.jsonl")]
+             for name in LOAD_TOOLS}
+    procs = {name: ab_tool_start(name, argvs[name], ["-c", LOAD_RUN.format(name=name)])
+             for name in LOAD_TOOLS}
+    walls = {}
+    try:
+        proc, walls["loadgen"] = no_jax_run("-c", LOADGEN_RUN)
+        digest = proc.stdout.strip()
+        if digest != LOADGEN_DIGEST or loadgen_digest(loadgen) != LOADGEN_DIGEST:
+            raise RuntimeError(f"[ab] loadgen: traces digest {digest} (process of its own), "
+                               f"{loadgen_digest(loadgen)} (here), want {LOADGEN_DIGEST}")
+        deadline = time.monotonic() + AB_READY_TIMEOUT_S
+        for name in LOAD_TOOLS:  # all four at their gates before the first goes
+            ab_tool_ready(name, argvs[name], procs[name], deadline)
+        log(f"[load] (a) all four at their gates {time.monotonic() - t_phase:.1f} s into the "
+            f"phase; loadgen alone without JAX {walls['loadgen']:.1f} s, traces bitwise the "
+            "CPU's (digest of tools/loadgen.py's, tests/test_torch_load_tools.py)")
+        ran = {name: ab_tool_finish(name, argvs[name], procs[name]) for name in LOAD_TOOLS}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    recs = {name: rows for name, (rows, _) in ran.items()}
+    walls.update({name: wall for name, (_, wall) in ran.items()})
+    failures = {name: json.loads((LOAD_OUT / f"{name}.jsonl.failures.json").read_text())
+                for name in LOAD_TOOLS}
+    for name in LOAD_TOOLS:
+        log(f"[load] (a) python -m gnot_tpu_torch.tools.{name} {' '.join(argvs[name])} "
+            f"through run() ({walls[name]:.1f} s wall, no JAX): failures "
+            f"{json.dumps(failures[name])}; records {json.dumps(recs[name])} on {card}")
+    summaries, verdicts = check_load_tools(recs, failures, loadgen)
+    log(f"[load] (a) correctness bars hold (serve_bench replicated vs solo "
+        f"{summaries['serve_bench']['max_abs_diff']:.3e}, lowprec_ab parity "
+        f"{summaries['lowprec_ab']['parity_max_delta']}, tenant_ab 0 interactive shed and the "
+        f"rollup, autoscale_ab 0 lost sessions and requests, parity "
+        f"{summaries['autoscale_ab']['chaos_max_abs_diff']:.3e}); capacity bars of each "
+        f"main (reported, not asserted: replica threads share one card and one host, each "
+        f"one's dispatch stretched by the others; PERF.md §5): "
+        f"{'; '.join(verdicts)} on {card}")
+
+    # (b) The reference-default model through the FFN kernel under
+    # serve_bench's open-loop load.
+    launches = load_full_width(torch, np, card, layers)
+
+    # (c) The phase's time.
+    took = time.monotonic() - t_phase
+    log(f"[load] (c) summaries {json.dumps(summaries)}; tool wall s "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; phase 26 took {took:.1f} s "
+        f"(budget {LOAD_BUDGET_S:.0f} s: {'within' if took < LOAD_BUDGET_S else 'OVER'}) "
+        f"on {card}")
+    return {"load_tools_launches": launches}
 
 
 def _tensor_leaves(tree):
@@ -7333,6 +7634,9 @@ def main() -> int:
     # -- phase 25: the overhead and chaos A/B tools ----------------------------
     ab_fields = ab_tools_phase(torch, card)
 
+    # -- phase 26: the open-loop serving load tools ----------------------------
+    load_fields = load_tools_phase(torch, np, card, layers)
+
     kernels = [{
         "name": "fused_gated_ffn",
         "route": "cuda",
@@ -7372,6 +7676,7 @@ def main() -> int:
         **ref["ffn"],
         **bench_fields,
         **ab_fields,
+        **load_fields,
     }]
     replaces = {
         "nla_reduce": "gnot_tpu/ops/pallas_attention.py:206",

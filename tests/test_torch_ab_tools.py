@@ -73,15 +73,46 @@ CHAOS_DETERMINISTIC = {
     "probe:parity": ("sessions_checked", "steps", "bar"),
     "summary:rollout_ab": ("quick", *CHAOS_STORM, "kill_at_step", "lost_migration",
                            "bar_numeric", "bar_lost_migration"),
-    "arm:chaos": ("hosts", "failover", *CHAOS_STORM, "killed_host", "completed", "lost",
+    "arm:chaos": ("hosts", "failover", *CHAOS_STORM, "completed", "lost",
                   "hosts_dead", "protocol_errors", "steps_committed"),
-    "arm:no_failover": ("hosts", "failover", *CHAOS_STORM, "killed_host", "hosts_dead",
-                        "protocol_errors"),
+    "arm:no_failover": ("hosts", "failover", *CHAOS_STORM, "hosts_dead", "protocol_errors"),
     "probe:single_host_pin": ("requests", "byte_identical", "summary_match", "summary_fields",
                               "ledger"),
     "summary:federation_ab": ("quick", "hosts", *CHAOS_STORM, "lost_chaos",
                               "single_host_byte_identical", "bar_numeric", "bar_lost_chaos"),
 }
+#: Runs ``federation_ab`` (``argv``: the federation module, then the tool's
+#: module or script and its flags) with two lines of the cluster's own
+#: ledger appended to ``$FEDERATION_LEDGER`` per storm: the host each
+#: ``HostAgent.kill`` stopped, then the live hosts whose drain summaries
+#: ``ClusterRouter.drain`` collected and its ``hosts_dead``.
+LEDGER_HOOK = r"""
+import importlib, json, os, runpy, sys
+fed = importlib.import_module(sys.argv[1])
+target, sys.argv = sys.argv[2], sys.argv[2:]
+
+def log(**rec):
+    with open(os.environ["FEDERATION_LEDGER"], "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+kill, drain = fed.HostAgent.kill, fed.ClusterRouter.drain
+
+def logged_kill(self):
+    log(killed=self.host_id)
+    kill(self)
+
+def logged_drain(self, *args, **kwargs):
+    summary = drain(self, *args, **kwargs)
+    log(live=sorted(summary["per_host"]), hosts_dead=summary["hosts_dead"])
+    return summary
+
+fed.HostAgent.kill, fed.ClusterRouter.drain = logged_kill, logged_drain
+if target.endswith(".py"):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(target)))
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+"""
 
 
 def read_jsonl(path) -> list[dict]:
@@ -112,19 +143,30 @@ def flags(path: str) -> dict[str, dict]:
 
 
 @pytest.fixture(scope="module")
-def jax_chaos_procs(tmp_path_factory):
+def ledger_dir(tmp_path_factory):
+    """Where each package's ``federation_ab`` run writes its cluster ledger
+    (``LEDGER_HOOK``): ``port.jsonl`` and ``jax.jsonl``."""
+    return tmp_path_factory.mktemp("federation_ledger")
+
+
+@pytest.fixture(scope="module")
+def jax_chaos_procs(tmp_path_factory, ledger_dir):
     """JAX's ``rollout_ab`` and ``federation_ab`` at ``--quick`` on the CPU,
-    started (8 host devices, as their usage asks): ``{tool: (Popen,
-    out)}``, killed at the module's end if still running."""
+    started (8 host devices, as their usage asks; ``federation_ab`` under
+    ``LEDGER_HOOK``): ``{tool: (Popen, out)}``, killed at the module's end
+    if still running."""
     tmp = tmp_path_factory.mktemp("jax_chaos")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               FEDERATION_LEDGER=str(ledger_dir / "jax.jsonl"))
     procs = {}
     for tool in JAX_CHAOS:
         out = tmp / f"{tool}.jsonl"
+        hook = ["-c", LEDGER_HOOK, "gnot_tpu.serve.federation"] if tool == "federation_ab" else []
         procs[tool] = (subprocess.Popen(
-            [sys.executable, os.path.join("tools", f"{tool}.py"), "--quick", "--out", str(out)],
+            [sys.executable, *hook, os.path.join("tools", f"{tool}.py"), "--quick",
+             "--out", str(out)],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     yield procs
     for proc, _ in procs.values():
@@ -134,18 +176,20 @@ def jax_chaos_procs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def port_runs(tmp_path_factory, jax_chaos_procs):
+def port_runs(tmp_path_factory, jax_chaos_procs, ledger_dir):
     """Each tool once, tiny, ``--device cpu``, in a process without JAX
-    (JAX's chaos A/Bs already running beside them):
-    ``{tool: (CompletedProcess, records)}``."""
+    (JAX's chaos A/Bs already running beside them; ``federation_ab`` under
+    ``LEDGER_HOOK``): ``{tool: (CompletedProcess, records)}``."""
     tmp = tmp_path_factory.mktemp("ab_tools")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["OMP_NUM_THREADS"] = "1"
+    env.update(OMP_NUM_THREADS="1", FEDERATION_LEDGER=str(ledger_dir / "port.jsonl"))
     runs = {}
     for tool, (_, argv) in TOOLS.items():
         out = tmp / f"{tool}.jsonl"
+        hook = (["-c", LEDGER_HOOK, "gnot_tpu_torch.serve.federation"]
+                if tool == "federation_ab" else [])
         proc = subprocess.run(
-            [sys.executable, "-c", NO_JAX, f"gnot_tpu_torch.tools.{tool}", *argv,
+            [sys.executable, "-c", NO_JAX, *hook, f"gnot_tpu_torch.tools.{tool}", *argv,
              "--device", "cpu", "--out", str(out)],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=180)
         runs[tool] = (proc, read_jsonl(out) if out.exists() else [])
@@ -294,13 +338,33 @@ def test_jax_s_chaos_tool_at_quick_gives_the_same_deterministic_fields(
     snapshot cadence, every session of the failover arm committed, the
     parity probe over the same sessions and the single-host pin's ledger
     field for field. How many sessions the twin loses depends on where the
-    kill lands, so only its storm is compared."""
+    kill lands, so only its storm is compared. Which host is killed (the
+    owner of the first session seen mid-trajectory) depends on the
+    sessions' progress: each package's run is held to its own ledger in
+    ``test_each_federation_arm_records_the_host_it_killed``."""
     got, want = port_runs[tool][1], jax_chaos_runs[tool]
     assert [record_kind(r) for r in got] == [record_kind(r) for r in want]
     for g, w in zip(got, want):
         fields = CHAOS_DETERMINISTIC[record_kind(g)]
         assert {k: g[k] for k in fields} == {k: w[k] for k in fields}, record_kind(g)
         assert set(g) == set(w), record_kind(g)
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_each_federation_arm_records_the_host_it_killed(
+        package, ledger_dir, port_runs, jax_chaos_runs):
+    """Each ``federation_ab`` arm (both packages, ``--quick``) killed one
+    host: the one its record names, and the one the cluster's drain found
+    dead (every other host drained live)."""
+    recs = port_runs["federation_ab"][1] if package == "port" else jax_chaos_runs["federation_ab"]
+    arms = [r for r in recs if "arm" in r]
+    ledger = read_jsonl(ledger_dir / f"{package}.jsonl")
+    assert [sorted(e) for e in ledger] == [["killed"], ["hosts_dead", "live"]] * len(arms)
+    for arm, kill, drain in zip(arms, ledger[::2], ledger[1::2]):
+        hosts = {f"host{i}" for i in range(arm["hosts"])}
+        assert arm["killed_host"] == kill["killed"], arm["arm"]
+        assert hosts - set(drain["live"]) == {arm["killed_host"]}, arm["arm"]
+        assert drain["hosts_dead"] == arm["hosts_dead"] == 1, arm["arm"]
 
 
 def test_a_resume_whose_snapshot_vanishes_after_the_agent_read_still_resumes(tmp_path):
@@ -356,7 +420,10 @@ def test_a_resume_whose_snapshot_vanishes_after_the_agent_read_still_resumes(tmp
                  none.append)
     assert [(m["kind"], m.get("reason")) for m in none] == [(fed.ROLLOUT_DONE, "no_snapshot")]
     assert agent._inflight == set()
+    # The server resolves a finished session before it deletes the
+    # session's snapshot (JAX's order, gnot_tpu/serve/server.py): the
+    # drain joins the worker, so the delete has happened when it returns.
+    agent.router.drain(10.0)
     # The store itself: a missing snapshot reads as none, never raises.
     assert store.load("s000") is None and real_load("never_written") is None
-    agent.router.drain(10.0)
     cluster.close()

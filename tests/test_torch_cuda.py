@@ -1327,3 +1327,30 @@ def test_telemetry_ab_on_card_runs_its_micro_model_through_the_kernel(monkeypatc
     assert off["platform"] == on["platform"] == "gpu"
     assert summary["overhead_frac"] == round(on["ms_per_step"] / off["ms_per_step"] - 1.0, 4)
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith('{"summary"')
+
+
+@pytest.mark.cuda
+def test_serve_bench_run_arm_on_card_launches_the_kernel_per_dispatch_and_warm_up():
+    """``serve_bench``'s ``make_replicas`` and ``run_arm`` on one replica of
+    a model whose FFNs take the kernel path, at a small open-loop load: 2 x
+    blocks launches per dispatch and warm-up dispatch, every request
+    resolved, the arrivals ``loadgen``'s for the seed."""
+    device = _card()
+    from gnot_tpu_torch.tools import loadgen, serve_bench, serve_smoke
+
+    samples = datasets.synth_darcy2d(4, seed=0, grid_n=8)
+    cfg = ModelConfig(**datasets.infer_model_dims(samples), n_attn_layers=2,
+                      ffn_impl="pallas")
+    model = GNOT(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    traffic = serve_smoke.mixed_traffic(8, seed=0, mesh_lo=100, mesh_hi=200)
+    torch.cuda.synchronize()
+    before = fused_ffn.fused_gated_ffn_kernel.launches
+    replicas, warm = serve_bench.make_replicas(model, 1, max_batch=4, traffic=traffic)
+    rec = serve_bench.run_arm(serve_bench.fresh_router(replicas, max_batch=4), traffic,
+                              offered_rps=40.0, duration_s=0.5, seed=3)
+    launched = fused_ffn.fused_gated_ffn_kernel.launches - before
+    assert warm["programs_warmed"] >= 1 and warm["hits"] is None and warm["misses"] is None
+    assert rec["submitted"] == len(loadgen.trace_times("steady", base_rps=40.0,
+                                                       duration_s=0.5, seed=3))
+    assert rec["completed"] + sum(rec["shed"].values()) == rec["submitted"] > 0
+    assert launched == 2 * cfg.n_attn_layers * (rec["dispatches"] + warm["programs_warmed"])
